@@ -47,6 +47,11 @@ def pytest_configure(config):
         "perf: host-path performance regression smoke tests (CPU-cheap, "
         "tolerance-padded; run with -m perf to isolate)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card and nvcc (the PyTorch/CUDA port's kernels); "
+        "skips without one",
+    )
 
 
 @pytest.fixture(autouse=True)
