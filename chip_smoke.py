@@ -2,14 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds every hand-written kernel from the sources in this checkout, holds
-each against its plain PyTorch version on the card, then drives the main
-path — Inception-v3 at full width behind ``POST /predict`` on the yuv420
-wire with the preprocess kernel, bf16 — and checks bf16 against a float32
-reference on the same images. Each phase prints one JSON line; the line
-before the last holds the card's name and power limit, and the last line
-is ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
-that line. Without a CUDA device it exits with code 2.
+Builds every hand-written kernel from the sources in this checkout (one
+nvcc per source, all started together), holds each against its plain
+PyTorch version on the card at the shapes the main paths give it, then
+drives both main paths at full width behind ``POST /predict`` on the
+yuv420 wire with the preprocess kernel:
+
+- Inception-v3 in bf16, checked against a float32 reference;
+- MobileNetV2 in the int8 tier, its 13 stride-1 depthwise cells on the
+  fused depthwise kernel, gated at build by the engine's parity check and
+  checked against the unfused float32 model on the same images.
+
+Each phase prints one JSON line; the line before the last holds the card's
+name and power limit, and the last line is ``{"ok": true, "device":
+{...}}``. Any failure exits non-zero without that line. Without a CUDA
+device it exits with code 2.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -33,15 +41,20 @@ MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 OUT = 299  # Inception-v3 input side
 SEED = 0
-# bf16 gate of the reference engine (its _PARITY_TOL["bfloat16"]): top-k
-# agreement and max probability delta against float32
-BF16_TOPK_AGREEMENT = 0.90
-BF16_PROB_DELTA = 0.08
+KERNELS = ("preprocess_i420", "fused_dw")
 # served top-1 vs the same bf16 computation outside the server
 SERVED_TOL = 1e-2
 # kernel vs plain float32: same taps and order; the plain version's matmul
 # may fuse a multiply-add, so allow a few ulps of the largest value
 KERNEL_TOL = {"inception": 1e-5, "zero_one": 1e-5, "raw": 1e-3}
+# fused depthwise kernel vs plain: the same float32 operations in the same
+# order, so float32 agrees to 1e-5 and bf16 to one bf16 ulp of the value
+# (one float32 last-bit difference may flip a rounding)
+DW_TOL_F32 = 1e-5
+DW_BATCHES = (1, 8, 32)
+# full-width MobileNetV2 has 17 depthwise cells, 13 of them stride 1: the
+# fused kernel's launches per batch on its main path
+DW_STRIDE1_CELLS = 13
 
 
 def emit(obj) -> None:
@@ -189,6 +202,127 @@ def phase_kernel(gen: torch.Generator) -> float:
     return worst
 
 
+def dw_bound_ms(b: int, c: int, h: int, w: int, oh: int, ow: int, elt: int, kk: int,
+                relu6: bool) -> tuple[float, str]:
+    """Least time for one fused depthwise call: the input and output
+    activations (``elt`` bytes each), the float32 taps and bias over the
+    memory rate; or kk multiplies + kk adds, the bias add and the clamp per
+    output element over the float32 rate, whichever is larger."""
+    t_bytes = (b * c * (h * w + oh * ow) * elt + (kk + 1) * c * 4) / MEM_BYTES_PER_S * 1e3
+    t_ops = b * c * oh * ow * (2 * kk + 1 + 2 * relu6) / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dw_layer_shapes() -> list[dict]:
+    """Every depthwise cell of full-width MobileNetV2 at 224×224: its block,
+    input [C, H, W] and stride, recorded by forward hooks on one image."""
+    from tensorflow_web_deploy_tpu_torch.models.adapter import native_converted
+    from tensorflow_web_deploy_tpu_torch.models.common import DepthwiseConvBN
+
+    model = native_converted("mobilenet_v2", seed=SEED).cuda()
+    shapes, hooks = [], []
+    for name, m in model.named_modules():
+        if isinstance(m, DepthwiseConvBN):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, args, name=name: shapes.append(
+                    {"block": name.split(".")[1], "c": args[0].shape[1], "h": args[0].shape[2],
+                     "w": args[0].shape[3], "stride": mod.stride})))
+    with torch.inference_mode():
+        model(torch.zeros((1, 224, 224, 3), device="cuda"))
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def bf16_ulps(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest |got − ref| in units of the bf16 ulp of the larger value."""
+    mag = torch.maximum(got.abs(), ref.abs()).float().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got.float() - ref.float()).abs() / ulp).max())
+
+
+def phase_fused_dw_kernel(gen: torch.Generator, shapes: list[dict]) -> dict:
+    """Kernel vs plain version at every stride-1 depthwise shape of the
+    main path × B∈{1, 8, 32} × {float32, bf16} × relu6 on/off; at B=8 in
+    bf16 with relu6 (the main path's cells) the kernel's, the plain
+    version's and the cuDNN yardstick's device times beside the bound, per
+    layer and for the whole stack of launches in one CUDA graph."""
+    import torch.nn.functional as F
+
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw, fused_dw_plain
+
+    layers = [s for s in shapes if s["stride"] == 1]
+    if len(shapes) != 17 or len(layers) != DW_STRIDE1_CELLS:
+        raise AssertionError(f"MobileNetV2 depthwise cells: {shapes}")
+    pads = ((1, 1), (1, 1))
+    worst = {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "max_bf16_ulps": 0.0}
+    timed_inputs = []
+    for layer in layers:
+        c, h, w = layer["c"], layer["h"], layer["w"]
+        for b in DW_BATCHES:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = (torch.randn((b, c, h, w), generator=gen, device="cuda") * 3).to(dtype)
+                x = x.contiguous(memory_format=torch.channels_last)
+                taps = torch.randn((9, c), generator=gen, device="cuda")
+                bias = torch.randn((1, c), generator=gen, device="cuda")
+                for relu6 in (True, False):
+                    got = fused_dw(x, taps, bias, 3, 3, pads, relu6)
+                    ref = fused_dw_plain(x, taps, bias, 3, 3, pads, relu6)
+                    torch.cuda.synchronize()
+                    if not got.is_contiguous(memory_format=torch.channels_last):
+                        raise AssertionError("fused_dw output is not channels_last")
+                    err = float((got.float() - ref.float()).abs().max())
+                    worst["max_abs_err"] = max(worst["max_abs_err"], err)
+                    if dtype == torch.float32:
+                        ok = err <= DW_TOL_F32
+                        worst["max_abs_err_f32"] = max(worst["max_abs_err_f32"], err)
+                    else:
+                        ulps = bf16_ulps(got, ref)
+                        ok = ulps <= 1.0
+                        worst["max_bf16_ulps"] = max(worst["max_bf16_ulps"], ulps)
+                    if not ok:
+                        raise AssertionError(
+                            f"fused_dw vs plain at {layer} B={b} {dtype} relu6={relu6}: "
+                            f"max abs err {err}")
+                if b == 8 and dtype == torch.bfloat16:
+                    # the yardstick's bf16 weight [C, 1, 3, 3] and bias
+                    wt = taps.t().reshape(c, 1, 3, 3).to(dtype).contiguous(
+                        memory_format=torch.channels_last)
+                    timed_inputs.append((layer, x, taps, bias, wt, bias[0].to(dtype)))
+    rows = []
+    for layer, x, taps, bias, wt, bt in timed_inputs:
+        c, h, w = layer["c"], layer["h"], layer["w"]
+        row = {"phase": "fused_dw_layer", **layer, "batch": 8, "dtype": "bfloat16",
+               "ms": graph_time_ms(lambda: fused_dw(x, taps, bias, 3, 3, pads)),
+               "call_ms": cuda_time_ms(lambda: fused_dw(x, taps, bias, 3, 3, pads)),
+               "plain_ms": graph_time_ms(lambda: fused_dw_plain(x, taps, bias, 3, 3, pads)),
+               # yardstick only: conv + bias without the clamp, not this function
+               "cudnn_ms": graph_time_ms(lambda: F.conv2d(x, wt, bt, padding=1, groups=c))}
+        row["bound_ms"], row["bound_by"] = dw_bound_ms(8, c, h, w, h, w, 2, 9, True)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        emit(row)
+        rows.append(row)
+
+    def stack(fn):
+        return lambda: [fn(*args) for _, *args in timed_inputs]
+
+    out = {"phase": "fused_dw_stack", "layers": len(rows), "batch": 8, "dtype": "bfloat16",
+           "ms": graph_time_ms(stack(lambda x, t, b, *_: fused_dw(x, t, b, 3, 3, pads))),
+           "plain_ms": graph_time_ms(stack(
+               lambda x, t, b, *_: fused_dw_plain(x, t, b, 3, 3, pads))),
+           "cudnn_ms": graph_time_ms(stack(
+               lambda x, t, b, wt, bt: F.conv2d(x, wt, bt, padding=1, groups=x.shape[1]))),
+           "bound_ms": sum(r["bound_ms"] for r in rows),
+           "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
+           "sum_of_layer_ms": sum(r["ms"] for r in rows),
+           "elements_per_image": sum(r["c"] * r["h"] * r["w"] for r in rows), **worst,
+           "tol_f32": DW_TOL_F32, "tol_bf16_ulps": 1.0,
+           "compared": len(layers) * len(DW_BATCHES) * 4}
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    emit(out)
+    return out
+
+
 def make_jpegs(n: int, seed: int) -> list[bytes]:
     """Seeded JPEGs of mixed sizes: smooth colour gradients plus noise,
     sized so that both canvas buckets (256, 512) receive images."""
@@ -210,17 +344,6 @@ def make_jpegs(n: int, seed: int) -> list[bytes]:
         Image.fromarray(img).save(buf, "JPEG", quality=90)
         out.append(buf.getvalue())
     return out
-
-
-def topk_agreement(ref: np.ndarray, got: np.ndarray, k: int, tol: float) -> float:
-    """Margin-aware top-k agreement (the reference engine's bf16 gate): a
-    pick counts when the reference scores it within ``tol`` of its own
-    k-th best."""
-    agree = 0
-    for r_row, q_row in zip(ref, got):
-        q_top = np.argsort(-q_row)[:k]
-        agree += int(np.sum(r_row[q_top] >= np.sort(r_row)[-k] - tol))
-    return agree / float(ref.shape[0] * k)
 
 
 def post(url: str, data: bytes) -> tuple[int, dict, float]:
@@ -296,55 +419,80 @@ def burst(srv, jpegs: list[bytes]) -> tuple[list, dict]:
     return [r for _, r in results], timeline
 
 
-def phase_main_path(jpegs: list[bytes]) -> dict:
-    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
-    from tensorflow_web_deploy_tpu_torch.server import start_server
+def _config(name: str, dtype: str, **kw):
     from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
 
-    cfg = ServerConfig(model=model_config("native:inception_v3"), host="127.0.0.1", port=0,
-                       canvas_buckets=(256, 512), max_batch=8, wire_format="yuv420",
-                       resize="kernel")
+    return ServerConfig(model=replace(model_config(f"native:{name}"), dtype=dtype),
+                        canvas_buckets=(256, 512), max_batch=8, wire_format="yuv420",
+                        resize="kernel", **kw)
+
+
+def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
+                    second_burst: bool) -> dict:
+    """One main path behind HTTP: boot, a burst of every image at once with
+    the kernels' counts set to 0 just before it and read just after, then
+    (``second_burst``) the same burst again, and the images one at a time.
+    The served model must hold ``fused_cells`` fused stride-1 depthwise
+    cells, each launching the fused kernel once per batch."""
+    from tensorflow_web_deploy_tpu_torch.models.common import DepthwiseConvBN
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
+    from tensorflow_web_deploy_tpu_torch.server import start_server
+
+    cfg = _config(name, dtype, host="127.0.0.1", port=0)
     t0 = time.perf_counter()
     srv = start_server(cfg, device="cuda", seed=SEED)
     boot_s = time.perf_counter() - t0
     try:
+        eng = srv.engine
+        if eng.parity is not None and not eng.parity["pass"]:
+            raise AssertionError(f"parity gate failed: {eng.parity}")
+        served_cells = sum(1 for m in eng.model.modules()
+                           if isinstance(m, DepthwiseConvBN) and m.fused and m.stride == 1)
+        if served_cells != fused_cells:
+            raise AssertionError(f"{name}: {served_cells} fused stride-1 depthwise cells, "
+                                 f"want {fused_cells}")
         # the in-process client's first request builds urllib's opener
         # (an SSL context) in every thread that races into it; take that
         # one-time client cost out of the burst
         urllib.request.urlopen(srv.url + "/healthz", timeout=120).read()
-        batches0 = srv.engine.stats()["batches"]
-        preprocess_i420.launches = 0
+        batches0 = eng.stats()["batches"]
+        preprocess_i420.launches = fused_dw.launches = 0
         results, timeline = burst(srv, jpegs)
-        launches = preprocess_i420.launches
-        batches = srv.engine.stats()["batches"] - batches0
+        launches = {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches}
+        batches = eng.stats()["batches"] - batches0
         wall = timeline["wall_ms"] / 1e3
-        k = srv.engine.topk
+        k = eng.topk
         for status, body, _ in results:
             preds = body.get("predictions", [])
             if status != 200 or len(preds) != k:
                 raise AssertionError(f"bad answer: {status} {body}")
             if not all(math.isfinite(p["score"]) and 0 <= p["index"] < 1000 for p in preds):
                 raise AssertionError(f"bad predictions: {preds}")
-        if launches < batches or batches == 0:
-            raise AssertionError(
-                f"preprocess kernel launched {launches} times for {batches} batches")
-        emit({"phase": "burst_timeline", "burst": 1, **timeline})
-        # a second, identical burst: what of the first was one-time cost
-        second = burst(srv, jpegs)[1]
-        emit({"phase": "burst_timeline", "burst": 2, **second})
+        want = {"preprocess_i420": batches, "fused_dw": fused_cells * batches}
+        if batches == 0 or launches != want:
+            raise AssertionError(f"{name}: kernel launches {launches} for {batches} batches "
+                                 f"({fused_cells} fused stride-1 depthwise cells): want {want}")
+        emit({"phase": "burst_timeline", "model": name, "burst": 1, **timeline})
+        row = {"phase": "main_path", "model": f"native:{name}", "width": 1.0,
+               "dtype": cfg.model.dtype, "fused_dw": eng.fused_dw, "parity": eng.parity,
+               "wire": "yuv420", "resize": "kernel", "requests": len(jpegs),
+               "batches": batches, "kernel_launches": launches,
+               "fused_stride1_cells": fused_cells, "boot_s": boot_s,
+               "img_per_s": len(jpegs) / wall,
+               "p50_ms": timeline["client_latency_ms"]["p50"],
+               "p99_ms": timeline["client_latency_ms"]["p99"]}
+        if second_burst:
+            # a second, identical burst: what of the first was one-time cost
+            second = burst(srv, jpegs)[1]
+            emit({"phase": "burst_timeline", "model": name, "burst": 2, **second})
+            row.update(burst2_img_per_s=len(jpegs) / second["wall_ms"] * 1e3,
+                       burst2_p50_ms=second["client_latency_ms"]["p50"],
+                       burst2_p99_ms=second["client_latency_ms"]["p99"])
         # the same requests one at a time: latency without queueing
         serial = np.array([post(srv.url + "/predict", d)[2] for d in jpegs]) * 1e3
-        lat = np.array([r[2] for r in results]) * 1e3
-        row = {"phase": "main_path", "model": "native:inception_v3", "width": 1.0,
-               "dtype": cfg.model.dtype, "wire": "yuv420", "resize": "kernel",
-               "requests": len(jpegs), "batches": batches, "kernel_launches": launches,
-               "boot_s": boot_s, "img_per_s": len(jpegs) / wall,
-               "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
-               "burst2_img_per_s": len(jpegs) / second["wall_ms"] * 1e3,
-               "burst2_p50_ms": second["client_latency_ms"]["p50"],
-               "burst2_p99_ms": second["client_latency_ms"]["p99"],
-               "serial_p50_ms": float(np.percentile(serial, 50)),
-               "serial_p99_ms": float(np.percentile(serial, 99))}
+        row.update(serial_p50_ms=float(np.percentile(serial, 50)),
+                   serial_p99_ms=float(np.percentile(serial, 99)))
         emit(row)
         row["served"] = [(r[1]["predictions"][0]["index"], r[1]["predictions"][0]["score"])
                          for r in results]
@@ -353,60 +501,78 @@ def phase_main_path(jpegs: list[bytes]) -> dict:
         srv.close()
 
 
-def phase_parity(jpegs: list[bytes], served: list[tuple[int, float]]) -> dict:
-    """bf16 kernel path vs a float32 reference (plain preprocess, TF32 off)
-    on the main path's images, and the served answers vs the bf16 path."""
+def phase_parity(jpegs: list[bytes], served: list[tuple[int, float]], name: str,
+                 dtype: str) -> dict:
+    """The served dtype's kernel path vs the unfused float32 model (plain
+    preprocess, TF32 off) on the main path's images, at the engine's gate
+    tolerances for that dtype; and the served answers vs the same path."""
     from tensorflow_web_deploy_tpu_torch.models.adapter import native_converted
     from tensorflow_web_deploy_tpu_torch.ops.image import NORMALIZERS, resize_yuv_planes
     from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
+    from tensorflow_web_deploy_tpu_torch.ops.quant import topk_agreement
     from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
-    from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
 
-    cfg = ServerConfig(model=model_config("native:inception_v3"), canvas_buckets=(256, 512),
-                       max_batch=8, wire_format="yuv420", resize="kernel", warmup=False)
-    eng = InferenceEngine(cfg, device="cuda", seed=SEED)
-    ref_model = native_converted("inception_v3", seed=SEED).to(
-        "cuda", memory_format=torch.channels_last)
-    probs_bf16, probs_f32, top1 = [], [], []
+    eng = InferenceEngine(_config(name, dtype, warmup=False), device="cuda", seed=SEED)
+    tol = eng.PARITY_TOL[eng.model_cfg.dtype]
+    out = eng.model_cfg.input_size[0]
+    ref_model = native_converted(name, seed=SEED).to("cuda", memory_format=torch.channels_last)
+    probs, probs_f32 = [], []
     with torch.inference_mode():
         for data in jpegs:
             canvas, hw, _ = eng.prepare_bytes(data)
             packed = torch.from_numpy(canvas[None]).cuda()
             hws = torch.tensor([hw], dtype=torch.int32, device="cuda")
-            x = preprocess_i420(packed, hws, OUT, OUT, "inception")
-            p = eng.model(x.to(torch.bfloat16)).float()
-            xr = NORMALIZERS["inception"](resize_yuv_planes(packed, hws, OUT, OUT))
-            probs_bf16.append(p.cpu().numpy()[0])
+            x = preprocess_i420(packed, hws, out, out, "inception")
+            p = eng.model(x.to(eng.dtype)).float()
+            xr = NORMALIZERS["inception"](resize_yuv_planes(packed, hws, out, out))
+            probs.append(p.cpu().numpy()[0])
             probs_f32.append(ref_model(xr).cpu().numpy()[0])
-    pb, pf = np.stack(probs_bf16), np.stack(probs_f32)
-    if not (np.isfinite(pb).all() and pb.shape == (len(jpegs), 1000)):
-        raise AssertionError("bf16 probabilities are not finite [n, 1000]")
+    pq, pf = np.stack(probs), np.stack(probs_f32)
+    if not (np.isfinite(pq).all() and pq.shape == (len(jpegs), 1000)):
+        raise AssertionError(f"{dtype} probabilities are not finite [n, 1000]")
     k = eng.topk
-    agree = topk_agreement(pf, pb, k, BF16_PROB_DELTA)
-    delta = float(np.abs(pb - pf).max())
+    agree = topk_agreement(pf, pq, k, tol["prob"])
+    delta = float(np.abs(pq - pf).max())
     # The server batched these images with others; another batch size may
     # take another cuDNN algorithm, so the served top-1 must be a top-1 of
-    # the bf16 path up to bf16 rounding, not bit-identical to it.
+    # the same path up to bf16 rounding, not bit-identical to it.
     idx = np.array([i for i, _ in served])
     score = np.array([sc for _, sc in served])
-    own = pb[np.arange(len(idx)), idx]
-    served_ok = bool(np.all(own >= pb.max(1) - SERVED_TOL) and np.all(np.abs(own - score) <= SERVED_TOL))
-    row = {"phase": "parity", "images": len(jpegs), "topk": k, "topk_agreement": agree,
-           "max_prob_delta": delta, "tol_topk": BF16_TOPK_AGREEMENT,
-           "tol_prob": BF16_PROB_DELTA, "served_top1_matches_bf16": float(np.mean(idx == pb.argmax(1))),
+    own = pq[np.arange(len(idx)), idx]
+    served_ok = bool(np.all(own >= pq.max(1) - SERVED_TOL)
+                     and np.all(np.abs(own - score) <= SERVED_TOL))
+    row = {"phase": "parity", "model": name, "dtype": dtype, "fused_dw": eng.fused_dw,
+           "gate": eng.parity, "images": len(jpegs), "topk": k, "topk_agreement": agree,
+           "max_prob_delta": delta, "tol_topk": tol["topk"], "tol_prob": tol["prob"],
+           "served_top1_matches": float(np.mean(idx == pq.argmax(1))),
            "served_ok": served_ok,
-           "f32_top1_matches_bf16": float(np.mean(pb.argmax(1) == pf.argmax(1))),
+           "f32_top1_matches": float(np.mean(pq.argmax(1) == pf.argmax(1))),
            "tf32": [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]}
     emit(row)
     eng.close()
-    if agree < BF16_TOPK_AGREEMENT or delta > BF16_PROB_DELTA:
-        raise AssertionError(f"bf16 gate failed: {row}")
+    if agree < tol["topk"] or delta > tol["prob"]:
+        raise AssertionError(f"{dtype} gate failed: {row}")
     if not served_ok:
-        raise AssertionError(f"served answers differ from the bf16 path: {row}")
+        raise AssertionError(f"served answers differ from the {dtype} path: {row}")
     return row
 
 
-def phase_breakdown(jpegs: list[bytes], batch: int = 8) -> dict:
+def batch_of_8(eng, jpegs: list[bytes]) -> tuple[torch.Tensor, torch.Tensor, np.ndarray, float]:
+    """The first 8 main-path images that land in the 512 canvas: packed
+    canvases and valid sizes on the card, the sizes on the host, and the
+    host prepare time (decode + pad + I420 pack) per image in ms."""
+    t0 = time.perf_counter()
+    prepared = [eng.prepare_bytes(d) for d in jpegs]
+    prepare_ms = (time.perf_counter() - t0) / len(jpegs) * 1e3
+    big = [(c, hw) for c, hw, _ in prepared if c.shape[-1] == 512][:8]
+    if len(big) < 8:
+        raise AssertionError(f"only {len(big)} images in the 512 canvas")
+    hws_np = np.array([hw for _, hw in big], np.int32)
+    return (torch.from_numpy(np.stack([c for c, _ in big])).cuda(),
+            torch.from_numpy(hws_np).cuda(), hws_np, prepare_ms)
+
+
+def phase_breakdown(jpegs: list[bytes]) -> dict:
     """Device time per stage of one batch of 8 main-path images in the
     512 canvas: preprocess kernel, forward (bf16), top-k; and the kernel's
     row for the kernels line, measured on these real inputs."""
@@ -415,26 +581,17 @@ def phase_breakdown(jpegs: list[bytes], batch: int = 8) -> dict:
         preprocess_i420_plain,
     )
     from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
-    from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
 
-    cfg = ServerConfig(model=model_config("native:inception_v3"), canvas_buckets=(256, 512),
-                       max_batch=8, wire_format="yuv420", resize="kernel", warmup=False)
-    eng = InferenceEngine(cfg, device="cuda", seed=SEED)
-    t0 = time.perf_counter()
-    prepared = [eng.prepare_bytes(d) for d in jpegs]
-    prepare_ms = (time.perf_counter() - t0) / len(jpegs) * 1e3
-    big = [(c, hw) for c, hw, _ in prepared if c.shape[-1] == 512][:batch]
-    if len(big) < batch:
-        raise AssertionError(f"only {len(big)} images in the 512 canvas")
-    packed = torch.from_numpy(np.stack([c for c, _ in big])).cuda()
-    hws_np = np.array([hw for _, hw in big], np.int32)
-    hws = torch.from_numpy(hws_np).cuda()
+    eng = InferenceEngine(_config("inception_v3", "bfloat16", warmup=False), device="cuda",
+                          seed=SEED)
+    packed, hws, hws_np, prepare_ms = batch_of_8(eng, jpegs)
+    host = packed.cpu().numpy()
     with torch.inference_mode():
         x = preprocess_i420(packed, hws, OUT, OUT, "inception")
         xb = x.to(torch.bfloat16)
         probs = eng.model(xb).float()
         err = float((x - preprocess_i420_plain(packed, hws, OUT, OUT, "inception")).abs().max())
-        row = {"phase": "breakdown", "batch": len(big), "canvas": 512,
+        row = {"phase": "breakdown", "batch": 8, "canvas": 512,
                "kernel_ms": graph_time_ms(lambda: preprocess_i420(packed, hws, OUT, OUT)),
                "kernel_call_ms": cuda_time_ms(lambda: preprocess_i420(packed, hws, OUT, OUT)),
                "plain_ms": graph_time_ms(
@@ -446,9 +603,83 @@ def phase_breakdown(jpegs: list[bytes], batch: int = 8) -> dict:
                # whole engine batch (stage, H2D, serve, D2H) with its wait
                "host_prepare_ms_per_image": prepare_ms,
                "run_batch_ms": statistics.median(
-                   timed(lambda: eng.run_batch(np.stack([c for c, _ in big]), hws_np))
-                   for _ in range(10))}
+                   timed(lambda: eng.run_batch(host, hws_np)) for _ in range(10))}
     row["bound_ms"], row["bound_by"] = bound_ms(hws_np, 512, OUT, OUT)
+    eng.close()
+    emit(row)
+    return row
+
+
+def device_profile(fn, top: int = 10) -> dict:
+    """Kernels of one ``fn()`` under ``torch.profiler``: their count, the
+    summed device time, and the ``top`` names by device time (µs)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    return {"kernels": sum(r[1] for r in rows), "device_us": sum(r[2] for r in rows),
+            "top": [{"name": k[:90], "count": n, "us": t} for k, n, t in rows[:top]]}
+
+
+def phase_mobilenet_forward(jpegs: list[bytes]) -> dict:
+    """Full-width MobileNetV2 at batch 8 on real main-path images (512
+    canvas, preprocess kernel at 224): the forward's time in bf16 unfused,
+    bf16 fused and int8 fused (CUDA events around one call, one forward
+    replayed in a CUDA graph, and a profiler's kernel count and summed
+    device time), the preprocess kernel at 224 out, and one whole int8
+    engine batch on the host clock."""
+    from tensorflow_web_deploy_tpu_torch.models.adapter import native_converted
+    from tensorflow_web_deploy_tpu_torch.models.common import DepthwiseConvBN
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import (
+        preprocess_i420,
+        preprocess_i420_plain,
+    )
+    from tensorflow_web_deploy_tpu_torch.ops.quant import dequantize_taps
+    from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
+
+    eng = InferenceEngine(_config("mobilenet_v2", "int8", warmup=False), device="cuda",
+                          seed=SEED)
+    packed, hws, hws_np, _ = batch_of_8(eng, jpegs)
+    row = {"phase": "mobilenet_forward", "batch": 8, "canvas": 512, "out": 224}
+    with torch.inference_mode():
+        x = preprocess_i420(packed, hws, 224, 224, "inception")
+        row.update(
+            preprocess_ms=graph_time_ms(lambda: preprocess_i420(packed, hws, 224, 224)),
+            preprocess_plain_ms=graph_time_ms(
+                lambda: preprocess_i420_plain(packed, hws, 224, 224)),
+            preprocess_max_abs_err=float(
+                (x - preprocess_i420_plain(packed, hws, 224, 224)).abs().max()))
+        row["preprocess_bound_ms"], row["preprocess_bound_by"] = bound_ms(hws_np, 512, 224, 224)
+        xb = x.to(torch.bfloat16)
+        for label, fused, int8 in (("bf16_unfused", False, False), ("bf16_fused", True, False),
+                                   ("int8_fused", True, True)):
+            model = native_converted("mobilenet_v2", seed=SEED, fused_dw=fused, int8=int8).to(
+                "cuda", torch.bfloat16, memory_format=torch.channels_last)
+            if int8:  # the fused cells' one-op dequant rounds as dequantize does
+                row["dequantize_taps_max_abs_err"] = max(
+                    float((dequantize_taps(m.dwconv.q, m.dwconv.scale) - m.dwconv.weight.float()
+                           .reshape(m.dwconv.q.shape[0], -1).t()).abs().max())
+                    for m in model.modules() if isinstance(m, DepthwiseConvBN))
+                if row["dequantize_taps_max_abs_err"] != 0.0:
+                    raise AssertionError(f"dequantize_taps differs from dequantize: {row}")
+            row[f"forward_{label}_ms"] = cuda_time_ms(lambda: model(xb), repeats=10)
+            row[f"forward_{label}_graph_ms"] = graph_time_ms(lambda: model(xb), inner=3,
+                                                             replays=5)
+            prof = device_profile(lambda: model(xb))
+            emit({"phase": "forward_profile", "model": "mobilenet_v2", "forward": label,
+                  "batch": 8, **prof})
+            row[f"forward_{label}_kernels"] = prof["kernels"]
+            row[f"forward_{label}_device_us"] = prof["device_us"]
+        host = packed.cpu().numpy()
+        row["run_batch_int8_ms"] = statistics.median(
+            timed(lambda: eng.run_batch(host, hws_np)) for _ in range(10))
     eng.close()
     emit(row)
     return row
@@ -468,28 +699,51 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     t0 = time.perf_counter()
-    _build.load("preprocess_i420")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, together
+        list(pool.map(_build.load, KERNELS))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": _build.library_path("preprocess_i420").name})
+          "libraries": [_build.library_path(k).name for k in KERNELS]})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kern_err = phase_kernel(gen)
+    dw = phase_fused_dw_kernel(gen, dw_layer_shapes())
     jpegs = make_jpegs(24, SEED)
-    main_path = phase_main_path(jpegs)
-    phase_parity(jpegs, main_path["served"])
+    inception = phase_main_path(jpegs, "inception_v3", "bfloat16", fused_cells=0,
+                                second_burst=True)
+    phase_parity(jpegs, inception["served"], "inception_v3", "bfloat16")
     bd = phase_breakdown(jpegs)
+    mobilenet = phase_main_path(jpegs, "mobilenet_v2", "int8", fused_cells=DW_STRIDE1_CELLS,
+                                second_burst=False)
+    phase_parity(jpegs, mobilenet["served"], "mobilenet_v2", "int8")
+    mf = phase_mobilenet_forward(jpegs)
+    by_path = {p["model"]: p["kernel_launches"] for p in (inception, mobilenet)}
     emit({"kernels": [{
         "name": "preprocess_i420",
         "route": "cuda",
         "source": "tensorflow_web_deploy_tpu_torch/csrc/preprocess_i420.cu",
         "replaces": "tensorflow_web_deploy_tpu/ops/pallas_preprocess.py:108",
-        "launches": main_path["kernel_launches"],
-        "max_abs_err": max(kern_err, bd["max_abs_err"]),
+        "launches": sum(n["preprocess_i420"] for n in by_path.values()),
+        "launches_by_path": {m: n["preprocess_i420"] for m, n in by_path.items()},
+        "max_abs_err": max(kern_err, bd["max_abs_err"], mf["preprocess_max_abs_err"]),
         "ms": bd["kernel_ms"],
         "plain_ms": bd["plain_ms"],
         "bound_ms": bd["bound_ms"],
         "bound_by": bd["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "fused_dw",
+        "route": "cuda",
+        "source": "tensorflow_web_deploy_tpu_torch/csrc/fused_dw.cu",
+        "replaces": "tensorflow_web_deploy_tpu/ops/pallas_depthwise.py:56",
+        "launches": mobilenet["kernel_launches"]["fused_dw"],
+        "max_abs_err": dw["max_abs_err"],
+        "ms": dw["ms"],
+        "plain_ms": dw["plain_ms"],
+        "bound_ms": dw["bound_ms"],
+        "bound_by": dw["bound_by"],
+        # F.conv2d(groups=C) + bias in bf16 over the same 13 layers: the
+        # closest one call; it leaves out the relu6 clamp
+        "library_ms": dw["cudnn_ms"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """Model zoo (counterpart of the JAX package's ``models/__init__.py``).
 
 ``get(name)`` returns a :class:`ModelSpec`; ``spec.build(num_classes=...,
-width=...)`` an ``nn.Module``. Only Inception-v3 is ported so far; the
-other names are listed so that configs resolve, and building one raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+width=...)`` an ``nn.Module``. Inception-v3 and MobileNetV2 are ported;
+the other names are listed so that configs resolve, and building one
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import dataclasses
 from collections.abc import Callable
 
 from .inception_v3 import InceptionV3
+from .mobilenet_v2 import MobileNetV2
 
 
 def _not_ported(name: str, item: str) -> Callable:
@@ -35,8 +36,7 @@ _ZOO: dict[str, ModelSpec] = {
     s.name: s
     for s in [
         ModelSpec("inception_v3", InceptionV3, 299, "inception"),
-        ModelSpec("mobilenet_v2", _not_ported("mobilenet_v2", "the MobileNetV2 slice"),
-                  224, "inception"),
+        ModelSpec("mobilenet_v2", MobileNetV2, 224, "inception"),
         ModelSpec("resnet50", _not_ported("resnet50", "the ResNet-50 item"), 224, "caffe"),
         ModelSpec("ssd_mobilenet", _not_ported("ssd_mobilenet", "the SSD + detection item"),
                   300, "inception", task="detect", num_classes=90),

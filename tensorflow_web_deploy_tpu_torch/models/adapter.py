@@ -16,8 +16,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.quant import QSCALE_SUFFIX, Int8Linear, quantize_params
 from . import get
-from .common import fold_bn
+from .common import ConvBNCell, fold_bn, set_fused_dw
 
 
 def _flax_key(torch_key: str) -> str:
@@ -49,7 +50,10 @@ def _to_flax_layout(value: torch.Tensor) -> np.ndarray:
 
 
 def _from_flax_layout(a: np.ndarray) -> torch.Tensor:
-    a = np.asarray(a, np.float32)
+    """Float leaves become float32; int8 (quantized) kernels stay int8."""
+    a = np.asarray(a)
+    if a.dtype != np.int8:
+        a = a.astype(np.float32)
     if a.ndim == 4:  # HWIO → OIHW
         a = a.transpose(3, 2, 0, 1)
     elif a.ndim == 2:
@@ -109,19 +113,54 @@ class Classifier(nn.Module):
         return torch.softmax(logits, dim=-1)
 
 
+@torch.no_grad()
+def quantize_int8(module: nn.Module, params_flat: dict[str, np.ndarray]) -> nn.Module:
+    """The int8 tier's serving form of an unfolded module holding
+    ``params_flat``: every conv and dense kernel becomes the reference's
+    ``quantize_params`` int8 ``q`` (bit for bit the JAX package's, since it
+    quantizes the same unfolded kernels) with its per-output-channel scale;
+    each BN is folded into its conv's dequant scale (scale·s) and bias (t)
+    rather than into the kernel. Weights stay int8 and are dequantized on
+    every call (``ops/quant.py``)."""
+    qp = quantize_params(params_flat)
+
+    def quant(torch_key):
+        key = _flax_key(torch_key)
+        return _from_flax_layout(qp[key]), torch.from_numpy(qp[key + QSCALE_SUFFIX])
+
+    for name, m in list(module.named_modules()):
+        if isinstance(m, ConvBNCell) and not m.folded:
+            m.fold(quant(f"{name}.{m.conv_attr}.weight"))
+        elif isinstance(m, nn.Linear):
+            parent, _, attr = name.rpartition(".")
+            setattr(module.get_submodule(parent), attr,
+                    Int8Linear(*quant(f"{name}.weight"), m.bias.detach().clone()))
+    return module
+
+
 def native_converted(name: str, num_classes: int | None = None, width: float = 1.0,
-                     seed: int = 0, params_flat: dict[str, np.ndarray] | None = None
-                     ) -> Classifier:
+                     seed: int = 0, params_flat: dict[str, np.ndarray] | None = None,
+                     fused_dw: bool = False, int8: bool = False) -> Classifier:
     """A zoo classifier ready to serve: seeded init (or ``params_flat`` in
-    the JAX layout), BN folded into the convs, eval
-    mode, no gradients. Stays on the CPU in float32; the caller moves it."""
+    the JAX layout), BN folded into the convs, eval mode, no gradients.
+
+    ``fused_dw=True`` serves the depthwise cells fused (one op each, the
+    kernel on the card); the parameters are the same, and a model without
+    depthwise cells ignores it. ``int8=True`` stores the kernels int8
+    (:func:`quantize_int8`). Stays on the CPU in float32 (int8 kernels
+    int8); the caller moves and casts it."""
     spec = get(name)
     if spec.task != "classify":
         raise NotImplementedError(f"{name}: only classifiers are ported")
-    module, _ = init_variables(spec, num_classes=num_classes, width=width, seed=seed)
+    module, flat = init_variables(spec, num_classes=num_classes, width=width, seed=seed)
     if params_flat is not None:
         module.load_state_dict(from_jax_params(params_flat))
-    fold_bn(module)
+        flat = params_flat
+    if int8:
+        quantize_int8(module, flat)
+    else:
+        fold_bn(module)
+    set_fused_dw(module, fused_dw)
     model = Classifier(module).eval()
     model.requires_grad_(False)
     return model

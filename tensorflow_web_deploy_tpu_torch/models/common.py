@@ -2,12 +2,16 @@
 package's ``models/common.py``), as ``torch.nn`` modules in NCHW.
 
 Module and parameter names follow the flax tree — ``<block>/conv/kernel``,
-``<block>/bn/{scale,bias,mean,var}`` — so ``models/adapter.py`` maps the
-JAX package's flat params onto these modules by name alone.
+``<block>/dwconv/kernel``, ``<block>/bn/{scale,bias,mean,var}`` — so
+``models/adapter.py`` maps the JAX package's flat params onto these
+modules by name alone.
 
 The JAX package routes stride-2 stems through an exact space-to-depth
 rewrite for the TPU's matrix unit; that is an identity of the math, so
-here the stem is a plain stride-2 convolution.
+here the stem is a plain stride-2 convolution. "SAME" padding is
+``lax.padtype_to_pads``'s (``ops/depthwise.py::same_pads``): at stride 2
+it is computed from each input's size and applied with ``F.pad``, because
+its odd pad goes at the end.
 """
 
 from __future__ import annotations
@@ -15,6 +19,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.depthwise import (
+    depthwise_conv2d,
+    fused_depthwise,
+    fused_depthwise_bn,
+    kernel_taps,
+    pad_nchw,
+    resolve_pads,
+)
+from ..ops.quant import Int8Conv2d, dequantize_taps
+
+ACTIVATIONS = {"relu": F.relu, "relu6": F.relu6, None: lambda x: x}
 
 
 def scale_ch(c: int, width: float, divisor: int = 8) -> int:
@@ -48,47 +64,144 @@ class BatchNorm(nn.Module):
         return x * s[:, None, None] + t[:, None, None]
 
 
-class ConvBN(nn.Module):
-    """Conv (no bias) → BatchNorm (ε=1e-3) → ReLU.
+class ConvBNCell(nn.Module):
+    """Conv (no bias, held as ``self.<conv_attr>``) → BatchNorm (ε=1e-3) →
+    activation, with the serving-time BN fold.
 
-    ``padding`` is "SAME" (stride 1, odd kernels: (kh//2, kw//2), so a
-    1×7 pads (0, 3)) or "VALID". :meth:`fold` folds the BN affine into the
-    conv for serving: conv(x, k·s) + t, exact up to float rounding.
+    "SAME" pads are static where they do not depend on the input size
+    (stride 1, odd kernels: (k//2, k//2)) and computed per input otherwise.
     """
 
-    def __init__(self, cin: int, cout: int, kernel=(3, 3), stride: int = 1,
-                 padding: str = "SAME"):
-        super().__init__()
-        kh, kw = kernel
-        if padding == "SAME":
-            if stride != 1:
-                raise ValueError("SAME padding is only used with stride 1 here")
-            pad = (kh // 2, kw // 2)
-        elif padding == "VALID":
-            pad = (0, 0)
-        else:
+    conv_attr = "conv"
+
+    def _init_cell(self, kernel, stride: int, padding: str, act: str | None) -> tuple[int, int]:
+        if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
-        self.conv = nn.Conv2d(cin, cout, (kh, kw), stride=stride, padding=pad, bias=False)
-        self.bn = BatchNorm(cout)
-        self.folded = False
+        if act not in ACTIVATIONS:
+            raise ValueError(f"act must be one of {sorted(map(str, ACTIVATIONS))}, got {act!r}")
+        kh, kw = kernel
+        self.kernel, self.stride, self.padding, self.act = (kh, kw), stride, padding, act
+        # pads that depend on the input size are applied in forward
+        self.dynamic_pad = padding == "SAME" and not (stride == 1 and kh % 2 and kw % 2)
+        if padding == "SAME" and not self.dynamic_pad:
+            return kh // 2, kw // 2
+        return 0, 0
+
+    def _pad(self, x):
+        if not self.dynamic_pad:
+            return x
+        return pad_nchw(x, resolve_pads("SAME", x.shape[2:], self.kernel, (self.stride,) * 2))
 
     @torch.no_grad()
-    def fold(self) -> None:
+    def fold(self, quant: tuple[torch.Tensor, torch.Tensor] | None = None) -> None:
+        """Fold the BN affine (s, t) into the conv: conv(x, k·s) + t, exact
+        up to float rounding. With ``quant`` = (q, scale), the int8 tier's
+        quantized kernel k ≈ q·scale, the conv keeps ``q`` and folds s into
+        its dequant scale instead: per-output-channel symmetric
+        quantization commutes with a per-channel scale."""
         s, t = self.bn.affine()
-        self.conv.weight.mul_(s[:, None, None, None])
-        self.conv.bias = nn.Parameter(t.clone())
+        conv = getattr(self, self.conv_attr)
+        if quant is None:
+            conv.weight.mul_(s[:, None, None, None])
+            conv.bias = nn.Parameter(t.clone())
+        else:
+            q, scale = quant
+            setattr(self, self.conv_attr, Int8Conv2d(conv, q, scale * s, t.clone()))
         self.bn = nn.Identity()
         self.folded = True
 
+
+class ConvBN(ConvBNCell):
+    """Conv (no bias) → BatchNorm (ε=1e-3) → activation ("relu", "relu6" or
+    None). ``padding`` is "SAME" (the reference's pads) or "VALID"."""
+
+    def __init__(self, cin: int, cout: int, kernel=(3, 3), stride: int = 1,
+                 padding: str = "SAME", act: str | None = "relu"):
+        super().__init__()
+        pad = self._init_cell(kernel, stride, padding, act)
+        self.conv = nn.Conv2d(cin, cout, tuple(kernel), stride=stride, padding=pad, bias=False)
+        self.bn = BatchNorm(cout)
+        self.folded = False
+
     def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+        return ACTIVATIONS[self.act](self.bn(self.conv(self._pad(x))))
+
+
+class DepthwiseConvBN(ConvBNCell):
+    """Depthwise conv → BN → activation (the MobileNet cell); the kernel is
+    ``dwconv/kernel``, [C, 1, kh, kw] in torch.
+
+    Unfused, the conv is the grouped ``F.conv2d`` (cuDNN on the card), then
+    BN (folded into the conv for serving) and the activation. ``fused=True``
+    with relu6 or no activation serves the cell through
+    ``ops/depthwise.py::fused_depthwise`` — BN folded into the taps and
+    bias, one op; the parameters are the same either way. The fold keeps
+    the fused form's float32 operands once: ``taps`` [kh·kw, C] (an int8
+    cell instead dequantizes into that layout on every call) and
+    ``tap_bias`` [1, C].
+    """
+
+    conv_attr = "dwconv"
+
+    def __init__(self, channels: int, kernel=(3, 3), stride: int = 1, padding: str = "SAME",
+                 act: str | None = "relu6", fused: bool = False):
+        super().__init__()
+        self._init_cell(kernel, stride, padding, act)
+        self.dwconv = nn.Conv2d(channels, channels, tuple(kernel), stride=stride,
+                                groups=channels, bias=False)
+        self.bn = BatchNorm(channels)
+        self.folded = False
+        self.fused = fused
+        self.register_buffer("taps", None)
+        self.register_buffer("tap_bias", None)
+
+    @torch.no_grad()
+    def fold(self, quant: tuple[torch.Tensor, torch.Tensor] | None = None) -> None:
+        super().fold(quant)
+        if quant is None:
+            self.taps = kernel_taps(self.dwconv.weight)
+        self.tap_bias = self.dwconv.bias.float().reshape(1, -1).clone()
+
+    def _apply(self, fn, recurse=True):
+        # A cast of the module rounds the fused operands to its dtype, as it
+        # does the conv's weight and bias, and keeps them float32: the fused
+        # op takes float32 taps and bias.
+        super()._apply(fn, recurse)
+        for name in ("taps", "tap_bias"):
+            t = getattr(self, name)
+            if t is not None:
+                setattr(self, name, t.float())
+        return self
+
+    def forward(self, x):
+        strides = (self.stride, self.stride)
+        if self.fused and self.act in ("relu6", None):
+            relu6 = self.act == "relu6"
+            if not self.folded:
+                s, t = self.bn.affine()
+                return fused_depthwise_bn(x, self.dwconv.weight, s, t, strides, self.padding, relu6)
+            taps = self.taps if self.taps is not None else dequantize_taps(self.dwconv.q,
+                                                                           self.dwconv.scale)
+            return fused_depthwise(x, taps, self.tap_bias, self.kernel, strides, self.padding,
+                                   relu6)
+        y = depthwise_conv2d(x, self.dwconv.weight, strides, self.padding, bias=self.dwconv.bias)
+        return ACTIVATIONS[self.act](self.bn(y))
 
 
 def fold_bn(module: nn.Module) -> nn.Module:
-    """Fold every ConvBN's BatchNorm into its conv (serving form)."""
+    """Fold every conv cell's BatchNorm into its conv (serving form)."""
     for m in module.modules():
-        if isinstance(m, ConvBN) and not m.folded:
+        if isinstance(m, ConvBNCell) and not m.folded:
             m.fold()
+    return module
+
+
+def set_fused_dw(module: nn.Module, fused: bool) -> nn.Module:
+    """Serve every depthwise cell fused or unfused; a no-op for a model
+    without depthwise cells."""
+    for m in module.modules():
+        if isinstance(m, DepthwiseConvBN):
+            m.fused = fused
     return module
 
 

@@ -6,7 +6,8 @@ interface, compiled by ``nvcc`` for ``sm_90a`` at first use and loaded
 with ``ctypes``. The library's file name carries a hash of its source and
 the flags, so an edited ``.cu`` rebuilds and a stale library is never
 loaded. Builds land in ``tensorflow_web_deploy_tpu_torch/.build/`` (listed
-in ``.gitignore``). A missing ``nvcc`` or a failed build raises.
+in ``.gitignore``). A missing ``nvcc`` or a failed build raises. Two
+sources build in parallel when two threads load them.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ NVCC_FLAGS = (
     "-fmad=false",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict[str, threading.Lock] = {}  # one per source: its build and load
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -69,6 +71,8 @@ def _build(name: str) -> None:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _loaded.get(name)
         if lib is None:
             if not library_path(name).exists():

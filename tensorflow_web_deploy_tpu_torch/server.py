@@ -1,7 +1,8 @@
 """HTTP inference server on one CUDA device.
 
     python -m tensorflow_web_deploy_tpu_torch.server --model native:inception_v3 \\
-        [--wire-format yuv420 --resize kernel] [--dtype bf16|f32] [--device cuda|cpu]
+        [--wire-format yuv420 --resize kernel] [--dtype bf16|f32|int8]
+        [--fused-dw auto|on|off] [--device cuda|cpu]
     curl -X POST --data-binary @cat.jpg http://localhost:8500/predict
 
 Counterpart of the JAX package's root ``server.py``, with the flags this
@@ -85,7 +86,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--wire-format", choices=["rgb", "yuv420"], default="rgb")
     p.add_argument("--resize", choices=["matmul", "kernel"], default="matmul",
                    help="kernel: the fused I420 CUDA preprocess (yuv420 wire only)")
-    p.add_argument("--dtype", default=None, help="bf16 (default) or f32")
+    p.add_argument("--dtype", default=None,
+                   help="bf16 (default), f32, or int8 (int8 kernels, bf16 compute)")
+    p.add_argument("--fused-dw", choices=["auto", "on", "off"], default=None,
+                   help="fused depthwise cells; auto (default) fuses the int8 tier")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0, help="seed of the weights")
     p.add_argument("--labels", default=None, help="label file, one label per line")
@@ -101,7 +105,7 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
     mc = model_config(args.model)
     overrides = {
         "dtype": args.dtype, "labels_path": args.labels, "zoo_width": args.zoo_width,
-        "zoo_classes": args.zoo_classes, "topk": args.topk,
+        "zoo_classes": args.zoo_classes, "topk": args.topk, "fused_dw": args.fused_dw,
     }
     mc = dataclasses.replace(mc, **{k: v for k, v in overrides.items() if v is not None})
     kw = {}
@@ -119,8 +123,9 @@ def main(argv=None) -> None:
     logging.basicConfig(level=args.log_level,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     cfg = config_from_args(args)
-    if cfg.model.dtype == "float32":
-        # float32 means float32: cuDNN would otherwise run the convs in TF32
+    if cfg.model.dtype in ("float32", "int8"):
+        # float32 means float32 (for int8: the parity gate's reference):
+        # cuDNN would otherwise run the convs in TF32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     srv = start_server(cfg, device=args.device, seed=args.seed)

@@ -8,6 +8,11 @@ serve function runs preprocess → cast to the serving dtype → forward →
 softmax → top-k, and only k (score, index) pairs per image come back, in
 one packed float32 array. Batches are padded to a batch bucket; padding
 rows carry hw = 1×1 and are sliced off on the host.
+
+The int8 tier keeps its kernels int8 on the device and dequantizes them
+inside every forward, computing in bf16 (``ops/quant.py``); before it
+serves, the golden parity gate holds it against the unfused float32 model
+on the same parameters, and a failing gate raises.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import numpy as np
 import torch
 
 from ..models.adapter import native_converted
+from ..ops import quant
+from ..ops.fused_dw import fused_dw
 from ..ops.image import decode_image, make_preprocess_fn, pad_to_canvas, rgb_to_yuv420_canvas
 from ..ops.preprocess_i420 import preprocess_i420
 from ..utils.config import ServerConfig
@@ -47,22 +54,36 @@ class InferenceEngine:
     """Serves batches of decoded images on one device (``"cuda"`` unless
     the caller passes ``device="cpu"``)."""
 
+    # Gate tolerances per serving dtype, the reference's _PARITY_TOL:
+    # ``prob`` bounds the max probability delta and is the top-k agreement
+    # margin; ``topk`` is the least agreeing fraction.
+    PARITY_TOL = {
+        "int8": {"prob": 0.15, "topk": 0.90},
+        "bfloat16": {"prob": 0.08, "topk": 0.90},
+    }
+
     def __init__(self, cfg: ServerConfig, device: str | torch.device | None = None,
                  seed: int = 0, params_flat: dict[str, np.ndarray] | None = None):
         self.cfg = cfg
         self.model_cfg = cfg.model
         self.device = resolve_device(device)
+        self.quantized = self.model_cfg.dtype == "int8"
+        # int8 computes in bf16
         self.dtype = torch.float32 if self.model_cfg.dtype == "float32" else torch.bfloat16
-        model = native_converted(
-            self.model_cfg.name,
-            num_classes=self.model_cfg.zoo_classes,
-            width=self.model_cfg.zoo_width,
-            seed=seed,
-            params_flat=params_flat,
-        )
-        self.model = model.to(self.device, self.dtype, memory_format=torch.channels_last)
+        self.fused_dw = self.model_cfg.fuse_depthwise
+        self._seed, self._params_flat = seed, params_flat
+        self.model = self._build_model(self.fused_dw, self.quantized).to(
+            self.device, self.dtype, memory_format=torch.channels_last)
         self.num_classes = self.model.backbone.logits.out_features
         self.topk = min(self.model_cfg.topk, self.num_classes)
+        self.parity: dict | None = None
+        if self.quantized:
+            self.parity = self.parity_check()
+            if not self.parity["pass"]:
+                self.model = None
+                raise RuntimeError(
+                    f"numerical-parity gate failed for {self.model_cfg.name} "
+                    f"dtype={self.model_cfg.dtype}: {self.parity}")
         h, w = self.model_cfg.input_size
         self._preprocess = make_preprocess_fn(
             h, w, self.model_cfg.preprocess, wire=cfg.wire_format, resize=cfg.resize
@@ -76,6 +97,43 @@ class InferenceEngine:
         self._lock = threading.Lock()
         self.batches = 0
         self.images = 0
+
+    def _build_model(self, fused_dw: bool, int8: bool):
+        return native_converted(
+            self.model_cfg.name,
+            num_classes=self.model_cfg.zoo_classes,
+            width=self.model_cfg.zoo_width,
+            seed=self._seed,
+            params_flat=self._params_flat,
+            fused_dw=fused_dw,
+            int8=int8,
+        )
+
+    def parity_check(self, batch: int = 4, seed: int = 0) -> dict:
+        """Golden numerical-parity gate: this engine's model, as it serves
+        (int8 dequantized on the fly, fused depthwise, compute dtype),
+        against the unfused float32 model on the same parameters, on a
+        seeded probe batch of NHWC images in [-1, 1]. Gates margin-aware
+        top-k agreement and the max probability delta. Runs at build for
+        int8; callable on any engine."""
+        tol = self.PARITY_TOL.get(self.model_cfg.dtype, self.PARITY_TOL["bfloat16"])
+        h, w = self.model_cfg.input_size
+        x = np.random.RandomState(seed).uniform(-1.0, 1.0, (batch, h, w, 3)).astype(np.float32)
+        x = torch.from_numpy(x).to(self.device)
+        ref = self._build_model(fused_dw=False, int8=False).to(
+            self.device, memory_format=torch.channels_last)
+        with torch.inference_mode():
+            got = self.model(x.to(self.dtype)).float().cpu().numpy()
+            want = ref(x).cpu().numpy()
+        k = self.topk
+        prob_d = float(np.max(np.abs(got - want)))
+        agree = quant.topk_agreement(want, got, k, tol["prob"])
+        return {
+            "dtype": self.model_cfg.dtype, "fused_dw": self.fused_dw, "probe_batch": batch,
+            "max_prob_delta": prob_d, "topk_agreement": agree, "topk": k,
+            "tol_prob": tol["prob"], "tol_topk": tol["topk"],
+            "pass": prob_d <= tol["prob"] and agree >= tol["topk"],
+        }
 
     # ---------------------------------------------------------------- shapes
 
@@ -217,13 +275,16 @@ class InferenceEngine:
             "model": self.model_cfg.name,
             "device": str(self.device),
             "dtype": self.model_cfg.dtype,
+            "fused_dw": self.fused_dw,
+            "parity": self.parity,
             "wire_format": self.cfg.wire_format,
             "resize": self.cfg.resize,
             "batch_buckets": list(self.batch_buckets),
             "canvas_buckets": list(self.cfg.canvas_buckets),
             "batches": batches,
             "images": images,
-            "kernel_launches": {"preprocess_i420": preprocess_i420.launches},
+            "kernel_launches": {"preprocess_i420": preprocess_i420.launches,
+                                "fused_dw": fused_dw.launches},
         }
 
     def close(self) -> None:

@@ -16,6 +16,7 @@ from pathlib import Path
 _DTYPE_ALIASES = {
     "f32": "float32", "float32": "float32",
     "bf16": "bfloat16", "bfloat16": "bfloat16",
+    "int8": "int8",
 }
 
 _ARTIFACTS = Path(__file__).resolve().parent.parent.parent / "artifacts"
@@ -27,8 +28,7 @@ def normalize_dtype(dtype: str) -> str:
         return _DTYPE_ALIASES[str(dtype).strip().lower()]
     except KeyError:
         raise ValueError(
-            f"unsupported dtype {dtype!r} (supported: f32/float32, bf16/bfloat16; "
-            "int8 waits for the MobileNetV2 slice, ROADMAP.md Queue 1)"
+            f"unsupported dtype {dtype!r} (supported: f32/float32, bf16/bfloat16, int8)"
         ) from None
 
 
@@ -48,9 +48,14 @@ class ModelConfig:
     # "zero_one" (/255), "caffe" (BGR, mean-subtracted), "raw"
     preprocess: str = "inception"
     topk: int = 5
-    # "float32" (the reference) or "bfloat16" (weights and activations
-    # cast, the default as in the JAX package)
+    # "float32" (the reference), "bfloat16" (weights and activations cast,
+    # the default as in the JAX package) or "int8" (per-output-channel
+    # int8 kernels dequantized on every call, computing in bf16; gated at
+    # build by the engine's parity check against float32)
     dtype: str = "bfloat16"
+    # Fused depthwise cells (ops/depthwise.py): "auto" fuses the int8 tier
+    # only, "on"/"off" force it
+    fused_dw: str = "auto"
 
     def __post_init__(self):
         if self.source != "native":
@@ -62,7 +67,17 @@ class ModelConfig:
             self.dtype = normalize_dtype(self.dtype)
         except ValueError as e:
             raise ValueError(f"model '{self.name}': {e}") from None
+        if self.fused_dw not in ("auto", "on", "off"):
+            raise ValueError(
+                f"model '{self.name}': fused_dw must be 'auto', 'on' or 'off', "
+                f"got {self.fused_dw!r}"
+            )
         self.input_size = tuple(self.input_size)
+
+    @property
+    def fuse_depthwise(self) -> bool:
+        """The resolved ``fused_dw`` knob: "auto" fuses the int8 tier."""
+        return self.fused_dw == "on" or (self.fused_dw == "auto" and self.dtype == "int8")
 
 
 @dataclasses.dataclass

@@ -4,7 +4,9 @@ decoded images and the same seeded weights, f32, on the CPU.
 yuv420 wire: the JAX engine runs the Pallas preprocess kernel interpreted
 (``resize="pallas"``), the port its kernel's plain version
 (``resize="kernel"`` on a CPU device). rgb wire: both run the matmul
-resize. Top-k indices must match and scores agree within 1e-4.
+resize. Top-k indices must match and scores agree within 1e-4. On the
+yuv420 wire the JAX engine feeds MobileNetV2's stem space-to-depth cells
+straight from the resize; that rewrite is exact, so the bar holds.
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ torch.set_num_threads(2)
 
 MODEL = dict(name="inception_v3", source="native", zoo_width=0.25, zoo_classes=10,
              input_size=(75, 75), preprocess="inception", topk=3, dtype="float32")
+MOBILENET = {**MODEL, "name": "mobilenet_v2", "input_size": (64, 64)}
 
 
 def _images(seed):
@@ -33,18 +36,21 @@ def _images(seed):
     return out
 
 
-@pytest.mark.parametrize("wire,jax_resize,port_resize", [
-    ("yuv420", "pallas", "kernel"),
-    ("rgb", "matmul", "matmul"),
+@pytest.mark.parametrize("wire,jax_resize,port_resize,model", [
+    pytest.param("yuv420", "pallas", "kernel", MODEL, id="yuv420-pallas-kernel"),
+    pytest.param("rgb", "matmul", "matmul", MODEL, id="rgb-matmul-matmul"),
+    pytest.param("yuv420", "pallas", "kernel", MOBILENET, id="yuv420-pallas-kernel-mobilenet_v2"),
+    pytest.param("rgb", "matmul", "matmul", MOBILENET, id="rgb-matmul-matmul-mobilenet_v2"),
 ])
-def test_engine_topk_matches_jax(wire, jax_resize, port_resize):
+def test_engine_topk_matches_jax(wire, jax_resize, port_resize, model):
     import jax
 
     common = dict(canvas_buckets=(96,), max_batch=4, wire_format=wire, warmup=False)
-    jeng = JaxEngine(jcfg.ServerConfig(model=jcfg.ModelConfig(**MODEL), resize=jax_resize,
+    jeng = JaxEngine(jcfg.ServerConfig(model=jcfg.ModelConfig(**model), resize=jax_resize,
                                        **common), mesh=build_mesh(jax.devices()[:1]))
-    teng = InferenceEngine(tcfg.ServerConfig(model=tcfg.ModelConfig(**MODEL),
+    teng = InferenceEngine(tcfg.ServerConfig(model=tcfg.ModelConfig(**model),
                                              resize=port_resize, **common), device="cpu")
+    assert not teng.fused_dw and teng.parity is None  # float32 serves unfused, ungated
     images = _images(0)
     jp = [jeng.prepare(img) for img in images]
     tp = [teng.prepare(img) for img in images]
@@ -96,11 +102,20 @@ def test_config_validation_matches_reference():
                           wire_format="yuv420", resize="kernel")
     with pytest.raises(ValueError, match="resize"):
         tcfg.ServerConfig(model=mc, resize="pallas")
-    with pytest.raises(ValueError, match="dtype"):
-        tcfg.ModelConfig(**{**MODEL, "dtype": "int8"})
-    native = tcfg.model_config("native:inception_v3")
-    ref = jcfg.model_config("native:inception_v3")
-    assert (native.input_size, native.preprocess, native.dtype, native.topk) == (
-        ref.input_size, ref.preprocess, ref.dtype, ref.topk)
+    with pytest.raises(ValueError, match="unsupported dtype 'int4'"):
+        tcfg.ModelConfig(**{**MODEL, "dtype": "int4"})
+    with pytest.raises(ValueError, match="fused_dw"):
+        tcfg.ModelConfig(**{**MODEL, "fused_dw": "yes"})
+    for dtype in ("f32", "BF16", "int8"):
+        assert tcfg.normalize_dtype(dtype) == jcfg.normalize_dtype(dtype)
+    for dtype, knob in [("int8", "auto"), ("bfloat16", "auto"), ("float32", "on"),
+                        ("int8", "off")]:
+        want = knob == "on" or (knob == "auto" and dtype == "int8")  # engine.py:429-434
+        assert tcfg.ModelConfig(**{**MODEL, "dtype": dtype, "fused_dw": knob}).fuse_depthwise is want
+    for name in ("native:inception_v3", "native:mobilenet_v2"):
+        native, ref = tcfg.model_config(name), jcfg.model_config(name)
+        assert (native.input_size, native.preprocess, native.dtype, native.topk,
+                native.fused_dw) == (ref.input_size, ref.preprocess, ref.dtype, ref.topk,
+                                     ref.fused_dw)
     with pytest.raises(ValueError, match="unknown native model"):
         tcfg.model_config("native:nope")

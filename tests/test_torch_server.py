@@ -107,7 +107,8 @@ def test_concurrent_requests_share_batches(server):
     done = stats["batcher"]["batches"] - before["batches"]
     assert stats["batcher"]["images"] - before["images"] == 8
     assert 2 <= done <= 8  # max_batch 4
-    assert stats["engine"]["kernel_launches"] == {"preprocess_i420": 0}  # CPU: plain version
+    # CPU: the plain versions run
+    assert stats["engine"]["kernel_launches"] == {"preprocess_i420": 0, "fused_dw": 0}
     assert stats["engine"]["resize"] == "kernel"
 
 
@@ -175,3 +176,24 @@ def test_cli_flags_build_the_config():
     assert args.device == "cpu"
     with pytest.raises(ValueError, match="yuv420"):
         config_from_args(parse_args(["--resize", "kernel"]))
+
+
+def test_int8_mobilenet_server_passes_its_gate_and_serves():
+    args = parse_args(["--model", "native:mobilenet_v2", "--dtype", "int8", "--zoo-width", "0.25",
+                       "--zoo-classes", "10", "--wire-format", "yuv420", "--resize", "kernel",
+                       "--canvas-buckets", "64", "--max-batch", "4", "--host", "127.0.0.1",
+                       "--port", "0", "--no-warmup"])
+    cfg = config_from_args(args)
+    assert (cfg.model.dtype, cfg.model.fused_dw, cfg.model.input_size) == ("int8", "auto",
+                                                                          (224, 224))
+    off = config_from_args(parse_args(["--model", "native:mobilenet_v2", "--fused-dw", "off"]))
+    assert off.model.fused_dw == "off"
+    cfg.model.input_size = (64, 64)
+    with start_server(cfg, device="cpu") as srv:
+        status, body = _post(srv.url + "/predict", _jpeg(50, 60, 5))
+        assert status == 200 and len(body["predictions"]) == 5
+        with urllib.request.urlopen(srv.url + "/stats") as r:
+            engine = json.loads(r.read())["engine"]
+    assert engine["dtype"] == "int8" and engine["fused_dw"] is True
+    assert engine["parity"]["pass"] and engine["parity"]["tol_prob"] == 0.15
+    assert engine["kernel_launches"]["fused_dw"] == 0  # CPU: the plain version ran
