@@ -9,14 +9,22 @@ drives both main paths at full width behind ``POST /predict`` on the
 yuv420 wire with the preprocess kernel:
 
 - Inception-v3 in bf16, checked against a float32 reference;
-- MobileNetV2 in the int8 tier, its 13 stride-1 depthwise cells on the
-  fused depthwise kernel, gated at build by the engine's parity check and
-  checked against the unfused float32 model on the same images.
+- MobileNetV2 in the int8 tier, all 17 depthwise cells (13 stride 1, 4
+  stride 2) on the fused depthwise kernel, gated at build by the engine's
+  parity check and checked against the unfused float32 model on the same
+  images.
 
 Each phase prints one JSON line; the line before the last holds the card's
 name and power limit, and the last line is ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero without that line. Without a CUDA
 device it exits with code 2.
+
+    python3 chip_smoke.py --sweep-fused-dw
+
+instead builds the kernels, prints nvcc's register report for the fused
+depthwise kernel, checks it bit for bit against its plain version at
+every shape, and times it at each layer under every launch shape that
+fits, beside the launch rule's choice; it prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -48,12 +56,11 @@ SERVED_TOL = 1e-2
 # may fuse a multiply-add, so allow a few ulps of the largest value
 KERNEL_TOL = {"inception": 1e-5, "zero_one": 1e-5, "raw": 1e-3}
 # fused depthwise kernel vs plain: the same float32 operations in the same
-# order, so float32 agrees to 1e-5 and bf16 to one bf16 ulp of the value
-# (one float32 last-bit difference may flip a rounding)
-DW_TOL_F32 = 1e-5
+# order and one rounding, so every cell must be bit-identical
 DW_BATCHES = (1, 8, 32)
-# full-width MobileNetV2 has 17 depthwise cells, 13 of them stride 1: the
-# fused kernel's launches per batch on its main path
+# full-width MobileNetV2 has 17 depthwise cells, 13 of them stride 1; all
+# 17 are fused: the fused kernel's launches per batch on its main path
+DW_CELLS = 17
 DW_STRIDE1_CELLS = 13
 
 
@@ -215,112 +222,235 @@ def dw_bound_ms(b: int, c: int, h: int, w: int, oh: int, ow: int, elt: int, kk: 
 
 def dw_layer_shapes() -> list[dict]:
     """Every depthwise cell of full-width MobileNetV2 at 224×224: its block,
-    input [C, H, W] and stride, recorded by forward hooks on one image."""
+    input [C, H, W], stride and the reference's "SAME" pads, recorded by
+    forward hooks on one image."""
     from tensorflow_web_deploy_tpu_torch.models.adapter import native_converted
     from tensorflow_web_deploy_tpu_torch.models.common import DepthwiseConvBN
+    from tensorflow_web_deploy_tpu_torch.ops.depthwise import resolve_pads
 
     model = native_converted("mobilenet_v2", seed=SEED).cuda()
     shapes, hooks = [], []
+
+    def record(mod, args, name):
+        _, c, h, w = args[0].shape
+        pads = resolve_pads(mod.padding, (h, w), mod.kernel, (mod.stride,) * 2)
+        shapes.append({"block": name.split(".")[1], "c": c, "h": h, "w": w,
+                       "stride": mod.stride, "pads": pads})
+
     for name, m in model.named_modules():
         if isinstance(m, DepthwiseConvBN):
             hooks.append(m.register_forward_pre_hook(
-                lambda mod, args, name=name: shapes.append(
-                    {"block": name.split(".")[1], "c": args[0].shape[1], "h": args[0].shape[2],
-                     "w": args[0].shape[3], "stride": mod.stride})))
+                lambda mod, args, name=name: record(mod, args, name)))
     with torch.inference_mode():
         model(torch.zeros((1, 224, 224, 3), device="cuda"))
     for h in hooks:
         h.remove()
+    if len(shapes) != DW_CELLS or sum(s["stride"] == 1 for s in shapes) != DW_STRIDE1_CELLS:
+        raise AssertionError(f"MobileNetV2 depthwise cells: {shapes}")
     return shapes
 
 
-def bf16_ulps(got: torch.Tensor, ref: torch.Tensor) -> float:
-    """Largest |got − ref| in units of the bf16 ulp of the larger value."""
-    mag = torch.maximum(got.abs(), ref.abs()).float().clamp_min(2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return float(((got.float() - ref.float()).abs() / ulp).max())
+def dw_odd(layer: dict) -> dict:
+    """A stride-2 layer with H and W made odd: the reference pads it (1, 1)
+    where the even map pads (0, 1)."""
+    from tensorflow_web_deploy_tpu_torch.ops.depthwise import same_pads
+
+    h, w = layer["h"] + 1, layer["w"] + 1
+    return {**layer, "block": layer["block"] + "_odd", "h": h, "w": w,
+            "pads": (same_pads(h, 3, 2), same_pads(w, 3, 2))}
 
 
-def phase_fused_dw_kernel(gen: torch.Generator, shapes: list[dict]) -> dict:
-    """Kernel vs plain version at every stride-1 depthwise shape of the
-    main path × B∈{1, 8, 32} × {float32, bf16} × relu6 on/off; at B=8 in
-    bf16 with relu6 (the main path's cells) the kernel's, the plain
-    version's and the cuDNN yardstick's device times beside the bound, per
-    layer and for the whole stack of launches in one CUDA graph."""
-    import torch.nn.functional as F
+def dw_inputs(gen: torch.Generator, layer: dict, b: int, dtype) -> tuple:
+    x = (torch.randn((b, layer["c"], layer["h"], layer["w"]), generator=gen, device="cuda")
+         * 3).to(dtype).contiguous(memory_format=torch.channels_last)
+    taps = torch.randn((9, layer["c"]), generator=gen, device="cuda")
+    bias = torch.randn((1, layer["c"]), generator=gen, device="cuda")
+    return x, taps, bias
 
+
+def dw_check(gen: torch.Generator, layers: list[dict]) -> dict:
+    """Kernel vs plain version at every layer × B∈{1, 8, 32} × {float32,
+    bf16} × relu6 on/off: each cell must be bit-identical (the same float32
+    operations in the same order, one rounding)."""
     from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw, fused_dw_plain
 
-    layers = [s for s in shapes if s["stride"] == 1]
-    if len(shapes) != 17 or len(layers) != DW_STRIDE1_CELLS:
-        raise AssertionError(f"MobileNetV2 depthwise cells: {shapes}")
-    pads = ((1, 1), (1, 1))
-    worst = {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "max_bf16_ulps": 0.0}
-    timed_inputs = []
+    worst, cells = 0.0, 0
     for layer in layers:
-        c, h, w = layer["c"], layer["h"], layer["w"]
         for b in DW_BATCHES:
             for dtype in (torch.float32, torch.bfloat16):
-                x = (torch.randn((b, c, h, w), generator=gen, device="cuda") * 3).to(dtype)
-                x = x.contiguous(memory_format=torch.channels_last)
-                taps = torch.randn((9, c), generator=gen, device="cuda")
-                bias = torch.randn((1, c), generator=gen, device="cuda")
+                x, taps, bias = dw_inputs(gen, layer, b, dtype)
                 for relu6 in (True, False):
-                    got = fused_dw(x, taps, bias, 3, 3, pads, relu6)
-                    ref = fused_dw_plain(x, taps, bias, 3, 3, pads, relu6)
+                    args = (x, taps, bias, 3, 3, layer["pads"], relu6, layer["stride"])
+                    got, ref = fused_dw(*args), fused_dw_plain(*args)
                     torch.cuda.synchronize()
                     if not got.is_contiguous(memory_format=torch.channels_last):
                         raise AssertionError("fused_dw output is not channels_last")
                     err = float((got.float() - ref.float()).abs().max())
-                    worst["max_abs_err"] = max(worst["max_abs_err"], err)
-                    if dtype == torch.float32:
-                        ok = err <= DW_TOL_F32
-                        worst["max_abs_err_f32"] = max(worst["max_abs_err_f32"], err)
-                    else:
-                        ulps = bf16_ulps(got, ref)
-                        ok = ulps <= 1.0
-                        worst["max_bf16_ulps"] = max(worst["max_bf16_ulps"], ulps)
-                    if not ok:
+                    worst = max(worst, err)
+                    cells += 1
+                    if not torch.equal(got, ref):
                         raise AssertionError(
                             f"fused_dw vs plain at {layer} B={b} {dtype} relu6={relu6}: "
                             f"max abs err {err}")
-                if b == 8 and dtype == torch.bfloat16:
-                    # the yardstick's bf16 weight [C, 1, 3, 3] and bias
-                    wt = taps.t().reshape(c, 1, 3, 3).to(dtype).contiguous(
-                        memory_format=torch.channels_last)
-                    timed_inputs.append((layer, x, taps, bias, wt, bias[0].to(dtype)))
+    return {"max_abs_err": worst, "compared": cells}
+
+
+def f32_chain(x, taps, bias, pads, stride):
+    """The stride-2 fused cell as the port served it before the kernel took
+    stride 2: cast in, pad, grouped conv + bias in float32 (cuDNN), clamp,
+    cast out. A timed yardstick only."""
+    import torch.nn.functional as F
+
+    (pt, pb), (pl, pr) = pads
+    c = x.shape[1]
+    y = F.conv2d(F.pad(x.float(), (pl, pr, pt, pb)), taps.t().reshape(c, 1, 3, 3), bias[0],
+                 stride=stride, groups=c)
+    return y.clamp(0.0, 6.0).to(x.dtype)
+
+
+def phase_fused_dw_kernel(gen: torch.Generator, shapes: list[dict]) -> dict:
+    """Kernel vs plain version at all 17 depthwise shapes of the main path
+    (13 stride 1, 4 stride 2) and the 4 stride-2 shapes made odd, × B∈{1,
+    8, 32} × {float32, bf16} × relu6 on/off, bit for bit; then at B=8 in
+    bf16 with relu6 (the main path's cells) the kernel's, the plain
+    version's and the yardsticks' device times beside the bound, per layer
+    with its launch shape, and for the stacks of the 13 stride-1 layers and
+    of all 17 in one CUDA graph each."""
+    import torch.nn.functional as F
+
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw, fused_dw_plain, kernel_shape
+
+    odd = [dw_odd(s) for s in shapes if s["stride"] == 2]
+    checked = dw_check(gen, shapes + odd)
+    emit({"phase": "fused_dw_check", "layers": len(shapes), "odd_layers": len(odd),
+          "batches": list(DW_BATCHES), **checked, "bit_identical": True})
+    timed_inputs = []
+    for layer in shapes:
+        x, taps, bias = dw_inputs(gen, layer, 8, torch.bfloat16)
+        c = layer["c"]
+        # the yardstick's bf16 weight [C, 1, 3, 3] and bias
+        wt = taps.t().reshape(c, 1, 3, 3).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        timed_inputs.append((layer, x, taps, bias, wt, bias[0].to(torch.bfloat16)))
+
+    def kernel(layer, x, taps, bias, *_):
+        return fused_dw(x, taps, bias, 3, 3, layer["pads"], True, layer["stride"])
+
+    def plain(layer, x, taps, bias, *_):
+        return fused_dw_plain(x, taps, bias, 3, 3, layer["pads"], True, layer["stride"])
+
+    def cudnn(layer, x, taps, bias, wt, bt):
+        # yardstick only: conv + bias without the clamp, not this function;
+        # at stride 2 on the reference's pads
+        if layer["stride"] == 1:
+            return F.conv2d(x, wt, bt, padding=1, groups=x.shape[1])
+        (pt, pb), (pl, pr) = layer["pads"]
+        return F.conv2d(F.pad(x, (pl, pr, pt, pb)), wt, bt, stride=2, groups=x.shape[1])
+
     rows = []
-    for layer, x, taps, bias, wt, bt in timed_inputs:
-        c, h, w = layer["c"], layer["h"], layer["w"]
+    for args in timed_inputs:
+        layer, x = args[0], args[1]
+        c, h, w, s = layer["c"], layer["h"], layer["w"], layer["stride"]
+        oh, ow = -(-h // s), -(-w // s)
+        shape = kernel_shape(x, 3, 3, layer["pads"], s)
         row = {"phase": "fused_dw_layer", **layer, "batch": 8, "dtype": "bfloat16",
-               "ms": graph_time_ms(lambda: fused_dw(x, taps, bias, 3, 3, pads)),
-               "call_ms": cuda_time_ms(lambda: fused_dw(x, taps, bias, 3, 3, pads)),
-               "plain_ms": graph_time_ms(lambda: fused_dw_plain(x, taps, bias, 3, 3, pads)),
-               # yardstick only: conv + bias without the clamp, not this function
-               "cudnn_ms": graph_time_ms(lambda: F.conv2d(x, wt, bt, padding=1, groups=c))}
-        row["bound_ms"], row["bound_by"] = dw_bound_ms(8, c, h, w, h, w, 2, 9, True)
+               "launch": shape._asdict(), "tile": shape.tile(), "blocks": shape.blocks(8, c, oh, ow),
+               "threads_per_block": shape.threads, "smem_bytes": shape.smem(s, 2),
+               "ms": graph_time_ms(lambda: kernel(*args)),
+               "call_ms": cuda_time_ms(lambda: kernel(*args)),
+               "plain_ms": graph_time_ms(lambda: plain(*args)),
+               "cudnn_ms": graph_time_ms(lambda: cudnn(*args))}
+        if s == 2:
+            row["f32_chain_ms"] = graph_time_ms(
+                lambda: f32_chain(x, args[2], args[3], layer["pads"], 2))
+        row["bound_ms"], row["bound_by"] = dw_bound_ms(8, c, h, w, oh, ow, 2, 9, True)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         emit(row)
         rows.append(row)
 
-    def stack(fn):
-        return lambda: [fn(*args) for _, *args in timed_inputs]
+    def stack(fn, subset):
+        return lambda: [fn(*args) for args in subset]
 
-    out = {"phase": "fused_dw_stack", "layers": len(rows), "batch": 8, "dtype": "bfloat16",
-           "ms": graph_time_ms(stack(lambda x, t, b, *_: fused_dw(x, t, b, 3, 3, pads))),
-           "plain_ms": graph_time_ms(stack(
-               lambda x, t, b, *_: fused_dw_plain(x, t, b, 3, 3, pads))),
-           "cudnn_ms": graph_time_ms(stack(
-               lambda x, t, b, wt, bt: F.conv2d(x, wt, bt, padding=1, groups=x.shape[1]))),
-           "bound_ms": sum(r["bound_ms"] for r in rows),
-           "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
-           "sum_of_layer_ms": sum(r["ms"] for r in rows),
-           "elements_per_image": sum(r["c"] * r["h"] * r["w"] for r in rows), **worst,
-           "tol_f32": DW_TOL_F32, "tol_bf16_ulps": 1.0,
-           "compared": len(layers) * len(DW_BATCHES) * 4}
-    out["share_of_bound"] = out["bound_ms"] / out["ms"]
-    emit(out)
-    return out
+    out = {}
+    for name, subset, sub_rows in (
+            ("stride1", [a for a in timed_inputs if a[0]["stride"] == 1],
+             [r for r in rows if r["stride"] == 1]),
+            ("all", timed_inputs, rows)):
+        st = {"phase": "fused_dw_stack", "stack": name, "layers": len(sub_rows), "batch": 8,
+              "dtype": "bfloat16", "ms": graph_time_ms(stack(kernel, subset)),
+              "plain_ms": graph_time_ms(stack(plain, subset)),
+              "cudnn_ms": graph_time_ms(stack(cudnn, subset)),
+              "bound_ms": sum(r["bound_ms"] for r in sub_rows),
+              "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in sub_rows)
+                           else "operations"),
+              "sum_of_layer_ms": sum(r["ms"] for r in sub_rows),
+              "elements_per_image": sum(r["c"] * r["h"] * r["w"] for r in sub_rows)}
+        st["share_of_bound"] = st["bound_ms"] / st["ms"]
+        st["vs_cudnn"] = st["ms"] / st["cudnn_ms"]
+        emit(st)
+        out[name] = st
+    # the floor under a small layer: the kernel on one 8-channel pixel, and
+    # the smallest ATen kernel, each one launch per CUDA graph node
+    one = dw_inputs(gen, {"c": 8, "h": 1, "w": 1}, 1, torch.bfloat16)
+    tiny = torch.zeros(8, device="cuda")
+    emit({"phase": "fused_dw_floor",
+          "ms": graph_time_ms(lambda: fused_dw(*one, 3, 3, ((1, 1), (1, 1)))),
+          "aten_fill_ms": graph_time_ms(lambda: tiny.fill_(1.0))})
+    slower = [r["block"] for r in rows if r["ms"] >= r["cudnn_ms"]]
+    slower += [r["block"] for r in rows if r["stride"] == 2 and r["ms"] >= r["f32_chain_ms"]]
+    emit({"phase": "fused_dw_vs_yardsticks", "slower_than_a_yardstick": slower,
+          "stride1_stack_vs_cudnn": out["stride1"]["vs_cudnn"]})
+    return {**out["all"], **checked, "stride1": out["stride1"]}
+
+
+def sweep_fused_dw(gen: torch.Generator, shapes: list[dict]) -> None:
+    """Device time of the kernel at every layer (B=8, bf16, relu6) under
+    each launch shape that fits the kernel's limits, beside the launch
+    rule's own; each launch held bit for bit against the plain version."""
+    from tensorflow_web_deploy_tpu_torch.ops import fused_dw as fd
+
+    for layer in shapes:
+        x, taps, bias = dw_inputs(gen, layer, 8, torch.bfloat16)
+        c, s, pads = layer["c"], layer["stride"], layer["pads"]
+        oh, ow = -(-layer["h"] // s), -(-layer["w"] // s)
+        ref = fd.fused_dw_plain(x, taps, bias, 3, 3, pads, True, s)
+        rule = fd.kernel_shape(x, 3, 3, pads, s)
+        results = []
+        for groups in [d for d in range(1, fd.MAX_GROUPS + 1) if (c // 8) % d == 0]:
+            for run in sorted({1, 2, 3, 4, 7, 8, 14} & set(range(1, ow + 1))):
+                for nx in sorted({-(-ow // run), -(-ow // (2 * run))}):
+                    for th in (1, 2, 3, 4, 7, 8, 14, 16):
+                        shape = fd.LaunchShape(groups, nx, th, run)
+                        if (shape.threads > fd.MAX_THREADS or th > oh or nx * run > ow + run
+                                or shape.smem(s, 2) > 232448):
+                            continue
+                        got = fd._launch(x, taps, bias, pads, True, s, shape)
+                        if not torch.equal(got, ref):
+                            raise AssertionError(f"{layer} {shape}: differs from plain")
+                        ms = graph_time_ms(lambda: fd._launch(x, taps, bias, pads, True, s, shape),
+                                           inner=10, replays=5)
+                        results.append((ms, shape))
+        results.sort(key=lambda r: r[0])
+        rule_ms = graph_time_ms(lambda: fd._launch(x, taps, bias, pads, True, s, rule))
+        emit({"phase": "fused_dw_sweep", "block": layer["block"], "c": c, "h": layer["h"],
+              "stride": s, "tried": len(results), "rule": rule._asdict(), "rule_ms": rule_ms,
+              "best": [{"ms": ms, **sh._asdict(), "blocks": sh.blocks(8, c, oh, ow)}
+                       for ms, sh in results[:6]],
+              "all": [[*sh, ms] for ms, sh in results]})
+
+
+def ptxas_report() -> str:
+    """nvcc -Xptxas -v on csrc/fused_dw.cu: registers, shared memory and
+    spills of each kernel instantiation."""
+    import tempfile
+
+    from tensorflow_web_deploy_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                               os.path.join(tmp, "lib.so"), str(_build.CSRC / "fused_dw.cu")],
+                              capture_output=True, text=True, timeout=300)
+    return proc.stdout + proc.stderr
 
 
 def make_jpegs(n: int, seed: int) -> list[bytes]:
@@ -432,8 +562,8 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
     """One main path behind HTTP: boot, a burst of every image at once with
     the kernels' counts set to 0 just before it and read just after, then
     (``second_burst``) the same burst again, and the images one at a time.
-    The served model must hold ``fused_cells`` fused stride-1 depthwise
-    cells, each launching the fused kernel once per batch."""
+    The served model must hold ``fused_cells`` fused depthwise cells (of
+    either stride), each launching the fused kernel once per batch."""
     from tensorflow_web_deploy_tpu_torch.models.common import DepthwiseConvBN
     from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
     from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
@@ -448,9 +578,9 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
         if eng.parity is not None and not eng.parity["pass"]:
             raise AssertionError(f"parity gate failed: {eng.parity}")
         served_cells = sum(1 for m in eng.model.modules()
-                           if isinstance(m, DepthwiseConvBN) and m.fused and m.stride == 1)
+                           if isinstance(m, DepthwiseConvBN) and m.fused)
         if served_cells != fused_cells:
-            raise AssertionError(f"{name}: {served_cells} fused stride-1 depthwise cells, "
+            raise AssertionError(f"{name}: {served_cells} fused depthwise cells, "
                                  f"want {fused_cells}")
         # the in-process client's first request builds urllib's opener
         # (an SSL context) in every thread that races into it; take that
@@ -472,13 +602,13 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
         want = {"preprocess_i420": batches, "fused_dw": fused_cells * batches}
         if batches == 0 or launches != want:
             raise AssertionError(f"{name}: kernel launches {launches} for {batches} batches "
-                                 f"({fused_cells} fused stride-1 depthwise cells): want {want}")
+                                 f"({fused_cells} fused depthwise cells): want {want}")
         emit({"phase": "burst_timeline", "model": name, "burst": 1, **timeline})
         row = {"phase": "main_path", "model": f"native:{name}", "width": 1.0,
                "dtype": cfg.model.dtype, "fused_dw": eng.fused_dw, "parity": eng.parity,
                "wire": "yuv420", "resize": "kernel", "requests": len(jpegs),
                "batches": batches, "kernel_launches": launches,
-               "fused_stride1_cells": fused_cells, "boot_s": boot_s,
+               "fused_dw_cells": fused_cells, "boot_s": boot_s,
                "img_per_s": len(jpegs) / wall,
                "p50_ms": timeline["client_latency_ms"]["p50"],
                "p99_ms": timeline["client_latency_ms"]["p99"]}
@@ -628,15 +758,46 @@ def device_profile(fn, top: int = 10) -> dict:
             "top": [{"name": k[:90], "count": n, "us": t} for k, n, t in rows[:top]]}
 
 
+def grouped_convs(fn) -> list[tuple[str, int]]:
+    """(input dtype, groups) of every grouped convolution that ``fn()``
+    dispatches: the depthwise convs that did not go through the fused
+    kernel."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.convs = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            # under inference_mode F.conv2d arrives as aten.conv2d, else as
+            # aten.convolution; groups is the last argument of either
+            at = {torch.ops.aten.conv2d: 6, torch.ops.aten.convolution: 8}.get(
+                func.overloadpacket)
+            if at is not None:
+                groups = kwargs.get("groups", args[at] if len(args) > at else 1)
+                if groups > 1:
+                    self.convs.append((str(args[0].dtype), int(groups)))
+            return func(*args, **kwargs)
+
+    with Recorder() as rec:
+        fn()
+    return rec.convs
+
+
 def phase_mobilenet_forward(jpegs: list[bytes]) -> dict:
     """Full-width MobileNetV2 at batch 8 on real main-path images (512
     canvas, preprocess kernel at 224): the forward's time in bf16 unfused,
     bf16 fused and int8 fused (CUDA events around one call, one forward
     replayed in a CUDA graph, and a profiler's kernel count and summed
-    device time), the preprocess kernel at 224 out, and one whole int8
-    engine batch on the host clock."""
+    device time), the grouped convolutions each forward still dispatches
+    (none when fused: all 17 depthwise cells launch the fused kernel), the
+    preprocess kernel at 224 out, and one whole int8 engine batch on the
+    host clock."""
     from tensorflow_web_deploy_tpu_torch.models.adapter import native_converted
     from tensorflow_web_deploy_tpu_torch.models.common import DepthwiseConvBN
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
     from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import (
         preprocess_i420,
         preprocess_i420_plain,
@@ -669,6 +830,15 @@ def phase_mobilenet_forward(jpegs: list[bytes]) -> dict:
                     for m in model.modules() if isinstance(m, DepthwiseConvBN))
                 if row["dequantize_taps_max_abs_err"] != 0.0:
                     raise AssertionError(f"dequantize_taps differs from dequantize: {row}")
+            launches = fused_dw.launches
+            convs = grouped_convs(lambda: model(xb))
+            row[f"forward_{label}_fused_dw_launches"] = fused_dw.launches - launches
+            row[f"forward_{label}_grouped_convs"] = len(convs)
+            want = (0, DW_CELLS) if fused else (DW_CELLS, 0)
+            if (len(convs), fused_dw.launches - launches) != want:
+                raise AssertionError(f"{label}: grouped convs {convs} and "
+                                     f"{fused_dw.launches - launches} fused_dw launches, "
+                                     f"want {want}")
             row[f"forward_{label}_ms"] = cuda_time_ms(lambda: model(xb), repeats=10)
             row[f"forward_{label}_graph_ms"] = graph_time_ms(lambda: model(xb), inner=3,
                                                              replays=5)
@@ -685,7 +855,10 @@ def phase_mobilenet_forward(jpegs: list[bytes]) -> dict:
     return row
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    if argv not in ([], ["--sweep-fused-dw"]):
+        print(f"usage: python3 chip_smoke.py [--sweep-fused-dw], not {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -705,6 +878,13 @@ def main() -> int:
           "libraries": [_build.library_path(k).name for k in KERNELS]})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if argv:
+        emit({"phase": "ptxas", "fused_dw": ptxas_report().splitlines()})
+        shapes = dw_layer_shapes()
+        emit({"phase": "fused_dw_check", **dw_check(
+            gen, shapes + [dw_odd(s) for s in shapes if s["stride"] == 2])})
+        sweep_fused_dw(gen, shapes)
+        return 0
     kern_err = phase_kernel(gen)
     dw = phase_fused_dw_kernel(gen, dw_layer_shapes())
     jpegs = make_jpegs(24, SEED)
@@ -712,7 +892,7 @@ def main() -> int:
                                 second_burst=True)
     phase_parity(jpegs, inception["served"], "inception_v3", "bfloat16")
     bd = phase_breakdown(jpegs)
-    mobilenet = phase_main_path(jpegs, "mobilenet_v2", "int8", fused_cells=DW_STRIDE1_CELLS,
+    mobilenet = phase_main_path(jpegs, "mobilenet_v2", "int8", fused_cells=DW_CELLS,
                                 second_burst=False)
     phase_parity(jpegs, mobilenet["served"], "mobilenet_v2", "int8")
     mf = phase_mobilenet_forward(jpegs)
@@ -741,8 +921,9 @@ def main() -> int:
         "plain_ms": dw["plain_ms"],
         "bound_ms": dw["bound_ms"],
         "bound_by": dw["bound_by"],
-        # F.conv2d(groups=C) + bias in bf16 over the same 13 layers: the
-        # closest one call; it leaves out the relu6 clamp
+        # F.conv2d(groups=C) + bias in bf16 over the same 17 layers (at
+        # stride 2 after F.pad by the reference's pads): the closest one
+        # call; it leaves out the relu6 clamp
         "library_ms": dw["cudnn_ms"],
     }]})
     print(smi, flush=True)
@@ -752,4 +933,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -135,7 +135,8 @@ class DepthwiseConvBN(ConvBNCell):
     BN (folded into the conv for serving) and the activation. ``fused=True``
     with relu6 or no activation serves the cell through
     ``ops/depthwise.py::fused_depthwise`` — BN folded into the taps and
-    bias, one op; the parameters are the same either way. The fold keeps
+    bias, one op, on the fused depthwise kernel at stride 1 and 2 alike;
+    the parameters are the same either way. The fold keeps
     the fused form's float32 operands once: ``taps`` [kh·kw, C] (an int8
     cell instead dequantizes into that layout on every call) and
     ``tap_bias`` [1, C].

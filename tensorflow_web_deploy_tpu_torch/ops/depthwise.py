@@ -6,10 +6,10 @@
   custom VJP is training and waits for the training slice.
 - :func:`fused_depthwise_bn` — dwconv + folded-BN affine + optional relu6
   as one op; :func:`fused_depthwise` is the same op on operands already
-  folded into float32 taps [kh·kw, C] and bias [1, C]. Stride 1 goes to
+  folded into float32 taps [kh·kw, C] and bias [1, C]. Every stride goes to
   :func:`..ops.fused_dw.fused_dw` (the hand-written kernel on a CUDA
-  tensor, its plain version on a CPU tensor); stride 2 is the grouped conv
-  in float32 (cuDNN on the card), as the TPU took XLA's.
+  tensor, its plain version on a CPU tensor): stride 1 is the reference's
+  Pallas kernel, stride 2 its ``_shift_mac``, the same arithmetic strided.
 
 The reference's ``pallas_fused_ok`` trial compile, which warns and falls
 back to XLA, is not carried over: a kernel that fails to build or launch
@@ -72,16 +72,14 @@ def fused_depthwise(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, ker
                     strides=(1, 1), padding="SAME", relu6: bool = True) -> torch.Tensor:
     """x [B, C, H, W] ⊛ taps [kh·kw, C] + bias [1, C] (both float32, BN
     already folded in), then an optional relu6 clamp; float32 accumulation,
-    one rounding to x's dtype. Stride 1 is :func:`..ops.fused_dw.fused_dw`;
-    any other stride is the grouped conv in float32 (cuDNN on the card)."""
+    one rounding to x's dtype: :func:`..ops.fused_dw.fused_dw` at stride 1
+    or 2 (the same along both axes)."""
     kh, kw = kernel_hw
-    strides = tuple(strides)
-    if strides == (1, 1):
-        pads = resolve_pads(padding, x.shape[2:], (kh, kw), strides)
-        return fused_dw(x, taps, bias, kh, kw, pads, relu6)
-    y = depthwise_conv2d(x.float(), taps.t().reshape(-1, 1, kh, kw), strides, padding,
-                         bias=bias[0])
-    return (y.clamp(0.0, 6.0) if relu6 else y).to(x.dtype)
+    sh, sw = strides
+    if sh != sw:
+        raise ValueError(f"fused depthwise takes one stride for both axes, got {tuple(strides)}")
+    pads = resolve_pads(padding, x.shape[2:], (kh, kw), (sh, sw))
+    return fused_dw(x, taps, bias, kh, kw, pads, relu6, sh)
 
 
 def fused_depthwise_bn(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor | None,

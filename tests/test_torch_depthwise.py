@@ -8,8 +8,14 @@ JAX package's on the same seeded inputs, float32, on the CPU.
 - ``fused_depthwise_bn`` against the reference's ``impl="xla"`` at stride
   1 and 2, on an even and an odd input: the odd one pins the reference's
   asymmetric "SAME" pads;
+- the fused kernel's plain version at stride 2 against the reference's
+  ``impl="xla"`` (its ``_shift_mac``) at 12, 13, 64 and 65 px, and the
+  stride-2 fused path routed through ``fused_dw``;
+- the kernel's launch rule on every MobileNetV2 depthwise shape;
 - ``DepthwiseConvBN`` fused and unfused on one parameter set.
 """
+
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,15 +27,23 @@ from tensorflow_web_deploy_tpu.ops.depthwise import depthwise_conv2d as jax_dwco
 from tensorflow_web_deploy_tpu.ops.depthwise import fused_depthwise_bn as jax_fused
 from tensorflow_web_deploy_tpu.ops.pallas_depthwise import fused_dw_call
 from tensorflow_web_deploy_tpu_torch.models.common import DepthwiseConvBN, fold_bn
+from tensorflow_web_deploy_tpu_torch.ops import depthwise as port_depthwise
 from tensorflow_web_deploy_tpu_torch.ops.depthwise import (
     depthwise_conv2d,
+    fused_depthwise,
     fused_depthwise_bn,
+    kernel_taps,
     same_pads,
 )
 from tensorflow_web_deploy_tpu_torch.ops.fused_dw import (
+    MAX_GROUPS,
+    MAX_THREADS,
+    SMEM_BUDGET,
+    VEC,
     fused_dw,
     fused_dw_call_plain,
     fused_dw_plain,
+    launch_shape,
 )
 
 torch.set_num_threads(2)
@@ -85,6 +99,70 @@ def test_fused_depthwise_bn_matches_jax(stride, size, relu6):
     np.testing.assert_allclose(_nhwc(got), want, **TOL)
 
 
+@pytest.mark.parametrize("size", [12, 13, 64, 65])
+@pytest.mark.parametrize("c", [8, 24])
+@pytest.mark.parametrize("relu6", [True, False])
+def test_stride2_plain_matches_jax_shift_mac(size, c, relu6):
+    """The kernel's plain version at stride 2 on the reference's pads ((0, 1)
+    on an even input, (1, 1) on an odd one) against the reference's XLA
+    path, which runs ``_shift_mac``."""
+    rs = np.random.RandomState(size * 100 + c + relu6)
+    x, k, s, t = _dw_inputs(rs, 2, size, size, c)
+    want = np.asarray(jax_fused(x, k, s, t, strides=(2, 2), relu6=relu6, impl="xla"))
+    taps = kernel_taps(_torch_kernel(k) * torch.from_numpy(s)[:, None, None, None])
+    pads = (same_pads(size, 3, 2),) * 2
+    got = fused_dw_plain(_nchw(x), taps, torch.from_numpy(t).reshape(1, -1), 3, 3, pads, relu6,
+                         stride=2)
+    assert got.shape == (2, c, -(-size // 2), -(-size // 2))
+    np.testing.assert_allclose(_nhwc(got), want, **TOL)
+
+
+@pytest.mark.parametrize("size", [12, 13])
+def test_stride2_fused_path_goes_through_fused_dw(size, monkeypatch):
+    calls = []
+
+    def recording(*args, **kwargs):
+        calls.append((args[4:], kwargs))
+        return fused_dw(*args, **kwargs)
+
+    monkeypatch.setattr(port_depthwise, "fused_dw", recording)
+    rs = np.random.RandomState(size)
+    x = torch.from_numpy(rs.randn(1, 16, size, size).astype(np.float32))
+    taps = torch.from_numpy(rs.randn(9, 16).astype(np.float32))
+    bias = torch.from_numpy(rs.randn(1, 16).astype(np.float32))
+    got = fused_depthwise(x, taps, bias, (3, 3), strides=(2, 2))
+    pads = (same_pads(size, 3, 2),) * 2
+    assert calls == [((3, pads, True, 2), {})]
+    assert torch.equal(got, fused_dw_plain(x, taps, bias, 3, 3, pads, True, 2))
+    with pytest.raises(ValueError, match="one stride"):
+        fused_depthwise(x, taps, bias, (3, 3), strides=(1, 2))
+
+
+# every depthwise cell of full-width MobileNetV2 at 224: (C, H, stride)
+MOBILENET_V2_DW = [(32, 112, 1), (96, 112, 2), (144, 56, 1), (144, 56, 2), (192, 28, 1),
+                   (192, 28, 1), (192, 28, 2), (384, 14, 1), (384, 14, 1), (384, 14, 1),
+                   (384, 14, 1), (576, 14, 1), (576, 14, 1), (576, 14, 2), (960, 7, 1),
+                   (960, 7, 1), (960, 7, 1)]
+
+
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("elt", [2, 4])
+def test_launch_shape_covers_every_layer(b, elt):
+    """The launch rule's tiling fits the kernel's limits and covers each
+    output once; at batch 8 in bf16 every layer gets 2 blocks per SM."""
+    assert len(MOBILENET_V2_DW) == 17
+    for c, h, stride in MOBILENET_V2_DW:
+        o = -(-h // stride)
+        shape = launch_shape(b, c, o, o, stride, elt, sms=132)
+        th, tw, cb = shape.tile()
+        assert 1 <= shape.groups <= MAX_GROUPS and c % cb == 0 and cb == VEC * shape.groups
+        assert shape.threads <= MAX_THREADS and shape.smem(stride, elt) <= SMEM_BUDGET
+        gx, gy, gz = shape.grid(b, c, o, o)
+        assert gx * cb == b * c and (gy - 1) * th < o <= gy * th and (gz - 1) * tw < o <= gz * tw
+        if b >= 8 and elt == 2:
+            assert shape.blocks(b, c, o, o) >= 2 * 132, (c, h, stride, shape)
+
+
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("size", [12, 13])
 def test_depthwise_conv2d_matches_jax(stride, size):
@@ -138,25 +216,29 @@ def test_fused_dw_checks_its_inputs():
         fused_dw(torch.zeros(1, 8, 1, 1), taps, bias, 3, 3, ((0, 0), (0, 0)))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         fused_dw(x.to("meta"), taps.to("meta"), bias.to("meta"), 3, 3, ((1, 1), (1, 1)))
+    with pytest.raises(ValueError, match="stride"):
+        fused_dw(x, taps, bias, 3, 3, ((1, 1), (1, 1)), stride=3)
     y = fused_dw(x.to(torch.bfloat16), taps, bias, 3, 3, ((1, 1), (1, 1)))
     assert y.dtype == torch.bfloat16 and y.shape == (1, 8, 5, 5)
+    assert fused_dw(x, taps, bias, 3, 3, ((0, 1), (1, 1)), stride=2).shape == (1, 8, 2, 3)
 
 
 @pytest.mark.cuda
 def test_fused_dw_kernel_matches_plain_on_card():
     """Runs on a machine with a CUDA card and nvcc (chip_smoke.py covers
-    every full-width layer shape)."""
+    every full-width layer shape): stride 1 and 2, even and odd sizes, the
+    reference's SAME pads."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     rs = np.random.RandomState(0)
-    for dtype in (torch.float32, torch.bfloat16):
-        for relu6 in (True, False):
-            x = torch.from_numpy(rs.randn(2, 24, 9, 11).astype(np.float32)).cuda().to(dtype)
-            x = x.contiguous(memory_format=torch.channels_last)
-            taps = torch.from_numpy(rs.randn(9, 24).astype(np.float32)).cuda()
-            bias = torch.from_numpy(rs.randn(1, 24).astype(np.float32)).cuda()
-            pads = ((1, 1), (1, 1))
-            got = fused_dw(x, taps, bias, 3, 3, pads, relu6)
-            ref = fused_dw_plain(x, taps, bias, 3, 3, pads, relu6)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    for (h, w), stride, dtype, relu6 in itertools.product(
+            ((9, 11), (12, 12), (13, 13)), (1, 2), (torch.float32, torch.bfloat16), (True, False)):
+        x = torch.from_numpy(rs.randn(2, 24, h, w).astype(np.float32)).cuda().to(dtype)
+        x = x.contiguous(memory_format=torch.channels_last)
+        taps = torch.from_numpy(rs.randn(9, 24).astype(np.float32)).cuda()
+        bias = torch.from_numpy(rs.randn(1, 24).astype(np.float32)).cuda()
+        pads = (same_pads(h, 3, stride), same_pads(w, 3, stride))
+        got = fused_dw(x, taps, bias, 3, 3, pads, relu6, stride)
+        ref = fused_dw_plain(x, taps, bias, 3, 3, pads, relu6, stride)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, atol=0, rtol=0)
