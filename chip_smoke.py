@@ -14,17 +14,24 @@ yuv420 wire with the preprocess kernel:
   parity check and checked against the unfused float32 model on the same
   images.
 
+The preprocess kernel is checked through both of its entries (the
+``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
+float32 and bf16, and both main paths feed their models its bf16 output
+directly: one launch for the whole preprocess stage, which the
+``preprocess_stage`` lines show with the profiler.
+
 Each phase prints one JSON line; the line before the last holds the card's
 name and power limit, and the last line is ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero without that line. Without a CUDA
 device it exits with code 2.
 
     python3 chip_smoke.py --sweep-fused-dw
+    python3 chip_smoke.py --sweep-preprocess
 
-instead builds the kernels, prints nvcc's register report for the fused
-depthwise kernel, checks it bit for bit against its plain version at
-every shape, and times it at each layer under every launch shape that
-fits, beside the launch rule's choice; it prints no ``ok`` line.
+instead build the kernels, print nvcc's register report for one kernel,
+check it against its plain version at every shape, and time it under
+every launch shape that fits, beside the launch rule's choice; they print
+no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -55,6 +62,9 @@ SERVED_TOL = 1e-2
 # kernel vs plain float32: same taps and order; the plain version's matmul
 # may fuse a multiply-add, so allow a few ulps of the largest value
 KERNEL_TOL = {"inception": 1e-5, "zero_one": 1e-5, "raw": 1e-3}
+# preprocess kernel checks: batches and canvas sides
+PP_BATCHES = (1, 8, 32)
+PP_SIDES = (256, 512, 1024, 2048)
 # fused depthwise kernel vs plain: the same float32 operations in the same
 # order and one rounding, so every cell must be bit-identical
 DW_BATCHES = (1, 8, 32)
@@ -122,90 +132,179 @@ def graph_time_ms(fn, inner: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (inner * replays)
 
 
-def bound_ms(hws: np.ndarray, s: int, out_h: int, out_w: int) -> tuple[float, str]:
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one ``fn()`` in µs: ``calls`` calls enqueued back to back
+    on the host clock. A call that enqueues less device time than it takes
+    on the host never waits for the device, so this is the wrapper's cost."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / calls * 1e6
+
+
+def bound_ms(hws: np.ndarray, s: int, out_h: int, out_w: int, elt: int,
+             meta_bytes: int) -> tuple[float, str]:
     """Least time for one preprocess call on this batch: the canvas bytes
     its taps need (tap rows × tap columns of Y, and of U and V at half
-    resolution), the hws table and the float32 output, over the memory
-    rate; or ~55 float32 operations per output pixel over the float32
-    rate, whichever is larger."""
+    resolution), ``meta_bytes`` per image for the valid size (8 from a
+    table, 4 from a trailer) and the output at ``elt`` bytes an element,
+    over the memory rate; or ~55 float32 operations per output pixel over
+    the float32 rate, whichever is larger."""
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import axis_taps
 
-    def taps(out_size, valid):
-        i = np.arange(out_size, dtype=np.float32)
-        in_f = np.float32(valid)
-        c = (i + np.float32(0.5)) * (in_f / np.float32(out_size)) - np.float32(0.5)
-        c = np.clip(c, 0, in_f - 1)
-        lo = np.floor(c)
-        hi = np.minimum(np.minimum(lo + 1, in_f - 1), s - 1)
-        return np.unique(np.concatenate([lo, hi]).astype(np.int64))
-
-    read = hws.size * 4
+    read = len(hws) * meta_bytes
     for h, w in hws:
-        rows, cols = taps(out_h, h), taps(out_w, w)
+        (rlo, rhi, _), (clo, chi, _) = axis_taps(out_h, h, s), axis_taps(out_w, w, s)
+        rows, cols = np.unique(np.concatenate([rlo, rhi])), np.unique(np.concatenate([clo, chi]))
         read += rows.size * cols.size + 2 * np.unique(rows // 2).size * np.unique(cols // 2).size
-    written = len(hws) * out_h * out_w * 3 * 4
+    written = len(hws) * out_h * out_w * 3 * elt
     t_bytes = (read + written) / MEM_BYTES_PER_S * 1e3
     t_ops = len(hws) * out_h * out_w * 55 / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def wire_batch(b: int, s: int, gen: torch.Generator) -> torch.Tensor:
-    """Random I420 canvases as the engine hands them to the kernel: views
-    into one packed wire buffer whose rows end in a 4-byte trailer."""
+def wire_buffer(canvases, hws: np.ndarray) -> torch.Tensor:
+    """The engine's wire buffer on the card: each row an I420 canvas, then
+    its valid (h, w) as big-endian u16 (serving/engine.py::dispatch_batch).
+    ``canvases`` [B, 3S/2, S] uint8, numpy or on the card."""
+    b = len(hws)
+    canvases = torch.as_tensor(canvases, device="cuda").reshape(b, -1)
+    trailer = np.asarray(hws).astype(">u2").view(np.uint8).reshape(b, 4)
+    return torch.cat([canvases, torch.from_numpy(trailer).cuda()], dim=1)
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance in bf16 ulps between two bf16 tensors (±0 equal)."""
+    def order(x):
+        bits = x.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (order(a) - order(b)).abs()
+
+
+def bf16_vs_plain(got: torch.Tensor, ref: torch.Tensor, mode: str) -> dict:
+    """The kernel's bf16 output against the plain float32 result: elements
+    that differ from it rounded to bf16, their largest distance in bf16
+    ulps (overall, and where |ref| ≥ 2^-8: near zero inception's x/127.5 - 1
+    cancels and float32 results an ulp apart span many of bf16's finer
+    ulps), and the largest error against the float32 value, which must stay
+    within the float32 tolerance plus bf16's rounding (2^-8 relative)."""
+    ulps = bf16_ulps(got, ref.to(torch.bfloat16))
+    away = ref.abs() >= 2 ** -8
+    err = (got.float() - ref).abs()
+    if not bool((err <= KERNEL_TOL[mode] + 2 ** -8 * ref.abs()).all()):
+        raise AssertionError(f"bf16 kernel vs plain ({mode}): max abs err {float(err.max())}")
+    return {"bf16_differ": int((ulps > 0).sum()), "bf16_max_ulps": int(ulps.max()),
+            "bf16_max_ulps_away_from_zero": int(ulps[away].max()) if away.any() else 0,
+            "bf16_max_abs_err": float(err.max())}
+
+
+def wire_batch(b: int, s: int, hws: np.ndarray, gen: torch.Generator) -> torch.Tensor:
+    """Random I420 canvases in a wire buffer as the engine ships them, each
+    row ending in its (h, w) trailer. Rows are 1.5·S² + 4 bytes, so image
+    k starts at 4k mod 16: every alignment class occurs from B = 4 on."""
     nbytes = s * s * 3 // 2
-    buf = torch.randint(0, 256, (b, nbytes + 4), generator=gen, dtype=torch.uint8,
-                        device="cuda")
-    return buf[:, :nbytes].unflatten(1, (s * 3 // 2, s))
+    return wire_buffer(torch.randint(0, 256, (b, nbytes), generator=gen, dtype=torch.uint8,
+                                     device="cuda"), hws)
+
+
+def preprocess_before(buf: torch.Tensor, s: int, out: int) -> torch.Tensor:
+    """The preprocess stage as the engine ran it before the kernel read the
+    wire and stored bf16: trailer decode (ATen), the kernel through the
+    table entry in float32, a cast. A timed yardstick only."""
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import (
+        decode_trailer,
+        preprocess_i420,
+        wire_canvases,
+    )
+
+    return preprocess_i420(wire_canvases(buf, s), decode_trailer(buf), out, out).to(
+        torch.bfloat16)
 
 
 def phase_kernel(gen: torch.Generator) -> float:
-    """Kernel vs plain version at every batch/canvas/mode; returns the
-    largest error."""
+    """Kernel vs plain version at every batch/canvas/mode, through both
+    entries on views into one wire buffer, in float32 and bf16; the two
+    entries must agree bit for bit. At inception mode each (batch, canvas)
+    is timed: both entries, the stage as it ran before, the plain version,
+    the wrapper's host time. Returns the largest float32 error."""
     import torch.nn.functional as F
 
     from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import (
         preprocess_i420,
         preprocess_i420_plain,
+        preprocess_i420_wire,
+        wire_canvases,
     )
 
     rs = np.random.RandomState(SEED)
     worst = 0.0
-    for b in (1, 8, 32):
-        for s in (256, 512):
-            packed = wire_batch(b, s, gen)
+    bf16 = torch.bfloat16
+    for b in PP_BATCHES:
+        for s in PP_SIDES:
             hws_np = rs.randint(1, s + 1, (b, 2)).astype(np.int32)
             hws_np[0] = (s, s)
             if b > 1:
                 hws_np[1] = (1, 1)  # a hole row, as padding rows are
-            hws = torch.from_numpy(hws_np).cuda()
+            buf = wire_batch(b, s, hws_np, gen)
+            packed, hws = wire_canvases(buf, s), torch.from_numpy(hws_np).cuda()
             for mode in ("inception", "zero_one", "raw"):
-                got = preprocess_i420(packed, hws, OUT, OUT, mode)
                 ref = preprocess_i420_plain(packed, hws, OUT, OUT, mode)
-                torch.cuda.synchronize()
-                err = float((got - ref).abs().max())
-                if not err <= KERNEL_TOL[mode]:
-                    raise AssertionError(
-                        f"kernel vs plain at B={b} S={s} {mode}: max abs err {err} "
-                        f"> {KERNEL_TOL[mode]}")
-                worst = max(worst, err)
                 row = {"phase": "kernel", "kernel": "preprocess_i420", "batch": b,
-                       "canvas": s, "mode": mode, "max_abs_err": err,
-                       "tol": KERNEL_TOL[mode]}
+                       "canvas": s, "mode": mode, "tol": KERNEL_TOL[mode]}
+                for dtype in (torch.float32, bf16):
+                    got = preprocess_i420(packed, hws, OUT, OUT, mode, dtype)
+                    wire = preprocess_i420_wire(buf, s, OUT, OUT, mode, dtype)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, wire):
+                        raise AssertionError(f"wire vs table entry at B={b} S={s} {mode} {dtype}")
+                    if dtype == bf16:
+                        row.update(bf16_vs_plain(got, ref, mode))
+                        continue
+                    err = float((got - ref).abs().max())
+                    if not err <= KERNEL_TOL[mode]:
+                        raise AssertionError(
+                            f"kernel vs plain at B={b} S={s} {mode}: max abs err {err} "
+                            f"> {KERNEL_TOL[mode]}")
+                    worst = max(worst, err)
+                    row["max_abs_err"] = err
                 if mode == "inception":
                     x = torch.rand((b, 3, s, s), generator=gen, device="cuda") * 255
                     row.update(
-                        ms=graph_time_ms(lambda: preprocess_i420(packed, hws, OUT, OUT, mode)),
+                        ms=graph_time_ms(lambda: preprocess_i420_wire(buf, s, OUT, OUT, mode, bf16)),
+                        ms_f32=graph_time_ms(lambda: preprocess_i420(packed, hws, OUT, OUT, mode)),
+                        before_ms=graph_time_ms(lambda: preprocess_before(buf, s, OUT)),
                         call_ms=cuda_time_ms(
-                            lambda: preprocess_i420(packed, hws, OUT, OUT, mode)),
+                            lambda: preprocess_i420_wire(buf, s, OUT, OUT, mode, bf16)),
+                        host_us=host_us(lambda: preprocess_i420_wire(buf, s, OUT, OUT, mode, bf16)),
                         plain_ms=graph_time_ms(
-                            lambda: preprocess_i420_plain(packed, hws, OUT, OUT, mode)),
+                            lambda: preprocess_i420_plain(packed, hws, OUT, OUT, mode, bf16),
+                            inner=3, replays=3),
                         # yardstick only: bilinear resize of a float32 RGB
                         # canvas, not the same function
                         interpolate_ms=graph_time_ms(lambda: F.interpolate(
                             x, (OUT, OUT), mode="bilinear", align_corners=False)),
                     )
-                    row["bound_ms"], row["bound_by"] = bound_ms(hws_np, s, OUT, OUT)
-                    row["bound_us_at_3.35TBps"] = row["bound_ms"] * 1e3
+                    row["bound_ms"], row["bound_by"] = bound_ms(hws_np, s, OUT, OUT, 2, 4)
+                    row["bound_ms_f32"] = bound_ms(hws_np, s, OUT, OUT, 4, 8)[0]
+                    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+                    del x
                 emit(row)
+            del buf, packed, ref
+    # trailers the engine never sends: both entries clamp them to [1, S]
+    s, odd = 512, np.array([[0, 0], [512 + 9, 3], [70, 65535], [300, 200]], np.int32)
+    buf = wire_batch(len(odd), s, odd, gen)
+    clamped = torch.from_numpy(np.clip(odd, 1, s)).cuda()
+    got = preprocess_i420_wire(buf, s, OUT, OUT)
+    table = preprocess_i420(wire_canvases(buf, s), torch.from_numpy(odd).cuda(), OUT, OUT)
+    ref = preprocess_i420_plain(wire_canvases(buf, s), clamped, OUT, OUT)
+    err = float((got - ref).abs().max())
+    if not torch.equal(got, table) or err > KERNEL_TOL["inception"]:
+        raise AssertionError(f"out-of-range trailers: wire vs table vs clamped plain, err {err}")
+    emit({"phase": "kernel_clamp", "trailers": odd.tolist(), "max_abs_err": err})
     return worst
 
 
@@ -439,8 +538,8 @@ def sweep_fused_dw(gen: torch.Generator, shapes: list[dict]) -> None:
               "all": [[*sh, ms] for ms, sh in results]})
 
 
-def ptxas_report() -> str:
-    """nvcc -Xptxas -v on csrc/fused_dw.cu: registers, shared memory and
+def ptxas_report(name: str) -> str:
+    """nvcc -Xptxas -v on csrc/<name>.cu: registers, shared memory and
     spills of each kernel instantiation."""
     import tempfile
 
@@ -448,9 +547,54 @@ def ptxas_report() -> str:
 
     with tempfile.TemporaryDirectory() as tmp:
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-                               os.path.join(tmp, "lib.so"), str(_build.CSRC / "fused_dw.cu")],
+                               os.path.join(tmp, "lib.so"), str(_build.CSRC / f"{name}.cu")],
                               capture_output=True, text=True, timeout=300)
     return proc.stdout + proc.stderr
+
+
+def sweep_preprocess(gen: torch.Generator) -> None:
+    """Device time of the preprocess kernel (wire entry, bf16, inception)
+    at B∈{1, 8, 32} × S∈{512, 2048} × out∈{299, 224} on valid sizes drawn
+    from [S/2, S], under every launch shape that fits (rows per band ×
+    threads), beside the launch rule's, and the rule's in each normalize
+    mode; each launch must equal the rule's bit for bit."""
+    from tensorflow_web_deploy_tpu_torch.ops import preprocess_i420 as pp
+
+    rs = np.random.RandomState(SEED)
+    bf16 = torch.bfloat16
+    for b in PP_BATCHES:
+        for s in (512, 2048):
+            hws_np = rs.randint(s // 2, s + 1, (b, 2)).astype(np.int32)
+            buf = wire_batch(b, s, hws_np, gen)
+            for out in (OUT, 224):
+                def launch(shape, mode="inception"):
+                    return pp._launch(buf, buf.stride(0), None, b, s, out, out, mode, bf16,
+                                      shape)
+
+                rule = pp._rule(b, s, out, out, 2, 0)
+                want = launch(rule)
+                results = []
+                for rows in (1, 2, 4, 8, 16, 32):
+                    for threads in (64, 128, 256, 512):
+                        shape = pp.LaunchShape(rows, threads)
+                        if shape.smem(s, out, 2) > pp.MAX_SMEM:
+                            continue
+                        if not torch.equal(launch(shape), want):
+                            raise AssertionError(f"B={b} S={s} out={out} {shape}: differs")
+                        results.append((graph_time_ms(lambda: launch(shape), inner=10,
+                                                      replays=5), shape))
+                results.sort(key=lambda r: r[0])
+                emit({"phase": "preprocess_sweep", "batch": b, "canvas": s, "out": out,
+                      "tried": len(results), "rule": rule._asdict(),
+                      "rule_ms": graph_time_ms(lambda: launch(rule)),
+                      "rule_ms_by_mode": {m: graph_time_ms(lambda: launch(rule, m))
+                                          for m in pp.MODES},
+                      "rule_smem": rule.smem(s, out, 2), "rule_blocks": rule.blocks(b, out),
+                      "bound_ms": bound_ms(hws_np, s, out, out, 2, 4)[0],
+                      "best": [{"ms": ms, **sh._asdict(), "blocks": sh.blocks(b, out)}
+                               for ms, sh in results[:6]],
+                      "all": [[*sh, ms] for ms, sh in results]})
+            del buf
 
 
 def make_jpegs(n: int, seed: int) -> list[bytes]:
@@ -652,8 +796,8 @@ def phase_parity(jpegs: list[bytes], served: list[tuple[int, float]], name: str,
             canvas, hw, _ = eng.prepare_bytes(data)
             packed = torch.from_numpy(canvas[None]).cuda()
             hws = torch.tensor([hw], dtype=torch.int32, device="cuda")
-            x = preprocess_i420(packed, hws, out, out, "inception")
-            p = eng.model(x.to(eng.dtype)).float()
+            x = preprocess_i420(packed, hws, out, out, "inception", eng.dtype)
+            p = eng.model(x).float()
             xr = NORMALIZERS["inception"](resize_yuv_planes(packed, hws, out, out))
             probs.append(p.cpu().numpy()[0])
             probs_f32.append(ref_model(xr).cpu().numpy()[0])
@@ -687,10 +831,10 @@ def phase_parity(jpegs: list[bytes], served: list[tuple[int, float]], name: str,
     return row
 
 
-def batch_of_8(eng, jpegs: list[bytes]) -> tuple[torch.Tensor, torch.Tensor, np.ndarray, float]:
-    """The first 8 main-path images that land in the 512 canvas: packed
-    canvases and valid sizes on the card, the sizes on the host, and the
-    host prepare time (decode + pad + I420 pack) per image in ms."""
+def batch_of_8(eng, jpegs: list[bytes]) -> tuple[torch.Tensor, np.ndarray, float]:
+    """The first 8 main-path images that land in the 512 canvas: their wire
+    buffer on the card, their valid sizes on the host, and the host prepare
+    time (decode + pad + I420 pack) per image in ms."""
     t0 = time.perf_counter()
     prepared = [eng.prepare_bytes(d) for d in jpegs]
     prepare_ms = (time.perf_counter() - t0) / len(jpegs) * 1e3
@@ -698,46 +842,95 @@ def batch_of_8(eng, jpegs: list[bytes]) -> tuple[torch.Tensor, torch.Tensor, np.
     if len(big) < 8:
         raise AssertionError(f"only {len(big)} images in the 512 canvas")
     hws_np = np.array([hw for _, hw in big], np.int32)
-    return (torch.from_numpy(np.stack([c for c, _ in big])).cuda(),
-            torch.from_numpy(hws_np).cuda(), hws_np, prepare_ms)
+    return wire_buffer(np.stack([c for c, _ in big]), hws_np), hws_np, prepare_ms
+
+
+def preprocess_stage(eng, buf: torch.Tensor, out: int) -> dict:
+    """The engine's preprocess stage on one wire buffer in the 512 canvas:
+    its bf16 output against the plain version, the kernel's device time
+    (bf16 from the wire; float32 from the table), the stage as it ran
+    before (trailer decode + float32 kernel + cast) and its two removed
+    parts alone, the plain version, the wrapper's host time, the bound, and
+    the kernels each form of the stage launches: the engine's must launch
+    the preprocess kernel once a call (its counter) and nothing else (the
+    profiler)."""
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import (
+        decode_trailer,
+        preprocess_i420,
+        preprocess_i420_plain,
+        preprocess_i420_wire,
+        wire_canvases,
+    )
+
+    s, bf16 = 512, torch.bfloat16
+    packed, hws = wire_canvases(buf, s), decode_trailer(buf)
+    x = eng.preprocess_packed(buf)
+    if x.dtype != eng.dtype or tuple(x.shape) != (buf.shape[0], out, out, 3):
+        raise AssertionError(f"preprocess stage gave {x.dtype} {tuple(x.shape)}")
+    ref = preprocess_i420_plain(packed, hws, out, out)
+    x32 = preprocess_i420(packed, hws, out, out)
+    row = {"phase": "preprocess_stage", "batch": buf.shape[0], "canvas": s, "out": out,
+           "max_abs_err": float((x32 - ref).abs().max()), **bf16_vs_plain(x, ref, "inception"),
+           "ms": graph_time_ms(lambda: preprocess_i420_wire(buf, s, out, out, "inception", bf16)),
+           "ms_f32": graph_time_ms(lambda: preprocess_i420(packed, hws, out, out)),
+           "before_ms": graph_time_ms(lambda: preprocess_before(buf, s, out)),
+           "decode_ms": graph_time_ms(lambda: decode_trailer(buf)),
+           "cast_ms": graph_time_ms(lambda: x32.to(bf16)),
+           "plain_ms": graph_time_ms(lambda: preprocess_i420_plain(
+               packed, decode_trailer(buf), out, out, "inception", bf16)),
+           "call_ms": cuda_time_ms(lambda: eng.preprocess_packed(buf)),
+           "host_us": host_us(lambda: preprocess_i420_wire(buf, s, out, out, "inception", bf16)),
+           "engine_host_us": host_us(lambda: eng.preprocess_packed(buf)),
+           "before_host_us": host_us(lambda: preprocess_before(buf, s, out))}
+    hws_np = hws.cpu().numpy()
+    row["bound_ms"], row["bound_by"] = bound_ms(hws_np, s, out, out, 2, 4)
+    row["bound_ms_f32"] = bound_ms(hws_np, s, out, out, 4, 8)[0]
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    # one stage call = one launch of the kernel (its counter) and no other
+    # kernel (every kernel the profiler recorded in the stage's windows)
+    launches = preprocess_i420.launches
+    stage = profiled_calls(lambda: eng.preprocess_packed(buf))
+    launches_per_call = (preprocess_i420.launches - launches) / stage["fn_calls"]
+    before = profiled_calls(lambda: preprocess_before(buf, s, out))
+    row.update(stage_launches_per_call=launches_per_call,
+               stage_kernels_recorded=stage["kernels"] / stage["calls"], stage_top=stage["top"],
+               before_kernels_recorded=before["kernels"] / before["calls"],
+               before_top=before["top"], profile_attempts=[stage["attempts"], before["attempts"]])
+    if (launches_per_call != 1 or len(stage["top"]) != 1
+            or "preprocess_i420" not in stage["top"][0]["name"]):
+        raise AssertionError(f"the preprocess stage launched {launches_per_call} preprocess "
+                             f"kernels a call and {stage}")
+    emit(row)
+    return row
 
 
 def phase_breakdown(jpegs: list[bytes]) -> dict:
     """Device time per stage of one batch of 8 main-path images in the
-    512 canvas: preprocess kernel, forward (bf16), top-k; and the kernel's
-    row for the kernels line, measured on these real inputs."""
-    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import (
-        preprocess_i420,
-        preprocess_i420_plain,
-    )
+    512 canvas: the preprocess stage (one kernel, bf16 out), forward (bf16)
+    on its output, top-k; and the kernel's row for the kernels line,
+    measured on these real inputs."""
     from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
 
     eng = InferenceEngine(_config("inception_v3", "bfloat16", warmup=False), device="cuda",
                           seed=SEED)
-    packed, hws, hws_np, prepare_ms = batch_of_8(eng, jpegs)
-    host = packed.cpu().numpy()
+    buf, hws_np, prepare_ms = batch_of_8(eng, jpegs)
+    host = buf[:, :-4].reshape(8, 768, 512).cpu().numpy()
     with torch.inference_mode():
-        x = preprocess_i420(packed, hws, OUT, OUT, "inception")
-        xb = x.to(torch.bfloat16)
-        probs = eng.model(xb).float()
-        err = float((x - preprocess_i420_plain(packed, hws, OUT, OUT, "inception")).abs().max())
+        stage = preprocess_stage(eng, buf, OUT)
+        x = eng.preprocess_packed(buf)
+        probs = eng.model(x).float()
         row = {"phase": "breakdown", "batch": 8, "canvas": 512,
-               "kernel_ms": graph_time_ms(lambda: preprocess_i420(packed, hws, OUT, OUT)),
-               "kernel_call_ms": cuda_time_ms(lambda: preprocess_i420(packed, hws, OUT, OUT)),
-               "plain_ms": graph_time_ms(
-                   lambda: preprocess_i420_plain(packed, hws, OUT, OUT)),
-               "forward_bf16_ms": cuda_time_ms(lambda: eng.model(xb), repeats=10),
+               "preprocess_ms": stage["ms"],
+               "forward_bf16_ms": cuda_time_ms(lambda: eng.model(x), repeats=10),
                "topk_ms": graph_time_ms(lambda: torch.topk(probs, 5, dim=-1)),
-               "max_abs_err": err,
                # host side: decode + pad + I420 pack per image, and one
                # whole engine batch (stage, H2D, serve, D2H) with its wait
                "host_prepare_ms_per_image": prepare_ms,
                "run_batch_ms": statistics.median(
                    timed(lambda: eng.run_batch(host, hws_np)) for _ in range(10))}
-    row["bound_ms"], row["bound_by"] = bound_ms(hws_np, 512, OUT, OUT)
     eng.close()
     emit(row)
-    return row
+    return stage
 
 
 def device_profile(fn, top: int = 10) -> dict:
@@ -756,6 +949,26 @@ def device_profile(fn, top: int = 10) -> dict:
     rows.sort(key=lambda r: -r[2])
     return {"kernels": sum(r[1] for r in rows), "device_us": sum(r[2] for r in rows),
             "top": [{"name": k[:90], "count": n, "us": t} for k, n, t in rows[:top]]}
+
+
+def profiled_calls(fn, calls: int = 5, attempts: int = 3) -> dict:
+    """``device_profile`` of ``calls`` calls of ``fn()`` in one window, and
+    how many times ``fn`` ran in all (``fn_calls``, warm-up included). The
+    profiler drops device events now and then in a window this short, a
+    few or all of them: an empty profile is taken again, up to ``attempts``
+    times, and then fails; the kernel counts it returns are lower bounds."""
+    ran = 0
+
+    def counted():
+        nonlocal ran
+        ran += 1
+        fn()
+
+    for attempt in range(1, attempts + 1):
+        prof = device_profile(lambda: [counted() for _ in range(calls)])
+        if prof["kernels"]:
+            return {**prof, "calls": calls, "attempts": attempt, "fn_calls": ran}
+    raise AssertionError(f"the profiler recorded no device events in {attempts} windows")
 
 
 def grouped_convs(fn) -> list[tuple[str, int]]:
@@ -792,33 +1005,23 @@ def phase_mobilenet_forward(jpegs: list[bytes]) -> dict:
     bf16 fused and int8 fused (CUDA events around one call, one forward
     replayed in a CUDA graph, and a profiler's kernel count and summed
     device time), the grouped convolutions each forward still dispatches
-    (none when fused: all 17 depthwise cells launch the fused kernel), the
-    preprocess kernel at 224 out, and one whole int8 engine batch on the
-    host clock."""
+    (none when fused: all 17 depthwise cells launch the fused kernel), and
+    one whole int8 engine batch on the host clock. The forwards read the
+    engine's preprocess stage's bf16 output at 224 out, whose
+    ``preprocess_stage`` row this returns."""
     from tensorflow_web_deploy_tpu_torch.models.adapter import native_converted
     from tensorflow_web_deploy_tpu_torch.models.common import DepthwiseConvBN
     from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
-    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import (
-        preprocess_i420,
-        preprocess_i420_plain,
-    )
     from tensorflow_web_deploy_tpu_torch.ops.quant import dequantize_taps
     from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
 
     eng = InferenceEngine(_config("mobilenet_v2", "int8", warmup=False), device="cuda",
                           seed=SEED)
-    packed, hws, hws_np, _ = batch_of_8(eng, jpegs)
+    buf, hws_np, _ = batch_of_8(eng, jpegs)
     row = {"phase": "mobilenet_forward", "batch": 8, "canvas": 512, "out": 224}
     with torch.inference_mode():
-        x = preprocess_i420(packed, hws, 224, 224, "inception")
-        row.update(
-            preprocess_ms=graph_time_ms(lambda: preprocess_i420(packed, hws, 224, 224)),
-            preprocess_plain_ms=graph_time_ms(
-                lambda: preprocess_i420_plain(packed, hws, 224, 224)),
-            preprocess_max_abs_err=float(
-                (x - preprocess_i420_plain(packed, hws, 224, 224)).abs().max()))
-        row["preprocess_bound_ms"], row["preprocess_bound_by"] = bound_ms(hws_np, 512, 224, 224)
-        xb = x.to(torch.bfloat16)
+        stage = preprocess_stage(eng, buf, 224)
+        xb = eng.preprocess_packed(buf)
         for label, fused, int8 in (("bf16_unfused", False, False), ("bf16_fused", True, False),
                                    ("int8_fused", True, True)):
             model = native_converted("mobilenet_v2", seed=SEED, fused_dw=fused, int8=int8).to(
@@ -847,17 +1050,19 @@ def phase_mobilenet_forward(jpegs: list[bytes]) -> dict:
                   "batch": 8, **prof})
             row[f"forward_{label}_kernels"] = prof["kernels"]
             row[f"forward_{label}_device_us"] = prof["device_us"]
-        host = packed.cpu().numpy()
+        host = buf[:, :-4].reshape(8, 768, 512).cpu().numpy()
         row["run_batch_int8_ms"] = statistics.median(
             timed(lambda: eng.run_batch(host, hws_np)) for _ in range(10))
     eng.close()
     emit(row)
-    return row
+    return stage
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--sweep-fused-dw"]):
-        print(f"usage: python3 chip_smoke.py [--sweep-fused-dw], not {argv}", file=sys.stderr)
+    sweeps = ("--sweep-fused-dw", "--sweep-preprocess")
+    if not (argv == [] or (len(argv) == 1 and argv[0] in sweeps)):
+        print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)}], not {argv}",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -878,12 +1083,18 @@ def main(argv: list[str]) -> int:
           "libraries": [_build.library_path(k).name for k in KERNELS]})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    if argv:
-        emit({"phase": "ptxas", "fused_dw": ptxas_report().splitlines()})
+    if argv == ["--sweep-fused-dw"]:
+        emit({"phase": "ptxas", "fused_dw": ptxas_report("fused_dw").splitlines()})
         shapes = dw_layer_shapes()
         emit({"phase": "fused_dw_check", **dw_check(
             gen, shapes + [dw_odd(s) for s in shapes if s["stride"] == 2])})
         sweep_fused_dw(gen, shapes)
+        return 0
+    if argv == ["--sweep-preprocess"]:
+        emit({"phase": "ptxas",
+              "preprocess_i420": ptxas_report("preprocess_i420").splitlines()})
+        emit({"phase": "kernel_check", "max_abs_err": phase_kernel(gen)})
+        sweep_preprocess(gen)
         return 0
     kern_err = phase_kernel(gen)
     dw = phase_fused_dw_kernel(gen, dw_layer_shapes())
@@ -891,30 +1102,39 @@ def main(argv: list[str]) -> int:
     inception = phase_main_path(jpegs, "inception_v3", "bfloat16", fused_cells=0,
                                 second_burst=True)
     phase_parity(jpegs, inception["served"], "inception_v3", "bfloat16")
-    bd = phase_breakdown(jpegs)
+    stage299 = phase_breakdown(jpegs)
     mobilenet = phase_main_path(jpegs, "mobilenet_v2", "int8", fused_cells=DW_CELLS,
                                 second_burst=False)
     phase_parity(jpegs, mobilenet["served"], "mobilenet_v2", "int8")
-    mf = phase_mobilenet_forward(jpegs)
+    stage224 = phase_mobilenet_forward(jpegs)
     by_path = {p["model"]: p["kernel_launches"] for p in (inception, mobilenet)}
     emit({"kernels": [{
         "name": "preprocess_i420",
         "route": "cuda",
         "source": "tensorflow_web_deploy_tpu_torch/csrc/preprocess_i420.cu",
-        "replaces": "tensorflow_web_deploy_tpu/ops/pallas_preprocess.py:108",
+        "replaces": "tensorflow_web_deploy_tpu/ops/pallas_preprocess.py:109",
         "launches": sum(n["preprocess_i420"] for n in by_path.values()),
         "launches_by_path": {m: n["preprocess_i420"] for m, n in by_path.items()},
-        "max_abs_err": max(kern_err, bd["max_abs_err"], mf["preprocess_max_abs_err"]),
-        "ms": bd["kernel_ms"],
-        "plain_ms": bd["plain_ms"],
-        "bound_ms": bd["bound_ms"],
-        "bound_by": bd["bound_by"],
+        # float32 through both entries at every cell, and the main paths'
+        # stages; their bf16 outputs are in the kernel and preprocess_stage
+        # lines
+        "max_abs_err": max(kern_err, stage299["max_abs_err"], stage224["max_abs_err"]),
+        # batch of 8 main-path images, 512 canvas, 299 out, bf16 from the
+        # wire as the Inception path runs it; and at 224 out (MobileNetV2)
+        "ms": stage299["ms"],
+        "plain_ms": stage299["plain_ms"],
+        "bound_ms": stage299["bound_ms"],
+        "bound_by": stage299["bound_by"],
         "library_ms": None,
+        "ms_224": stage224["ms"],
+        "plain_ms_224": stage224["plain_ms"],
+        "bound_ms_224": stage224["bound_ms"],
+        "host_us": stage299["host_us"],
     }, {
         "name": "fused_dw",
         "route": "cuda",
         "source": "tensorflow_web_deploy_tpu_torch/csrc/fused_dw.cu",
-        "replaces": "tensorflow_web_deploy_tpu/ops/pallas_depthwise.py:56",
+        "replaces": "tensorflow_web_deploy_tpu/ops/pallas_depthwise.py:57",
         "launches": mobilenet["kernel_launches"]["fused_dw"],
         "max_abs_err": dw["max_abs_err"],
         "ms": dw["ms"],

@@ -205,13 +205,15 @@ NORMALIZERS = {
 
 
 def make_preprocess_fn(out_h: int, out_w: int, mode: str, wire: str = "rgb",
-                       resize: str = "matmul"):
-    """Preprocess callable ``(canvases, hws) → float32 [B, out_h, out_w, 3]``.
+                       resize: str = "matmul", out_dtype: torch.dtype = torch.float32):
+    """Preprocess callable ``(canvases, hws) → [B, out_h, out_w, 3]`` in
+    ``out_dtype``.
 
     ``wire`` selects the canvas encoding: "rgb" takes uint8 [B, S, S, 3];
     "yuv420" takes packed I420 uint8 [B, 3S/2, S]. ``resize="matmul"`` is
-    the plain-torch separable resize; ``resize="kernel"`` (yuv420 only)
-    launches the fused CUDA kernel on CUDA tensors.
+    the plain-torch separable resize in float32, then a cast;
+    ``resize="kernel"`` (yuv420 only) launches the fused CUDA kernel on
+    CUDA tensors, which stores ``out_dtype`` itself.
     """
     if wire not in ("rgb", "yuv420"):
         raise ValueError(f"unknown wire format {wire!r}")
@@ -222,10 +224,12 @@ def make_preprocess_fn(out_h: int, out_w: int, mode: str, wire: str = "rgb",
             raise ValueError("resize='kernel' requires the yuv420 wire")
         from .preprocess_i420 import preprocess_i420
 
-        return lambda packed, hws: preprocess_i420(packed, hws, out_h, out_w, mode)
+        return lambda packed, hws: preprocess_i420(packed, hws, out_h, out_w, mode, out_dtype)
     if resize != "matmul":
         raise ValueError(f"unknown resize {resize!r}")
     norm = NORMALIZERS[mode]
     if wire == "yuv420":
-        return lambda packed, hws: norm(resize_yuv_planes(packed, hws, out_h, out_w))
-    return lambda canvases, hws: norm(resize_from_valid_mm(canvases, hws, out_h, out_w))
+        return lambda packed, hws: norm(resize_yuv_planes(packed, hws, out_h, out_w)).to(
+            out_dtype)
+    return lambda canvases, hws: norm(resize_from_valid_mm(canvases, hws, out_h, out_w)).to(
+        out_dtype)

@@ -4,9 +4,11 @@
 One batch is one uint8 wire buffer — each image's canvas bytes followed by
 a 4-byte big-endian (h, w) trailer — staged in pinned host memory and
 copied to the device with one non-blocking transfer. On the device the
-serve function runs preprocess → cast to the serving dtype → forward →
+serve function runs preprocess (into the serving dtype) → forward →
 softmax → top-k, and only k (score, index) pairs per image come back, in
-one packed float32 array. Batches are padded to a batch bucket; padding
+one packed float32 array. On the yuv420 wire with the preprocess kernel,
+that stage is one launch: the kernel reads each row's trailer itself and
+stores the serving dtype. Batches are padded to a batch bucket; padding
 rows carry hw = 1×1 and are sliced off on the host.
 
 The int8 tier keeps its kernels int8 on the device and dequantizes them
@@ -28,7 +30,7 @@ from ..models.adapter import native_converted
 from ..ops import quant
 from ..ops.fused_dw import fused_dw
 from ..ops.image import decode_image, make_preprocess_fn, pad_to_canvas, rgb_to_yuv420_canvas
-from ..ops.preprocess_i420 import preprocess_i420
+from ..ops.preprocess_i420 import decode_trailer, preprocess_i420, preprocess_i420_wire
 from ..utils.config import ServerConfig
 from ..utils.device import resolve_device
 
@@ -84,9 +86,13 @@ class InferenceEngine:
                 raise RuntimeError(
                     f"numerical-parity gate failed for {self.model_cfg.name} "
                     f"dtype={self.model_cfg.dtype}: {self.parity}")
+        # yuv420 + kernel: the kernel takes the wire buffer itself
+        # (preprocess_packed); the other paths decode the trailers first
+        self._wire_kernel = cfg.wire_format == "yuv420" and cfg.resize == "kernel"
         h, w = self.model_cfg.input_size
-        self._preprocess = make_preprocess_fn(
-            h, w, self.model_cfg.preprocess, wire=cfg.wire_format, resize=cfg.resize
+        self._preprocess = None if self._wire_kernel else make_preprocess_fn(
+            h, w, self.model_cfg.preprocess, wire=cfg.wire_format, resize=cfg.resize,
+            out_dtype=self.dtype,
         )
         self.batch_buckets = self._default_batch_buckets(cfg.max_batch)
         self.max_batch = self.batch_buckets[-1]
@@ -168,21 +174,27 @@ class InferenceEngine:
 
     # ----------------------------------------------------------------- serve
 
-    def _serve_packed(self, buf: torch.Tensor) -> torch.Tensor:
-        """Device side of one batch: packed uint8 [B, bytes + 4] → float32
-        [B, 2k] holding k scores then k class indices per image."""
-        b, nbytes = buf.shape[0], buf.shape[1] - 4
+    def preprocess_packed(self, buf: torch.Tensor) -> torch.Tensor:
+        """Preprocess stage of one batch: packed uint8 [B, bytes + 4] →
+        [B, out_h, out_w, 3] in the serving dtype. On the yuv420 wire with
+        the kernel, one launch that reads the trailers itself."""
+        nbytes = buf.shape[1] - 4
         if self.cfg.wire_format == "yuv420":
             s = int(round((nbytes * 2 / 3) ** 0.5))
+            if self._wire_kernel:
+                h, w = self.model_cfg.input_size
+                return preprocess_i420_wire(buf, s, h, w, self.model_cfg.preprocess, self.dtype)
             canvases = buf[:, :nbytes].unflatten(1, (s * 3 // 2, s))
         else:
             s = int(round((nbytes / 3) ** 0.5))
             canvases = buf[:, :nbytes].unflatten(1, (s, s, 3))
-        hwb = buf[:, nbytes:].to(torch.int32)
-        hws = torch.stack([hwb[:, 0] * 256 + hwb[:, 1], hwb[:, 2] * 256 + hwb[:, 3]], dim=1)
-        x = self._preprocess(canvases, hws).to(self.dtype)
+        return self._preprocess(canvases, decode_trailer(buf))
+
+    def _serve_packed(self, buf: torch.Tensor) -> torch.Tensor:
+        """Device side of one batch: packed uint8 [B, bytes + 4] → float32
+        [B, 2k] holding k scores then k class indices per image."""
         # softmax runs in the serving dtype; top-k reads it in float32
-        probs = self.model(x).float()
+        probs = self.model(self.preprocess_packed(buf)).float()
         scores, idx = torch.topk(probs, self.topk, dim=-1)
         return torch.cat([scores, idx.float()], dim=1)
 

@@ -123,13 +123,33 @@ def test_cpu_tensors_take_the_plain_version(rng):
 @pytest.mark.cuda
 def test_i420_kernel_matches_plain_on_card(rng):
     """Runs on a machine with a CUDA card and nvcc (chip_smoke.py covers
-    the full shape sweep)."""
+    the full shape sweep): both entries, float32 and bf16. The wire entry
+    reads views into one wire buffer whose rows start at every address
+    class mod 16, and equals the table entry bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
-    packed = torch.from_numpy(_packed(rng)).cuda()
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import (
+        preprocess_i420_wire,
+        wire_canvases,
+    )
+
+    packed_np = _packed(rng)
+    b, nbytes = packed_np.shape[0], packed_np[0].size
+    buf = np.zeros((b, nbytes + 4), np.uint8)
+    buf[:, :nbytes] = packed_np.reshape(b, -1)
+    buf[:, nbytes:] = HWS.astype(">u2").view(np.uint8).reshape(b, 4)
+    buf = torch.from_numpy(buf).cuda()
+    packed = wire_canvases(buf, S)
     hws = torch.from_numpy(HWS).cuda()
     for mode in ("inception", "zero_one", "raw"):
-        got = preprocess_i420(packed, hws, OUT, OUT, mode)
         ref = preprocess_i420_plain(packed, hws, OUT, OUT, mode)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, ref, atol=ATOL[mode], rtol=0)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = preprocess_i420(packed, hws, OUT, OUT, mode, out_dtype=dtype)
+            wire = preprocess_i420_wire(buf, S, OUT, OUT, mode, out_dtype=dtype)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and torch.equal(got, wire)
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, ref, atol=ATOL[mode], rtol=0)
+            else:  # the float32 result rounded to bf16, up to one bf16 ulp
+                torch.testing.assert_close(got.float(), ref, atol=ATOL[mode],
+                                           rtol=2 ** -8)
