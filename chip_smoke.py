@@ -5,7 +5,8 @@
 Builds every hand-written kernel from the sources in this checkout (one
 nvcc per source, all started together), holds each against its plain
 PyTorch version on the card at the shapes the main paths give it, then
-drives both main paths at full width behind ``POST /predict`` on the
+builds the native libjpeg decoder, and drives four main paths at full
+width behind ``POST /predict``, every JPEG decoded by libjpeg. Two on the
 yuv420 wire with the preprocess kernel:
 
 - Inception-v3 in bf16, checked against a float32 reference;
@@ -13,6 +14,21 @@ yuv420 wire with the preprocess kernel:
   stride 2) on the fused depthwise kernel, gated at build by the engine's
   parity check and checked against the unfused float32 model on the same
   images.
+
+And two on the ragged rgb wire, the server's defaults: each batch ships
+its images tight in one pinned arena and the device rebuilds the canvases:
+
+- Inception-v3 in bf16 with the matmul resize (the server with no flags);
+- MobileNetV2 in the int8 tier with the gather resize, the fused
+  depthwise kernel in all 17 cells.
+
+Before them, ``native_decode`` times the decoder against the PIL chain it
+replaced, ``ragged_unpack`` holds the device unpack bit for bit against the
+host's padded canvases (holes included) and times it, and after them
+``ragged_vs_classic`` holds each ragged engine's answers against its own
+classic rgb wire on the same images, and ``default_server`` boots the
+server with no model or wire flags in a process of its own, sends it three
+JPEGs and stops it.
 
 The preprocess kernel is checked through both of its entries (the
 ``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
@@ -43,6 +59,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -72,6 +89,12 @@ DW_BATCHES = (1, 8, 32)
 # 17 are fused: the fused kernel's launches per batch on its main path
 DW_CELLS = 17
 DW_STRIDE1_CELLS = 13
+# canvas buckets of every main path
+BUCKETS = (256, 512)
+# the ragged wire's main paths: (model, dtype, resize); rgb wire, ragged on
+RAGGED_PATHS = (("inception_v3", "bfloat16", "matmul"), ("mobilenet_v2", "int8", "gather"))
+# ragged vs classic on one engine: the bf16 parity gate's probability bound
+RAGGED_PROB_TOL = 0.08
 
 
 def emit(obj) -> None:
@@ -637,14 +660,18 @@ def burst(srv, jpegs: list[bytes]) -> tuple[list, dict]:
     pack (``prepare_bytes``), ``Batcher.submit`` and each device batch
     (``run_batch``). Each stage's ``sum`` is wall time and ``cpu_sum`` the
     CPU time of its own thread: where wall far exceeds CPU, the thread was
-    waiting (for the interpreter lock, a core or the device). Returns the
-    answers and a summary in ms from the burst's start."""
+    waiting (for the interpreter lock, a core or the device). The prepares'
+    overlap says how many decoded at once (at most, and on average over
+    their span). Returns the answers and a summary in ms from the burst's
+    start."""
     marks: dict[str, list[tuple[float, float, float]]] = {}
     lock = threading.Lock()
     handler_cls = srv.httpd.RequestHandlerClass
     hooks = [(srv.httpd, "process_request", "accept"), (handler_cls, "do_POST", "do_post"),
              (srv.app, "predict", "handler"), (srv.engine, "prepare_bytes", "prepare"),
-             (srv.batcher, "submit", "submit"), (srv.engine, "run_batch", "run_batch")]
+             (srv.engine, "prepare_ragged", "prepare"), (srv.batcher, "submit", "submit"),
+             (srv.batcher, "submit_ragged", "submit"), (srv.engine, "run_batch", "run_batch"),
+             (srv.engine, "run_ragged", "run_batch")]
     originals = [getattr(obj, attr) for obj, attr, _ in hooks]
 
     def stamped(fn, stage):
@@ -690,30 +717,49 @@ def burst(srv, jpegs: list[bytes]) -> tuple[list, dict]:
                                       (("p50", 50), ("p99", 99), ("max", 100))}}
     timeline.update({stage: summary(spans) for stage, spans in marks.items()})
     timeline["batches_ms"] = [(ms(a), ms(b)) for a, b, _ in sorted(marks.get("run_batch", []))]
+    timeline["prepare_overlap"] = overlap(marks.get("prepare", []))
     return [r for _, r in results], timeline
 
 
-def _config(name: str, dtype: str, **kw):
+def overlap(spans: list[tuple[float, float, float]]) -> dict:
+    """How many of ``spans`` ran at once: at most, and on average over the
+    time from the first start to the last end."""
+    if not spans:
+        return {"max": 0, "mean": 0.0}
+    edges = sorted([(a, 1) for a, _, _ in spans] + [(b, -1) for _, b, _ in spans])
+    live = peak = 0
+    for _, step in edges:
+        live += step
+        peak = max(peak, live)
+    span = max(b for _, b, _ in spans) - min(a for a, _, _ in spans)
+    return {"max": peak, "mean": sum(b - a for a, b, _ in spans) / span if span > 0 else 1.0}
+
+
+def _config(name: str, dtype: str, wire: str = "yuv420", resize: str = "kernel",
+            ragged: bool = False, **kw):
     from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
 
     return ServerConfig(model=replace(model_config(f"native:{name}"), dtype=dtype),
-                        canvas_buckets=(256, 512), max_batch=8, wire_format="yuv420",
-                        resize="kernel", **kw)
+                        canvas_buckets=BUCKETS, max_batch=8, wire_format=wire, resize=resize,
+                        ragged=ragged, **kw)
 
 
 def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
-                    second_burst: bool) -> dict:
+                    second_burst: bool, serial: bool = True, **wire) -> dict:
     """One main path behind HTTP: boot, a burst of every image at once with
     the kernels' counts set to 0 just before it and read just after, then
-    (``second_burst``) the same burst again, and the images one at a time.
-    The served model must hold ``fused_cells`` fused depthwise cells (of
-    either stride), each launching the fused kernel once per batch."""
+    (``second_burst``) the same burst again, and (``serial``) the images one
+    at a time. ``wire`` picks the wire (``_config``'s ``wire``, ``resize``,
+    ``ragged``). The served model must hold ``fused_cells`` fused
+    depthwise cells (of either stride), each launching the fused kernel
+    once per batch; the preprocess kernel launches once per batch with
+    ``resize="kernel"`` and never otherwise."""
     from tensorflow_web_deploy_tpu_torch.models.common import DepthwiseConvBN
     from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
     from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
     from tensorflow_web_deploy_tpu_torch.server import start_server
 
-    cfg = _config(name, dtype, host="127.0.0.1", port=0)
+    cfg = _config(name, dtype, host="127.0.0.1", port=0, **wire)
     t0 = time.perf_counter()
     srv = start_server(cfg, device="cuda", seed=SEED)
     boot_s = time.perf_counter() - t0
@@ -721,6 +767,8 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
         eng = srv.engine
         if eng.parity is not None and not eng.parity["pass"]:
             raise AssertionError(f"parity gate failed: {eng.parity}")
+        if eng.ragged != cfg.ragged:
+            raise AssertionError(f"{name}: engine ragged={eng.ragged}, asked {cfg.ragged}")
         served_cells = sum(1 for m in eng.model.modules()
                            if isinstance(m, DepthwiseConvBN) and m.fused)
         if served_cells != fused_cells:
@@ -730,11 +778,12 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
         # (an SSL context) in every thread that races into it; take that
         # one-time client cost out of the burst
         urllib.request.urlopen(srv.url + "/healthz", timeout=120).read()
-        batches0 = eng.stats()["batches"]
+        before = eng.stats()
         preprocess_i420.launches = fused_dw.launches = 0
         results, timeline = burst(srv, jpegs)
         launches = {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches}
-        batches = eng.stats()["batches"] - batches0
+        after = eng.stats()
+        batches = after["batches"] - before["batches"]
         wall = timeline["wall_ms"] / 1e3
         k = eng.topk
         for status, body, _ in results:
@@ -743,30 +792,41 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
                 raise AssertionError(f"bad answer: {status} {body}")
             if not all(math.isfinite(p["score"]) and 0 <= p["index"] < 1000 for p in preds):
                 raise AssertionError(f"bad predictions: {preds}")
-        want = {"preprocess_i420": batches, "fused_dw": fused_cells * batches}
+        want = {"preprocess_i420": batches if cfg.resize == "kernel" else 0,
+                "fused_dw": fused_cells * batches}
         if batches == 0 or launches != want:
             raise AssertionError(f"{name}: kernel launches {launches} for {batches} batches "
                                  f"({fused_cells} fused depthwise cells): want {want}")
-        emit({"phase": "burst_timeline", "model": name, "burst": 1, **timeline})
-        row = {"phase": "main_path", "model": f"native:{name}", "width": 1.0,
+        decodes = {d: after["decodes"][d] - before["decodes"][d] for d in after["decodes"]}
+        want_decodes = ({"native": len(jpegs), "pil": 0} if after["decoder"]["available"]
+                        else {"native": 0, "pil": len(jpegs)})
+        if decodes != want_decodes:
+            raise AssertionError(f"{name}: decodes {decodes}, want {want_decodes}")
+        path = f"native:{name}" + (":ragged" if eng.ragged else "")
+        emit({"phase": "burst_timeline", "model": name, "path": path, "burst": 1, **timeline})
+        row = {"phase": "main_path", "model": f"native:{name}", "path": path, "width": 1.0,
                "dtype": cfg.model.dtype, "fused_dw": eng.fused_dw, "parity": eng.parity,
-               "wire": "yuv420", "resize": "kernel", "requests": len(jpegs),
-               "batches": batches, "kernel_launches": launches,
+               "wire": cfg.wire_format, "ragged": eng.ragged, "resize": cfg.resize,
+               "decoder": "native" if after["decoder"]["available"] else "PIL",
+               "decoder_reason": after["decoder"]["reason"], "decodes": decodes,
+               "requests": len(jpegs), "batches": batches, "kernel_launches": launches,
                "fused_dw_cells": fused_cells, "boot_s": boot_s,
+               "h2d_bytes_per_image": (after["h2d_bytes"] - before["h2d_bytes"]) / len(jpegs),
                "img_per_s": len(jpegs) / wall,
                "p50_ms": timeline["client_latency_ms"]["p50"],
-               "p99_ms": timeline["client_latency_ms"]["p99"]}
+               "p99_ms": timeline["client_latency_ms"]["p99"],
+               "prepare_overlap": timeline["prepare_overlap"]}
         if second_burst:
             # a second, identical burst: what of the first was one-time cost
             second = burst(srv, jpegs)[1]
-            emit({"phase": "burst_timeline", "model": name, "burst": 2, **second})
+            emit({"phase": "burst_timeline", "model": name, "path": path, "burst": 2, **second})
             row.update(burst2_img_per_s=len(jpegs) / second["wall_ms"] * 1e3,
                        burst2_p50_ms=second["client_latency_ms"]["p50"],
                        burst2_p99_ms=second["client_latency_ms"]["p99"])
-        # the same requests one at a time: latency without queueing
-        serial = np.array([post(srv.url + "/predict", d)[2] for d in jpegs]) * 1e3
-        row.update(serial_p50_ms=float(np.percentile(serial, 50)),
-                   serial_p99_ms=float(np.percentile(serial, 99)))
+        if serial:  # the same requests one at a time: latency without queueing
+            lat = np.array([post(srv.url + "/predict", d)[2] for d in jpegs]) * 1e3
+            row.update(serial_p50_ms=float(np.percentile(lat, 50)),
+                       serial_p99_ms=float(np.percentile(lat, 99)))
         emit(row)
         row["served"] = [(r[1]["predictions"][0]["index"], r[1]["predictions"][0]["score"])
                          for r in results]
@@ -1058,6 +1118,284 @@ def phase_mobilenet_forward(jpegs: list[bytes]) -> dict:
     return stage
 
 
+def per_image_ms(fn, items: list, passes: int = 3) -> float:
+    """Median over ``passes`` of one thread's host time per ``fn(item)``, in ms."""
+    times = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        for it in items:
+            fn(it)
+        times.append((time.perf_counter() - t0) / len(items) * 1e3)
+    return statistics.median(times)
+
+
+def decode_tight(data: bytes) -> tuple[np.ndarray, tuple[int, int], int]:
+    """One upload as the ragged wire takes it: tight RGB rows by libjpeg
+    (planned from the header), or PIL + ``fit_to_bucket`` where the native
+    decoder is unavailable. Returns (flat uint8, (h, w), canvas side)."""
+    from tensorflow_web_deploy_tpu_torch import native
+    from tensorflow_web_deploy_tpu_torch.ops.image import decode_image, fit_to_bucket
+
+    plan = native.plan_decode_packed(data, BUCKETS)
+    if plan is not None:
+        s, need, _, _ = plan
+        out = np.empty(need, np.uint8)
+        hw = native.decode_packed_into(data, out, s)
+        if hw is not None:
+            return out, hw, s
+    tight, hw, s = fit_to_bucket(decode_image(data), BUCKETS)
+    return tight.reshape(-1), hw, s
+
+
+def phase_native_decode(jpegs: list[bytes]) -> dict:
+    """The native decoder: whether it built (and why not), its libjpeg, one
+    thread's ms per image over the main paths' JPEGs into each wire (RGB
+    canvas, I420 canvas, tight rows) against the PIL chain they replace
+    (decode + pad + the numpy I420 packer; decode + pad; decode +
+    ``fit_to_bucket``), the same over 8 threads at once, and the largest
+    difference of its RGB from PIL's (a report: two libjpeg builds may
+    round their IDCT differently)."""
+    from tensorflow_web_deploy_tpu_torch import native
+    from tensorflow_web_deploy_tpu_torch.ops.image import (
+        decode_image,
+        fit_to_bucket,
+        pad_to_canvas,
+        rgb_to_yuv420_canvas,
+    )
+
+    st = native.status()
+    row = {"phase": "native_decode", "built": st["available"], "library": st["library"],
+           "libjpeg_version": st["libjpeg_version"], "reason": st["reason"],
+           "images": len(jpegs), "buckets": list(BUCKETS),
+           "pil_i420_ms": per_image_ms(
+               lambda d: rgb_to_yuv420_canvas(pad_to_canvas(decode_image(d), BUCKETS)[0]), jpegs),
+           "pil_rgb_ms": per_image_ms(lambda d: pad_to_canvas(decode_image(d), BUCKETS), jpegs),
+           "pil_tight_ms": per_image_ms(lambda d: fit_to_bucket(decode_image(d), BUCKETS),
+                                        jpegs)}
+    with ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(lambda d: pad_to_canvas(decode_image(d), BUCKETS), jpegs * 4))
+        row["pil_rgb_ms_8_threads"] = (time.perf_counter() - t0) / (4 * len(jpegs)) * 1e3
+    if st["available"]:
+        row.update(
+            native_rgb_ms=per_image_ms(lambda d: native.decode_native(d, BUCKETS, "rgb"), jpegs),
+            native_i420_ms=per_image_ms(lambda d: native.decode_native(d, BUCKETS, "yuv420"),
+                                        jpegs),
+            native_tight_ms=per_image_ms(decode_tight, jpegs))
+        with ThreadPoolExecutor(8) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(decode_tight, jpegs * 4))
+            row["native_tight_ms_8_threads"] = (time.perf_counter() - t0) / (4 * len(jpegs)) * 1e3
+        diffs = []
+        for d in jpegs:
+            tight, (h, w), _ = decode_tight(d)
+            diffs.append(np.abs(tight.reshape(h, w, 3).astype(np.int16)
+                                - decode_image(d).astype(np.int16)))
+        row["max_abs_diff_vs_pil"] = int(max(x.max() for x in diffs))
+        row["differing_fraction_vs_pil"] = float(sum((x > 0).sum() for x in diffs)
+                                                 / sum(x.size for x in diffs))
+    emit(row)
+    return row
+
+
+def ragged_slab(jpegs: list[bytes], s: int, holes: tuple[int, ...] = ()):
+    """A pinned ragged slab of ``len(jpegs)`` slots, each image decoded
+    tight straight into its arena span (``decode_tight`` where PIL must
+    decode); slots in ``holes`` are decoded but never committed. Returns
+    the slab and the host's padded canvases and valid sizes of the same
+    pixels (``pad_to_canvas``; holes: a zero canvas, hw (1, 1))."""
+    from tensorflow_web_deploy_tpu_torch import native
+    from tensorflow_web_deploy_tpu_torch.ops.image import pad_to_canvas
+    from tensorflow_web_deploy_tpu_torch.serving.engine import RaggedSlab
+
+    slab = RaggedSlab(s, len(jpegs), pinned=True)
+    canvases = np.zeros((len(jpegs), s, s, 3), np.uint8)
+    hws = np.ones((len(jpegs), 2), np.int32)
+    for i, data in enumerate(jpegs):
+        plan = native.plan_decode_packed(data, BUCKETS)
+        if plan is not None:  # libjpeg straight into the arena span
+            slot, span = slab.alloc(plan[1])
+            hw = native.decode_packed_into(data, span, s)
+            if hw is None:
+                raise AssertionError(f"libjpeg rejected main-path JPEG {i}")
+        else:
+            tight, hw, _ = decode_tight(data)
+            slot, span = slab.alloc(tight.size)
+            span[:] = tight
+        if i not in holes:
+            slab.write_hw(slot, hw)
+            canvases[i], hws[i] = pad_to_canvas(span.reshape(hw[0], hw[1], 3), (s,))
+    return slab, canvases, hws
+
+
+def phase_ragged_unpack(jpegs: list[bytes]) -> dict:
+    """The device unpack on 8 main-path images of the 512 canvas, decoded
+    tight into a pinned arena and shipped with the meta table in one copy:
+    the canvases and valid sizes must equal the host's ``pad_to_canvas``
+    bit for bit, with every slot filled and with two holes; its device time
+    per batch (CUDA graph), its kernels per call (profiler, a lower bound:
+    the zero fill, K copies, ATen's kernels for the valid sizes),
+    the wrapper's host time, its bound; the copy's time against the classic
+    rgb wire's; and the wire bytes per image, ragged against the classic
+    rgb and yuv420 canvases, with the padded share of each."""
+    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
+
+    s, k = 512, 8
+    big = [d for d in jpegs if decode_tight(d)[2] == s][:k]
+    if len(big) < k:
+        raise AssertionError(f"only {len(big)} images in the {s} canvas")
+    row = {"phase": "ragged_unpack", "batch": k, "canvas": s}
+    for label, holes in (("full", ()), ("holes", (2, 5))):
+        slab, want, want_hw = ragged_slab(big, s, holes)
+        nbytes, meta_off = slab.stage(k)
+        dev = slab.buf[:nbytes].to("cuda", non_blocking=True)
+        meta = dev[meta_off:].view(torch.int32).view(k, 4)
+        got, got_hw = unpack_ragged(dev[:meta_off], meta, s, meta_host=slab.meta)
+        if not (np.array_equal(got.cpu().numpy(), want)
+                and np.array_equal(got_hw.cpu().numpy(), want_hw)):
+            raise AssertionError(f"ragged unpack ({label}) differs from pad_to_canvas")
+        row[f"bit_identical_{label}"] = True
+    # the full batch: times, kernels, bytes
+    slab, _, hws = ragged_slab(big, s)
+    nbytes, meta_off = slab.stage(k)
+    dev = slab.buf[:nbytes].to("cuda")
+    arena, meta = dev[:meta_off], dev[meta_off:].view(torch.int32).view(k, 4)
+    unpack = lambda: unpack_ragged(arena, meta, s, meta_host=slab.meta)  # noqa: E731
+    prof = profiled_calls(unpack)
+    pixel = int(sum(h * w * 3 for h, w in hws))
+    classic = torch.zeros((k, s * s * 3 + 4), dtype=torch.uint8, pin_memory=True)
+    row.update(
+        ms=graph_time_ms(unpack), host_us=host_us(unpack),
+        kernels_per_call=prof["kernels"] / prof["calls"], copies_per_call=k,
+        profile_top=prof["top"],
+        # least time: read each image's bytes once, write every canvas once
+        bound_ms=(pixel + k * s * s * 3) / MEM_BYTES_PER_S * 1e3, bound_by="bytes",
+        h2d_ms=cuda_time_ms(lambda: slab.buf[:nbytes].to("cuda", non_blocking=True)),
+        h2d_classic_rgb_ms=cuda_time_ms(lambda: classic.to("cuda", non_blocking=True)),
+        rows_shipped=slab.rows_shipped(k), pixel_bytes_per_image=pixel / k,
+        wire_bytes_per_image={"ragged": nbytes / k, "classic_rgb": s * s * 3 + 4,
+                              "classic_yuv420": s * s * 3 // 2 + 4},
+        padded_fraction={"ragged": 1 - pixel / nbytes,
+                         "classic_rgb": 1 - pixel / (k * (s * s * 3 + 4))})
+    emit(row)
+    return row
+
+
+def phase_ragged_vs_classic(jpegs: list[bytes], served: dict) -> list[dict]:
+    """For each ragged main path, on one engine: the same 8 images of the
+    512 canvas through the ragged wire (``run_ragged``) and through the
+    classic rgb wire (``run_batch`` on the host's padded canvases), one
+    batch each: the same top-1 everywhere and the largest top-k score
+    difference within the bf16 gate's 0.08. Then the path's served top-1
+    (its burst) against the engine's ragged answers for all its images,
+    batched by canvas (another batch may take another cuDNN algorithm, so
+    within ``SERVED_TOL``)."""
+    from tensorflow_web_deploy_tpu_torch.ops.image import pad_to_canvas
+    from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
+
+    rows = []
+    for name, dtype, resize in RAGGED_PATHS:
+        eng = InferenceEngine(_config(name, dtype, wire="rgb", resize=resize, ragged=True,
+                                      warmup=False), device="cuda", seed=SEED)
+        prepared = [eng.prepare_ragged(d) for d in jpegs]
+        big = [(t, hw) for t, hw, s, _ in prepared if s == 512][:8]
+        hws = np.array([hw for _, hw in big], np.int32)
+        scores_r, idx_r = eng.run_ragged([t for t, _ in big], hws, 512)
+        canvases = np.stack([pad_to_canvas(t, (512,))[0] for t, _ in big])
+        scores_c, idx_c = eng.run_batch(canvases, hws)
+        # every image of the burst, through the ragged wire, by canvas
+        answers = {}
+        for side in BUCKETS:
+            ids = [i for i, p in enumerate(prepared) if p[2] == side]
+            got = eng.run_ragged([prepared[i][0] for i in ids],
+                                 np.array([prepared[i][1] for i in ids], np.int32), side)
+            answers.update({i: (got[0][j], got[1][j]) for j, i in enumerate(ids)})
+        served_ok = True
+        for i, (idx, score) in enumerate(served[name]):
+            sc, ix = answers[i]
+            own = sc[ix == idx]
+            served_ok &= bool(own.size and own[0] >= sc[0] - SERVED_TOL
+                              and abs(own[0] - score) <= SERVED_TOL)
+        row = {"phase": "ragged_vs_classic", "model": name, "dtype": dtype, "resize": resize,
+               "images": len(big), "same_top1": bool(np.array_equal(idx_r[:, 0], idx_c[:, 0])),
+               "same_topk": bool(np.array_equal(idx_r, idx_c)),
+               "max_prob_delta": float(np.abs(scores_r - scores_c).max()),
+               "tol_prob": RAGGED_PROB_TOL, "served_images": len(served[name]),
+               "served_ok": served_ok}
+        eng.close()
+        emit(row)
+        if not (row["same_top1"] and row["max_prob_delta"] <= RAGGED_PROB_TOL and served_ok):
+            raise AssertionError(f"ragged vs classic: {row}")
+        rows.append(row)
+    return rows
+
+
+def phase_default_server(jpegs: list[bytes]) -> dict:
+    """The server as a user starts it, ``python -m
+    tensorflow_web_deploy_tpu_torch.server`` with no model or wire flags
+    (only a free port): it must boot on the card and serve Inception-v3 on
+    the ragged rgb wire with the matmul resize and the decoder the machine
+    allows, at its default buckets (canvas up to 2048, batch up to 32). Two
+    main-path JPEGs and one over the top canvas bucket go in; then it is
+    stopped with SIGINT and must exit."""
+    import signal
+    import socket
+    from PIL import Image
+
+    from tensorflow_web_deploy_tpu_torch import native
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    big = io.BytesIO()
+    Image.fromarray(np.full((300, 2500, 3), 90, np.uint8)).save(big, "JPEG")
+    t0 = time.perf_counter()
+    log = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m", "tensorflow_web_deploy_tpu_torch.server",
+                             "--port", str(port)], stdout=log, stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        while True:
+            if proc.poll() is not None:
+                log.seek(0)
+                raise AssertionError(f"the server exited {proc.returncode}: {log.read()[-2000:]}")
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("the server did not answer /healthz in 300 s")
+            try:
+                urllib.request.urlopen(url + "/healthz", timeout=5).read()
+                break
+            except OSError:
+                time.sleep(0.5)
+        boot_s = time.perf_counter() - t0
+        answers = [post(url + "/predict", d) for d in (jpegs[2], jpegs[7], big.getvalue())]
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            eng = json.loads(r.read())["engine"]
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+    st = native.status()
+    row = {"phase": "default_server", "boot_s": boot_s, "exit_code": proc.returncode,
+           "statuses": [a[0] for a in answers],
+           "predictions": [len(a[1].get("predictions", [])) for a in answers],
+           **{k: eng[k] for k in ("model", "device", "dtype", "wire_format", "ragged", "resize",
+                                  "decodes", "batches", "canvas_buckets", "batch_buckets")},
+           "decoder_available": eng["decoder"]["available"], "decoder_reason": eng["decoder"]["reason"]}
+    emit(row)
+    want = {"model": "inception_v3", "device": "cuda", "dtype": "bfloat16", "wire_format": "rgb",
+            "ragged": True, "resize": "matmul", "decoder_available": st["available"],
+            "statuses": [200] * 3, "predictions": [5] * 3, "exit_code": 0}
+    bad = {k: row[k] for k, v in want.items() if row[k] != v}
+    if bad or sum(eng["decodes"].values()) != 3:
+        raise AssertionError(f"the default server: {bad or eng['decodes']}, want {want}")
+    return row
+
+
 def main(argv: list[str]) -> int:
     sweeps = ("--sweep-fused-dw", "--sweep-preprocess")
     if not (argv == [] or (len(argv) == 1 and argv[0] in sweeps)):
@@ -1067,6 +1405,7 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from tensorflow_web_deploy_tpu_torch import native
     from tensorflow_web_deploy_tpu_torch.ops import _build
 
     # float32 means float32 in every reference below
@@ -1077,10 +1416,12 @@ def main(argv: list[str]) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:  # one compiler per source, together
+        decoder = pool.submit(native.status)
         list(pool.map(_build.load, KERNELS))
+        decoder = decoder.result()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": [_build.library_path(k).name for k in KERNELS]})
+          "libraries": [_build.library_path(k).name for k in KERNELS], "native_decoder": decoder})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if argv == ["--sweep-fused-dw"]:
@@ -1099,6 +1440,8 @@ def main(argv: list[str]) -> int:
     kern_err = phase_kernel(gen)
     dw = phase_fused_dw_kernel(gen, dw_layer_shapes())
     jpegs = make_jpegs(24, SEED)
+    phase_native_decode(jpegs)
+    phase_ragged_unpack(jpegs)
     inception = phase_main_path(jpegs, "inception_v3", "bfloat16", fused_cells=0,
                                 second_burst=True)
     phase_parity(jpegs, inception["served"], "inception_v3", "bfloat16")
@@ -1107,7 +1450,12 @@ def main(argv: list[str]) -> int:
                                 second_burst=False)
     phase_parity(jpegs, mobilenet["served"], "mobilenet_v2", "int8")
     stage224 = phase_mobilenet_forward(jpegs)
-    by_path = {p["model"]: p["kernel_launches"] for p in (inception, mobilenet)}
+    ragged = [phase_main_path(jpegs, name, dtype, fused_cells=DW_CELLS if dtype == "int8" else 0,
+                              second_burst=True, wire="rgb", resize=resize, ragged=True)
+              for name, dtype, resize in RAGGED_PATHS]
+    phase_ragged_vs_classic(jpegs, {p["model"].split(":")[1]: p["served"] for p in ragged})
+    phase_default_server(jpegs)
+    by_path = {p["path"]: p["kernel_launches"] for p in (inception, mobilenet, *ragged)}
     emit({"kernels": [{
         "name": "preprocess_i420",
         "route": "cuda",
@@ -1135,7 +1483,8 @@ def main(argv: list[str]) -> int:
         "route": "cuda",
         "source": "tensorflow_web_deploy_tpu_torch/csrc/fused_dw.cu",
         "replaces": "tensorflow_web_deploy_tpu/ops/pallas_depthwise.py:57",
-        "launches": mobilenet["kernel_launches"]["fused_dw"],
+        "launches": sum(n["fused_dw"] for n in by_path.values()),
+        "launches_by_path": {m: n["fused_dw"] for m, n in by_path.items()},
         "max_abs_err": dw["max_abs_err"],
         "ms": dw["ms"],
         "plain_ms": dw["plain_ms"],

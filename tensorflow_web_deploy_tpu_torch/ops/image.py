@@ -7,9 +7,14 @@ square canvas (RGB, or packed I420 at 1.5 B/px on the yuv420 wire). The
 device resizes from each image's valid (h, w) region, so canvas and output
 shapes stay fixed per bucket while the valid size is data.
 
-The device half here is plain torch: ``make_preprocess_fn`` with
-``resize="matmul"`` is the separable bilinear resize as ``torch.matmul``
-(the JAX package leaves this path to XLA). The fused I420 path with
+On the ragged wire the host ships each image tight (``fit_to_bucket``,
+or the native decoder's tight rows) in one flat byte arena, and the device
+rebuilds the canvases (``unpack_ragged``) before the resize.
+
+The device half here is plain torch, as XLA ran it for the JAX package:
+``make_preprocess_fn`` with ``resize="matmul"`` is the separable bilinear
+resize as ``torch.matmul``, with ``resize="gather"`` the same taps read by
+index (``resize_from_valid``). The fused I420 path with
 ``resize="kernel"`` lives in ``ops/preprocess_i420.py``.
 """
 
@@ -61,6 +66,23 @@ def pad_to_canvas(img: np.ndarray, buckets: tuple[int, ...]) -> tuple[np.ndarray
     return canvas, (h, w)
 
 
+def fit_to_bucket(img: np.ndarray, buckets: tuple[int, ...]
+                  ) -> tuple[np.ndarray, tuple[int, int], int]:
+    """Tight sibling of :func:`pad_to_canvas` for the ragged wire: pick the
+    canvas bucket and downscale an oversized image to fit it, without
+    padding. Returns (tight uint8 [h, w, 3], (h, w), canvas bucket side)."""
+    h, w = img.shape[:2]
+    s = pick_bucket(max(h, w), buckets)
+    if max(h, w) > s:
+        from PIL import Image
+
+        scale = s / max(h, w)
+        nh, nw = max(1, int(h * scale)), max(1, int(w * scale))
+        img = np.asarray(Image.fromarray(img).resize((nw, nh), Image.BILINEAR), dtype=np.uint8)
+        h, w = nh, nw
+    return np.ascontiguousarray(img, dtype=np.uint8), (h, w), s
+
+
 # Full-range BT.601 (JPEG/JFIF): forward (RGB→YCbCr) and inverse.
 BT601_FWD = (
     (0.299, 0.587, 0.114),
@@ -98,6 +120,55 @@ def rgb_to_yuv420_canvas(canvas: np.ndarray) -> np.ndarray:
 # device side (torch)
 # --------------------------------------------------------------------------
 
+# The ragged wire's layout version (the reference's RAGGED_UNPACK_VERSION):
+# the arena holds each image's tight rows back to back, and meta row i is
+# (byte_offset, h, w, valid) with valid = 0 for a hole.
+RAGGED_UNPACK_VERSION = 1
+
+
+def unpack_ragged(arena: torch.Tensor, meta: torch.Tensor, s: int,
+                  meta_host: np.ndarray | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat ragged byte arena + per-image meta → canvases as the classic
+    wire would have shipped them.
+
+    ``arena``: uint8, any shape (flattened); image ``i``'s pixel (y, x, c)
+    is byte ``meta[i, 0] + (y * w + x) * 3 + c``. ``meta``: int32 [K, 4]
+    rows ``(byte_offset, h, w, valid)`` on the arena's device; a hole
+    (``valid = 0``) is a zero canvas with hw (1, 1). ``meta_host``: the same
+    table on the host, where the copies are planned (default: ``meta``
+    read back, which waits for the device).
+
+    Returns (canvases uint8 [K, s, s, 3], hws int32 [K, 2]), bit-identical
+    to :func:`pad_to_canvas` of the same pixels: one zero fill, one copy of
+    each image's h·w·3 bytes into its canvas (a copy, no resample; no
+    per-element index is built), and a few small kernels for the hws.
+    Raises ValueError on a row that does not fit the canvas or the arena.
+    """
+    flat = arena.reshape(-1)
+    table = meta.cpu().numpy() if meta_host is None else np.asarray(meta_host)
+    canvases = torch.zeros((table.shape[0], s, s, 3), dtype=torch.uint8, device=flat.device)
+    for i, (off, h, w, valid) in enumerate(table.tolist()):
+        if valid <= 0:
+            continue
+        if not (0 < h <= s and 0 < w <= s and 0 <= off and off + h * w * 3 <= flat.numel()):
+            raise ValueError(f"ragged row {i} (offset {off}, {h}x{w}) does not fit a "
+                             f"{s} canvas in a {flat.numel()}-byte arena")
+        canvases[i, :h, :w] = flat[off : off + h * w * 3].view(h, w, 3)
+    hws = torch.where(meta[:, 3:4] > 0, meta[:, 1:3], 1)
+    return canvases, hws.to(torch.int32)
+
+
+def yuv420_to_rgb(packed: torch.Tensor, s: int) -> torch.Tensor:
+    """I420 uint8 [B, 3S/2, S] → RGB float32 [B, S, S, 3], clipped to
+    [0, 255]; chroma upsampled ×2 by nearest neighbour (the reference's
+    order of operations)."""
+    b = packed.shape[0]
+    y = packed[:, :s].to(torch.float32)
+    u = packed[:, s : s + s // 4].reshape(b, s // 2, s // 2).to(torch.float32) - 128.0
+    v = packed[:, s + s // 4 :].reshape(b, s // 2, s // 2).to(torch.float32) - 128.0
+    up = lambda p: p.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)  # noqa: E731
+    return _combine_rgb(y, up(u), up(v))
+
 
 def _dynamic_axis_coords(out_size: int, in_size: torch.Tensor, total: int):
     """Bilinear sample coordinates for valid extents ``in_size`` ([B] int)
@@ -118,6 +189,27 @@ def _dynamic_axis_coords(out_size: int, in_size: torch.Tensor, total: int):
     lo = torch.floor(c)
     hi = torch.minimum(torch.minimum(lo + 1.0, in_f - 1.0), torch.full_like(lo, total - 1))
     return lo, hi, c - lo
+
+
+def resize_from_valid(canvases: torch.Tensor, hws: torch.Tensor, out_h: int, out_w: int):
+    """Bilinear resize of each image's valid top-left region by gathering
+    its two taps per axis ("gather"): rows first, then columns, each as
+    ``x[lo] * (1 - frac) + x[hi] * frac`` in separate float32 operations,
+    the reference's order.
+
+    canvases: uint8/float [B, S, S, 3]; hws: int [B, 2] → float32
+    [B, out_h, out_w, 3].
+    """
+    x = canvases.to(torch.float32)
+    h_lo, h_hi, h_f = _dynamic_axis_coords(out_h, hws[:, 0], canvases.shape[1])  # [B, out_h]
+    w_lo, w_hi, w_f = _dynamic_axis_coords(out_w, hws[:, 1], canvases.shape[2])  # [B, out_w]
+    b = torch.arange(x.shape[0], device=x.device)[:, None]
+    h_f = h_f[:, :, None, None]
+    top = x[b, h_lo.long()] * (1.0 - h_f) + x[b, h_hi.long()] * h_f  # [B, out_h, S, 3]
+    top = top.transpose(1, 2)  # [B, S, out_h, 3]: the gathered axis first
+    w_f = w_f[:, :, None, None]
+    out = top[b, w_lo.long()] * (1.0 - w_f) + top[b, w_hi.long()] * w_f  # [B, out_w, out_h, 3]
+    return out.transpose(1, 2)
 
 
 def _bilinear_matrix(out_size: int, in_size: torch.Tensor, total: int) -> torch.Tensor:
@@ -156,6 +248,9 @@ def resize_from_valid_mm(canvases: torch.Tensor, hws: torch.Tensor, out_h: int, 
     t = torch.matmul(a_h[:, None], x)  # [B, 3, out_h, S]
     out = torch.matmul(t, a_w[:, None].transpose(-1, -2))  # [B, 3, out_h, out_w]
     return out.permute(0, 2, 3, 1)
+
+
+RESIZERS = {"gather": resize_from_valid, "matmul": resize_from_valid_mm}
 
 
 def _split_planes(packed: torch.Tensor):
@@ -211,7 +306,9 @@ def make_preprocess_fn(out_h: int, out_w: int, mode: str, wire: str = "rgb",
 
     ``wire`` selects the canvas encoding: "rgb" takes uint8 [B, S, S, 3];
     "yuv420" takes packed I420 uint8 [B, 3S/2, S]. ``resize="matmul"`` is
-    the plain-torch separable resize in float32, then a cast;
+    the plain-torch separable resize in float32, then a cast (on yuv420,
+    plane by plane, converting after); ``resize="gather"`` reads the taps
+    by index (on yuv420, converting to RGB first, as the reference does);
     ``resize="kernel"`` (yuv420 only) launches the fused CUDA kernel on
     CUDA tensors, which stores ``out_dtype`` itself.
     """
@@ -225,11 +322,14 @@ def make_preprocess_fn(out_h: int, out_w: int, mode: str, wire: str = "rgb",
         from .preprocess_i420 import preprocess_i420
 
         return lambda packed, hws: preprocess_i420(packed, hws, out_h, out_w, mode, out_dtype)
-    if resize != "matmul":
+    if resize not in RESIZERS:
         raise ValueError(f"unknown resize {resize!r}")
     norm = NORMALIZERS[mode]
-    if wire == "yuv420":
+    if wire == "yuv420" and resize == "matmul":
         return lambda packed, hws: norm(resize_yuv_planes(packed, hws, out_h, out_w)).to(
             out_dtype)
-    return lambda canvases, hws: norm(resize_from_valid_mm(canvases, hws, out_h, out_w)).to(
-        out_dtype)
+    resize_one = RESIZERS[resize]
+    if wire == "yuv420":  # gather: convert to RGB first, as the reference does
+        return lambda packed, hws: norm(resize_one(
+            yuv420_to_rgb(packed, packed.shape[-1]), hws, out_h, out_w)).to(out_dtype)
+    return lambda canvases, hws: norm(resize_one(canvases, hws, out_h, out_w)).to(out_dtype)

@@ -1,8 +1,8 @@
 """HTTP inference server on one CUDA device.
 
     python -m tensorflow_web_deploy_tpu_torch.server --model native:inception_v3 \\
-        [--wire-format yuv420 --resize kernel] [--dtype bf16|f32|int8]
-        [--fused-dw auto|on|off] [--device cuda|cpu]
+        [--no-ragged] [--resize matmul|gather] [--wire-format yuv420 --resize kernel]
+        [--dtype bf16|f32|int8] [--fused-dw auto|on|off] [--device cuda|cpu]
     curl -X POST --data-binary @cat.jpg http://localhost:8500/predict
 
 Counterpart of the JAX package's root ``server.py``, with the flags this
@@ -84,8 +84,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--canvas-buckets", default=None,
                    help="comma-separated canvas sides, e.g. 256,512")
     p.add_argument("--wire-format", choices=["rgb", "yuv420"], default="rgb")
-    p.add_argument("--resize", choices=["matmul", "kernel"], default="matmul",
-                   help="kernel: the fused I420 CUDA preprocess (yuv420 wire only)")
+    p.add_argument("--ragged", action=argparse.BooleanOptionalAction, default=True,
+                   help="ragged wire (default on): ship tight decoded pixels in one byte "
+                        "arena per batch and rebuild the canvases on the device (rgb wire "
+                        "only; --wire-format yuv420 serves the classic wire). --no-ragged "
+                        "ships host-padded canvases")
+    p.add_argument("--resize", choices=["matmul", "gather", "kernel"], default="matmul",
+                   help="on-device resize: matmul (default), gather (the taps read by "
+                        "index), or kernel, the fused I420 CUDA preprocess (yuv420 wire "
+                        "only)")
     p.add_argument("--dtype", default=None,
                    help="bf16 (default), f32, or int8 (int8 kernels, bf16 compute)")
     p.add_argument("--fused-dw", choices=["auto", "on", "off"], default=None,
@@ -114,7 +121,7 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
     return ServerConfig(
         model=mc, host=args.host, port=args.port, max_batch=args.max_batch,
         max_delay_ms=args.max_delay_ms, wire_format=args.wire_format, resize=args.resize,
-        warmup=not args.no_warmup, **kw,
+        ragged=args.ragged, warmup=not args.no_warmup, **kw,
     )
 
 
@@ -129,7 +136,9 @@ def main(argv=None) -> None:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     srv = start_server(cfg, device=args.device, seed=args.seed)
-    log.info("listening on %s (%s, %s)", srv.url, cfg.model.name, srv.engine.device)
+    log.info("listening on %s (%s, %s, %s wire%s, %s decode)", srv.url, cfg.model.name,
+             srv.engine.device, cfg.wire_format, ", ragged" if srv.engine.ragged else "",
+             "native" if srv.engine.decoder["available"] else "PIL")
     try:
         srv.wait()
     except KeyboardInterrupt:

@@ -6,6 +6,10 @@ which seals when it holds ``max_batch`` images or ``max_delay_ms`` after
 its first image arrived, whichever comes first. One dispatch thread runs
 each sealed batch on the engine and resolves the requests' futures with
 their (scores, indices) rows.
+
+Ragged images (tight, from :meth:`submit_ragged`) queue under the key
+``("ragged", s)``; their sealed batch is copied into one pinned arena, one
+memcpy per image, and shipped by ``engine.run_ragged``.
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ class Batcher:
         self.max_batch = min(max_batch or engine.max_batch, engine.max_batch)
         self.max_delay_s = max_delay_ms / 1e3
         self._cond = threading.Condition()
-        # canvas side → (time the open batch started, [(canvas, hw, future)])
-        self._open: dict[int, tuple[float, list]] = {}
+        # canvas side, or ("ragged", side) → (time the open batch started,
+        # [(canvas or tight image, hw, future)])
+        self._open: dict[int | tuple[str, int], tuple[float, list]] = {}
         self._stopping = False
         self._thread: threading.Thread | None = None
         self.batches = 0
@@ -51,31 +56,39 @@ class Batcher:
         return self
 
     def submit(self, canvas: np.ndarray, hw: tuple[int, int]) -> Future:
-        """Queue one prepared image; the future resolves to its row."""
+        """Queue one prepared wire canvas; the future resolves to its row."""
+        return self._enqueue(canvas.shape[-1], canvas, hw)
+
+    def submit_ragged(self, tight: np.ndarray, hw: tuple[int, int], s: int) -> Future:
+        """Queue one tight image (uint8 [h, w, 3]) of canvas side ``s`` for the
+        ragged wire; the future resolves to its row."""
+        return self._enqueue(("ragged", s), tight, hw)
+
+    def _enqueue(self, key, item: np.ndarray, hw: tuple[int, int]) -> Future:
         fut: Future = Future()
-        s = canvas.shape[-1]
         with self._cond:
             if self._stopping:
                 raise ShuttingDown("batcher is stopping")
-            started, items = self._open.setdefault(s, (time.monotonic(), []))
-            items.append((canvas, hw, fut))
+            started, items = self._open.setdefault(key, (time.monotonic(), []))
+            items.append((item, hw, fut))
             self._cond.notify()
         return fut
 
     def _take_locked(self):
-        """Wait for a batch that is due; None once stopping and drained."""
+        """Wait for a batch that is due: (its key, its items); None once
+        stopping and drained."""
         while True:
             now = time.monotonic()
             wake = None
-            for s, (started, items) in self._open.items():
+            for key, (started, items) in self._open.items():
                 due = started + self.max_delay_s
                 if len(items) >= self.max_batch or now >= due or self._stopping:
                     batch, rest = items[: self.max_batch], items[self.max_batch :]
                     if rest:
-                        self._open[s] = (now, rest)
+                        self._open[key] = (now, rest)
                     else:
-                        del self._open[s]
-                    return batch
+                        del self._open[key]
+                    return key, batch
                 wake = due if wake is None else min(wake, due)
             if self._stopping:
                 return None
@@ -91,17 +104,19 @@ class Batcher:
         ready.set_result(None)
         while True:
             with self._cond:
-                batch = self._take_locked()
-            if batch is None:
+                taken = self._take_locked()
+            if taken is None:
                 return
-            self._dispatch(batch)
+            self._dispatch(*taken)
 
-    def _dispatch(self, batch: list) -> None:
+    def _dispatch(self, key, batch: list) -> None:
         futures = [f for _, _, f in batch]
         try:
-            canvases = np.stack([c for c, _, _ in batch])
             hws = np.array([hw for _, hw, _ in batch], np.int32)
-            scores, idx = self.engine.run_batch(canvases, hws)
+            if isinstance(key, tuple):
+                scores, idx = self.engine.run_ragged([t for t, _, _ in batch], hws, key[1])
+            else:
+                scores, idx = self.engine.run_batch(np.stack([c for c, _, _ in batch]), hws)
         except Exception as e:  # the dispatch thread must outlive a bad batch
             log.exception("batch of %d failed", len(batch))
             for f in futures:

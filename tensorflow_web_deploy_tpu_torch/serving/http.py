@@ -10,7 +10,8 @@ Routes:
   The images of one request are submitted together, so they usually
   share one device batch.
 - ``GET /healthz`` — a one-image device round trip.
-- ``GET /stats`` — batcher and engine counters, kernel launches included.
+- ``GET /stats`` — batcher and engine counters: kernel launches, native
+  and PIL decodes, the decoder's status (and why it is unavailable).
 """
 
 from __future__ import annotations
@@ -113,15 +114,21 @@ class App:
                 return _error(400, "no file part in multipart body")
         else:
             named = [("body", body)]
+        # decode every file first (libjpeg for JPEGs, PIL for the rest), so
+        # an undecodable one answers 400 before any image is queued
         prepared = []
         for name, data in named:
             try:
-                canvas, hw, _orig = self.engine.prepare_bytes(data)
+                if self.engine.ragged:
+                    tight, hw, s, _orig = self.engine.prepare_ragged(data)
+                    prepared.append((self.batcher.submit_ragged, (tight, hw, s)))
+                else:
+                    canvas, hw, _orig = self.engine.prepare_bytes(data)
+                    prepared.append((self.batcher.submit, (canvas, hw)))
             except ValueError as e:
                 return _error(400, f"{name}: {e}")
-            prepared.append((canvas, hw))
         try:
-            futures = [self.batcher.submit(c, hw) for c, hw in prepared]
+            futures = [submit(*args) for submit, args in prepared]
             rows = [f.result(timeout=REQUEST_TIMEOUT_S) for f in futures]
         except ShuttingDown:
             return _error(503, "server shutting down")

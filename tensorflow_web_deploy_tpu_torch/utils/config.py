@@ -95,9 +95,16 @@ class ServerConfig:
     # Host→device canvas encoding: "rgb" (uint8 HWC) or "yuv420" (packed
     # I420, 1.5 B/px).
     wire_format: str = "rgb"
-    # On-device resize: "matmul" (separable bilinear as torch.matmul) or
-    # "kernel" (the fused I420 CUDA kernel; yuv420 wire only).
+    # On-device resize: "matmul" (separable bilinear as torch.matmul),
+    # "gather" (the same taps read by index) or "kernel" (the fused I420
+    # CUDA kernel; yuv420 wire only).
     resize: str = "matmul"
+    # Ragged wire: each image ships tight (h·w·3 bytes, no canvas padding)
+    # in one flat byte arena per batch, and the device rebuilds the canvases
+    # before the resize. rgb wire only: the engine serves yuv420 on the
+    # classic wire and logs a warning. Off here as in the reference's
+    # dataclass; the server's CLI turns it on by default.
+    ragged: bool = False
     warmup: bool = True
 
     def __post_init__(self):
@@ -105,8 +112,9 @@ class ServerConfig:
         self.canvas_buckets = tuple(sorted(set(self.canvas_buckets)))
         if self.wire_format not in ("rgb", "yuv420"):
             raise ValueError(f"wire_format must be 'rgb' or 'yuv420', got {self.wire_format!r}")
-        if self.resize not in ("matmul", "kernel"):
-            raise ValueError(f"resize must be 'matmul' or 'kernel', got {self.resize!r}")
+        if self.resize not in ("matmul", "gather", "kernel"):
+            raise ValueError(
+                f"resize must be 'matmul', 'gather' or 'kernel', got {self.resize!r}")
         if self.resize == "kernel":
             if self.wire_format != "yuv420":
                 raise ValueError("resize='kernel' requires wire_format='yuv420'")

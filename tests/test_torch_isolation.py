@@ -1,9 +1,11 @@
 """The PyTorch/CUDA port stands alone: no module of
 ``tensorflow_web_deploy_tpu_torch`` and not ``chip_smoke.py`` imports JAX,
-flax or the JAX package, and its entry points run on the card unless the
-caller asks for the CPU."""
+flax or the JAX package, no file of the port names a path inside the JAX
+package (its native decoder compiles its own ``decode.c``), and its entry
+points run on the card unless the caller asks for the CPU."""
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -36,6 +38,24 @@ def test_no_jax_imports_in_the_port_or_chip_smoke():
     bad = {str(f.relative_to(ROOT)): sorted(m for m in _imported_modules(f) if _forbidden(m))
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
+
+
+# a path or module inside the JAX package; the port's own name goes on with "_torch"
+JAX_PATH = re.compile(r"tensorflow_web_deploy_tpu(?!_torch)[/.\\]")
+
+
+def test_no_port_file_names_a_path_in_the_jax_package():
+    files = [f for f in sorted(PORT.rglob("*"))
+             if f.is_file() and f.suffix in (".py", ".c", ".cu", ".h") and ".build" not in f.parts]
+    assert {f.suffix for f in files} >= {".py", ".c", ".cu"}
+    bad = {str(f.relative_to(ROOT)): JAX_PATH.findall(f.read_text()) for f in files}
+    assert not {f: m for f, m in bad.items() if m}
+    assert JAX_PATH.search("tensorflow_web_deploy_tpu/native/decode.c")  # the check bites
+
+    from tensorflow_web_deploy_tpu_torch import native
+
+    assert native._SRC == PORT / "native" / "decode.c" and native._SRC.exists()
+    assert native.BUILD_DIR == PORT / ".build"
 
 
 def test_port_runs_without_loading_jax():
