@@ -3,11 +3,16 @@
     python3 chip_smoke.py
 
 Builds every hand-written kernel from the sources in this checkout (one
-nvcc per source, all started together), holds each against its plain
-PyTorch version on the card at the shapes the main paths give it, then
-builds the native libjpeg decoder, and drives four main paths at full
-width behind ``POST /predict``, every JPEG decoded by libjpeg. Two on the
-yuv420 wire with the preprocess kernel:
+nvcc per source, all started together) and the native libjpeg decoder
+(the system's libjpeg, or else the one Pillow bundles, against the
+headers in ``native/include``), holds each kernel against its plain
+PyTorch version on the card at the shapes the main paths give it, and
+drives four main paths at full width behind ``POST /predict``. Each goes
+through the slot-leased, pipelined batcher: every JPEG is decoded by
+libjpeg straight into its leased slot of a pinned slab (one host copy),
+and up to ``pipeline_depth`` batches per canvas bucket are in flight, each
+batch's H2D on the engine's copy stream. Two on the yuv420 wire with the
+preprocess kernel:
 
 - Inception-v3 in bf16, checked against a float32 reference;
 - MobileNetV2 in the int8 tier, all 17 depthwise cells (13 stride 1, 4
@@ -22,13 +27,22 @@ its images tight in one pinned arena and the device rebuilds the canvases:
 - MobileNetV2 in the int8 tier with the gather resize, the fused
   depthwise kernel in all 17 cells.
 
-Before them, ``native_decode`` times the decoder against the PIL chain it
-replaced, ``ragged_unpack`` holds the device unpack bit for bit against the
-host's padded canvases (holes included) and times it, and after them
-``ragged_vs_classic`` holds each ragged engine's answers against its own
-classic rgb wire on the same images, and ``default_server`` boots the
-server with no model or wire flags in a process of its own, sends it three
-JPEGs and stops it.
+Before them, ``native_decode`` requires the decoder built, holds its RGB
+against PIL's decode of the same bytes (byte for byte at full size) and
+times it against the PIL chain it replaced, on one thread and on 8, and
+``ragged_unpack`` holds the device unpack bit for bit against the host's
+padded canvases (holes included) and times it. Each main path reports its
+decodes, host copies per image and a ``pipeline`` block (batches in
+flight, assembly of batch N+1 beside batch N on the host clock, H2D beside
+compute in CUDA events). After them ``ragged_vs_classic`` holds each
+ragged engine's answers against its own classic rgb wire on the same
+images, ``pipeline_depth`` runs the default server path at depth 1 and 4
+on the same burst, ``backlog`` posts 48 images at once to a server with
+``max_queue=8`` (only 200 and 503 with ``Retry-After``), and
+``default_server`` boots the server with no model or wire flags in a
+process of its own, sends it three JPEGs and stops it. ``normalize``
+counts the elements of the plain preprocess that the exact division
+changed.
 
 The preprocess kernel is checked through both of its entries (the
 ``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
@@ -62,6 +76,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
@@ -656,22 +671,25 @@ def burst(srv, jpegs: list[bytes]) -> tuple[list, dict]:
     """POST every image at once and stamp each stage on the host clock: the
     client's send and receive, the server's accept (``process_request``,
     which starts the request's thread), the whole ``do_POST`` (body read and
-    answer written included), the handler (``App.predict``), decode + pad +
-    pack (``prepare_bytes``), ``Batcher.submit`` and each device batch
-    (``run_batch``). Each stage's ``sum`` is wall time and ``cpu_sum`` the
-    CPU time of its own thread: where wall far exceeds CPU, the thread was
-    waiting (for the interpreter lock, a core or the device). The prepares'
-    overlap says how many decoded at once (at most, and on average over
-    their span). Returns the answers and a summary in ms from the burst's
-    start."""
+    answer written included), the handler (``App.predict``), one upload's
+    lease + decode into its slot + commit (``App._stage``), the lease alone
+    (``lease``/``lease_ragged``, which may wait at the slot cap), each
+    batch's launch (the engine's dispatch: H2D + serve enqueue) and fetch
+    (the wait for its outputs). Each stage's ``sum`` is wall time and
+    ``cpu_sum`` the CPU time of its own thread: where wall far exceeds CPU,
+    the thread was waiting (for the interpreter lock, a core or the
+    device). The stagings' overlap says how many decoded at once (at most,
+    and on average over their span); ``batches_ms`` is each batch's
+    launch → done from the batcher's timeline. Returns the answers and a
+    summary in ms from the burst's start."""
     marks: dict[str, list[tuple[float, float, float]]] = {}
     lock = threading.Lock()
     handler_cls = srv.httpd.RequestHandlerClass
     hooks = [(srv.httpd, "process_request", "accept"), (handler_cls, "do_POST", "do_post"),
-             (srv.app, "predict", "handler"), (srv.engine, "prepare_bytes", "prepare"),
-             (srv.engine, "prepare_ragged", "prepare"), (srv.batcher, "submit", "submit"),
-             (srv.batcher, "submit_ragged", "submit"), (srv.engine, "run_batch", "run_batch"),
-             (srv.engine, "run_ragged", "run_batch")]
+             (srv.app, "predict", "handler"), (srv.app, "_stage", "prepare"),
+             (srv.batcher, "lease", "lease"), (srv.batcher, "lease_ragged", "lease"),
+             (srv.engine, "dispatch_staged", "launch"), (srv.engine, "dispatch_ragged", "launch"),
+             (srv.engine, "fetch_outputs", "fetch")]
     originals = [getattr(obj, attr) for obj, attr, _ in hooks]
 
     def stamped(fn, stage):
@@ -688,7 +706,7 @@ def burst(srv, jpegs: list[bytes]) -> tuple[list, dict]:
     for obj, attr, stage in hooks:
         setattr(obj, attr, stamped(getattr(obj, attr), stage))
     try:
-        t0 = time.perf_counter()
+        t0, t0_mono = time.perf_counter(), time.monotonic()
         with ThreadPoolExecutor(max_workers=len(jpegs)) as pool:
             results = list(pool.map(
                 lambda d: (time.perf_counter(), post(srv.url + "/predict", d)), jpegs))
@@ -711,14 +729,55 @@ def burst(srv, jpegs: list[bytes]) -> tuple[list, dict]:
 
     sends = [s for s, _ in results]
     lat = [r[2] * 1e3 for _, r in results]
-    timeline = {"wall_ms": wall * 1e3, "cpus": os.cpu_count(),
+    timeline = {"wall_ms": wall * 1e3, "cpus": os.cpu_count(), "t0_monotonic": t0_mono,
                 "client_send": {"first": ms(min(sends)), "last": ms(max(sends))},
                 "client_latency_ms": {q: float(np.percentile(lat, p)) for q, p in
                                       (("p50", 50), ("p99", 99), ("max", 100))}}
     timeline.update({stage: summary(spans) for stage, spans in marks.items()})
-    timeline["batches_ms"] = [(ms(a), ms(b)) for a, b, _ in sorted(marks.get("run_batch", []))]
+    recs = [r for r in srv.batcher.batch_timeline() if r["t_seal"] >= t0_mono]
+    timeline["batches_ms"] = [((r["t_launch"] - t0_mono) * 1e3, (r["t_done"] - t0_mono) * 1e3)
+                              for r in recs if r["t_done"] is not None]
     timeline["prepare_overlap"] = overlap(marks.get("prepare", []))
     return [r for _, r in results], timeline
+
+
+def _ov(a: tuple[float, float], b: tuple[float, float]) -> float:
+    """Length of the overlap of two intervals."""
+    return max(0.0, min(a[1], b[1]) - max(a[0], b[0]))
+
+
+def pipeline(srv, t0_monotonic: float, batches: int) -> dict:
+    """How the burst's batches overlapped: from the batcher's
+    ``batch_timeline()``, the most batches in flight (launch → done) at
+    once, overall and within one canvas bucket, and the seconds by which
+    batch N+1's assembly (open → launch) overlapped batch N's launch →
+    done (consecutive batches of one bucket); from the engine's
+    ``device_timeline()`` (CUDA events), the ms by which batch N+1's H2D on
+    the copy stream overlapped batch N's compute (consecutive dispatches,
+    and consecutive ones of one bucket), and both totals."""
+    def by_key(rows):
+        groups: dict = {}
+        for r in rows:
+            groups.setdefault(r["key"], []).append(r)
+        return groups.values()
+
+    recs = sorted((r for r in srv.batcher.batch_timeline()
+                   if r["t_seal"] >= t0_monotonic and r["t_done"] is not None),
+                  key=lambda r: r["seq"])
+    flight = lambda rs: overlap([(r["t_launch"], r["t_done"], 0) for r in rs])["max"]  # noqa: E731
+    dev = srv.engine.device_timeline()[-batches:]
+    h2d = lambda rs: sum(_ov(b["h2d"], a["compute"]) for a, b in zip(rs, rs[1:]))  # noqa: E731
+    return {
+        "batches": len(recs),
+        "max_in_flight": flight(recs),
+        "max_in_flight_per_bucket": max((flight(rs) for rs in by_key(recs)), default=0),
+        "assembly_overlap_s": sum(_ov((b["t_open"], b["t_launch"]), (a["t_launch"], a["t_done"]))
+                                  for rs in by_key(recs) for a, b in zip(rs, rs[1:])),
+        "h2d_compute_overlap_ms": h2d(dev),
+        "h2d_compute_overlap_ms_per_bucket": sum(h2d(rs) for rs in by_key(dev)),
+        "h2d_ms": sum(d["h2d"][1] - d["h2d"][0] for d in dev),
+        "compute_ms": sum(d["compute"][1] - d["compute"][0] for d in dev),
+    }
 
 
 def overlap(spans: list[tuple[float, float, float]]) -> dict:
@@ -778,11 +837,12 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
         # (an SSL context) in every thread that races into it; take that
         # one-time client cost out of the burst
         urllib.request.urlopen(srv.url + "/healthz", timeout=120).read()
-        before = eng.stats()
+        before, copies = eng.stats(), srv.batcher.stats()["host_copies"]
         preprocess_i420.launches = fused_dw.launches = 0
         results, timeline = burst(srv, jpegs)
         launches = {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches}
         after = eng.stats()
+        copies = (srv.batcher.stats()["host_copies"] - copies) / len(jpegs)
         batches = after["batches"] - before["batches"]
         wall = timeline["wall_ms"] / 1e3
         k = eng.topk
@@ -798,10 +858,14 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
             raise AssertionError(f"{name}: kernel launches {launches} for {batches} batches "
                                  f"({fused_cells} fused depthwise cells): want {want}")
         decodes = {d: after["decodes"][d] - before["decodes"][d] for d in after["decodes"]}
-        want_decodes = ({"native": len(jpegs), "pil": 0} if after["decoder"]["available"]
-                        else {"native": 0, "pil": len(jpegs)})
-        if decodes != want_decodes:
-            raise AssertionError(f"{name}: decodes {decodes}, want {want_decodes}")
+        if decodes != {"native": len(jpegs), "pil": 0}:
+            raise AssertionError(f"{name}: decodes {decodes}, want all {len(jpegs)} native")
+        # each JPEG decoded by libjpeg straight into its leased slot of a
+        # pinned slab: one host copy
+        pinned = all(slab.buf.is_pinned() for slabs in eng._pool.values() for slab in slabs)
+        if copies != 1.0 or not pinned or not eng._pool:
+            raise AssertionError(f"{name}: {copies} host copies per image, slabs pinned {pinned}")
+        flow = pipeline(srv, timeline["t0_monotonic"], batches)
         path = f"native:{name}" + (":ragged" if eng.ragged else "")
         emit({"phase": "burst_timeline", "model": name, "path": path, "burst": 1, **timeline})
         row = {"phase": "main_path", "model": f"native:{name}", "path": path, "width": 1.0,
@@ -811,6 +875,8 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
                "decoder_reason": after["decoder"]["reason"], "decodes": decodes,
                "requests": len(jpegs), "batches": batches, "kernel_launches": launches,
                "fused_dw_cells": fused_cells, "boot_s": boot_s,
+               "host_copies_per_image": copies, "slabs_pinned": pinned,
+               "pipeline_depth": cfg.pipeline_depth, "pipeline": flow,
                "h2d_bytes_per_image": (after["h2d_bytes"] - before["h2d_bytes"]) / len(jpegs),
                "img_per_s": len(jpegs) / wall,
                "p50_ms": timeline["client_latency_ms"]["p50"],
@@ -964,6 +1030,36 @@ def preprocess_stage(eng, buf: torch.Tensor, out: int) -> dict:
     return row
 
 
+def phase_normalize(buf: torch.Tensor) -> dict:
+    """The plain normalize on the card divides exactly (a 0-dim divisor on
+    the device), where the formula before it (``x / 127.5 - 1.0`` and
+    ``x / 255.0`` with Python scalars) multiplied by a reciprocal: on every
+    float32 a uint8 gives, and on ``preprocess_i420_plain``'s resize of one
+    batch of 8 main-path images (512 canvas, 299 out), the elements that
+    changed against that formula; the new values must equal numpy's
+    float32 division bit for bit."""
+    from tensorflow_web_deploy_tpu_torch.ops.image import NORMALIZERS, resize_yuv_planes
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import decode_trailer, wire_canvases
+
+    before = {"inception": lambda x: x / 127.5 - 1.0, "zero_one": lambda x: x / 255.0}
+    exact = {"inception": lambda x: x / np.float32(127.5) - np.float32(1.0),
+             "zero_one": lambda x: x / np.float32(255.0)}
+    inputs = {"uint8_values": torch.arange(256, dtype=torch.float32, device="cuda"),
+              "resized_batch": resize_yuv_planes(wire_canvases(buf, 512), decode_trailer(buf),
+                                                 OUT, OUT)}
+    row = {"phase": "normalize"}
+    for label, x in inputs.items():
+        for mode in ("inception", "zero_one"):
+            got = NORMALIZERS[mode](x)
+            want = torch.from_numpy(exact[mode](x.cpu().numpy())).cuda()
+            if not torch.equal(got, want):
+                raise AssertionError(f"normalize {mode} on the card is not exact division")
+            row[f"{label}_{mode}"] = {"elements": x.numel(),
+                                      "changed": int((got != before[mode](x)).sum())}
+    emit(row)
+    return row
+
+
 def phase_breakdown(jpegs: list[bytes]) -> dict:
     """Device time per stage of one batch of 8 main-path images in the
     512 canvas: the preprocess stage (one kernel, bf16 out), forward (bf16)
@@ -975,6 +1071,7 @@ def phase_breakdown(jpegs: list[bytes]) -> dict:
                           seed=SEED)
     buf, hws_np, prepare_ms = batch_of_8(eng, jpegs)
     host = buf[:, :-4].reshape(8, 768, 512).cpu().numpy()
+    phase_normalize(buf)
     with torch.inference_mode():
         stage = preprocess_stage(eng, buf, OUT)
         x = eng.preprocess_packed(buf)
@@ -1130,31 +1227,30 @@ def per_image_ms(fn, items: list, passes: int = 3) -> float:
 
 
 def decode_tight(data: bytes) -> tuple[np.ndarray, tuple[int, int], int]:
-    """One upload as the ragged wire takes it: tight RGB rows by libjpeg
-    (planned from the header), or PIL + ``fit_to_bucket`` where the native
-    decoder is unavailable. Returns (flat uint8, (h, w), canvas side)."""
+    """One JPEG as the ragged wire takes it: tight RGB rows by libjpeg,
+    planned from the header. Returns (flat uint8, (h, w), canvas side)."""
     from tensorflow_web_deploy_tpu_torch import native
-    from tensorflow_web_deploy_tpu_torch.ops.image import decode_image, fit_to_bucket
 
-    plan = native.plan_decode_packed(data, BUCKETS)
-    if plan is not None:
-        s, need, _, _ = plan
-        out = np.empty(need, np.uint8)
-        hw = native.decode_packed_into(data, out, s)
-        if hw is not None:
-            return out, hw, s
-    tight, hw, s = fit_to_bucket(decode_image(data), BUCKETS)
-    return tight.reshape(-1), hw, s
+    s, need, _, _ = native.plan_decode_packed(data, BUCKETS)
+    out = np.empty(need, np.uint8)
+    hw = native.decode_packed_into(data, out, s)
+    if hw is None:
+        raise AssertionError("libjpeg rejected a main-path JPEG")
+    return out, hw, s
 
 
 def phase_native_decode(jpegs: list[bytes]) -> dict:
-    """The native decoder: whether it built (and why not), its libjpeg, one
+    """The native decoder, which must be built: which libjpeg it links (the
+    system's, or the one Pillow bundles) and that file's version; one
     thread's ms per image over the main paths' JPEGs into each wire (RGB
-    canvas, I420 canvas, tight rows) against the PIL chain they replace
+    canvas, I420 canvas, tight rows) against the PIL chain each replaces
     (decode + pad + the numpy I420 packer; decode + pad; decode +
-    ``fit_to_bucket``), the same over 8 threads at once, and the largest
-    difference of its RGB from PIL's (a report: two libjpeg builds may
-    round their IDCT differently)."""
+    ``fit_to_bucket``), and tight rows on 8 threads at once, native and
+    PIL. Its RGB must equal PIL's decode of the same bytes byte for byte at
+    full size (the same libjpeg where it links Pillow's); an image the DCT
+    downscaled is reported by its largest difference."""
+    from PIL import Image
+
     from tensorflow_web_deploy_tpu_torch import native
     from tensorflow_web_deploy_tpu_torch.ops.image import (
         decode_image,
@@ -1165,43 +1261,56 @@ def phase_native_decode(jpegs: list[bytes]) -> dict:
 
     st = native.status()
     row = {"phase": "native_decode", "built": st["available"], "library": st["library"],
-           "libjpeg_version": st["libjpeg_version"], "reason": st["reason"],
-           "images": len(jpegs), "buckets": list(BUCKETS),
-           "pil_i420_ms": per_image_ms(
-               lambda d: rgb_to_yuv420_canvas(pad_to_canvas(decode_image(d), BUCKETS)[0]), jpegs),
-           "pil_rgb_ms": per_image_ms(lambda d: pad_to_canvas(decode_image(d), BUCKETS), jpegs),
-           "pil_tight_ms": per_image_ms(lambda d: fit_to_bucket(decode_image(d), BUCKETS),
-                                        jpegs)}
-    with ThreadPoolExecutor(8) as pool:
-        t0 = time.perf_counter()
-        list(pool.map(lambda d: pad_to_canvas(decode_image(d), BUCKETS), jpegs * 4))
-        row["pil_rgb_ms_8_threads"] = (time.perf_counter() - t0) / (4 * len(jpegs)) * 1e3
-    if st["available"]:
-        row.update(
-            native_rgb_ms=per_image_ms(lambda d: native.decode_native(d, BUCKETS, "rgb"), jpegs),
-            native_i420_ms=per_image_ms(lambda d: native.decode_native(d, BUCKETS, "yuv420"),
-                                        jpegs),
-            native_tight_ms=per_image_ms(decode_tight, jpegs))
+           "lib_version": st["lib_version"], "libjpeg_version": st["libjpeg_version"],
+           "reason": st["reason"], "images": len(jpegs), "buckets": list(BUCKETS)}
+    if not st["available"]:
+        emit(row)
+        raise AssertionError(f"the native decoder did not build: {st['reason']}")
+    pil_tight = lambda d: fit_to_bucket(decode_image(d), BUCKETS)  # noqa: E731
+
+    def threads8(fn):
         with ThreadPoolExecutor(8) as pool:
             t0 = time.perf_counter()
-            list(pool.map(decode_tight, jpegs * 4))
-            row["native_tight_ms_8_threads"] = (time.perf_counter() - t0) / (4 * len(jpegs)) * 1e3
-        diffs = []
-        for d in jpegs:
-            tight, (h, w), _ = decode_tight(d)
-            diffs.append(np.abs(tight.reshape(h, w, 3).astype(np.int16)
-                                - decode_image(d).astype(np.int16)))
-        row["max_abs_diff_vs_pil"] = int(max(x.max() for x in diffs))
-        row["differing_fraction_vs_pil"] = float(sum((x > 0).sum() for x in diffs)
-                                                 / sum(x.size for x in diffs))
+            list(pool.map(fn, jpegs * 4))
+            return (time.perf_counter() - t0) / (4 * len(jpegs)) * 1e3
+
+    row.update(
+        pil_i420_ms=per_image_ms(
+            lambda d: rgb_to_yuv420_canvas(pad_to_canvas(decode_image(d), BUCKETS)[0]), jpegs),
+        pil_rgb_ms=per_image_ms(lambda d: pad_to_canvas(decode_image(d), BUCKETS), jpegs),
+        pil_tight_ms=per_image_ms(pil_tight, jpegs),
+        native_rgb_ms=per_image_ms(lambda d: native.decode_native(d, BUCKETS, "rgb"), jpegs),
+        native_i420_ms=per_image_ms(lambda d: native.decode_native(d, BUCKETS, "yuv420"), jpegs),
+        native_tight_ms=per_image_ms(decode_tight, jpegs),
+        pil_tight_ms_8_threads=threads8(pil_tight),
+        native_tight_ms_8_threads=threads8(decode_tight))
+    identical, scaled = 0, []
+    for d in jpegs:
+        tight, (h, w), _ = decode_tight(d)
+        got = tight.reshape(h, w, 3).astype(np.int16)
+        im = Image.open(io.BytesIO(d))
+        full = im.size == (w, h)
+        if not full:
+            im.draft("RGB", (w, h))  # libjpeg's DCT scaling, as decode.c asks for it
+        ref = np.asarray(im.convert("RGB")).astype(np.int16)
+        diff = int(np.abs(got - ref).max()) if ref.shape == got.shape else None
+        if full:
+            identical += diff == 0
+        else:
+            scaled.append(diff)
+    row.update(identical_vs_pil=identical, full_size=len(jpegs) - len(scaled),
+               downscaled_max_abs_diff=scaled)
     emit(row)
+    if identical != len(jpegs) - len(scaled):
+        raise AssertionError(f"decode.c differs from PIL on {len(jpegs) - len(scaled) - identical}"
+                             " full-size JPEGs")
     return row
 
 
 def ragged_slab(jpegs: list[bytes], s: int, holes: tuple[int, ...] = ()):
     """A pinned ragged slab of ``len(jpegs)`` slots, each image decoded
-    tight straight into its arena span (``decode_tight`` where PIL must
-    decode); slots in ``holes`` are decoded but never committed. Returns
+    tight straight into its arena span; slots in ``holes`` are decoded but
+    never committed. Returns
     the slab and the host's padded canvases and valid sizes of the same
     pixels (``pad_to_canvas``; holes: a zero canvas, hw (1, 1))."""
     from tensorflow_web_deploy_tpu_torch import native
@@ -1212,16 +1321,10 @@ def ragged_slab(jpegs: list[bytes], s: int, holes: tuple[int, ...] = ()):
     canvases = np.zeros((len(jpegs), s, s, 3), np.uint8)
     hws = np.ones((len(jpegs), 2), np.int32)
     for i, data in enumerate(jpegs):
-        plan = native.plan_decode_packed(data, BUCKETS)
-        if plan is not None:  # libjpeg straight into the arena span
-            slot, span = slab.alloc(plan[1])
-            hw = native.decode_packed_into(data, span, s)
-            if hw is None:
-                raise AssertionError(f"libjpeg rejected main-path JPEG {i}")
-        else:
-            tight, hw, _ = decode_tight(data)
-            slot, span = slab.alloc(tight.size)
-            span[:] = tight
+        slot, span = slab.alloc(native.plan_decode_packed(data, BUCKETS)[1])
+        hw = native.decode_packed_into(data, span, s)  # libjpeg straight into the arena
+        if hw is None:
+            raise AssertionError(f"libjpeg rejected main-path JPEG {i}")
         if i not in holes:
             slab.write_hw(slot, hw)
             canvases[i], hws[i] = pad_to_canvas(span.reshape(hw[0], hw[1], 3), (s,))
@@ -1303,31 +1406,123 @@ def phase_ragged_vs_classic(jpegs: list[bytes], served: dict) -> list[dict]:
         scores_r, idx_r = eng.run_ragged([t for t, _ in big], hws, 512)
         canvases = np.stack([pad_to_canvas(t, (512,))[0] for t, _ in big])
         scores_c, idx_c = eng.run_batch(canvases, hws)
-        # every image of the burst, through the ragged wire, by canvas
-        answers = {}
-        for side in BUCKETS:
-            ids = [i for i, p in enumerate(prepared) if p[2] == side]
-            got = eng.run_ragged([prepared[i][0] for i in ids],
-                                 np.array([prepared[i][1] for i in ids], np.int32), side)
-            answers.update({i: (got[0][j], got[1][j]) for j, i in enumerate(ids)})
-        served_ok = True
-        for i, (idx, score) in enumerate(served[name]):
-            sc, ix = answers[i]
-            own = sc[ix == idx]
-            served_ok &= bool(own.size and own[0] >= sc[0] - SERVED_TOL
-                              and abs(own[0] - score) <= SERVED_TOL)
+        matches = served_ok(eng, jpegs, dict(enumerate(served[name])))
         row = {"phase": "ragged_vs_classic", "model": name, "dtype": dtype, "resize": resize,
                "images": len(big), "same_top1": bool(np.array_equal(idx_r[:, 0], idx_c[:, 0])),
                "same_topk": bool(np.array_equal(idx_r, idx_c)),
                "max_prob_delta": float(np.abs(scores_r - scores_c).max()),
                "tol_prob": RAGGED_PROB_TOL, "served_images": len(served[name]),
-               "served_ok": served_ok}
+               "served_ok": matches}
         eng.close()
         emit(row)
-        if not (row["same_top1"] and row["max_prob_delta"] <= RAGGED_PROB_TOL and served_ok):
+        if not (row["same_top1"] and row["max_prob_delta"] <= RAGGED_PROB_TOL and matches):
             raise AssertionError(f"ragged vs classic: {row}")
         rows.append(row)
     return rows
+
+
+def served_ok(eng, jpegs: list[bytes], served: dict[int, tuple[int, float]]) -> bool:
+    """The served top-1 (index, score) of each image ``i`` in ``served``
+    against the engine's own answers on the ragged wire, batched by canvas:
+    a top-1 of the engine's answer and its score, within ``SERVED_TOL``
+    (another batch may take another cuDNN algorithm)."""
+    prepared = {i: eng.prepare_ragged(jpegs[i]) for i in served}
+    answers = {}
+    for side in BUCKETS:
+        ids = [i for i, p in prepared.items() if p[2] == side]
+        if ids:
+            got = eng.run_ragged([prepared[i][0] for i in ids],
+                                 np.array([prepared[i][1] for i in ids], np.int32), side)
+            answers.update({i: (got[0][j], got[1][j]) for j, i in enumerate(ids)})
+    ok = True
+    for i, (idx, score) in served.items():
+        sc, ix = answers[i]
+        own = sc[ix == idx]
+        ok &= bool(own.size and own[0] >= sc[0] - SERVED_TOL and abs(own[0] - score) <= SERVED_TOL)
+    return ok
+
+
+def phase_pipeline_depth(jpegs: list[bytes]) -> dict:
+    """The default server path (Inception-v3 bf16, ragged rgb wire, matmul
+    resize) at ``pipeline_depth`` 1 and 4, and at 4 with the window pinned
+    at its 2 ms cap (``--no-adaptive-delay``), each booted on its own, on
+    the same burst of every image twice: img/s, p50, p99 and the burst's
+    pipeline block. Depth 1 runs lockstep within a canvas bucket: one batch
+    of it in flight, no H2D beside its previous batch's compute; depth 4
+    keeps two or more of a bucket in flight, the next assembling or
+    copying beside the current one's compute. A record, not a claim."""
+    from tensorflow_web_deploy_tpu_torch.server import start_server
+
+    row = {"phase": "pipeline_depth", "model": "native:inception_v3", "dtype": "bfloat16",
+           "wire": "rgb", "ragged": True, "resize": "matmul", "requests": len(jpegs)}
+    for label, depth, adaptive in (("depth1", 1, True), ("depth4", 4, True),
+                                   ("depth4_fixed_window", 4, False)):
+        cfg = _config("inception_v3", "bfloat16", wire="rgb", resize="matmul", ragged=True,
+                      host="127.0.0.1", port=0, pipeline_depth=depth, adaptive_delay=adaptive)
+        with start_server(cfg, device="cuda", seed=SEED) as srv:
+            urllib.request.urlopen(srv.url + "/healthz", timeout=120).read()
+            for n in (1, 2):
+                batches = srv.engine.stats()["batches"]
+                results, timeline = burst(srv, jpegs)
+                if any(r[0] != 200 for r in results):
+                    raise AssertionError(f"{label}: {[r[0] for r in results]}")
+                row[f"{label}_burst{n}"] = {
+                    "img_per_s": len(jpegs) / timeline["wall_ms"] * 1e3,
+                    "p50_ms": timeline["client_latency_ms"]["p50"],
+                    "p99_ms": timeline["client_latency_ms"]["p99"],
+                    "pipeline": pipeline(srv, timeline["t0_monotonic"],
+                                         srv.engine.stats()["batches"] - batches)}
+    emit(row)
+    for n in (1, 2):
+        flow = row[f"depth1_burst{n}"]["pipeline"]
+        if flow["max_in_flight_per_bucket"] != 1 or flow["h2d_compute_overlap_ms_per_bucket"] > 0:
+            raise AssertionError(f"depth 1 is not lockstep: {flow}")
+        flow = row[f"depth4_burst{n}"]["pipeline"]
+        if flow["max_in_flight_per_bucket"] < 2 or not (
+                flow["assembly_overlap_s"] > 0 or flow["h2d_compute_overlap_ms_per_bucket"] > 0):
+            raise AssertionError(f"depth 4 kept no two batches of a bucket in flight: {flow}")
+    return row
+
+
+def post_any(url: str, data: bytes) -> tuple[int, dict, dict]:
+    """POST one image; (status, body, headers) whatever the status."""
+    req = urllib.request.Request(url, data=data, method="POST",
+                                 headers={"Content-Type": "image/jpeg"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def phase_backlog(jpegs: list[bytes]) -> dict:
+    """The default server path with ``--max-queue 8`` and every image posted
+    at once: only 200 and 503 answers, each 503 with ``Retry-After``, no
+    other 5xx, and each 200 the engine's own answer within ``SERVED_TOL``."""
+    from tensorflow_web_deploy_tpu_torch.server import start_server
+
+    cfg = _config("inception_v3", "bfloat16", wire="rgb", resize="matmul", ragged=True,
+                  host="127.0.0.1", port=0, max_queue=8)
+    with start_server(cfg, device="cuda", seed=SEED) as srv:
+        urllib.request.urlopen(srv.url + "/healthz", timeout=120).read()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(jpegs)) as pool:
+            results = list(pool.map(lambda d: post_any(srv.url + "/predict", d), jpegs))
+        wall = time.perf_counter() - t0
+        stats = srv.batcher.stats()
+        served = {i: (b["predictions"][0]["index"], b["predictions"][0]["score"])
+                  for i, (st, b, _) in enumerate(results) if st == 200}
+        ok = served_ok(srv.engine, jpegs, served)
+    statuses = [st for st, _, _ in results]
+    retry = [h.get("Retry-After") for st, _, h in results if st == 503]
+    row = {"phase": "backlog", "max_queue": 8, "requests": len(jpegs), "wall_ms": wall * 1e3,
+           "ok_200": statuses.count(200), "rejected_503": statuses.count(503),
+           "other": sorted(set(statuses) - {200, 503}), "retry_after": sorted(set(retry)),
+           "backlog_rejects": stats["backlog_rejects"], "served_ok": ok}
+    emit(row)
+    if row["other"] or None in retry or not ok or row["rejected_503"] != stats["backlog_rejects"]:
+        raise AssertionError(f"backlog: {row}")
+    return row
 
 
 def phase_default_server(jpegs: list[bytes]) -> dict:
@@ -1454,6 +1649,8 @@ def main(argv: list[str]) -> int:
                               second_burst=True, wire="rgb", resize=resize, ragged=True)
               for name, dtype, resize in RAGGED_PATHS]
     phase_ragged_vs_classic(jpegs, {p["model"].split(":")[1]: p["served"] for p in ragged})
+    phase_pipeline_depth(jpegs)
+    phase_backlog(make_jpegs(48, SEED + 1))
     phase_default_server(jpegs)
     by_path = {p["path"]: p["kernel_launches"] for p in (inception, mobilenet, *ragged)}
     emit({"kernels": [{

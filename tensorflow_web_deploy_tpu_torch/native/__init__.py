@@ -10,13 +10,21 @@ interpreter lock for every call, so the server's request threads decode in
 parallel.
 
 The library is built at first use with the system C compiler (``cc``, or
-``$CC``) and ``-ljpeg`` into ``tensorflow_web_deploy_tpu_torch/.build/``
-(listed in ``.gitignore``), under a name that carries a hash of the
-source; ``python -m tensorflow_web_deploy_tpu_torch.native.build``
-prebuilds it. Where the machine has no C compiler or no libjpeg (its
-header or its library, at build or at load), the decoder is unavailable:
-every call here returns None, the callers decode with PIL, and
-:func:`status` says why. Any other build failure is a fault and raises.
+``$CC``) into ``tensorflow_web_deploy_tpu_torch/.build/`` (listed in
+``.gitignore``), under a name that hashes the source and the libjpeg it
+links; ``python -m tensorflow_web_deploy_tpu_torch.native.build``
+prebuilds it. Two routes, in order:
+
+1. the system's libjpeg: ``cc … decode.c -ljpeg``;
+2. where the system has no libjpeg (no header or no library), the libjpeg
+   that the installed Pillow bundles (``pillow.libs/libjpeg*.so.62*``),
+   compiled against the headers copied into ``native/include/`` and
+   linked by its full path with an rpath to its directory.
+
+Where neither route builds and loads (no C compiler, no libjpeg), the
+decoder is unavailable: every call here returns None, the callers decode
+with PIL, and :func:`status` says why. Any other build failure is a
+fault and raises.
 """
 
 from __future__ import annotations
@@ -38,7 +46,9 @@ from ..ops.image import pick_bucket
 log = logging.getLogger("tpu_serve_torch.native")
 
 _SRC = Path(__file__).resolve().parent / "decode.c"
+_INCLUDE = Path(__file__).resolve().parent / "include"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".build"
+SYSTEM = "system -ljpeg"  # status()["library"] of the first route
 # compiler messages that mean libjpeg itself is missing, not a fault
 _NO_LIBJPEG = ("jpeglib.h: No such file", "cannot find -ljpeg", "unable to find library -ljpeg")
 
@@ -46,6 +56,7 @@ _lock = threading.Lock()  # one build and load per process
 _lib: ctypes.CDLL | None = None
 _tried = False
 _reason: str | None = None  # why the decoder is unavailable
+_linked: tuple[str, str | None] | None = None  # (library, its version) once loaded
 
 _u8p = ctypes.POINTER(ctypes.c_ubyte)
 _intp = ctypes.POINTER(ctypes.c_int)
@@ -62,23 +73,68 @@ _SIGNATURES = {
 ENTRIES = tuple(_SIGNATURES)  # every entry is bound at load; a missing one raises
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libtwd_decode-{digest}.so"
+def _compiler() -> str | None:
+    return shutil.which(os.environ.get("CC", "cc"))
 
 
-def _build(out: Path) -> str | None:
-    """Compile ``decode.c`` into a temporary file and rename it into place,
-    so a concurrent build never loads a half-written library. Returns why
-    the decoder cannot be built on this host (no compiler, no libjpeg),
-    or None once it is built; raises on any other failure."""
-    cc = shutil.which(os.environ.get("CC", "cc"))
+def pillow_libjpeg() -> Path | None:
+    """The libjpeg (ABI 62) that the installed Pillow bundles beside its
+    package, as its manylinux wheels ship it, or None."""
+    import PIL
+
+    libs = Path(PIL.__file__).resolve().parent.parent / "pillow.libs"
+    found = sorted(libs.glob("libjpeg*.so.62*"))
+    return found[0] if found else None
+
+
+def _system_libjpeg(cc: str | None) -> Path | None:
+    """The file ``cc … -ljpeg`` links (``-print-file-name``), or None where
+    the compiler finds none."""
+    if cc is None:
+        return None
+    out = subprocess.run([cc, "-print-file-name=libjpeg.so"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    return Path(out).resolve() if os.path.isabs(out) else None
+
+
+def _routes(cc: str | None) -> list[tuple[str, Path | None]]:
+    """(``status()["library"]``, the libjpeg file, None where unknown) for
+    each route, in the order they are tried."""
+    routes = [(SYSTEM, _system_libjpeg(cc))]
+    bundled = pillow_libjpeg()
+    if bundled is not None:
+        routes.append((str(bundled), bundled))
+    return routes
+
+
+def library_path(libjpeg: Path | None = None) -> Path:
+    """The built decoder for one libjpeg: its name hashes the source and
+    that library's file, so a build that linked one libjpeg is never
+    loaded for another."""
+    h = hashlib.sha256(_SRC.read_bytes())
+    h.update(str(libjpeg or SYSTEM).encode())
+    return BUILD_DIR / f"libtwd_decode-{h.hexdigest()[:16]}.so"
+
+
+def _build(out: Path, bundled: Path | None = None) -> str | None:
+    """Compile ``decode.c`` against the system's libjpeg (``-ljpeg``), or
+    against ``bundled``, a libjpeg outside the system's paths (the copied
+    headers, its full path and an rpath), into a temporary file and rename
+    it into place, so a concurrent build never loads a half-written
+    library. Returns why the decoder cannot be built on this host (no
+    compiler, no libjpeg), or None once it is built; raises on any other
+    failure."""
+    cc = _compiler()
     if cc is None:
         return "no C compiler (cc) on this machine"
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [cc, "-O3", "-shared", "-fPIC", "-o", tmp, str(_SRC), "-ljpeg"]
+    cmd = [cc, "-O3", "-shared", "-fPIC", "-o", tmp]
+    if bundled is None:
+        cmd += [str(_SRC), "-ljpeg"]
+    else:
+        cmd += [f"-I{_INCLUDE}", str(_SRC), str(bundled), f"-Wl,-rpath,{bundled.parent}"]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
         if proc.returncode != 0:
@@ -93,29 +149,37 @@ def _build(out: Path) -> str | None:
 
 
 def _load() -> ctypes.CDLL | None:
-    """Build (if needed) and load the library; None where it cannot be built."""
-    global _lib, _tried, _reason
+    """Build (if needed) and load the library, by the first route that
+    works; None where none does."""
+    global _lib, _tried, _reason, _linked
     if _tried:
         return _lib
     with _lock:
         if _tried:
             return _lib
-        so = library_path()
-        reason = None if so.exists() else _build(so)
-        if reason is None:
-            try:
-                lib = ctypes.CDLL(str(so))
-            except OSError as e:  # built elsewhere; this machine lacks its libjpeg
-                reason = f"cannot load {so.name}: {e}"
-        if reason is None:
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.restype, fn.argtypes = ctypes.c_int, argtypes
-            _lib = lib
-            log.info("native decoder loaded (%s)", so.name)
+        reasons = []
+        for library, libjpeg in _routes(_compiler()):
+            so = library_path(libjpeg)
+            reason = None if so.exists() else _build(
+                so, None if library == SYSTEM else libjpeg)
+            if reason is None:
+                try:
+                    lib = ctypes.CDLL(str(so))
+                except OSError as e:  # built elsewhere; this machine lacks its libjpeg
+                    reason = f"cannot load {so.name}: {e}"
+            if reason is None:
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.restype, fn.argtypes = ctypes.c_int, argtypes
+                _lib = lib
+                # the version of the file linked: libjpeg.so.62.3.0 → "62.3.0"
+                _linked = (library, libjpeg.name.split(".so.")[-1] if libjpeg else None)
+                log.info("native decoder loaded (%s, %s)", so.name, library)
+                break
+            reasons.append(f"{library}: {reason}")
         else:
-            _reason = reason
-            log.warning("native decoder unavailable (%s); decoding with PIL", reason)
+            _reason = "; ".join(reasons)
+            log.warning("native decoder unavailable (%s); decoding with PIL", _reason)
         _tried = True
     return _lib
 
@@ -125,11 +189,13 @@ def available() -> bool:
 
 
 def status() -> dict:
-    """Whether the decoder is built, where, against which libjpeg, and why
-    not where it is unavailable (``/stats`` and ``chip_smoke.py`` read it)."""
+    """Whether the decoder is built, which libjpeg it links (``"system
+    -ljpeg"`` or the path of Pillow's) and that file's version, the libjpeg
+    API it was compiled for, and why not where it is unavailable
+    (``/stats`` and ``chip_smoke.py`` read it)."""
     lib = _load()
-    return {"available": lib is not None,
-            "library": str(library_path()) if lib is not None else None,
+    library, version = _linked if lib is not None else (None, None)
+    return {"available": lib is not None, "library": library, "lib_version": version,
             "libjpeg_version": lib.twd_jpeg_lib_version() if lib is not None else None,
             "reason": _reason}
 

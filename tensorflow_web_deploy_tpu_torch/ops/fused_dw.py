@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -188,7 +189,8 @@ def _launch(x, taps, bias, pads, relu6, stride, shape: LaunchShape) -> torch.Ten
              shape.th, shape.run, stream)
     if err != 0:
         raise RuntimeError(f"fused_dw kernel launch failed: CUDA error {err}")
-    fused_dw.launches += 1
+    with _launches_lock:  # launch threads dispatch batches at once
+        fused_dw.launches += 1
     return out
 
 
@@ -240,3 +242,4 @@ def fused_dw(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, kh: int, k
 
 
 fused_dw.launches = 0
+_launches_lock = threading.Lock()

@@ -290,9 +290,18 @@ def resize_yuv_planes(packed: torch.Tensor, hws: torch.Tensor, out_h: int, out_w
 
 _CAFFE_MEAN = (103.939, 116.779, 123.68)
 
+def _divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` as a true float32 division on every device: on CUDA, torch
+    divides by a Python scalar (or a CPU scalar) as a multiply by its
+    reciprocal, an ulp off IEEE division for most values; by a 0-dim tensor
+    on ``x``'s own device it divides. The divisor is filled on the device
+    (no host copy, so a CUDA graph can capture it)."""
+    return x / torch.full((), d, dtype=torch.float32, device=x.device)
+
+
 NORMALIZERS = {
-    "inception": lambda x: x / 127.5 - 1.0,  # [-1, 1]; Inception/MobileNet family
-    "zero_one": lambda x: x / 255.0,
+    "inception": lambda x: _divide(x, 127.5) - 1.0,  # [-1, 1]; Inception/MobileNet family
+    "zero_one": lambda x: _divide(x, 255.0),
     # Caffe-style ResNet-50: RGB→BGR + per-channel mean subtraction.
     "caffe": lambda x: x.flip(-1) - torch.tensor(_CAFFE_MEAN, dtype=torch.float32, device=x.device),
     "raw": lambda x: x,

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -196,7 +197,8 @@ def _launch(src: torch.Tensor, image_stride: int, hws: torch.Tensor | None, b: i
                     shape.rows, shape.threads, stream)
     if err != 0:
         raise RuntimeError(f"preprocess_i420 kernel launch failed: CUDA error {err}")
-    preprocess_i420.launches += 1
+    with _launches_lock:  # launch threads dispatch batches at once
+        preprocess_i420.launches += 1
     return out
 
 
@@ -243,3 +245,4 @@ def preprocess_i420_wire(buf: torch.Tensor, s: int, out_h: int, out_w: int,
 
 
 preprocess_i420.launches = 0
+_launches_lock = threading.Lock()

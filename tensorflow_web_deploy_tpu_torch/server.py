@@ -3,6 +3,7 @@
     python -m tensorflow_web_deploy_tpu_torch.server --model native:inception_v3 \\
         [--no-ragged] [--resize matmul|gather] [--wire-format yuv420 --resize kernel]
         [--dtype bf16|f32|int8] [--fused-dw auto|on|off] [--device cuda|cpu]
+        [--pipeline-depth 4] [--max-queue 0] [--no-adaptive-delay] [--lease-timeout-s 10]
     curl -X POST --data-binary @cat.jpg http://localhost:8500/predict
 
 Counterpart of the JAX package's root ``server.py``, with the flags this
@@ -16,8 +17,6 @@ import argparse
 import dataclasses
 import logging
 import threading
-
-import torch
 
 from .serving.batcher import Batcher
 from .serving.engine import InferenceEngine
@@ -34,8 +33,11 @@ class Server:
         self.cfg = cfg
         self.engine = InferenceEngine(cfg, device=device, seed=seed)
         try:
-            self.batcher = Batcher(self.engine, cfg.max_batch, cfg.max_delay_ms).start(
-                warmup=cfg.warmup)
+            self.batcher = Batcher(
+                self.engine, cfg.max_batch, cfg.max_delay_ms,
+                pipeline_depth=cfg.pipeline_depth, adaptive_delay=cfg.adaptive_delay,
+                max_queue=cfg.max_queue, lease_timeout_s=cfg.lease_timeout_s,
+            ).start(warmup=cfg.warmup)
             self.app = App(self.engine, self.batcher, cfg)
             self.httpd = make_http_server(self.app, cfg.host, cfg.port)
         except BaseException:
@@ -80,7 +82,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8500)
     p.add_argument("--max-batch", type=int, default=32)
-    p.add_argument("--max-delay-ms", type=float, default=2.0)
+    p.add_argument("--max-delay-ms", type=float, default=2.0,
+                   help="cap on the batch-assembly window; the live window adapts to the "
+                        "backlog unless --no-adaptive-delay")
+    p.add_argument("--no-adaptive-delay", action="store_true",
+                   help="pin the batch window at --max-delay-ms")
+    p.add_argument("--lease-timeout-s", type=float, default=10.0,
+                   help="a leased batch slot whose decode never commits becomes a hole "
+                        "after this long")
+    p.add_argument("--pipeline-depth", type=int, default=4,
+                   help="batches in flight per canvas bucket (sealed → launched → "
+                        "unfetched); >= 2 overlaps decode of batch N+1 with execute of N")
+    p.add_argument("--max-queue", type=int, default=0,
+                   help="backlog in images at which a request is answered 503 with "
+                        "Retry-After at once (0: leasing blocks at the slot cap instead)")
     p.add_argument("--canvas-buckets", default=None,
                    help="comma-separated canvas sides, e.g. 256,512")
     p.add_argument("--wire-format", choices=["rgb", "yuv420"], default="rgb")
@@ -120,7 +135,9 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
         kw["canvas_buckets"] = tuple(int(s) for s in args.canvas_buckets.split(","))
     return ServerConfig(
         model=mc, host=args.host, port=args.port, max_batch=args.max_batch,
-        max_delay_ms=args.max_delay_ms, wire_format=args.wire_format, resize=args.resize,
+        max_delay_ms=args.max_delay_ms, adaptive_delay=not args.no_adaptive_delay,
+        pipeline_depth=args.pipeline_depth, max_queue=args.max_queue,
+        lease_timeout_s=args.lease_timeout_s, wire_format=args.wire_format, resize=args.resize,
         ragged=args.ragged, warmup=not args.no_warmup, **kw,
     )
 
@@ -130,11 +147,6 @@ def main(argv=None) -> None:
     logging.basicConfig(level=args.log_level,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     cfg = config_from_args(args)
-    if cfg.model.dtype in ("float32", "int8"):
-        # float32 means float32 (for int8: the parity gate's reference):
-        # cuDNN would otherwise run the convs in TF32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
     srv = start_server(cfg, device=args.device, seed=args.seed)
     log.info("listening on %s (%s, %s, %s wire%s, %s decode)", srv.url, cfg.model.name,
              srv.engine.device, cfg.wire_format, ", ragged" if srv.engine.ragged else "",

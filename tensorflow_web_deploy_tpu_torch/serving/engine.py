@@ -2,7 +2,7 @@
 ``serving/engine.py``).
 
 One batch is one uint8 wire buffer — each image's canvas bytes followed by
-a 4-byte big-endian (h, w) trailer — staged in pinned host memory and
+a 4-byte big-endian (h, w) trailer — in a pinned :class:`StagingSlab`,
 copied to the device with one non-blocking transfer. On the device the
 serve function runs preprocess (into the serving dtype) → forward →
 softmax → top-k, and only k (score, index) pairs per image come back, in
@@ -18,6 +18,15 @@ shipped in one non-blocking copy; the device rebuilds the canvases
 JPEGs are decoded by the native libjpeg decoder (``native/``), PIL takes
 the rest.
 
+Slabs are leased row by row (``serving/batcher.py``): the decoder writes
+each upload straight into its slab, the image's one host copy. Dispatch
+and fetch are separate calls, so several batches can be in flight: the
+host→device copy goes on a copy stream of its own, and the compute stream
+waits for that copy's event, so batch N+1's transfer overlaps batch N's
+compute. A slab returns to its pool once its copy is enqueued (or it is
+released undispatched) and its last lessee has resolved; it is handed out
+again only after that copy's event.
+
 The int8 tier keeps its kernels int8 on the device and dequantizes them
 inside every forward, computing in bf16 (``ops/quant.py``); before it
 serves, the golden parity gate holds it against the unfused float32 model
@@ -28,6 +37,7 @@ from __future__ import annotations
 
 import logging
 import threading
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,23 +64,108 @@ log = logging.getLogger("tpu_serve_torch.engine")
 _HOLE_TRAILER = (0, 1, 0, 1)  # hw = (1, 1): the resize reads one pixel
 
 
-@dataclass
-class _Staging:
-    buf: torch.Tensor  # uint8 [bucket, canvas bytes + 4], pinned on CUDA
-    copied: torch.cuda.Event | None = None  # the last H2D out of buf
+class _Leased:
+    """The pool-return half of a slab's cycle, shared by both slabs. A slab
+    is out of its pool from :meth:`arm` (acquire) until both (a) its batch's
+    host→device copy is enqueued, or it was released undispatched
+    (:meth:`finish`), and (b) every lessee has dropped its lease: a
+    force-expired lessee may still be decoding into its row. ``copied`` is
+    the copy's event; the pool waits for it before the slab is reused."""
+
+    def _init_lease(self) -> None:
+        self._lease_lock = threading.Lock()
+        self._leases = 0
+        self._finished = True
+        self._idle_cb = None
+        self.copied: torch.cuda.Event | None = None
+
+    def arm(self, idle_cb) -> None:
+        """Start one lease/dispatch cycle; ``idle_cb(slab)`` fires once."""
+        with self._lease_lock:
+            self._leases, self._finished, self._idle_cb = 0, False, idle_cb
+
+    def add_lease(self) -> None:
+        with self._lease_lock:
+            self._leases += 1
+
+    def drop_lease(self) -> None:
+        self._maybe_idle(dec=True)
+
+    def finish(self) -> None:
+        """The slab's batch no longer needs its host bytes (its copy is
+        enqueued and ``copied`` recorded), or it was never dispatched."""
+        self._maybe_idle(done=True)
+
+    def _maybe_idle(self, dec: bool = False, done: bool = False) -> None:
+        cb = None
+        with self._lease_lock:
+            self._leases -= dec
+            self._finished |= done
+            if self._finished and self._leases <= 0 and self._idle_cb is not None:
+                cb, self._idle_cb = self._idle_cb, None
+        if cb is not None:  # outside the lock: the callback takes the pool's
+            cb(self)
 
 
-class RaggedSlab:
+class StagingSlab(_Leased):
+    """Pinned host wire buffer of one canvas side for the classic wire, at
+    the top batch bucket's capacity (a batch's final size is unknown while
+    its rows are leased): ``capacity`` rows of canvas bytes, each followed
+    by its 4-byte big-endian (h, w) trailer. :meth:`row` is the view a
+    decoder writes one image and its trailer into; a row never committed
+    keeps the hole trailer (hw 1×1). Dispatch ships the prefix of the
+    batch bucket that covers the real rows."""
+
+    is_ragged = False
+
+    def __init__(self, s: int, row_shape: tuple[int, ...], capacity: int, pinned: bool):
+        self.s, self.capacity = s, capacity
+        self.key = ("classic", s)
+        self.nbytes = int(np.prod(row_shape, dtype=np.int64))
+        self.buf = torch.zeros((capacity, self.nbytes + 4), dtype=torch.uint8,
+                               pin_memory=pinned)
+        self.host = self.buf.numpy()
+        self.canvases = self.host[:, : self.nbytes].reshape(capacity, *row_shape)
+        self.trailer = self.host[:, self.nbytes :]
+        self.trailer[:] = _HOLE_TRAILER
+        self._init_lease()
+
+    def arm(self, idle_cb) -> None:
+        super().arm(idle_cb)
+        self.trailer[:] = _HOLE_TRAILER  # last batch's trailers must not leak into holes
+
+    def row(self, i: int) -> np.ndarray:
+        """Slot ``i``'s flat pinned row: canvas bytes, then the trailer."""
+        return self.host[i]
+
+    def write_hw(self, i: int, hw: tuple[int, int]) -> None:
+        self.trailer[i] = np.array(hw, ">u2").view(np.uint8)
+
+    def hole(self, i: int) -> None:
+        self.trailer[i] = _HOLE_TRAILER
+
+    def write_rows(self, canvases: np.ndarray, hws: np.ndarray) -> None:
+        """A stacked batch into the first rows."""
+        n = canvases.shape[0]
+        self.canvases[:n] = canvases
+        self.trailer[:n] = np.asarray(hws).astype(">u2").view(np.uint8).reshape(n, 4)
+
+
+class RaggedSlab(_Leased):
     """Pinned host arena of one canvas side for the ragged wire: a bump
     cursor over ``capacity`` canvases' worth of bytes, where each image
     takes exactly h·w·3 bytes at any byte offset, and an int32 meta table of
     ``(byte_offset, h, w, valid)`` per slot. A slot allocated but never
-    committed (:meth:`write_hw`) stays a hole. :meth:`stage` places the
-    meta table after the shipped prefix, so one copy carries both."""
+    committed (:meth:`write_hw`) stays a hole (``valid = 0``). :meth:`stage`
+    places the meta table after the shipped prefix, so one copy carries
+    both."""
+
+    is_ragged = True
 
     def __init__(self, s: int, capacity: int, pinned: bool):
         self.s = s
         self.capacity = capacity
+        self.key = ("ragged", s)
         self.row_bytes = s * s * 3
         # the arena, ≤ 15 bytes of alignment, the meta table at its largest
         self.buf = torch.zeros(capacity * self.row_bytes + 16 + 16 * capacity,
@@ -78,7 +173,11 @@ class RaggedSlab:
         self.host = self.buf.numpy()
         self.meta = np.zeros((capacity, 4), np.int32)
         self.used = self.slots = 0
-        self.copied: torch.cuda.Event | None = None  # the last H2D out of buf
+        self._init_lease()
+
+    def arm(self, idle_cb) -> None:
+        super().arm(idle_cb)
+        self.reset()
 
     def reset(self) -> None:
         """Empty the arena; stale offsets must never alias a new batch's holes."""
@@ -98,6 +197,15 @@ class RaggedSlab:
     def write_hw(self, i: int, hw: tuple[int, int]) -> None:
         """Commit slot ``i``: its decoded (h, w), and valid."""
         self.meta[i, 1:] = (hw[0], hw[1], 1)
+
+    def hole(self, i: int) -> None:
+        self.meta[i, 1:] = 0
+
+    def truncate(self, n: int) -> None:
+        """Drop the slots from ``n`` on (trailing holes) and their bytes."""
+        if n < self.slots:
+            self.slots, self.used = n, int(self.meta[n, 0])
+            self.meta[n:] = 0
 
     def rows_shipped(self, bucket: int) -> int:
         """Canvas rows' worth of arena bytes one batch ships: the used bytes
@@ -121,11 +229,18 @@ class BatchHandle:
     out: torch.Tensor  # float32 [bucket, 2k] on the host
     done: torch.cuda.Event | None
     n: int
+    # CUDA: timing events of the copy (copy stream) and of the serve
+    # function (compute stream): H2D start, H2D end, compute start, end
+    events: tuple[torch.cuda.Event, ...] = ()
 
 
 class InferenceEngine:
     """Serves batches of decoded images on one device (``"cuda"`` unless
-    the caller passes ``device="cpu"``)."""
+    the caller passes ``device="cpu"``).
+
+    A float32 or int8 engine turns TF32 off in cuDNN and cuBLAS at build
+    (float32 means float32; for int8, the parity gate's reference). Those
+    flags are process-wide: they hold for every model in the process."""
 
     # Gate tolerances per serving dtype, the reference's _PARITY_TOL:
     # ``prob`` bounds the max probability delta and is the top-k agreement
@@ -148,6 +263,9 @@ class InferenceEngine:
         # builds the native decoder (a build fault raises here, not per request)
         self.decoder = native.status()
         self.quantized = self.model_cfg.dtype == "int8"
+        if self.model_cfg.dtype in ("float32", "int8"):
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
         # int8 computes in bf16
         self.dtype = torch.float32 if self.model_cfg.dtype == "float32" else torch.bfloat16
         self.fused_dw = self.model_cfg.fuse_depthwise
@@ -175,13 +293,19 @@ class InferenceEngine:
         self.batch_buckets = self._default_batch_buckets(cfg.max_batch)
         self.max_batch = self.batch_buckets[-1]
         self._pinned = self.device.type == "cuda"
-        self._staging: dict[tuple[int, int], _Staging] = {}
-        # canvas side → free ragged slabs; a slab is out of the pool from
-        # acquire_ragged to its dispatch (or release_ragged)
-        self._ragged_pool: dict[int, list[RaggedSlab]] = {}
-        # Guards the staging buffers, the pool and the counters: a buffer is
-        # rewritten only after its previous host→device copy has completed.
+        # (kind, canvas side) → free slabs, at most pipeline_depth + 1 each:
+        # pinned memory is scarce (one rgb slab at a 2048 canvas and batch
+        # 32 is 403 MB), so slabs are allocated at first use
+        self._pool: dict[tuple[str, int], list] = {}
+        self._pool_cap = cfg.pipeline_depth + 1
+        self.slabs_allocated = 0
+        # the host→device copies' own stream: batch N+1's copy runs beside
+        # batch N's compute on the current stream
+        self._copy_stream = torch.cuda.Stream(self.device) if self._pinned else None
+        self._device_events: deque = deque(maxlen=256)  # BatchHandle.events
+        # Guards the pool and the counters only; never a wait on an event.
         self._lock = threading.Lock()
+        self._enqueue_lock = threading.Lock()  # one serve-function enqueue at a time
         self.batches = 0
         self.images = 0
         self.h2d_bytes = 0
@@ -293,49 +417,124 @@ class InferenceEngine:
         canvases, hws = unpack_ragged(dev[:meta_off], meta, s, meta_host=meta_host)
         return self._head(self._preprocess(canvases, hws))
 
-    def _staging_for(self, s: int, bucket: int) -> _Staging:
-        key = (s, bucket)
-        st = self._staging.get(key)
-        if st is None:
-            buf = torch.zeros(self.packed_shape(bucket, s), dtype=torch.uint8,
-                              pin_memory=self._pinned)
-            st = self._staging[key] = _Staging(buf)
-        return st
+    # -------------------------------------------------------------- staging
 
-    def dispatch_batch(self, canvases: np.ndarray, hws: np.ndarray) -> BatchHandle:
-        """Stage a stacked batch (n ≤ the top batch bucket), ship it in one
-        transfer and enqueue the serve function; returns without waiting
-        for the device."""
-        n = canvases.shape[0]
-        s = canvases.shape[-1] if self.cfg.wire_format == "yuv420" else canvases.shape[1]
+    def _acquire(self, key: tuple[str, int], make):
+        with self._lock:
+            free = self._pool.get(key)
+            slab = free.pop() if free else None
+            if slab is None:
+                self.slabs_allocated += 1
+        if slab is None:
+            slab = make()
+        if slab.copied is not None:  # its last copy to the device
+            slab.copied.synchronize()
+        slab.arm(self._return)
+        return slab
+
+    def _return(self, slab) -> None:
+        with self._lock:
+            free = self._pool.setdefault(slab.key, [])
+            if len(free) < self._pool_cap:  # else dropped: bounded pinned memory
+                free.append(slab)
+
+    def acquire_staging(self, s: int) -> StagingSlab:
+        """An empty classic-wire slab of canvas side ``s`` at the top batch
+        bucket's capacity, out of the pool (allocated when none is free);
+        it goes back through :meth:`dispatch_staged` or
+        :meth:`release_staging`."""
+        return self._acquire(("classic", s), lambda: StagingSlab(
+            s, self.canvas_shape(1, s)[1:], self.max_batch, self._pinned))
+
+    def acquire_ragged(self, s: int) -> RaggedSlab:
+        """An empty ragged slab of canvas side ``s``, as :meth:`acquire_staging`."""
+        return self._acquire(("ragged", s),
+                             lambda: RaggedSlab(s, self.max_batch, self._pinned))
+
+    def release_staging(self, slab: StagingSlab | RaggedSlab) -> None:
+        """Give back a slab that was not dispatched (or whose dispatch
+        failed); it reaches the pool once its last lessee resolves."""
+        slab.finish()
+
+    def _ship(self, buf: torch.Tensor, slab, n: int, serve) -> BatchHandle:
+        """One batch: ``buf`` (a prefix of the slab's pinned buffer) to the
+        device in one non-blocking copy on the copy stream, the compute
+        stream waiting for that copy, then ``serve(device tensor)`` and the
+        output's copy back; returns without waiting for the device."""
+        with torch.inference_mode():
+            if self._copy_stream is None:
+                dev, events = buf.to(self.device), ()
+            else:
+                compute = torch.cuda.current_stream(self.device)
+                events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(4))
+                with torch.cuda.stream(self._copy_stream):
+                    events[0].record()
+                    dev = buf.to(self.device, non_blocking=True)
+                    events[1].record()
+                slab.copied = events[1]
+            # The serve function's enqueue is host-bound Python: two launch
+            # threads enqueueing at once contend for the interpreter lock
+            # and the CUDA runtime (on an H100 their CPU time per burst
+            # fell by about half with one at a time, PERF.md). The other
+            # thread's copy is already queued meanwhile.
+            with self._enqueue_lock:
+                if events:
+                    compute.wait_event(events[1])
+                    dev.record_stream(compute)
+                    events[2].record()
+                out = serve(dev)
+                if events:
+                    events[3].record()
+                handle = self._fetchable(out, n)
+        handle.events = events
+        with self._lock:
+            self.batches += 1
+            self.images += n
+            self.h2d_bytes += buf.numel()
+            if events:
+                self._device_events.append((slab.key, events))
+        return handle
+
+    def dispatch_staged(self, slab: StagingSlab, n: int) -> BatchHandle:
+        """Ship the first ``n`` rows of a filled slab (holes included) at the
+        batch bucket that covers them, and enqueue the serve function;
+        returns without waiting for the device. The slab goes back to its
+        pool once the copy is enqueued and its lessees are done."""
         bucket = self.pick_batch_bucket(n)
         if n > bucket:
             raise ValueError(f"batch of {n} exceeds the top batch bucket {bucket}")
-        trailer = np.asarray(hws).astype(">u2").view(np.uint8).reshape(n, 4)
-        with self._lock, torch.inference_mode():
-            st = self._staging_for(s, bucket)
-            if st.copied is not None:
-                st.copied.synchronize()
-            host = st.buf.numpy()
-            nbytes = host.shape[1] - 4
-            host[:n, :nbytes] = canvases.reshape(n, nbytes)
-            host[:n, nbytes:] = trailer
-            host[n:, nbytes:] = _HOLE_TRAILER
-            dev = st.buf.to(self.device, non_blocking=True)
-            st.copied = self._record()
-            handle = self._fetchable(self._serve_packed(dev), n)
-            self.batches += 1
-            self.images += n
-            self.h2d_bytes += st.buf.numel()
+        slab.trailer[n:bucket] = _HOLE_TRAILER
+        handle = self._ship(slab.buf[:bucket], slab, n, self._serve_packed)
+        slab.finish()
         return handle
 
-    def _record(self) -> torch.cuda.Event | None:
-        """An event after the work enqueued so far (None on the CPU)."""
-        if self.device.type != "cuda":
-            return None
-        ev = torch.cuda.Event()
-        ev.record()
-        return ev
+    def dispatch_ragged(self, slab: RaggedSlab, n: int) -> BatchHandle:
+        """Ship a filled ragged slab's first ``n`` slots (holes included;
+        slots past ``n`` are dropped) and enqueue unpack → serve, as
+        :meth:`dispatch_staged`. The arena's used prefix and the meta table
+        go in one non-blocking copy."""
+        bucket = self.pick_batch_bucket(n)
+        if n > bucket:
+            raise ValueError(f"batch of {n} exceeds the top batch bucket {bucket}")
+        slab.truncate(n)
+        nbytes, meta_off = slab.stage(bucket)
+        meta_host = slab.meta[:bucket].copy()  # the slab is refilled after the copy
+        handle = self._ship(slab.buf[:nbytes], slab, n,
+                            lambda dev: self._serve_ragged(dev, meta_off, meta_host, slab.s))
+        slab.finish()
+        return handle
+
+    def dispatch_batch(self, canvases: np.ndarray, hws: np.ndarray) -> BatchHandle:
+        """A stacked batch (n ≤ the top batch bucket) copied into a slab
+        and dispatched."""
+        wire_side = 2 if self.cfg.wire_format == "yuv420" else 1
+        slab = self.acquire_staging(canvases.shape[wire_side])
+        try:
+            slab.write_rows(canvases, hws)
+            return self.dispatch_staged(slab, canvases.shape[0])
+        except BaseException:
+            self.release_staging(slab)
+            raise
 
     def _fetchable(self, out: torch.Tensor, n: int) -> BatchHandle:
         """Start the output's non-blocking copy into pinned host memory."""
@@ -343,71 +542,26 @@ class InferenceEngine:
             return BatchHandle(out, None, n)
         host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host_out.copy_(out, non_blocking=True)
-        return BatchHandle(host_out, self._record(), n)
+        done = torch.cuda.Event()
+        done.record()
+        return BatchHandle(host_out, done, n)
 
-    # ----------------------------------------------------------- ragged wire
-
-    def acquire_ragged(self, s: int) -> RaggedSlab:
-        """An empty ragged slab of canvas side ``s`` for one batch, out of the
-        pool: its previous copy to the device has completed."""
+    def device_timeline(self) -> list[dict]:
+        """The recent batches' copy and compute intervals on the device, in
+        ms from the first listed copy's start (CUDA events; waits for
+        them), in dispatch order: the slab's ``key`` (kind, canvas side),
+        ``h2d`` on the copy stream, ``compute`` on the compute stream (from
+        the copy's end, or the stream reaching the batch, to the end of its
+        serve function's enqueued work)."""
         with self._lock:
-            free = self._ragged_pool.get(s)
-            slab = free.pop() if free else None
-        if slab is None:
-            slab = RaggedSlab(s, self.max_batch, self._pinned)
-        if slab.copied is not None:
-            slab.copied.synchronize()
-        slab.reset()
-        return slab
-
-    def release_ragged(self, slab: RaggedSlab) -> None:
-        """Return a slab that was never dispatched."""
-        with self._lock:
-            self._ragged_pool.setdefault(slab.s, []).append(slab)
-
-    def dispatch_ragged(self, slab: RaggedSlab, n: int) -> BatchHandle:
-        """Ship a filled ragged slab (``n`` slots, holes included) and enqueue
-        unpack → serve; returns without waiting for the device. The arena's
-        used prefix and the meta table go in one non-blocking copy, and the
-        slab returns to the pool, to be reused after that copy completes."""
-        bucket = self.pick_batch_bucket(n)
-        if n > bucket:
-            raise ValueError(f"batch of {n} exceeds the top batch bucket {bucket}")
-        if slab.slots > n:
-            raise ValueError(f"ragged slab holds {slab.slots} slots, more than its batch of {n}")
-        nbytes, meta_off = slab.stage(bucket)
-        with self._lock, torch.inference_mode():
-            dev = slab.buf[:nbytes].to(self.device, non_blocking=True)
-            slab.copied = self._record()
-            handle = self._fetchable(
-                self._serve_ragged(dev, meta_off, slab.meta[:bucket], slab.s), n)
-            self.batches += 1
-            self.images += n
-            self.h2d_bytes += nbytes
-            self._ragged_pool.setdefault(slab.s, []).append(slab)
-        return handle
-
-    def run_ragged(self, images: list[np.ndarray], hws: np.ndarray,
-                   s: int) -> tuple[np.ndarray, np.ndarray]:
-        """Tight images (uint8 [h, w, 3] each, valid sizes ``hws``) of canvas
-        side ``s`` through the ragged wire: one memcpy each into a slab,
-        batches above the top bucket in chunks, all dispatched before the
-        first fetch."""
-        top = self.batch_buckets[-1]
-        handles = []
-        for i in range(0, len(images), top):
-            slab = self.acquire_ragged(s)
-            try:
-                for img, hw in zip(images[i : i + top], hws[i : i + top]):
-                    slot, span = slab.alloc(img.nbytes)
-                    span[:] = img.reshape(-1)
-                    slab.write_hw(slot, hw)
-                handles.append(self.dispatch_ragged(slab, slab.slots))
-            except BaseException:
-                self.release_ragged(slab)
-                raise
-        parts = [self.fetch_outputs(h) for h in handles]
-        return tuple(np.concatenate(p) for p in zip(*parts))
+            rows = list(self._device_events)
+        if not rows:
+            return []
+        for ev in rows[-1][1]:
+            ev.synchronize()
+        at = rows[0][1][0].elapsed_time
+        return [{"key": key, "h2d": (at(a), at(b)), "compute": (at(c), at(d))}
+                for key, (a, b, c, d) in rows]
 
     def fetch_outputs(self, handle: BatchHandle) -> tuple[np.ndarray, np.ndarray]:
         """Wait for a dispatched batch; returns (scores float32 [n, k],
@@ -419,13 +573,35 @@ class InferenceEngine:
         return packed[:, :k].copy(), packed[:, k:].astype(np.int32)
 
     def run_batch(self, canvases: np.ndarray, hws: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """Dispatch + fetch; batches above the top bucket go in chunks, all
-        dispatched before the first fetch."""
+        """Dispatch + fetch (tests, warmup); batches above the top bucket go
+        in chunks, all dispatched before the first fetch."""
         top = self.batch_buckets[-1]
         handles = [
             self.dispatch_batch(canvases[i : i + top], hws[i : i + top])
             for i in range(0, canvases.shape[0], top)
         ]
+        parts = [self.fetch_outputs(h) for h in handles]
+        return tuple(np.concatenate(p) for p in zip(*parts))
+
+    def run_ragged(self, images: list[np.ndarray], hws: np.ndarray,
+                   s: int) -> tuple[np.ndarray, np.ndarray]:
+        """Tight images (uint8 [h, w, 3] each, valid sizes ``hws``) of canvas
+        side ``s`` through the ragged wire (tests, warmup): one memcpy each
+        into a slab, batches above the top bucket in chunks, all dispatched
+        before the first fetch."""
+        top = self.batch_buckets[-1]
+        handles = []
+        for i in range(0, len(images), top):
+            slab = self.acquire_ragged(s)
+            try:
+                for img, hw in zip(images[i : i + top], hws[i : i + top]):
+                    slot, span = slab.alloc(img.nbytes)
+                    span[:] = img.reshape(-1)
+                    slab.write_hw(slot, hw)
+                handles.append(self.dispatch_ragged(slab, slab.slots))
+            except BaseException:
+                self.release_staging(slab)
+                raise
         parts = [self.fetch_outputs(h) for h in handles]
         return tuple(np.concatenate(p) for p in zip(*parts))
 
@@ -454,6 +630,8 @@ class InferenceEngine:
         with self._lock:
             batches, images, h2d, decodes = (self.batches, self.images, self.h2d_bytes,
                                              dict(self.decodes))
+            slabs = {"allocated": self.slabs_allocated,
+                     "pooled": sum(len(v) for v in self._pool.values())}
         return {
             "model": self.model_cfg.name,
             "device": str(self.device),
@@ -466,6 +644,7 @@ class InferenceEngine:
             "decoder": self.decoder,
             "decodes": decodes,
             "h2d_bytes": h2d,
+            "slabs": slabs,
             "batch_buckets": list(self.batch_buckets),
             "canvas_buckets": list(self.cfg.canvas_buckets),
             "batches": batches,
@@ -478,8 +657,7 @@ class InferenceEngine:
         """Drop the device weights and the staging buffers; the engine must
         not be used afterwards."""
         with self._lock:
-            self._staging.clear()
-            self._ragged_pool.clear()
+            self._pool.clear()
             self.model = None
 
     # ------------------------------------------------------------------ host
@@ -491,7 +669,8 @@ class InferenceEngine:
             canvas = rgb_to_yuv420_canvas(canvas)
         return canvas, hw
 
-    def _count(self, decoder: str) -> None:
+    def count_decode(self, decoder: str) -> None:
+        """One upload decoded by ``"native"`` libjpeg or ``"pil"``."""
         with self._lock:
             self.decodes[decoder] += 1
 
@@ -503,13 +682,13 @@ class InferenceEngine:
         buckets, wire = self.cfg.canvas_buckets, self.cfg.wire_format
         got = native.decode_native(data, buckets, wire)
         if got is not None:
-            self._count("native")
+            self.count_decode("native")
             return got
         try:
             got = native.decode_pil(data, buckets, wire)
         except (OSError, ValueError) as e:  # PIL: UnidentifiedImageError is an OSError
             raise ValueError(f"cannot decode image: {e}") from e
-        self._count("pil")
+        self.count_decode("pil")
         return got
 
     def prepare_ragged(self, data: bytes
@@ -527,12 +706,12 @@ class InferenceEngine:
             tight = np.empty(need, np.uint8)
             hw = native.decode_packed_into(data, tight, s)
             if hw is not None:
-                self._count("native")
+                self.count_decode("native")
                 return tight.reshape(hw[0], hw[1], 3), hw, s, orig
         try:
             image = decode_image(data)
         except (OSError, ValueError) as e:
             raise ValueError(f"cannot decode image: {e}") from e
         tight, hw, s = fit_to_bucket(image, buckets)
-        self._count("pil")
+        self.count_decode("pil")
         return tight, hw, s, tuple(image.shape[:2])

@@ -7,8 +7,12 @@ Routes:
   returns at most N predictions. One image answers
   ``{"predictions": [{"label", "index", "score"}], "model"}``; several
   file parts, or ``?batch=1``, answer ``{"results": [...], "model"}``.
-  The images of one request are submitted together, so they usually
-  share one device batch.
+  Each JPEG is probed from its header, given a leased batch slot, and
+  decoded by libjpeg straight into that slot's pinned memory; anything
+  else is decoded by PIL and copied in. The images of one request usually
+  share one device batch. An undecodable file answers 400 and releases
+  the request's other slots (they ship as holes); a full backlog answers
+  503 with ``Retry-After``.
 - ``GET /healthz`` — a one-image device round trip.
 - ``GET /stats`` — batcher and engine counters: kernel launches, native
   and PIL decodes, the decoder's status (and why it is unavailable).
@@ -22,8 +26,10 @@ from concurrent.futures import TimeoutError as FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
 
+from .. import native
+from ..ops.image import decode_image, fit_to_bucket
 from ..utils.labels import load_labels
-from .batcher import ShuttingDown
+from .batcher import BacklogFull, LeaseExpired, ShuttingDown
 
 log = logging.getLogger("tpu_serve_torch.http")
 
@@ -100,7 +106,8 @@ class App:
             ]
         }
 
-    def predict(self, body: bytes, content_type: str, query: str) -> tuple[int, dict]:
+    def predict(self, body: bytes, content_type: str, query: str
+                ) -> tuple[int, dict] | tuple[int, dict, dict]:
         qs = parse_qs(query)
         topk = self.engine.topk
         if "topk" in qs:
@@ -114,24 +121,26 @@ class App:
                 return _error(400, "no file part in multipart body")
         else:
             named = [("body", body)]
-        # decode every file first (libjpeg for JPEGs, PIL for the rest), so
-        # an undecodable one answers 400 before any image is queued
-        prepared = []
-        for name, data in named:
-            try:
-                if self.engine.ragged:
-                    tight, hw, s, _orig = self.engine.prepare_ragged(data)
-                    prepared.append((self.batcher.submit_ragged, (tight, hw, s)))
-                else:
-                    canvas, hw, _orig = self.engine.prepare_bytes(data)
-                    prepared.append((self.batcher.submit, (canvas, hw)))
-            except ValueError as e:
-                return _error(400, f"{name}: {e}")
+        leases, staged = [], False
         try:
-            futures = [submit(*args) for submit, args in prepared]
-            rows = [f.result(timeout=REQUEST_TIMEOUT_S) for f in futures]
+            for name, data in named:
+                try:
+                    self._stage(data, leases)
+                except ValueError as e:
+                    return _error(400, f"{name}: {e}")
+            staged = True
+        except BacklogFull as e:
+            return _error(503, str(e)) + ({"Retry-After": str(max(1, round(e.retry_after_s)))},)
         except ShuttingDown:
             return _error(503, "server shutting down")
+        finally:
+            if not staged:  # every error: the request's slots become holes
+                for lease in leases:
+                    lease.release()
+        try:
+            rows = [lease.future.result(timeout=REQUEST_TIMEOUT_S) for lease in leases]
+        except (ShuttingDown, LeaseExpired) as e:
+            return _error(503, str(e))
         except FutureTimeout:
             return _error(504, "inference timed out")
         payloads = [self._row(r, topk) for r in rows]
@@ -141,6 +150,48 @@ class App:
             resp = {"results": payloads}
         resp["model"] = self.cfg.model.name
         return 200, resp
+
+    def _stage(self, data: bytes, leases: list) -> None:
+        """Put one upload into a leased, committed slot (appended to
+        ``leases``). A JPEG is planned from its header, its slot leased, and
+        libjpeg decodes it straight into the slot's pinned row; anything
+        else, or a stream the C side rejects, is decoded by PIL and copied
+        in. Raises ValueError if the bytes are no decodable image, and the
+        batcher's BacklogFull or ShuttingDown."""
+        eng, batcher = self.engine, self.batcher
+        buckets, wire = self.cfg.canvas_buckets, self.cfg.wire_format
+        if eng.ragged:
+            plan = native.plan_decode_packed(data, buckets)
+            if plan is not None:
+                s, need, _, _ = plan
+                lease = batcher.lease_ragged(need, s)
+                leases.append(lease)
+                hw = native.decode_packed_into(data, lease.row, s)
+        else:
+            plan = native.plan_decode(data, buckets, wire)
+            if plan is not None:
+                s, shape, _ = plan
+                lease = batcher.lease(shape)
+                leases.append(lease)
+                hw = native.decode_into_row(data, lease.row, s, wire, trailer=True)
+        if plan is not None:
+            if hw is not None:
+                lease.commit(hw)
+                eng.count_decode("native")
+                return
+            leases.pop().release()  # the header parsed, the stream did not: PIL tries
+        try:  # PIL: UnidentifiedImageError is an OSError
+            if eng.ragged:
+                canvas, hw, s = fit_to_bucket(decode_image(data), buckets)
+            else:
+                canvas, hw, _ = native.decode_pil(data, buckets, wire)
+        except (OSError, ValueError) as e:
+            raise ValueError(f"cannot decode image: {e}") from e
+        lease = (batcher.lease_ragged(canvas.nbytes, s) if eng.ragged
+                 else batcher.lease(canvas.shape))
+        leases.append(lease)
+        lease.commit(hw, canvas=canvas)
+        eng.count_decode("pil")
 
     def healthz(self) -> tuple[int, dict]:
         ok = self.engine.healthcheck()
@@ -159,11 +210,13 @@ def make_handler(app: App) -> type[BaseHTTPRequestHandler]:
         def log_message(self, fmt, *args):  # route access lines to logging
             log.debug("%s " + fmt, self.address_string(), *args)
 
-        def _send(self, status: int, payload: dict) -> None:
+        def _send(self, status: int, payload: dict, headers: dict | None = None) -> None:
             body = json.dumps(payload).encode()
             self.send_response(status)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
+            for key, value in (headers or {}).items():
+                self.send_header(key, value)
             self.end_headers()
             self.wfile.write(body)
 

@@ -86,9 +86,18 @@ class ServerConfig:
     host: str = "0.0.0.0"
     port: int = 8500
     # dynamic batcher: a canvas bucket's open batch seals at max_batch
-    # images or max_delay_ms after its first image, whichever comes first
+    # images or when its assembly window ends; max_delay_ms caps the
+    # window, which adapts to the backlog unless adaptive_delay is off
     max_batch: int = 32
     max_delay_ms: float = 2.0
+    adaptive_delay: bool = True
+    # batches in flight per canvas bucket (sealed → launched → unfetched)
+    pipeline_depth: int = 4
+    # backlog in images at which a lease fails fast with 503 + Retry-After;
+    # 0: leasing blocks at the outstanding-slot cap instead
+    max_queue: int = 0
+    # a leased slot not committed within this many seconds becomes a hole
+    lease_timeout_s: float = 10.0
     # canvas size buckets for host-padded decoded images; the device
     # resizes from each image's valid region
     canvas_buckets: tuple[int, ...] = (256, 512, 1024, 2048)

@@ -153,3 +153,31 @@ def test_i420_kernel_matches_plain_on_card(rng):
             else:  # the float32 result rounded to bf16, up to one bf16 ulp
                 torch.testing.assert_close(got.float(), ref, atol=ATOL[mode],
                                            rtol=2 ** -8)
+
+
+def _normalize_inputs():
+    """Every float32 a uint8 can give, and a seeded sample of [0, 255]."""
+    sample = np.random.RandomState(0).uniform(0, 255, 1 << 16).astype(np.float32)
+    return np.concatenate([np.arange(256, dtype=np.float32), sample])
+
+
+def _check_normalize(device):
+    x = _normalize_inputs()
+    got = {m: timage.NORMALIZERS[m](torch.from_numpy(x).to(device)).cpu().numpy()
+           for m in ("inception", "zero_one")}
+    # numpy float32 division, IEEE-exact, as XLA and the kernel divide
+    np.testing.assert_array_equal(got["inception"], x / np.float32(127.5) - np.float32(1.0))
+    np.testing.assert_array_equal(got["zero_one"], x / np.float32(255.0))
+
+
+def test_normalize_divides_exactly():
+    _check_normalize("cpu")
+
+
+@pytest.mark.cuda
+def test_normalize_divides_exactly_on_card():
+    """On CUDA torch divides by a Python scalar as a multiply by its
+    reciprocal; the normalize must still equal IEEE division bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _check_normalize("cuda")

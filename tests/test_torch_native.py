@@ -8,6 +8,7 @@ Skipped, like ``tests/test_native_decode.py``, where this machine has no
 C compiler or libjpeg.
 """
 
+import ctypes
 import io
 from concurrent.futures import ThreadPoolExecutor
 
@@ -222,7 +223,7 @@ def test_missing_compiler_or_libjpeg_leaves_the_decoder_unavailable(tmp_path, mo
     monkeypatch.setattr(native, "_tried", False)
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_reason", None)
-    monkeypatch.setattr(native, "library_path", lambda: tmp_path / "absent.so")
+    monkeypatch.setattr(native, "library_path", lambda libjpeg=None: tmp_path / "absent.so")
     monkeypatch.setenv("CC", str(tmp_path / "no-such-cc"))
     assert not native.available()
     st = native.status()
@@ -235,3 +236,56 @@ def test_missing_compiler_or_libjpeg_leaves_the_decoder_unavailable(tmp_path, mo
     (tmp_path / "absent.so").write_bytes(b"not a shared object")
     monkeypatch.setattr(native, "_tried", False)
     assert not native.available() and "cannot load" in native.status()["reason"]
+
+
+def test_without_a_system_libjpeg_the_decoder_links_pillows(tmp_path, monkeypatch):
+    """Where ``-ljpeg`` finds no libjpeg, the build retries against the
+    headers in ``native/include`` and the libjpeg that Pillow bundles, by
+    its full path with an rpath; that build decodes byte for byte as the
+    system's. The library's name differs per libjpeg."""
+    bundled = native.pillow_libjpeg()
+    if bundled is None:
+        pytest.skip("this Pillow bundles no libjpeg")
+    assert native.library_path(bundled) != native.library_path(None)
+    jpegs = [_jpeg(90, 70, 1), _jpeg(33, 250, 2), _jpeg(300, 600, 3), _jpeg(64, 64, 4, gray=True)]
+    wires = ("rgb", "yuv420")
+    want = [native.decode_to_canvas(d, BUCKETS, w) for d in jpegs for w in wires]
+    tight = [native.decode_to_canvas(d, BUCKETS, "rgb") for d in jpegs]
+    out = tmp_path / "bundled.so"
+    assert native._build(out, bundled) is None
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in native._SIGNATURES.items():
+        getattr(lib, name).restype, getattr(lib, name).argtypes = ctypes.c_int, argtypes
+    monkeypatch.setattr(native, "_lib", lib)
+    for got, exp in zip([native.decode_to_canvas(d, BUCKETS, w) for d in jpegs for w in wires],
+                        want):
+        _same(got, exp)
+    for d, (canvas, hw, _) in zip(jpegs, tight):
+        s, need, dhw, _ = native.plan_decode_packed(d, BUCKETS)
+        span = np.empty(need, np.uint8)
+        assert native.decode_packed_into(d, span, s) == dhw == hw
+        np.testing.assert_array_equal(span.reshape(hw[0], hw[1], 3), canvas[: hw[0], : hw[1]])
+
+    # a compiler that finds no libjpeg for -ljpeg: the retry's command
+    calls = tmp_path / "calls"
+    fake = tmp_path / "cc"
+    fake.write_text(f"""#!/bin/sh
+echo "$@" >> {calls}
+case "$*" in *-ljpeg*) echo "decode.c:38:10: fatal error: jpeglib.h: No such file or directory" >&2; exit 1;; esac
+""")
+    fake.chmod(0o755)
+    monkeypatch.setenv("CC", str(fake))
+    for name, value in (("_tried", False), ("_lib", None), ("_reason", None), ("_linked", None),
+                        ("BUILD_DIR", tmp_path / "build")):
+        monkeypatch.setattr(native, name, value)
+    assert not native.available()  # the fake compiler writes no library
+    builds = [c.split() for c in calls.read_text().splitlines() if "-shared" in c]
+    assert len(builds) == 2 and builds[0][-1] == "-ljpeg"
+    retry = builds[1]
+    assert f"-I{native._INCLUDE}" in retry and str(bundled) in retry
+    assert f"-Wl,-rpath,{bundled.parent}" in retry and "-ljpeg" not in retry
+    assert native._INCLUDE == native._SRC.parent / "include"
+    assert {"jpeglib.h", "jconfig.h", "jmorecfg.h", "jerror.h"} <= {
+        f.name for f in native._INCLUDE.iterdir()}
+    reason = native.status()["reason"]
+    assert "libjpeg is not installed" in reason and str(bundled) in reason

@@ -139,15 +139,24 @@ def test_oversized_body_gets_413_unread(server):
 
 
 def test_warmup_runs_on_the_dispatch_thread():
+    """First-use costs are paid per thread on CUDA, so every launch thread
+    (each dispatches batches) runs the warmup before it takes one."""
     class Engine:
         max_batch = 4
 
+        def __init__(self):
+            self.threads = []
+            self.lock = threading.Lock()
+
         def warmup(self):
-            self.thread = threading.current_thread().name
+            with self.lock:
+                self.threads.append(threading.current_thread().name)
 
     eng = Engine()
-    Batcher(eng).start(warmup=True).stop()
-    assert eng.thread == "batcher"
+    b = Batcher(eng).start(warmup=True)
+    b.stop()
+    launchers = sorted(t.name for t in b._launchers)
+    assert len(launchers) >= 2 and sorted(eng.threads) == launchers
 
     class Broken(Engine):
         def warmup(self):
@@ -197,3 +206,32 @@ def test_int8_mobilenet_server_passes_its_gate_and_serves():
     assert engine["dtype"] == "int8" and engine["fused_dw"] is True
     assert engine["parity"]["pass"] and engine["parity"]["tol_prob"] == 0.15
     assert engine["kernel_launches"]["fused_dw"] == 0  # CPU: the plain version ran
+
+
+@pytest.mark.cuda
+def test_float32_engine_from_start_server_turns_tf32_off():
+    """An engine built through ``start_server`` (not the CLI) at float32
+    computes in float32: TF32 is off in cuDNN and cuBLAS, and its forward
+    equals the one with TF32 off, bit for bit, where TF32 on differs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    cfg = ServerConfig(
+        model=ModelConfig(name="inception_v3", zoo_classes=10, input_size=(299, 299),
+                          dtype="float32"),
+        host="127.0.0.1", port=0, canvas_buckets=(256,), max_batch=4, warmup=False)
+    x = torch.from_numpy(np.random.RandomState(0).uniform(-1, 1, (4, 299, 299, 3))
+                         .astype(np.float32)).cuda()
+    try:
+        with start_server(cfg, device="cuda") as srv, torch.inference_mode():
+            flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+            served = srv.engine.model(x)
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            off = srv.engine.model(x)
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            tf32 = srv.engine.model(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    assert flags == (False, False)
+    assert torch.equal(served, off)
+    assert not torch.equal(served, tf32)  # TF32 would have moved the answer
