@@ -3,16 +3,19 @@
     python3 chip_smoke.py
 
 Builds every hand-written kernel from the sources in this checkout (one
-nvcc per source, all started together) and the native libjpeg decoder
-(the system's libjpeg, or else the one Pillow bundles, against the
-headers in ``native/include``), holds each kernel against its plain
-PyTorch version on the card at the shapes the main paths give it, and
-drives four main paths at full width behind ``POST /predict``. Each goes
-through the slot-leased, pipelined batcher: every JPEG is decoded by
-libjpeg straight into its leased slot of a pinned slab (one host copy),
-and up to ``pipeline_depth`` batches per canvas bucket are in flight, each
-batch's H2D on the engine's copy stream. Two on the yuv420 wire with the
-preprocess kernel:
+nvcc per source, all started together, through the kernel build cache in
+the checkout's ``.build/``) and the native libjpeg decoder (the system's
+libjpeg, or else the one Pillow bundles, against the headers in
+``native/include``), holds each kernel against its plain PyTorch version
+on the card at the shapes the main paths give it, and drives four main
+paths at full width behind ``POST /predict``. Each goes through the
+slot-leased, pipelined batcher: every JPEG is decoded by libjpeg straight
+into its leased slot of a pinned slab (one host copy), and up to
+``pipeline_depth`` batches per canvas bucket are in flight, each batch's
+H2D on the engine's copy stream. Every batch of a main path must be one
+replay of the CUDA graph its server captured at boot for the batch's
+(canvas, batch) bucket. Two on the yuv420 wire with the preprocess
+kernel:
 
 - Inception-v3 in bf16, checked against a float32 reference;
 - MobileNetV2 in the int8 tier, all 17 depthwise cells (13 stride 1, 4
@@ -30,17 +33,21 @@ its images tight in one pinned arena and the device rebuilds the canvases:
 Before them, ``native_decode`` requires the decoder built, holds its RGB
 against PIL's decode of the same bytes (byte for byte at full size) and
 times it against the PIL chain it replaced, on one thread and on 8, and
-``ragged_unpack`` holds the device unpack bit for bit against the host's
-padded canvases (holes included) and times it. Each main path reports its
-decodes, host copies per image and a ``pipeline`` block (batches in
-flight, assembly of batch N+1 beside batch N on the host clock, H2D beside
-compute in CUDA events). After them ``ragged_vs_classic`` holds each
-ragged engine's answers against its own classic rgb wire on the same
-images, ``pipeline_depth`` runs the default server path at depth 1 and 4
-on the same burst, ``backlog`` posts 48 images at once to a server with
+``ragged_unpack`` holds the unpack kernel bit for bit against the host's
+padded canvases and its plain version (holes included) and times it, and
+``graphs`` holds each main path's graph replays bit for bit against its
+eager runs (a full batch, then a shorter one with holes) and times a
+dispatch both ways. Each main path reports its decodes, host copies per
+image, its graph replays and a ``pipeline`` block (batches in flight,
+assembly of batch N+1 beside batch N on the host clock, H2D beside compute
+in CUDA events). After them ``ragged_vs_classic`` holds each ragged
+engine's answers against its own classic rgb wire on the same images,
+``pipeline_depth`` runs the default server path at depth 1 and 4 on the
+same burst, ``backlog`` posts 48 images at once to a server with
 ``max_queue=8`` (only 200 and 503 with ``Retry-After``), and
 ``default_server`` boots the server with no model or wire flags in a
-process of its own, sends it three JPEGs and stops it. ``normalize``
+process of its own twice on one fresh kernel build cache (the second boot
+must build nothing), sends it three JPEGs and stops it. ``normalize``
 counts the elements of the plain preprocess that the exact division
 changed.
 
@@ -88,7 +95,7 @@ MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 OUT = 299  # Inception-v3 input side
 SEED = 0
-KERNELS = ("preprocess_i420", "fused_dw")
+KERNELS = ("preprocess_i420", "fused_dw", "unpack_ragged")
 # served top-1 vs the same bf16 computation outside the server
 SERVED_TOL = 1e-2
 # kernel vs plain float32: same taps and order; the plain version's matmul
@@ -110,6 +117,12 @@ BUCKETS = (256, 512)
 RAGGED_PATHS = (("inception_v3", "bfloat16", "matmul"), ("mobilenet_v2", "int8", "gather"))
 # ragged vs classic on one engine: the bf16 parity gate's probability bound
 RAGGED_PROB_TOL = 0.08
+# the four main paths: (model, dtype, _config's wire arguments)
+MAIN_PATHS = (("inception_v3", "bfloat16", {}), ("mobilenet_v2", "int8", {}),
+              *((name, dtype, {"wire": "rgb", "resize": resize, "ragged": True})
+                for name, dtype, resize in RAGGED_PATHS))
+# the default server's buckets: canvas 256..2048 × batch 1..32
+DEFAULT_PAIRS = 4 * 6
 
 
 def emit(obj) -> None:
@@ -812,9 +825,14 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
     ``ragged``). The served model must hold ``fused_cells`` fused
     depthwise cells (of either stride), each launching the fused kernel
     once per batch; the preprocess kernel launches once per batch with
-    ``resize="kernel"`` and never otherwise."""
+    ``resize="kernel"`` and never otherwise, the unpack kernel once per
+    batch on the ragged wire and never otherwise. Every batch of the burst
+    must be a replay of a CUDA graph captured at boot (``graphs.replays``
+    equal to the batches, no eager batch); a replay counts the launches its
+    capture recorded."""
     from tensorflow_web_deploy_tpu_torch.models.common import DepthwiseConvBN
     from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
+    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
     from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
     from tensorflow_web_deploy_tpu_torch.server import start_server
 
@@ -838,9 +856,10 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
         # one-time client cost out of the burst
         urllib.request.urlopen(srv.url + "/healthz", timeout=120).read()
         before, copies = eng.stats(), srv.batcher.stats()["host_copies"]
-        preprocess_i420.launches = fused_dw.launches = 0
+        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
         results, timeline = burst(srv, jpegs)
-        launches = {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches}
+        launches = {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
+                    "unpack_ragged": unpack_ragged.launches}
         after = eng.stats()
         copies = (srv.batcher.stats()["host_copies"] - copies) / len(jpegs)
         batches = after["batches"] - before["batches"]
@@ -853,10 +872,17 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
             if not all(math.isfinite(p["score"]) and 0 <= p["index"] < 1000 for p in preds):
                 raise AssertionError(f"bad predictions: {preds}")
         want = {"preprocess_i420": batches if cfg.resize == "kernel" else 0,
-                "fused_dw": fused_cells * batches}
+                "fused_dw": fused_cells * batches,
+                "unpack_ragged": batches if eng.ragged else 0}
         if batches == 0 or launches != want:
             raise AssertionError(f"{name}: kernel launches {launches} for {batches} batches "
                                  f"({fused_cells} fused depthwise cells): want {want}")
+        graphs = {k: after["graphs"][k] - before["graphs"][k]
+                  for k in ("replays", "eager_batches")}
+        if graphs != {"replays": batches, "eager_batches": 0} or \
+                after["graphs"]["captured"] != len(BUCKETS) * len(eng.batch_buckets):
+            raise AssertionError(f"{name}: {graphs} over {batches} batches, "
+                                 f"{after['graphs']['captured']} graphs captured")
         decodes = {d: after["decodes"][d] - before["decodes"][d] for d in after["decodes"]}
         if decodes != {"native": len(jpegs), "pil": 0}:
             raise AssertionError(f"{name}: decodes {decodes}, want all {len(jpegs)} native")
@@ -874,7 +900,8 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
                "decoder": "native" if after["decoder"]["available"] else "PIL",
                "decoder_reason": after["decoder"]["reason"], "decodes": decodes,
                "requests": len(jpegs), "batches": batches, "kernel_launches": launches,
-               "fused_dw_cells": fused_cells, "boot_s": boot_s,
+               "fused_dw_cells": fused_cells, "boot_s": boot_s, "warmup_s": after["warmup_s"],
+               "graphs": {**after["graphs"], **{f"burst_{k}": v for k, v in graphs.items()}},
                "host_copies_per_image": copies, "slabs_pinned": pinned,
                "pipeline_depth": cfg.pipeline_depth, "pipeline": flow,
                "h2d_bytes_per_image": (after["h2d_bytes"] - before["h2d_bytes"]) / len(jpegs),
@@ -886,7 +913,8 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
             # a second, identical burst: what of the first was one-time cost
             second = burst(srv, jpegs)[1]
             emit({"phase": "burst_timeline", "model": name, "path": path, "burst": 2, **second})
-            row.update(burst2_img_per_s=len(jpegs) / second["wall_ms"] * 1e3,
+            row.update(burst2_batches=eng.stats()["batches"] - after["batches"],
+                       burst2_img_per_s=len(jpegs) / second["wall_ms"] * 1e3,
                        burst2_p50_ms=second["client_latency_ms"]["p50"],
                        burst2_p99_ms=second["client_latency_ms"]["p99"])
         if serial:  # the same requests one at a time: latency without queueing
@@ -1332,16 +1360,17 @@ def ragged_slab(jpegs: list[bytes], s: int, holes: tuple[int, ...] = ()):
 
 
 def phase_ragged_unpack(jpegs: list[bytes]) -> dict:
-    """The device unpack on 8 main-path images of the 512 canvas, decoded
+    """The unpack kernel on 8 main-path images of the 512 canvas, decoded
     tight into a pinned arena and shipped with the meta table in one copy:
     the canvases and valid sizes must equal the host's ``pad_to_canvas``
-    bit for bit, with every slot filled and with two holes; its device time
-    per batch (CUDA graph), its kernels per call (profiler, a lower bound:
-    the zero fill, K copies, ATen's kernels for the valid sizes),
-    the wrapper's host time, its bound; the copy's time against the classic
-    rgb wire's; and the wire bytes per image, ragged against the classic
-    rgb and yuv420 canvases, with the padded share of each."""
-    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
+    bit for bit, with every slot filled and with two holes, and equal the
+    plain version (the reference's masked gather); its device time per
+    batch (CUDA graph) against its bound and the plain version's, its
+    kernels per call (profiler) and launches per call (its counter), the
+    wrapper's host time; the copy's time against the classic rgb wire's;
+    and the wire bytes per image, ragged against the classic rgb and yuv420
+    canvases, with the padded share of each."""
+    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged, unpack_ragged_plain
 
     s, k = 512, 8
     big = [d for d in jpegs if decode_tight(d)[2] == s][:k]
@@ -1353,26 +1382,37 @@ def phase_ragged_unpack(jpegs: list[bytes]) -> dict:
         nbytes, meta_off = slab.stage(k)
         dev = slab.buf[:nbytes].to("cuda", non_blocking=True)
         meta = dev[meta_off:].view(torch.int32).view(k, 4)
-        got, got_hw = unpack_ragged(dev[:meta_off], meta, s, meta_host=slab.meta)
+        got, got_hw = unpack_ragged(dev[:meta_off], meta, s)
+        plain, plain_hw = unpack_ragged_plain(dev[:meta_off], meta, s)
         if not (np.array_equal(got.cpu().numpy(), want)
                 and np.array_equal(got_hw.cpu().numpy(), want_hw)):
             raise AssertionError(f"ragged unpack ({label}) differs from pad_to_canvas")
+        if not (torch.equal(got, plain) and torch.equal(got_hw, plain_hw)):
+            raise AssertionError(f"ragged unpack kernel ({label}) differs from its plain version")
         row[f"bit_identical_{label}"] = True
     # the full batch: times, kernels, bytes
     slab, _, hws = ragged_slab(big, s)
     nbytes, meta_off = slab.stage(k)
     dev = slab.buf[:nbytes].to("cuda")
     arena, meta = dev[:meta_off], dev[meta_off:].view(torch.int32).view(k, 4)
-    unpack = lambda: unpack_ragged(arena, meta, s, meta_host=slab.meta)  # noqa: E731
+    unpack = lambda: unpack_ragged(arena, meta, s)  # noqa: E731
+    launches = unpack_ragged.launches
     prof = profiled_calls(unpack)
+    launches_per_call = (unpack_ragged.launches - launches) / prof["fn_calls"]
+    if launches_per_call != 1 or len(prof["top"]) != 1 or prof["kernels"] > prof["calls"]:
+        raise AssertionError(f"the unpack launched {launches_per_call} kernels a call: {prof}")
     pixel = int(sum(h * w * 3 for h, w in hws))
     classic = torch.zeros((k, s * s * 3 + 4), dtype=torch.uint8, pin_memory=True)
     row.update(
         ms=graph_time_ms(unpack), host_us=host_us(unpack),
-        kernels_per_call=prof["kernels"] / prof["calls"], copies_per_call=k,
-        profile_top=prof["top"],
-        # least time: read each image's bytes once, write every canvas once
-        bound_ms=(pixel + k * s * s * 3) / MEM_BYTES_PER_S * 1e3, bound_by="bytes",
+        # events around calls: the plain version checks the table on the host
+        plain_ms=cuda_time_ms(lambda: unpack_ragged_plain(arena, meta, s), repeats=5),
+        launches_per_call=launches_per_call,
+        kernels_per_call=prof["kernels"] / prof["calls"], profile_top=prof["top"],
+        # least time: read each image's bytes and the meta table once, write
+        # every canvas and the valid sizes once
+        bound_ms=(pixel + 16 * k + k * s * s * 3 + 8 * k) / MEM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
         h2d_ms=cuda_time_ms(lambda: slab.buf[:nbytes].to("cuda", non_blocking=True)),
         h2d_classic_rgb_ms=cuda_time_ms(lambda: classic.to("cuda", non_blocking=True)),
         rows_shipped=slab.rows_shipped(k), pixel_bytes_per_image=pixel / k,
@@ -1380,8 +1420,125 @@ def phase_ragged_unpack(jpegs: list[bytes]) -> dict:
                               "classic_yuv420": s * s * 3 // 2 + 4},
         padded_fraction={"ragged": 1 - pixel / nbytes,
                          "classic_rgb": 1 - pixel / (k * (s * s * 3 + 4))})
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
     emit(row)
     return row
+
+
+def fill_slab(eng, prepared: list, holes: tuple[int, ...] = ()):
+    """One 512-canvas slab of the engine's wire holding ``prepared`` (the
+    engine's ``prepare_ragged`` or ``prepare_bytes`` results), slots in
+    ``holes`` left uncommitted."""
+    if eng.ragged:
+        slab = eng.acquire_ragged(512)
+        for i, (tight, hw, *_) in enumerate(prepared):
+            slot, span = slab.alloc(tight.nbytes)
+            span[:] = tight.reshape(-1)
+            if i not in holes:
+                slab.write_hw(slot, hw)
+        return slab
+    slab = eng.acquire_staging(512)
+    for i, (canvas, hw, *_) in enumerate(prepared):
+        slab.canvases[i] = canvas
+        if i not in holes:
+            slab.write_hw(i, hw)
+    return slab
+
+
+def dispatch(eng, slab, n: int):
+    return (eng.dispatch_ragged if eng.ragged else eng.dispatch_staged)(slab, n)
+
+
+def dispatch_costs(eng, prepared: list, calls: int = 20) -> dict:
+    """Host µs of one dispatch (H2D enqueue, static copy, serve enqueue, D2H
+    enqueue; the slab filled beforehand, the outputs fetched after each
+    call) and the compute stream's ms per batch from the engine's CUDA
+    events, medians over ``calls`` batches."""
+    host = []
+    for _ in range(calls):
+        slab = fill_slab(eng, prepared)
+        t0 = time.perf_counter()
+        handle = dispatch(eng, slab, len(prepared))
+        host.append((time.perf_counter() - t0) * 1e6)
+        eng.fetch_outputs(handle)
+    dev = eng.device_timeline()[-calls:]
+    return {"host_us": statistics.median(host), "host_us_min": min(host),
+            "compute_ms": statistics.median(d["compute"][1] - d["compute"][0] for d in dev)}
+
+
+def phase_graphs(jpegs: list[bytes]) -> list[dict]:
+    """Each main path's engine on a batch of 8 main-path images in the 512
+    canvas: eagerly before warmup, then as replays of the graphs warmup
+    captures (8 pairs: canvas 256 and 512 × batch 1, 2, 4, 8). The full
+    batch and then 5 slots with holes at 1 and 3 (the static input keeps
+    the full batch's bytes past its prefix) must come out bit-identical to
+    eager; host µs per dispatch and compute-stream ms per batch, eager
+    against replay; one replay's device time (CUDA events around replays),
+    the static copy's device time, kernels per graph (profiler, a lower
+    bound) and the hand-written kernels' launches its capture recorded;
+    capture seconds, the graph pool and the static bytes."""
+    from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
+
+    rows = []
+    for name, dtype, wire in MAIN_PATHS:
+        eng = InferenceEngine(_config(name, dtype, warmup=False, **wire), device="cuda",
+                              seed=SEED)
+        if eng.ragged:
+            prepared = [p for p in map(eng.prepare_ragged, jpegs) if p[2] == 512][:8]
+        else:
+            prepared = [p for p in map(eng.prepare_bytes, jpegs) if p[0].shape[-1] == 512][:8]
+        if len(prepared) < 8:
+            raise AssertionError(f"only {len(prepared)} images in the 512 canvas")
+        batches = ((prepared, ()), (prepared[:5], (1, 3)))
+
+        def run_all():
+            return [eng.fetch_outputs(dispatch(eng, fill_slab(eng, p, holes), len(p)))
+                    for p, holes in batches]
+
+        with torch.inference_mode():
+            eager = run_all()
+            eager_costs = dispatch_costs(eng, prepared)
+            eng.warmup()
+            replayed = run_all()
+            replay_costs = dispatch_costs(eng, prepared)
+            same = all(np.array_equal(a, b) for e, r in zip(eager, replayed)
+                       for a, b in zip(e, r))
+            kind = "ragged" if eng.ragged else "classic"
+            key = (kind, 512, 8)
+            exe = eng._exes[key]
+            slab = fill_slab(eng, prepared)
+            if eng.ragged:
+                nbytes, meta_off = slab.stage(8)
+                dev = slab.buf[:nbytes].to("cuda")
+            else:
+                dev, meta_off = slab.buf[:8].to("cuda"), None
+            eng.release_staging(slab)
+            try:
+                prof = profiled_calls(exe, calls=2)
+            except AssertionError:  # the profiler saw no graph kernels: not measured
+                prof = {"kernels": None, "calls": 2, "top": []}
+            st = eng.stats()
+            row = {"phase": "graphs", "model": name, "dtype": dtype,
+                   "wire": eng.cfg.wire_format, "ragged": eng.ragged, "resize": eng.cfg.resize,
+                   "batch": 8, "canvas": 512, "bit_identical_full_and_holes": same,
+                   "eager": eager_costs, "replay": replay_costs,
+                   "replay_ms": cuda_time_ms(exe), "static_copy_ms": graph_time_ms(
+                       lambda: eng._stage_static(key, dev, meta_off)),
+                   "static_copy_bytes": dev.numel(),
+                   "kernels_per_graph": prof["kernels"] and prof["kernels"] / prof["calls"],
+                   "profile_top": prof["top"][:5],
+                   "recorded_launches": {f.__name__: n for f, n in exe.launches.items()},
+                   "capture_s_8x512": exe.capture_s, "warmup_s": st["warmup_s"],
+                   "graphs": st["graphs"]}
+        eng.close()
+        emit(row)
+        if not same:
+            raise AssertionError(f"{name} {dtype}: replay differs from eager")
+        if st["graphs"]["captured"] != len(BUCKETS) * len(eng.batch_buckets) \
+                or st["graphs"]["pool_bytes"] <= 0:
+            raise AssertionError(f"{name} {dtype}: graphs {st['graphs']}")
+        rows.append(row)
+    return rows
 
 
 def phase_ragged_vs_classic(jpegs: list[bytes], served: dict) -> list[dict]:
@@ -1525,30 +1682,23 @@ def phase_backlog(jpegs: list[bytes]) -> dict:
     return row
 
 
-def phase_default_server(jpegs: list[bytes]) -> dict:
-    """The server as a user starts it, ``python -m
-    tensorflow_web_deploy_tpu_torch.server`` with no model or wire flags
-    (only a free port): it must boot on the card and serve Inception-v3 on
-    the ragged rgb wire with the matmul resize and the decoder the machine
-    allows, at its default buckets (canvas up to 2048, batch up to 32). Two
-    main-path JPEGs and one over the top canvas bucket go in; then it is
-    stopped with SIGINT and must exit."""
+def boot_default_server(jpegs: list[bytes], big: bytes, cache_dir: str) -> dict:
+    """``python -m tensorflow_web_deploy_tpu_torch.server`` with no model or
+    wire flags, only a free port and ``--aot-cache-dir``, in a process of its
+    own: its boot seconds (to the first ``/healthz``), three answers, its
+    ``/stats`` engine block and its exit code on SIGINT."""
     import signal
     import socket
-    from PIL import Image
-
-    from tensorflow_web_deploy_tpu_torch import native
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     url = f"http://127.0.0.1:{port}"
-    big = io.BytesIO()
-    Image.fromarray(np.full((300, 2500, 3), 90, np.uint8)).save(big, "JPEG")
     t0 = time.perf_counter()
     log = tempfile.TemporaryFile("w+")
     proc = subprocess.Popen([sys.executable, "-m", "tensorflow_web_deploy_tpu_torch.server",
-                             "--port", str(port)], stdout=log, stderr=subprocess.STDOUT, text=True,
+                             "--port", str(port), "--aot-cache-dir", cache_dir],
+                            stdout=log, stderr=subprocess.STDOUT, text=True,
                             cwd=os.path.dirname(os.path.abspath(__file__)))
     try:
         while True:
@@ -1563,7 +1713,7 @@ def phase_default_server(jpegs: list[bytes]) -> dict:
             except OSError:
                 time.sleep(0.5)
         boot_s = time.perf_counter() - t0
-        answers = [post(url + "/predict", d) for d in (jpegs[2], jpegs[7], big.getvalue())]
+        answers = [post(url + "/predict", d) for d in (jpegs[2], jpegs[7], big)]
         with urllib.request.urlopen(url + "/stats", timeout=60) as r:
             eng = json.loads(r.read())["engine"]
     finally:
@@ -1573,21 +1723,69 @@ def phase_default_server(jpegs: list[bytes]) -> dict:
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
+        log.seek(0)
+        warmup_log = [ln.split(": ", 1)[-1] for ln in log.read().splitlines()
+                      if "warmup:" in ln]
         log.close()
+    return {"boot_s": boot_s, "exit_code": proc.returncode, "eng": eng, "answers": answers,
+            "warmup_log": warmup_log}
+
+
+def phase_default_server(jpegs: list[bytes]) -> dict:
+    """The server as a user starts it, with no model or wire flags: it must
+    boot on the card and serve Inception-v3 on the ragged rgb wire with the
+    matmul resize and the decoder the machine allows, at its default
+    buckets (canvas up to 2048, batch up to 32: 24 pairs, each captured as
+    a CUDA graph at boot). Booted twice on one fresh kernel build cache
+    directory: the first boot builds its kernel libraries with nvcc and
+    stores them, the second must load every one from the cache and run no
+    nvcc (``hits_total`` = its libraries, ``compile_seconds_total`` 0). Each
+    boot gets two main-path JPEGs and one over the top canvas bucket, every
+    batch a graph replay, and must exit on SIGINT. Reports each boot's
+    seconds, its warmup phases, the graph pool and the static bytes."""
+    from PIL import Image
+
+    from tensorflow_web_deploy_tpu_torch import native
+
+    big = io.BytesIO()
+    Image.fromarray(np.full((300, 2500, 3), 90, np.uint8)).save(big, "JPEG")
     st = native.status()
-    row = {"phase": "default_server", "boot_s": boot_s, "exit_code": proc.returncode,
-           "statuses": [a[0] for a in answers],
-           "predictions": [len(a[1].get("predictions", [])) for a in answers],
-           **{k: eng[k] for k in ("model", "device", "dtype", "wire_format", "ragged", "resize",
-                                  "decodes", "batches", "canvas_buckets", "batch_buckets")},
-           "decoder_available": eng["decoder"]["available"], "decoder_reason": eng["decoder"]["reason"]}
+    row = {"phase": "default_server"}
+    with tempfile.TemporaryDirectory(prefix="twd-aot-") as cache_dir:
+        for boot in ("cold", "warm"):
+            got = boot_default_server(jpegs, big.getvalue(), cache_dir)
+            eng, answers = got["eng"], got["answers"]
+            b = {"boot_s": got["boot_s"], "exit_code": got["exit_code"],
+                 "warmup_s": eng["warmup_s"], "warmup_log": got["warmup_log"],
+                 "statuses": [a[0] for a in answers],
+                 "predictions": [len(a[1].get("predictions", [])) for a in answers],
+                 "aot_cache": eng["aot_cache"], "graphs": eng["graphs"],
+                 **{k: eng[k] for k in ("model", "device", "dtype", "wire_format", "ragged",
+                                        "resize", "decodes", "batches", "canvas_buckets",
+                                        "batch_buckets")},
+                 "decoder_available": eng["decoder"]["available"],
+                 "decoder_reason": eng["decoder"]["reason"]}
+            row[boot] = b
+            want = {"model": "inception_v3", "device": "cuda", "dtype": "bfloat16",
+                    "wire_format": "rgb", "ragged": True, "resize": "matmul",
+                    "decoder_available": st["available"], "statuses": [200] * 3,
+                    "predictions": [5] * 3, "exit_code": 0}
+            bad = {k: b[k] for k, v in want.items() if b[k] != v}
+            graphs, cache = b["graphs"], b["aot_cache"]
+            libs = len(cache["libraries"])
+            if graphs["captured"] != DEFAULT_PAIRS or graphs["eager_batches"] != 0 \
+                    or graphs["replays"] != b["batches"]:
+                bad["graphs"] = graphs
+            if cache["dir"] != cache_dir or not libs or (boot == "warm" and (
+                    cache["hits_total"] != libs or cache["misses_total"] != 0
+                    or cache["corrupt_total"] != 0 or cache["compile_seconds_total"] != 0)) \
+                    or (boot == "cold" and cache["writes_total"] != libs):
+                bad["aot_cache"] = cache
+            if bad or sum(eng["decodes"].values()) != 3:
+                emit(row)
+                raise AssertionError(f"the default server ({boot} boot): "
+                                     f"{bad or eng['decodes']}, want {want}")
     emit(row)
-    want = {"model": "inception_v3", "device": "cuda", "dtype": "bfloat16", "wire_format": "rgb",
-            "ragged": True, "resize": "matmul", "decoder_available": st["available"],
-            "statuses": [200] * 3, "predictions": [5] * 3, "exit_code": 0}
-    bad = {k: row[k] for k, v in want.items() if row[k] != v}
-    if bad or sum(eng["decodes"].values()) != 3:
-        raise AssertionError(f"the default server: {bad or eng['decodes']}, want {want}")
     return row
 
 
@@ -1602,6 +1800,7 @@ def main(argv: list[str]) -> int:
         return 2
     from tensorflow_web_deploy_tpu_torch import native
     from tensorflow_web_deploy_tpu_torch.ops import _build
+    from tensorflow_web_deploy_tpu_torch.serving import aotcache
 
     # float32 means float32 in every reference below
     torch.backends.cudnn.allow_tf32 = False
@@ -1615,8 +1814,12 @@ def main(argv: list[str]) -> int:
         decoder = pool.submit(native.status)
         list(pool.map(_build.load, KERNELS))
         decoder = decoder.result()
+    # through the kernel build cache in the checkout's .build/: a fresh
+    # checkout misses and builds every library
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": [_build.library_path(k).name for k in KERNELS], "native_decoder": decoder})
+          "libraries": {k: _build.library_path(k).name for k in KERNELS},
+          "aot_cache": aotcache.stats(aotcache.AotCache(_build.BUILD_DIR)),
+          "nvcc": _build.nvcc_release(), "native_decoder": decoder})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if argv == ["--sweep-fused-dw"]:
@@ -1636,7 +1839,8 @@ def main(argv: list[str]) -> int:
     dw = phase_fused_dw_kernel(gen, dw_layer_shapes())
     jpegs = make_jpegs(24, SEED)
     phase_native_decode(jpegs)
-    phase_ragged_unpack(jpegs)
+    unpack = phase_ragged_unpack(jpegs)
+    phase_graphs(jpegs)
     inception = phase_main_path(jpegs, "inception_v3", "bfloat16", fused_cells=0,
                                 second_burst=True)
     phase_parity(jpegs, inception["served"], "inception_v3", "bfloat16")
@@ -1691,6 +1895,24 @@ def main(argv: list[str]) -> int:
         # stride 2 after F.pad by the reference's pads): the closest one
         # call; it leaves out the relu6 clamp
         "library_ms": dw["cudnn_ms"],
+    }, {
+        "name": "unpack_ragged",
+        "route": "cuda",
+        "source": "tensorflow_web_deploy_tpu_torch/csrc/unpack_ragged.cu",
+        "replaces": "tensorflow_web_deploy_tpu/ops/image.py:107 (XLA work, a masked gather "
+                    "with static shapes; not a Pallas kernel)",
+        "launches": sum(n["unpack_ragged"] for n in by_path.values()),
+        "launches_by_path": {m: n["unpack_ragged"] for m, n in by_path.items()},
+        # bit-identical to its plain version and to pad_to_canvas
+        "max_abs_err": 0.0,
+        # batch of 8 main-path images, 512 canvas, full
+        "ms": unpack["ms"],
+        "plain_ms": unpack["plain_ms"],
+        "bound_ms": unpack["bound_ms"],
+        "bound_by": unpack["bound_by"],
+        # no one PyTorch call rebuilds padded canvases from a ragged arena
+        "library_ms": None,
+        "host_us": unpack["host_us"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

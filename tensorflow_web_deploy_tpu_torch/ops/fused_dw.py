@@ -26,13 +26,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, launches
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # channels per thread in the kernel (one 16-byte bf16 vector)
@@ -189,8 +188,7 @@ def _launch(x, taps, bias, pads, relu6, stride, shape: LaunchShape) -> torch.Ten
              shape.th, shape.run, stream)
     if err != 0:
         raise RuntimeError(f"fused_dw kernel launch failed: CUDA error {err}")
-    with _launches_lock:  # launch threads dispatch batches at once
-        fused_dw.launches += 1
+    launches.count(fused_dw)
     return out
 
 
@@ -242,4 +240,3 @@ def fused_dw(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, kh: int, k
 
 
 fused_dw.launches = 0
-_launches_lock = threading.Lock()

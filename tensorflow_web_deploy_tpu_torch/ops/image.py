@@ -9,9 +9,10 @@ shapes stay fixed per bucket while the valid size is data.
 
 On the ragged wire the host ships each image tight (``fit_to_bucket``,
 or the native decoder's tight rows) in one flat byte arena, and the device
-rebuilds the canvases (``unpack_ragged``) before the resize.
+rebuilds the canvases before the resize: ``unpack_ragged``, one launch of
+the hand-written kernel ``csrc/unpack_ragged.cu`` on the card.
 
-The device half here is plain torch, as XLA ran it for the JAX package:
+The rest of the device half is plain torch, as XLA ran it for the JAX package:
 ``make_preprocess_fn`` with ``resize="matmul"`` is the separable bilinear
 resize as ``torch.matmul``, with ``resize="gather"`` the same taps read by
 index (``resize_from_valid``). The fused I420 path with
@@ -20,10 +21,13 @@ index (``resize_from_valid``). The fused I420 path with
 
 from __future__ import annotations
 
+import ctypes
 import io
 
 import numpy as np
 import torch
+
+from . import launches
 
 # --------------------------------------------------------------------------
 # host side (numpy)
@@ -126,36 +130,101 @@ def rgb_to_yuv420_canvas(canvas: np.ndarray) -> np.ndarray:
 RAGGED_UNPACK_VERSION = 1
 
 
-def unpack_ragged(arena: torch.Tensor, meta: torch.Tensor, s: int,
-                  meta_host: np.ndarray | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+def check_ragged_rows(meta: np.ndarray, s: int, arena_bytes: int) -> None:
+    """Raise ValueError on a valid meta row (int32 [K, 4] on the host) that
+    does not fit a canvas of side ``s`` or an arena of ``arena_bytes``."""
+    for i, (off, h, w, valid) in enumerate(np.asarray(meta).tolist()):
+        if valid > 0 and not (0 < h <= s and 0 < w <= s and 0 <= off
+                              and off + h * w * 3 <= arena_bytes):
+            raise ValueError(f"ragged row {i} (offset {off}, {h}x{w}) does not fit a "
+                             f"{s} canvas in a {arena_bytes}-byte arena")
+
+
+def unpack_ragged_plain(arena: torch.Tensor, meta: torch.Tensor, s: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`unpack_ragged` in plain torch, the reference's form: a masked
+    gather with static shapes (one index per canvas byte, clipped into the
+    arena, then a select). Checks the rows first (:func:`check_ragged_rows`,
+    which reads ``meta`` on the host)."""
+    flat = arena.reshape(-1)
+    n = flat.numel()
+    check_ragged_rows(meta.cpu().numpy(), s, n)
+    if n == 0:  # nothing to gather from: every row is a hole
+        flat, n = torch.zeros(1, dtype=torch.uint8, device=flat.device), 1
+    dev = flat.device
+    m = meta.to(torch.int64)[:, :, None, None, None]  # [K, 4, 1, 1, 1]
+    off, h, w, valid = m[:, 0], m[:, 1], m[:, 2], m[:, 3]
+    y = torch.arange(s, device=dev)[:, None, None]
+    x = torch.arange(s, device=dev)[None, :, None]
+    c = torch.arange(3, device=dev)[None, None, :]
+    idx = off + (y * w + x) * 3 + c  # [K, s, s, 3]
+    px = flat[idx.clamp(0, n - 1)]
+    canvases = torch.where((valid > 0) & (y < h) & (x < w), px, torch.zeros_like(px))
+    hws = torch.where(meta[:, 3:4] > 0, meta[:, 1:3], torch.ones_like(meta[:, 1:3]))
+    return canvases, hws.to(torch.int32)
+
+
+_unpack_fn = None  # the C entry, resolved once per process
+
+
+def _unpack_kernel():
+    global _unpack_fn
+    if _unpack_fn is None:
+        from . import _build
+
+        fn = _build.load("unpack_ragged").twd_unpack_ragged
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _unpack_fn = fn
+    return _unpack_fn
+
+
+def unpack_ragged(arena: torch.Tensor, meta: torch.Tensor, s: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Flat ragged byte arena + per-image meta → canvases as the classic
     wire would have shipped them.
 
     ``arena``: uint8, any shape (flattened); image ``i``'s pixel (y, x, c)
     is byte ``meta[i, 0] + (y * w + x) * 3 + c``. ``meta``: int32 [K, 4]
     rows ``(byte_offset, h, w, valid)`` on the arena's device; a hole
-    (``valid = 0``) is a zero canvas with hw (1, 1). ``meta_host``: the same
-    table on the host, where the copies are planned (default: ``meta``
-    read back, which waits for the device).
+    (``valid = 0``) is a zero canvas with hw (1, 1).
 
     Returns (canvases uint8 [K, s, s, 3], hws int32 [K, 2]), bit-identical
-    to :func:`pad_to_canvas` of the same pixels: one zero fill, one copy of
-    each image's h·w·3 bytes into its canvas (a copy, no resample; no
-    per-element index is built), and a few small kernels for the hws.
-    Raises ValueError on a row that does not fit the canvas or the arena.
+    to :func:`pad_to_canvas` of the same pixels. On CUDA tensors, one launch
+    of the hand-written kernel in ``csrc/unpack_ragged.cu``, which reads the
+    meta table on the device (no host copy, so a CUDA graph can capture it)
+    and writes a row that does not fit as a hole: callers check the rows on
+    the host (:func:`check_ragged_rows`; the engine does at dispatch). On CPU
+    tensors, :func:`unpack_ragged_plain`, which checks them and raises
+    ValueError. ``unpack_ragged.launches`` counts kernel launches.
     """
-    flat = arena.reshape(-1)
-    table = meta.cpu().numpy() if meta_host is None else np.asarray(meta_host)
-    canvases = torch.zeros((table.shape[0], s, s, 3), dtype=torch.uint8, device=flat.device)
-    for i, (off, h, w, valid) in enumerate(table.tolist()):
-        if valid <= 0:
-            continue
-        if not (0 < h <= s and 0 < w <= s and 0 <= off and off + h * w * 3 <= flat.numel()):
-            raise ValueError(f"ragged row {i} (offset {off}, {h}x{w}) does not fit a "
-                             f"{s} canvas in a {flat.numel()}-byte arena")
-        canvases[i, :h, :w] = flat[off : off + h * w * 3].view(h, w, 3)
-    hws = torch.where(meta[:, 3:4] > 0, meta[:, 1:3], 1)
-    return canvases, hws.to(torch.int32)
+    if arena.device.type == "cpu":
+        return unpack_ragged_plain(arena, meta, s)
+    if arena.device.type != "cuda":
+        raise ValueError(f"unpack_ragged runs on CUDA or CPU tensors, not {arena.device}")
+    if arena.dtype != torch.uint8 or not arena.is_contiguous() or arena.data_ptr() % 4:
+        raise TypeError("arena must be a contiguous, 4-byte aligned uint8 tensor")
+    if (meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[1] != 4
+            or not meta.is_contiguous() or meta.device != arena.device):
+        raise TypeError("meta must be a contiguous int32 [K, 4] tensor on the arena's device")
+    k = meta.shape[0]
+    if k > 65535 or s < 1:
+        raise ValueError(f"the kernel takes at most 65535 images of canvas side >= 1, got {k}, {s}")
+    canvases = torch.empty((k, s, s, 3), dtype=torch.uint8, device=arena.device)
+    hws = torch.empty((k, 2), dtype=torch.int32, device=arena.device)
+    if k == 0:
+        return canvases, hws
+    stream = torch._C._cuda_getCurrentRawStream(arena.device.index)
+    err = _unpack_kernel()(arena.data_ptr(), arena.numel(), meta.data_ptr(), canvases.data_ptr(),
+                           hws.data_ptr(), k, s, stream)
+    if err != 0:
+        raise RuntimeError(f"unpack_ragged kernel launch failed: CUDA error {err}")
+    launches.count(unpack_ragged)
+    return canvases, hws
+
+
+unpack_ragged.launches = 0
 
 
 def yuv420_to_rgb(packed: torch.Tensor, s: int) -> torch.Tensor:
@@ -299,11 +368,18 @@ def _divide(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / torch.full((), d, dtype=torch.float32, device=x.device)
 
 
+def _caffe_mean(device: torch.device) -> torch.Tensor:
+    """The caffe means as a float32 [3] tensor filled on the device (no host
+    copy, so a CUDA graph can capture it)."""
+    return torch.stack([torch.full((), m, dtype=torch.float32, device=device)
+                        for m in _CAFFE_MEAN])
+
+
 NORMALIZERS = {
     "inception": lambda x: _divide(x, 127.5) - 1.0,  # [-1, 1]; Inception/MobileNet family
     "zero_one": lambda x: _divide(x, 255.0),
     # Caffe-style ResNet-50: RGB→BGR + per-channel mean subtraction.
-    "caffe": lambda x: x.flip(-1) - torch.tensor(_CAFFE_MEAN, dtype=torch.float32, device=x.device),
+    "caffe": lambda x: x.flip(-1) - _caffe_mean(x.device),
     "raw": lambda x: x,
 }
 

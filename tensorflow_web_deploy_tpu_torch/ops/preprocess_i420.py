@@ -27,13 +27,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, launches
 from .image import NORMALIZERS, resize_yuv_planes
 
 MODES = {"inception": 0, "zero_one": 1, "raw": 2}
@@ -197,8 +196,7 @@ def _launch(src: torch.Tensor, image_stride: int, hws: torch.Tensor | None, b: i
                     shape.rows, shape.threads, stream)
     if err != 0:
         raise RuntimeError(f"preprocess_i420 kernel launch failed: CUDA error {err}")
-    with _launches_lock:  # launch threads dispatch batches at once
-        preprocess_i420.launches += 1
+    launches.count(preprocess_i420)
     return out
 
 
@@ -245,4 +243,3 @@ def preprocess_i420_wire(buf: torch.Tensor, s: int, out_h: int, out_w: int,
 
 
 preprocess_i420.launches = 0
-_launches_lock = threading.Lock()

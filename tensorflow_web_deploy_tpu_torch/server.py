@@ -4,6 +4,7 @@
         [--no-ragged] [--resize matmul|gather] [--wire-format yuv420 --resize kernel]
         [--dtype bf16|f32|int8] [--fused-dw auto|on|off] [--device cuda|cpu]
         [--pipeline-depth 4] [--max-queue 0] [--no-adaptive-delay] [--lease-timeout-s 10]
+        [--aot-cache-dir DIR]
     curl -X POST --data-binary @cat.jpg http://localhost:8500/predict
 
 Counterpart of the JAX package's root ``server.py``, with the flags this
@@ -118,7 +119,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--zoo-width", type=float, default=None)
     p.add_argument("--zoo-classes", type=int, default=None)
     p.add_argument("--topk", type=int, default=None)
-    p.add_argument("--no-warmup", action="store_true")
+    p.add_argument("--aot-cache-dir", default=None, metavar="DIR",
+                   help="kernel build cache: warmup loads the verified kernel libraries "
+                        "built before from this directory instead of running nvcc "
+                        "(default: the package's .build/); '0' or empty disables")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="capture no CUDA graphs: every batch runs eagerly")
     p.add_argument("--log-level", default="INFO")
     return p.parse_args(argv)
 
@@ -138,7 +144,7 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
         max_delay_ms=args.max_delay_ms, adaptive_delay=not args.no_adaptive_delay,
         pipeline_depth=args.pipeline_depth, max_queue=args.max_queue,
         lease_timeout_s=args.lease_timeout_s, wire_format=args.wire_format, resize=args.resize,
-        ragged=args.ragged, warmup=not args.no_warmup, **kw,
+        ragged=args.ragged, warmup=not args.no_warmup, aot_cache_dir=args.aot_cache_dir, **kw,
     )
 
 

@@ -14,7 +14,25 @@ rows carry hw = 1×1 and are sliced off on the host.
 On the ragged wire (rgb only) a batch is one pinned :class:`RaggedSlab`
 instead: each image's tight rows back to back, then the int32 meta table,
 shipped in one non-blocking copy; the device rebuilds the canvases
-(``ops/image.py::unpack_ragged``) and the same serve path follows.
+(``ops/image.py::unpack_ragged``, one kernel that reads the table on the
+device) and the same serve path follows.
+
+**Executables** (the counterpart of the reference's precompiled
+executable per (canvas bucket, batch bucket)). Warmup captures the serve
+function of every (wire kind, canvas side, batch bucket) as one CUDA graph
+(:class:`Executable`), largest first, into one graph memory pool per
+engine. Each canvas side has one static device input at the top batch
+bucket's capacity (the packed wire, or the arena and the meta table), and
+a smaller bucket's graph reads a prefix view of it. A batch then costs, on
+the compute stream, a device-to-device copy of its freshly copied wire
+into the static input, one graph replay (unpack or preprocess kernel →
+forward → softmax → top-k) and the static output's copy back. A shape
+warmup never captured runs the same function eagerly (the reference's lazy
+jit; counted as ``eager_batches``). On the CPU the executables run the
+same function on the static inputs without a capture. The kernels' build
+cache (``serving/aotcache.py``, ``--aot-cache-dir``) is the counterpart of
+the reference's AOT executable cache: a warm boot loads the kernel
+libraries instead of running nvcc.
 JPEGs are decoded by the native libjpeg decoder (``native/``), PIL takes
 the rest.
 
@@ -37,17 +55,20 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 import torch
 
 from .. import native
 from ..models.adapter import native_converted
-from ..ops import quant
+from ..ops import _build, launches, quant
 from ..ops.fused_dw import fused_dw
 from ..ops.image import (
+    check_ragged_rows,
     decode_image,
     fit_to_bucket,
     make_preprocess_fn,
@@ -58,10 +79,17 @@ from ..ops.image import (
 from ..ops.preprocess_i420 import decode_trailer, preprocess_i420, preprocess_i420_wire
 from ..utils.config import ServerConfig
 from ..utils.device import resolve_device
+from . import aotcache
 
 log = logging.getLogger("tpu_serve_torch.engine")
 
 _HOLE_TRAILER = (0, 1, 0, 1)  # hw = (1, 1): the resize reads one pixel
+# one CUDA graph capture at a time in the process (torch's rule)
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
 
 
 class _Leased:
@@ -234,6 +262,30 @@ class BatchHandle:
     events: tuple[torch.cuda.Event, ...] = ()
 
 
+@dataclass
+class Executable:
+    """The serve function of one (wire kind, canvas side, batch bucket) on
+    its static input views (``fn``). On the card, ``graph`` is its CUDA
+    graph and ``out`` the graph's static output; ``launches`` holds the
+    hand-written kernels' launches its capture recorded, which every replay
+    adds to their counters. On the CPU there is no graph: calling it runs
+    ``fn``."""
+
+    key: tuple[str, int, int]
+    fn: Callable[[], torch.Tensor]
+    graph: torch.cuda.CUDAGraph | None = None
+    out: torch.Tensor | None = None
+    launches: dict = field(default_factory=dict)
+    capture_s: float = 0.0
+
+    def __call__(self) -> torch.Tensor:
+        if self.graph is None:
+            return self.fn()
+        self.graph.replay()
+        launches.add(self.launches)
+        return self.out
+
+
 class InferenceEngine:
     """Serves batches of decoded images on one device (``"cuda"`` unless
     the caller passes ``device="cpu"``).
@@ -260,8 +312,6 @@ class InferenceEngine:
         if cfg.ragged and not self.ragged:
             log.warning("ragged packing requires wire_format='rgb' (got %r); serving the "
                         "classic host-padded wire", cfg.wire_format)
-        # builds the native decoder (a build fault raises here, not per request)
-        self.decoder = native.status()
         self.quantized = self.model_cfg.dtype == "int8"
         if self.model_cfg.dtype in ("float32", "int8"):
             torch.backends.cudnn.allow_tf32 = False
@@ -269,6 +319,25 @@ class InferenceEngine:
         # int8 computes in bf16
         self.dtype = torch.float32 if self.model_cfg.dtype == "float32" else torch.bfloat16
         self.fused_dw = self.model_cfg.fuse_depthwise
+        # yuv420 + kernel: the kernel takes the wire buffer itself
+        # (preprocess_packed); the other paths decode the trailers first
+        self._wire_kernel = cfg.wire_format == "yuv420" and cfg.resize == "kernel"
+        # Warmup's first phase, the one-time costs, runs here: the int8
+        # parity gate below already launches the kernels. The kernel
+        # libraries this engine's path runs are built or loaded through the
+        # build cache, and the native decoder is built (a build fault raises
+        # here, not per request).
+        self.aot_cache = aotcache.AotCache.from_config(cfg)
+        self.kernels = [name for name, used in (("unpack_ragged", self.ragged),
+                                                ("preprocess_i420", self._wire_kernel),
+                                                ("fused_dw", self.fused_dw)) if used]
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            for name in self.kernels:
+                _build.load(name, self.aot_cache)
+        self.decoder = native.status()
+        self.warmup_s = {"one_time": time.perf_counter() - t0, "executables": None,
+                         "execution": []}
         self._seed, self._params_flat = seed, params_flat
         self.model = self._build_model(self.fused_dw, self.quantized).to(
             self.device, self.dtype, memory_format=torch.channels_last)
@@ -282,9 +351,6 @@ class InferenceEngine:
                 raise RuntimeError(
                     f"numerical-parity gate failed for {self.model_cfg.name} "
                     f"dtype={self.model_cfg.dtype}: {self.parity}")
-        # yuv420 + kernel: the kernel takes the wire buffer itself
-        # (preprocess_packed); the other paths decode the trailers first
-        self._wire_kernel = cfg.wire_format == "yuv420" and cfg.resize == "kernel"
         h, w = self.model_cfg.input_size
         self._preprocess = None if self._wire_kernel else make_preprocess_fn(
             h, w, self.model_cfg.preprocess, wire=cfg.wire_format, resize=cfg.resize,
@@ -310,6 +376,16 @@ class InferenceEngine:
         self.images = 0
         self.h2d_bytes = 0
         self.decodes = {"native": 0, "pil": 0}
+        # the executables: (kind, canvas side, batch bucket) → Executable,
+        # filled once by warmup (under _warmup_lock), read lock-free after
+        self._exes: dict[tuple[str, int, int], Executable] = {}
+        self._static: dict[tuple[str, int], torch.Tensor] = {}  # (kind, side) → input
+        self._graph_pool = torch.cuda.graph_pool_handle() if self._pinned else None
+        self._warmup_lock = threading.Lock()
+        self._warmed = False
+        self.replays = 0
+        self.eager_batches = 0
+        self.pool_bytes = 0
 
     def _build_model(self, fused_dw: bool, int8: bool):
         return native_converted(
@@ -409,13 +485,90 @@ class InferenceEngine:
         """Device side of one batch: packed uint8 [B, bytes + 4] → float32 [B, 2k]."""
         return self._head(self.preprocess_packed(buf))
 
-    def _serve_ragged(self, dev: torch.Tensor, meta_off: int, meta_host: np.ndarray,
-                      s: int) -> torch.Tensor:
-        """Device side of one ragged batch: the shipped arena prefix and meta
-        table → unpack → preprocess → :meth:`_head`."""
-        meta = dev[meta_off:].view(torch.int32).view(-1, 4)
-        canvases, hws = unpack_ragged(dev[:meta_off], meta, s, meta_host=meta_host)
+    def _serve_ragged(self, arena: torch.Tensor, meta: torch.Tensor, s: int) -> torch.Tensor:
+        """Device side of one ragged batch: the arena and the int32 [bucket,
+        4] meta table → unpack → preprocess → :meth:`_head`."""
+        canvases, hws = unpack_ragged(arena, meta, s)
         return self._head(self._preprocess(canvases, hws))
+
+    # ----------------------------------------------------------- executables
+
+    def _static_input(self, kind: str, s: int) -> torch.Tensor:
+        """The static device input of one canvas side, at the top batch
+        bucket's capacity: packed wire rows (hole trailers until written),
+        or the arena (16-byte aligned) followed by the meta table."""
+        key = (kind, s)
+        if key not in self._static:
+            cap = self.max_batch
+            if kind == "ragged":
+                buf = torch.zeros(_align16(cap * s * s * 3) + 16 * cap, dtype=torch.uint8,
+                                  device=self.device)
+            else:
+                buf = torch.zeros(self.packed_shape(cap, s), dtype=torch.uint8,
+                                  device=self.device)
+                buf[:, -4:] = torch.tensor(_HOLE_TRAILER, dtype=torch.uint8, device=self.device)
+            self._static[key] = buf
+        return self._static[key]
+
+    def _ragged_views(self, s: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The ragged static input's arena and meta table [capacity, 4]."""
+        buf = self._static_input("ragged", s)
+        arena = _align16(self.max_batch * s * s * 3)
+        return buf[:arena], buf[arena:].view(torch.int32).view(-1, 4)
+
+    def _static_fn(self, kind: str, s: int, b: int) -> Callable[[], torch.Tensor]:
+        """The serve function of bucket ``b`` over prefix views of the side's
+        static input."""
+        if kind == "ragged":
+            arena, meta = self._ragged_views(s)
+            return lambda: self._serve_ragged(arena, meta[:b], s)
+        rows = self._static_input(kind, s)[:b]
+        return lambda: self._serve_packed(rows)
+
+    def _stage_static(self, key: tuple[str, int, int], dev: torch.Tensor,
+                      meta_off: int | None) -> None:
+        """Copy one batch's freshly copied wire into its static input, on the
+        current (compute) stream: the wire rows, or the shipped arena prefix
+        and the meta table. Bytes past the prefix keep an earlier batch's
+        values; the unpack reads only the spans the meta table names."""
+        kind, s, b = key
+        if kind == "ragged":
+            arena, meta = self._ragged_views(s)
+            arena[:meta_off].copy_(dev[:meta_off])
+            meta[:b].view(torch.uint8).view(-1).copy_(dev[meta_off:])
+        else:
+            self._static_input(kind, s)[:b].copy_(dev)
+
+    def _capture(self, kind: str, s: int, b: int) -> Executable:
+        """The executable of one (kind, side, bucket). On the card: one eager
+        run on a side stream (cuDNN/cuBLAS plans and workspaces, the kernels'
+        one-time attributes), then the capture into the engine's graph pool.
+        A capture that fails raises."""
+        key = (kind, s, b)
+        fn = self._static_fn(kind, s, b)
+        if self.device.type != "cuda":
+            return Executable(key, fn)
+        t0 = time.perf_counter()
+        compute = torch.cuda.current_stream(self.device)
+        with torch.inference_mode():
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(compute)
+            with torch.cuda.stream(side):
+                fn()
+            compute.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the batcher's other threads are idle during warmup,
+            # but a capture must not fail for another thread's CUDA call
+            with _CAPTURE_LOCK, launches.recording() as record, torch.cuda.graph(
+                    graph, pool=self._graph_pool, capture_error_mode="thread_local"):
+                out = fn()
+        return Executable(key, fn, graph, out, record, time.perf_counter() - t0)
+
+    def _graph_pool_bytes(self) -> int:
+        """Device bytes the engine's graph memory pool holds."""
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
 
     # -------------------------------------------------------------- staging
 
@@ -456,11 +609,18 @@ class InferenceEngine:
         failed); it reaches the pool once its last lessee resolves."""
         slab.finish()
 
-    def _ship(self, buf: torch.Tensor, slab, n: int, serve) -> BatchHandle:
+    def _ship(self, buf: torch.Tensor, slab, n: int, bucket: int,
+              meta_off: int | None = None) -> BatchHandle:
         """One batch: ``buf`` (a prefix of the slab's pinned buffer) to the
-        device in one non-blocking copy on the copy stream, the compute
-        stream waiting for that copy, then ``serve(device tensor)`` and the
-        output's copy back; returns without waiting for the device."""
+        device in one non-blocking copy into a fresh buffer on the copy
+        stream; on the compute stream, waiting for that copy, its executable
+        (a copy into the static input, one graph replay) or, for a shape
+        warmup never captured, the same serve function run eagerly on the
+        fresh buffer; then the output's copy back. ``meta_off``: where a
+        ragged wire's meta table starts. Returns without waiting for the
+        device."""
+        key = (slab.key[0], slab.s, bucket)
+        exe = self._exes.get(key)
         with torch.inference_mode():
             if self._copy_stream is None:
                 dev, events = buf.to(self.device), ()
@@ -472,17 +632,26 @@ class InferenceEngine:
                     dev = buf.to(self.device, non_blocking=True)
                     events[1].record()
                 slab.copied = events[1]
-            # The serve function's enqueue is host-bound Python: two launch
-            # threads enqueueing at once contend for the interpreter lock
-            # and the CUDA runtime (on an H100 their CPU time per burst
-            # fell by about half with one at a time, PERF.md). The other
-            # thread's copy is already queued meanwhile.
+            # One enqueue at a time: the two launch threads share the compute
+            # stream, the static inputs and the graph pool, and an eager
+            # enqueue is host-bound Python (PERF.md). The other thread's copy
+            # is already queued meanwhile.
             with self._enqueue_lock:
                 if events:
                     compute.wait_event(events[1])
                     dev.record_stream(compute)
+                if exe is not None:
+                    self._stage_static(key, dev, meta_off)
+                if events:
                     events[2].record()
-                out = serve(dev)
+                if exe is not None:
+                    out = exe()
+                elif meta_off is not None:
+                    out = self._serve_ragged(dev[:meta_off],
+                                             dev[meta_off:].view(torch.int32).view(-1, 4),
+                                             slab.s)
+                else:
+                    out = self._serve_packed(dev)
                 if events:
                     events[3].record()
                 handle = self._fetchable(out, n)
@@ -491,6 +660,10 @@ class InferenceEngine:
             self.batches += 1
             self.images += n
             self.h2d_bytes += buf.numel()
+            if exe is not None:
+                self.replays += 1
+            else:
+                self.eager_batches += 1
             if events:
                 self._device_events.append((slab.key, events))
         return handle
@@ -504,7 +677,7 @@ class InferenceEngine:
         if n > bucket:
             raise ValueError(f"batch of {n} exceeds the top batch bucket {bucket}")
         slab.trailer[n:bucket] = _HOLE_TRAILER
-        handle = self._ship(slab.buf[:bucket], slab, n, self._serve_packed)
+        handle = self._ship(slab.buf[:bucket], slab, n, bucket)
         slab.finish()
         return handle
 
@@ -512,15 +685,16 @@ class InferenceEngine:
         """Ship a filled ragged slab's first ``n`` slots (holes included;
         slots past ``n`` are dropped) and enqueue unpack → serve, as
         :meth:`dispatch_staged`. The arena's used prefix and the meta table
-        go in one non-blocking copy."""
+        go in one non-blocking copy. A committed row that does not fit the
+        canvas or the shipped arena raises ValueError here, on the host: the
+        device unpack reads the table without checking it."""
         bucket = self.pick_batch_bucket(n)
         if n > bucket:
             raise ValueError(f"batch of {n} exceeds the top batch bucket {bucket}")
         slab.truncate(n)
         nbytes, meta_off = slab.stage(bucket)
-        meta_host = slab.meta[:bucket].copy()  # the slab is refilled after the copy
-        handle = self._ship(slab.buf[:nbytes], slab, n,
-                            lambda dev: self._serve_ragged(dev, meta_off, meta_host, slab.s))
+        check_ragged_rows(slab.meta[:n], slab.s, meta_off)
+        handle = self._ship(slab.buf[:nbytes], slab, n, bucket, meta_off)
         slab.finish()
         return handle
 
@@ -613,13 +787,56 @@ class InferenceEngine:
         return self.run_batch(np.zeros(self.canvas_shape(b, s), np.uint8), hws)
 
     def warmup(self) -> None:
-        """Run one batch at every (canvas, batch) bucket pair, so that no
-        request pays a first-use cost (cuDNN plans, allocator growth, pinned
-        slabs, the kernel build)."""
-        for s in self.cfg.canvas_buckets:
-            for b in self.batch_buckets:
-                self._run_blank(b, s)
-            log.info("warmup canvas=%d: batches %s", s, list(self.batch_buckets))
+        """Ready every (canvas, batch) bucket pair before traffic, in the
+        reference's three timed phases, each logged on its own line:
+
+        1. one-time costs — the kernel libraries through the build cache and
+           the native decoder; paid at engine build (the int8 parity gate
+           launches the kernels), logged here;
+        2. executables — for every pair, largest first, an eager warm run
+           and the CUDA graph's capture (on the CPU: the static-buffer
+           executable), once per engine under a lock;
+        3. execution — one batch per pair through dispatch and fetch, on the
+           calling thread, a graph replay each.
+
+        Every launch thread of the batcher calls this before it takes a
+        batch: the first captures, the others find the executables made and
+        run phase 3 alone (per-thread first use, measured in its line)."""
+        with self._warmup_lock:
+            if not self._warmed:
+                log.info("warmup: one-time costs %.2fs at build (kernels %s through the "
+                         "build cache, %s decoder)", self.warmup_s["one_time"],
+                         self.kernels if self.device.type == "cuda" else [],
+                         "native" if self.decoder["available"] else "PIL")
+                t0 = time.perf_counter()
+                pairs = sorted(((s, b) for s in self.cfg.canvas_buckets
+                                for b in self.batch_buckets), reverse=True)
+                kind = "ragged" if self.ragged else "classic"
+                for s, b in pairs:
+                    self._exes[(kind, s, b)] = self._capture(kind, s, b)
+                if self._graph_pool is not None:
+                    torch.cuda.synchronize(self.device)
+                    self.pool_bytes = self._graph_pool_bytes()
+                self.warmup_s["executables"] = time.perf_counter() - t0
+                log.info("warmup: executables %.2fs (%d pairs, %s; graph pool %d bytes, "
+                         "static %d bytes)", self.warmup_s["executables"], len(pairs),
+                         "CUDA graphs" if self._graph_pool is not None else "no capture",
+                         self.pool_bytes, self._static_bytes())
+                self._warmed = True
+            t0 = time.perf_counter()
+            for s in self.cfg.canvas_buckets:
+                for b in self.batch_buckets:
+                    self._run_blank(b, s)
+            dt = time.perf_counter() - t0
+            self.warmup_s["execution"].append(dt)
+            log.info("warmup: execution pass %.2fs (%d batches, thread %s)", dt,
+                     len(self.cfg.canvas_buckets) * len(self.batch_buckets),
+                     threading.current_thread().name)
+
+    def _static_bytes(self) -> int:
+        """Bytes of the static inputs and the graphs' static outputs."""
+        outs = sum(e.out.nbytes for e in self._exes.values() if e.out is not None)
+        return sum(t.nbytes for t in self._static.values()) + outs
 
     def healthcheck(self) -> bool:
         """One-image device round trip."""
@@ -632,6 +849,11 @@ class InferenceEngine:
                                              dict(self.decodes))
             slabs = {"allocated": self.slabs_allocated,
                      "pooled": sum(len(v) for v in self._pool.values())}
+            graphs = {"captured": sum(e.graph is not None for e in self._exes.values()),
+                      "executables": len(self._exes), "replays": self.replays,
+                      "eager_batches": self.eager_batches,
+                      "capture_s": sum(e.capture_s for e in self._exes.values()),
+                      "pool_bytes": self.pool_bytes, "static_bytes": self._static_bytes()}
         return {
             "model": self.model_cfg.name,
             "device": str(self.device),
@@ -650,7 +872,11 @@ class InferenceEngine:
             "batches": batches,
             "images": images,
             "kernel_launches": {"preprocess_i420": preprocess_i420.launches,
-                                "fused_dw": fused_dw.launches},
+                                "fused_dw": fused_dw.launches,
+                                "unpack_ragged": unpack_ragged.launches},
+            "graphs": graphs,
+            "aot_cache": {**aotcache.stats(self.aot_cache), "libraries": self.kernels},
+            "warmup_s": {**self.warmup_s, "execution": list(self.warmup_s["execution"])},
         }
 
     def close(self) -> None:
@@ -658,6 +884,8 @@ class InferenceEngine:
         not be used afterwards."""
         with self._lock:
             self._pool.clear()
+            self._exes.clear()
+            self._static.clear()
             self.model = None
 
     # ------------------------------------------------------------------ host

@@ -15,7 +15,11 @@ Routes:
   503 with ``Retry-After``.
 - ``GET /healthz`` — a one-image device round trip.
 - ``GET /stats`` — batcher and engine counters: kernel launches, native
-  and PIL decodes, the decoder's status (and why it is unavailable).
+  and PIL decodes, the decoder's status (and why it is unavailable),
+  ``engine.graphs`` (CUDA graphs captured, replays, eager batches, capture
+  seconds, graph pool and static bytes), ``engine.aot_cache`` (the kernel
+  build cache's counters, as the reference's ``/stats`` carries
+  ``aot_cache``) and ``engine.warmup_s`` (warmup's phases).
 """
 
 from __future__ import annotations

@@ -115,6 +115,11 @@ class ServerConfig:
     # dataclass; the server's CLI turns it on by default.
     ragged: bool = False
     warmup: bool = True
+    # The kernel build cache (serving/aotcache.py): None keeps the kernel
+    # libraries in tensorflow_web_deploy_tpu_torch/.build/; "0" or empty
+    # disables it, as in the reference (each process builds with nvcc into
+    # a temporary directory); any other value names the directory.
+    aot_cache_dir: str | None = None
 
     def __post_init__(self):
         # pick_bucket relies on ascending order

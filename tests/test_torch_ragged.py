@@ -74,10 +74,20 @@ def test_unpack_ragged_is_bit_identical_to_jax(holes, slack):
             canvas, hw = timage.pad_to_canvas(im, (CANVAS,))
             np.testing.assert_array_equal(got_c[i].numpy(), canvas)
             assert tuple(got_hw[i].tolist()) == hw
-    # planning from a host copy of the table gives the same canvases
-    again, _ = timage.unpack_ragged(torch.from_numpy(arena), torch.from_numpy(meta), CANVAS,
-                                    meta_host=meta)
+    # the unpack reads the table on the device, so bytes of the arena that no
+    # valid row spans (a hole's, the slack's: stale bytes of an earlier batch)
+    # never reach the canvases
+    stale = arena.copy()
+    for i, (off, h, w, valid) in enumerate(meta.tolist()):
+        if not valid:
+            stale[off : off + h * w * 3] = 255
+    stale[sum(im.size for im in images):] = 255
+    again, _ = timage.unpack_ragged(torch.from_numpy(stale), torch.from_numpy(meta), CANVAS)
     assert torch.equal(again, got_c)
+    # on CPU tensors the wrapper is the plain version, the reference's gather
+    plain_c, plain_hw = timage.unpack_ragged_plain(torch.from_numpy(arena),
+                                                   torch.from_numpy(meta), CANVAS)
+    assert torch.equal(plain_c, got_c) and torch.equal(plain_hw, got_hw)
 
 
 @pytest.mark.parametrize("row", [(0, 97, 10, 1), (0, 10, 97, 1), (-1, 4, 4, 1),
@@ -86,6 +96,50 @@ def test_unpack_ragged_rejects_rows_that_do_not_fit(row):
     arena = torch.zeros(CANVAS * CANVAS * 3, dtype=torch.uint8)
     with pytest.raises(ValueError, match="does not fit"):
         timage.unpack_ragged(arena, torch.tensor([row], dtype=torch.int32), CANVAS)
+
+
+@pytest.mark.parametrize("row", [(0, 97, 10), (0, 10, 97), (-1, 4, 4), (27000, 40, 40)])
+def test_dispatch_ragged_checks_rows_on_the_host(row):
+    """The device unpack reads the meta table unchecked, so a committed row
+    that does not fit its canvas or the shipped arena raises at dispatch;
+    the slab goes back to its pool."""
+    _, teng = _pair()
+    slab = teng.acquire_ragged(CANVAS)
+    slot, _ = slab.alloc(300)
+    slab.meta[slot] = (row[0], row[1], row[2], 1)
+    with pytest.raises(ValueError, match="does not fit"):
+        teng.dispatch_ragged(slab, 1)
+    teng.release_staging(slab)
+    assert teng.stats()["batches"] == 0 and teng.stats()["slabs"]["pooled"] == 1
+    teng.close()
+
+
+def test_a_reused_arena_answers_like_a_fresh_one():
+    """A pooled slab keeps its last batch's bytes: a smaller batch with a
+    hole in the same (reused) arena answers as in a fresh engine."""
+    big = _images(7, ((96, 96), (90, 80), (70, 96), (96, 50), (33, 40)))
+    small = _images(8, ((20, 30), (41, 17), (12, 90)))
+
+    def run(eng, images, holes=()):
+        slab = eng.acquire_ragged(CANVAS)
+        for i, im in enumerate(images):
+            slot, span = slab.alloc(im.size)
+            span[:] = im.reshape(-1)
+            if i not in holes:
+                slab.write_hw(slot, im.shape[:2])
+        return eng.fetch_outputs(eng.dispatch_ragged(slab, len(images)))
+
+    _, reused = _pair()
+    run(reused, big)
+    assert reused.stats()["slabs"]["allocated"] == 1
+    got = run(reused, small, holes=(1,))
+    assert reused.stats()["slabs"]["allocated"] == 1  # the same slab, stale bytes and all
+    _, fresh = _pair()
+    want = run(fresh, small, holes=(1,))
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    reused.close()
+    fresh.close()
 
 
 @pytest.mark.parametrize("h,w", [(20, 30), (64, 64), (200, 100), (65, 300), (1, 500)])
@@ -287,5 +341,6 @@ def test_post_through_the_ragged_server():
     assert eng["ragged"] and eng["resize"] == "gather" and eng["wire_format"] == "rgb"
     assert eng["decodes"] == {"native": 3, "pil": 1}  # the PNG
     assert eng["decoder"]["available"] and eng["h2d_bytes"] > 0
-    assert eng["kernel_launches"] == {"preprocess_i420": 0, "fused_dw": 0}  # CPU: plain
+    assert eng["kernel_launches"] == {"preprocess_i420": 0, "fused_dw": 0,
+                                         "unpack_ragged": 0}  # CPU: plain
     assert [p["index"] for p in answers[1][1]["predictions"]] == idx_classic.tolist()
