@@ -49,7 +49,14 @@ same burst, ``backlog`` posts 48 images at once to a server with
 process of its own twice on one fresh kernel build cache (the second boot
 must build nothing), sends it three JPEGs and stops it. ``normalize``
 counts the elements of the plain preprocess that the exact division
-changed.
+changed. ``registry`` serves Inception-v3 (bf16) and MobileNetV2 (int8)
+side by side in one process behind the keep-alive front end, drives both
+by ``?model=`` from 8 keep-alive connections (the kernels' counts read
+over that load and attributed to the engines by their batches), swaps
+Inception three times under that load (no answer but 200, no nvcc, the
+device memory back after each retired version) and unloads MobileNetV2;
+``sigterm`` starts the server through its entry point and sends SIGTERM
+with requests in flight (each answers 200, the process exits 0).
 
 The preprocess kernel is checked through both of its entries (the
 ``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
@@ -73,10 +80,13 @@ no ``ok`` line.
 
 from __future__ import annotations
 
+import http.client
 import io
 import json
 import math
 import os
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -85,6 +95,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 
@@ -683,9 +694,10 @@ def post(url: str, data: bytes) -> tuple[int, dict, float]:
 def burst(srv, jpegs: list[bytes]) -> tuple[list, dict]:
     """POST every image at once and stamp each stage on the host clock: the
     client's send and receive, the server's accept (``process_request``,
-    which starts the request's thread), the whole ``do_POST`` (body read and
-    answer written included), the handler (``App.predict``), one upload's
-    lease + decode into its slot + commit (``App._stage``), the lease alone
+    which hands the connection to the worker pool), the whole ``do_POST``
+    (body read and answer written included), the handler
+    (``App._predict``), one upload's lease + decode into its slot + commit
+    (``App._stage``), the lease alone
     (``lease``/``lease_ragged``, which may wait at the slot cap), each
     batch's launch (the engine's dispatch: H2D + serve enqueue) and fetch
     (the wait for its outputs). Each stage's ``sum`` is wall time and
@@ -699,7 +711,7 @@ def burst(srv, jpegs: list[bytes]) -> tuple[list, dict]:
     lock = threading.Lock()
     handler_cls = srv.httpd.RequestHandlerClass
     hooks = [(srv.httpd, "process_request", "accept"), (handler_cls, "do_POST", "do_post"),
-             (srv.app, "predict", "handler"), (srv.app, "_stage", "prepare"),
+             (srv.app, "_predict", "handler"), (srv.app, "_stage", "prepare"),
              (srv.batcher, "lease", "lease"), (srv.batcher, "lease_ragged", "lease"),
              (srv.engine, "dispatch_staged", "launch"), (srv.engine, "dispatch_ragged", "launch"),
              (srv.engine, "fetch_outputs", "fetch")]
@@ -1682,17 +1694,18 @@ def phase_backlog(jpegs: list[bytes]) -> dict:
     return row
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def boot_default_server(jpegs: list[bytes], big: bytes, cache_dir: str) -> dict:
     """``python -m tensorflow_web_deploy_tpu_torch.server`` with no model or
     wire flags, only a free port and ``--aot-cache-dir``, in a process of its
     own: its boot seconds (to the first ``/healthz``), three answers, its
     ``/stats`` engine block and its exit code on SIGINT."""
-    import signal
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = free_port()
     url = f"http://127.0.0.1:{port}"
     t0 = time.perf_counter()
     log = tempfile.TemporaryFile("w+")
@@ -1789,6 +1802,520 @@ def phase_default_server(jpegs: list[bytes]) -> dict:
     return row
 
 
+# ------------------------------------------------- the registry and the drain
+
+# the two models the registry phase serves side by side, at full width
+REGISTRY_MODELS = ("native:inception_v3", "native:mobilenet_v2,dtype=int8,as=mobilenet_v2_int8")
+SWAP_MODEL, INT8_MODEL = "inception_v3", "mobilenet_v2_int8"
+# one canvas bucket bounds the boot (fewer captures), not any model's width
+REGISTRY_BUCKETS = (512,)
+SWAPS = 3
+# memory_reserved after each retired version is UNLOADED: within this of the
+# value after the first
+RESERVED_SLACK = 256 << 20
+# closed-loop clients: keep-alive connections
+LOAD_CONNS = 8
+# the SIGTERM phase: keep-alive connections × requests each, the least in
+# flight at the signal, and the server's drain grace (server.py's
+# Server.close) plus the slack its exit gets
+SIGTERM_CONNS, SIGTERM_REQUESTS, SIGTERM_IN_FLIGHT = 8, 25, 8
+DRAIN_GRACE_S = 10.0
+
+
+class KeepAlive:
+    """One HTTP/1.1 keep-alive connection to a local server, reopened when
+    the server closes it; ``connects`` counts its TCP connects. A request
+    that finds its reused connection closed before any answer (the server
+    closed it while idle, so never read the request) is sent once more on a
+    new connection, as keep-alive clients do; any other failure raises."""
+
+    def __init__(self, port: int, timeout: float = 120.0):
+        self.port, self.timeout = port, timeout
+        self.conn: http.client.HTTPConnection | None = None
+        self.connects = 0
+
+    def request(self, method: str, path: str, body=b"", ctype: str = "image/jpeg"
+                ) -> tuple[int, dict]:
+        if isinstance(body, dict):
+            body, ctype = json.dumps(body).encode(), "application/json"
+        for retry in (False, True):
+            reused = self.conn is not None
+            if not reused:
+                self.conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                                       timeout=self.timeout)
+                self.conn.connect()
+                self.connects += 1
+            try:
+                self.conn.request(method, path, body=body, headers={"Content-Type": ctype})
+                r = self.conn.getresponse()
+                data = r.read()
+            except (BrokenPipeError, ConnectionResetError, http.client.RemoteDisconnected):
+                self.close()
+                if reused and not retry:
+                    continue
+                raise
+            except BaseException:
+                self.close()
+                raise
+            if r.will_close:
+                self.close()
+            return r.status, json.loads(data or b"null")
+
+    def close(self) -> None:
+        if self.conn is not None:
+            self.conn.close()
+            self.conn = None
+
+
+class ClosedLoop:
+    """``conns`` client threads, one keep-alive connection each, each
+    posting ``/predict?model=<name>`` over ``targets`` ((serve name, JPEG)
+    pairs, each thread from its own offset) until :meth:`finish` or
+    ``per_conn`` requests. Every request is a record (connection, target,
+    send and answer times on the host clock, status, the answering
+    version, its top-k and scores), appended before it is sent: one with
+    no answer time is in flight. A thread ends at its first non-200 answer
+    or failure (status ``"exc"``)."""
+
+    def __init__(self, port: int, conns: int, targets: list[tuple[str, bytes]],
+                 per_conn: int | None = None):
+        self.targets, self.per_conn = targets, per_conn
+        self.records: list[dict] = []
+        self.lock = threading.Lock()
+        self._stop = threading.Event()
+        self.clients = [KeepAlive(port) for _ in range(conns)]
+        self.threads = [threading.Thread(target=self._run, args=(i,), daemon=True)
+                        for i in range(conns)]
+
+    def start(self) -> ClosedLoop:
+        for t in self.threads:
+            t.start()
+        return self
+
+    def _run(self, i: int) -> None:
+        k = 0
+        while not self._stop.is_set() and (self.per_conn is None or k < self.per_conn):
+            j = (i * 7 + k) % len(self.targets)
+            name, data = self.targets[j]
+            rec = {"conn": i, "model": name, "target": j, "t0": time.perf_counter(),
+                   "t1": None, "status": None}
+            with self.lock:
+                self.records.append(rec)
+            k += 1
+            try:
+                status, body = self.clients[i].request("POST", f"/predict?model={name}", data)
+            except (OSError, http.client.HTTPException) as e:
+                with self.lock:
+                    rec.update(t1=time.perf_counter(), status="exc", error=repr(e))
+                return
+            preds = body.get("predictions", []) if status == 200 else []
+            with self.lock:
+                rec.update(t1=time.perf_counter(), status=status,
+                           version=body.get("model_version"),
+                           topk=[p["index"] for p in preds], scores=[p["score"] for p in preds])
+            if status != 200:
+                return
+
+    def in_flight(self) -> list[dict]:
+        with self.lock:
+            return [r for r in self.records if r["t1"] is None]
+
+    def answered(self) -> int:
+        with self.lock:
+            return sum(r["t1"] is not None for r in self.records)
+
+    def connects(self) -> int:
+        return sum(c.connects for c in self.clients)
+
+    def finish(self, timeout: float = 300.0) -> list[dict]:
+        """Stop sending (unless ``per_conn`` bounds the loop), wait for every
+        thread, close the connections; returns the records."""
+        if self.per_conn is None:
+            self._stop.set()
+        deadline = time.monotonic() + timeout
+        for t in self.threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+        if any(t.is_alive() for t in self.threads):
+            raise AssertionError(f"client threads still running after {timeout} s")
+        for c in self.clients:
+            c.close()
+        return self.records
+
+
+def latency_ms(records: list[dict]) -> dict:
+    lat = [(r["t1"] - r["t0"]) * 1e3 for r in records if r["status"] == 200]
+    if not lat:
+        return {"n": 0}
+    return {"n": len(lat), "p50": float(np.percentile(lat, 50)),
+            "p99": float(np.percentile(lat, 99))}
+
+
+def serial_topk(client: KeepAlive, name: str, jpegs: list[bytes]) -> list[tuple]:
+    """Each image once through ``?model=name``: (version, top-k, scores)."""
+    out = []
+    for data in jpegs:
+        status, body = client.request("POST", f"/predict?model={name}", data)
+        if status != 200:
+            raise AssertionError(f"{name}: {status} {body}")
+        preds = body["predictions"]
+        out.append((body["model_version"], [p["index"] for p in preds],
+                    [p["score"] for p in preds]))
+    return out
+
+
+def version_doc(client: KeepAlive, name: str, version: int) -> dict:
+    """One version's entry of ``GET /models``."""
+    status, doc = client.request("GET", "/models")
+    if status != 200:
+        raise AssertionError(f"/models: {status}")
+    return next(v for v in doc["models"][name]["versions"] if v["version"] == version)
+
+
+def transition_s(doc: dict, a: str, b: str) -> float:
+    """Seconds from state ``a`` to state ``b`` in a version's history."""
+    t = {h["state"]: h["t_s"] for h in doc["history"]}
+    return t[b] - t[a]
+
+
+class EagerProbe(threading.Thread):
+    """Holds an in-flight reference on a serving version (so it cannot
+    drain) and runs batches of a shape its engine never captured — the
+    classic wire at canvas 512 on a ragged engine, so every one runs
+    eagerly and allocates from the caching allocator — until stopped,
+    each held against the first on the registry's clock. Started before a
+    swap, it runs beside the new version's captures."""
+
+    def __init__(self, reg, ref: str, jpegs: list[bytes]):
+        super().__init__(daemon=True)
+        from tensorflow_web_deploy_tpu_torch.ops.image import decode_image
+
+        self.reg, self.mv = reg, reg.acquire(ref)
+        eng = self.mv.engine
+        prepared = [eng.prepare(decode_image(d)) for d in jpegs[:8]]
+        self.canvases = np.stack([c for c, _ in prepared])
+        self.hws = np.array([hw for _, hw in prepared], np.int32)
+        self.stop_event = threading.Event()
+        self.runs: list[tuple[float, float]] = []  # registry-clock intervals
+        self.max_diff = 0.0
+        self.same_topk = True
+        self.error: BaseException | None = None
+
+    def run(self) -> None:
+        eng = self.mv.engine
+        try:
+            want_s, want_i = eng.run_batch(self.canvases, self.hws)
+            while not self.stop_event.is_set():
+                t = time.monotonic() - self.reg._t0
+                got_s, got_i = eng.run_batch(self.canvases, self.hws)
+                self.runs.append((t, time.monotonic() - self.reg._t0))
+                self.same_topk &= bool(np.array_equal(got_i, want_i))
+                self.max_diff = max(self.max_diff, float(np.abs(got_s - want_s).max()))
+        except BaseException as e:  # reported by the phase
+            self.error = e
+        finally:
+            self.reg.release(self.mv)
+
+    def finish(self) -> dict:
+        self.stop_event.set()
+        self.join(120)
+        return {"runs": len(self.runs), "same_topk": self.same_topk,
+                "max_abs_diff": self.max_diff,
+                "error": None if self.error is None else repr(self.error)}
+
+
+def phase_registry(jpegs: list[bytes]) -> dict:
+    """Two models in one server process at full width on the default rgb
+    ragged wire: Inception-v3 (bf16) and MobileNetV2 in the int8 tier served
+    as ``mobilenet_v2_int8``, canvas bucket 512 only (the boot's captures
+    cut, not a width).
+
+    - Steady load: a closed loop of 8 keep-alive connections over both
+      models with the kernels' counts set to 0 just before it and read just
+      after; with both models taking traffic, each count is attributed to
+      the engines by their batches: one unpack per batch of either, 17
+      fused depthwise launches per MobileNetV2 batch, no preprocess kernel.
+      Every batch a graph replay.
+    - Three hot swaps of Inception-v3 under the same load (``POST
+      /models/swap`` with ``wait``): every answer 200, each answer from a
+      version that existed while it ran and, once a swap has answered, from
+      the new one; the rebuilt version's top-k on the 24 images identical
+      to v1's (same seed; v1 was built before the int8 engine turned TF32
+      off, the later ones after); during the first swap the old version
+      also runs batches of a shape it never captured, eagerly
+      (:class:`EagerProbe`), beside the new version's captures, each equal
+      to its first; no nvcc for a swap (the kernel build
+      cache's misses and compile seconds do not move); the retired
+      version's graph pool holds nothing after its close, and the process's
+      ``memory_reserved`` after each retired version is UNLOADED is within
+      256 MiB of its value after the first.
+    - ``POST /models/unload`` of MobileNetV2 int8: ``memory_allocated``
+      falls by at least its engine's static bytes (its static inputs and
+      graph outputs) and ``memory_reserved`` by at least those plus its
+      graph pool's bytes, both from its ``/stats``, and its pool holds
+      nothing after its close. (The pool's blocks are
+      free within the pool between replays, so ``memory_allocated`` does not
+      count them; ``memory_reserved`` does.)
+    """
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
+    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
+    from tensorflow_web_deploy_tpu_torch.server import start_server
+    from tensorflow_web_deploy_tpu_torch.serving import aotcache
+    from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
+
+    mcs = tuple(model_config(spec) for spec in REGISTRY_MODELS)
+    cfg = ServerConfig(model=mcs[0], models=mcs, host="127.0.0.1", port=0,
+                       canvas_buckets=REGISTRY_BUCKETS, ragged=True)
+    names = [m.serve_name for m in mcs]
+    targets = [(n, d) for d in jpegs for n in names]
+    row = {"phase": "registry", "nvidia_smi": nvidia_smi(), "models": list(REGISTRY_MODELS),
+           "canvas_buckets": list(REGISTRY_BUCKETS), "max_batch": cfg.max_batch,
+           "connections": LOAD_CONNS}
+    t0 = time.perf_counter()
+    srv = start_server(cfg, device="cuda", seed=SEED)
+    row["boot_s"] = time.perf_counter() - t0
+    bad: dict = {}
+    try:
+        reg = srv.registry
+        admin = KeepAlive(srv.port)
+        serving = {mv.name: mv for mv in reg.serving_entries()}
+        v1 = serial_topk(admin, SWAP_MODEL, jpegs)
+        graphs_per_version = {f"{n}@1": serving[n].engine.stats()["graphs"]["captured"]
+                              for n in names}
+
+        # steady load, with the launch counts attributed by batches
+        before = {n: serving[n].engine.stats() for n in names}
+        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+        steady = ClosedLoop(srv.port, LOAD_CONNS, targets, per_conn=len(targets) // 4)
+        t0 = time.perf_counter()
+        steady_recs = steady.start().finish()
+        steady_wall = time.perf_counter() - t0
+        launches = {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
+                    "unpack_ragged": unpack_ragged.launches}
+        after = {n: serving[n].engine.stats() for n in names}
+        batches = {n: after[n]["batches"] - before[n]["batches"] for n in names}
+        replays = {n: after[n]["graphs"]["replays"] - before[n]["graphs"]["replays"]
+                   for n in names}
+        want = {"preprocess_i420": 0, "fused_dw": DW_CELLS * batches[INT8_MODEL],
+                "unpack_ragged": sum(batches.values())}
+        if launches != want or replays != batches or 0 in batches.values():
+            bad["launches"] = {"got": launches, "want": want, "batches": batches,
+                               "replays": replays}
+        row.update(kernel_launches=launches, batches=batches, steady_requests=len(steady_recs),
+                   steady_img_per_s=len(steady_recs) / steady_wall,
+                   latency_before_ms=latency_ms(steady_recs))
+
+        # three hot swaps of Inception-v3 under load
+        load = ClosedLoop(srv.port, LOAD_CONNS, targets).start()
+        swaps = []
+        try:
+            while load.answered() < 2 * LOAD_CONNS:
+                time.sleep(0.01)
+            for i in range(SWAPS):
+                old = next(mv for mv in reg.serving_entries() if mv.name == SWAP_MODEL)
+                old_engine = old.engine
+                probe = EagerProbe(reg, old.ref, jpegs) if i == 0 else None
+                eager0 = old.engine.stats()["graphs"]["eager_batches"]
+                cache0 = aotcache.stats()
+                t_start = time.perf_counter()
+                if probe is not None:
+                    probe.start()
+                status, body = admin.request("POST", "/models/swap",
+                                             {"name": SWAP_MODEL, "wait": True})
+                t_answer = time.perf_counter()
+                if probe is not None:
+                    eager = probe.finish()
+                    eager["eager_batches"] = (old.engine.stats()["graphs"]["eager_batches"]
+                                              - eager0)
+                    warm = version_doc(admin, SWAP_MODEL, body["version"])
+                    hist = {h["state"]: h["t_s"] for h in warm["history"]}
+                    eager["runs_while_new_version_warmed"] = sum(
+                        a < hist["SERVING"] and b > hist["WARMING"] for a, b in probe.runs)
+                    row["eager_during_capture"] = eager
+                    if eager["error"] or not eager["same_topk"] or \
+                            eager["max_abs_diff"] > SERVED_TOL or \
+                            not eager["runs_while_new_version_warmed"]:
+                        bad["eager_during_capture"] = eager
+                if status != 200 or body["state"] != "SERVING":
+                    raise AssertionError(f"swap: {status} {body}")
+                reg.wait_for(old, ("UNLOADED",), timeout=120)
+                t_unloaded = time.perf_counter()
+                torch.cuda.synchronize()
+                cache1 = aotcache.stats()
+                new, gone = (version_doc(admin, SWAP_MODEL, v)
+                             for v in (body["version"], old.version))
+                swaps.append({
+                    "version": body["version"], "t_start": t_start, "t_answer": t_answer,
+                    "t_unloaded": t_unloaded, "swap_s": transition_s(new, "LOADING", "SERVING"),
+                    "drain_s": transition_s(gone, "DRAINING", "UNLOADED"),
+                    "answer_s": t_answer - t_start,
+                    "graphs_captured": new["engine"]["graphs"]["captured"],
+                    "memory_reserved": torch.cuda.memory_reserved(),
+                    "pool_bytes_left": old_engine.pool_bytes,
+                    "memory_allocated": torch.cuda.memory_allocated(),
+                    "cache_delta": {k: cache1[k] - cache0[k] for k in (
+                        "hits_total", "misses_total", "corrupt_total", "compile_seconds_total")},
+                    "old_history": [h["state"] for h in gone["history"]]})
+            n = load.answered()
+            while load.answered() < n + 2 * LOAD_CONNS:
+                time.sleep(0.01)
+        finally:
+            load_recs = load.finish()
+        statuses = sorted({str(r["status"]) for r in load_recs + steady_recs})
+        if statuses != ["200"]:
+            bad["statuses"] = [r for r in load_recs + steady_recs if r["status"] != 200][:5]
+        # an answer comes from a version that existed while the request ran,
+        # and after a swap answered, from the new one (or a later one)
+        for r in load_recs:
+            if r["model"] != SWAP_MODEL:
+                if r["version"] != 1:
+                    bad.setdefault("int8_versions", []).append(r["version"])
+                continue
+            for sw in swaps:
+                if (r["t0"] > sw["t_answer"] and r["version"] < sw["version"]) or \
+                        (r["t1"] < sw["t_start"] and r["version"] >= sw["version"]):
+                    bad.setdefault("versions", []).append((r["version"], sw["version"]))
+        swap_windows = [r for r in load_recs if any(
+            r["t1"] > sw["t_start"] and r["t0"] < sw["t_unloaded"] for sw in swaps)]
+        vlast = serial_topk(admin, SWAP_MODEL, jpegs)
+        same_topk = all(a[1] == b[1] for a, b in zip(v1, vlast))
+        score_delta = max(abs(x - y) for a, b in zip(v1, vlast) for x, y in zip(a[2], b[2]))
+        if not same_topk or vlast[0][0] != swaps[-1]["version"]:
+            bad["topk"] = {"v1": [a[1] for a in v1][:3], "last": [b[1] for b in vlast][:3]}
+        for sw in swaps:
+            d = sw["cache_delta"]
+            if d["misses_total"] or d["corrupt_total"] or d["compile_seconds_total"]:
+                bad["nvcc_on_swap"] = d
+            if sw["old_history"][-2:] != ["DRAINING", "UNLOADED"]:
+                bad["history"] = sw["old_history"]
+            if sw["pool_bytes_left"]:
+                bad["pool_bytes_left"] = sw["pool_bytes_left"]
+        reserved = [sw["memory_reserved"] for sw in swaps]
+        if max(abs(r - reserved[0]) for r in reserved) > RESERVED_SLACK:
+            bad["memory_reserved"] = reserved
+        graphs_per_version.update({f"{SWAP_MODEL}@{sw['version']}": sw["graphs_captured"]
+                                   for sw in swaps})
+        if set(graphs_per_version.values()) != {len(REGISTRY_BUCKETS) *
+                                                len(srv.engine.batch_buckets)}:
+            bad["graphs_per_version"] = graphs_per_version
+        row.update(requests_during_swaps=len(load_recs), latency_during_swaps_ms=latency_ms(
+                   swap_windows), latency_all_swap_load_ms=latency_ms(load_recs),
+                   connects=load.connects(), statuses=statuses,
+                   swaps=[{k: v for k, v in sw.items() if not k.startswith("t_")}
+                          for sw in swaps],
+                   graphs_per_version=graphs_per_version, v1_vs_last_same_topk=same_topk,
+                   v1_vs_last_max_score_delta=score_delta)
+
+        # unload MobileNetV2 int8: its device memory comes back
+        status, stats = admin.request("GET", "/stats")
+        g = next(v for v in stats["models"]["models"][INT8_MODEL]["versions"]
+                 if v["state"] == "SERVING")["engine"]["graphs"]
+        int8_engine = serving[INT8_MODEL].engine
+        torch.cuda.synchronize()
+        a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        status, body = admin.request("POST", "/models/unload", {"name": INT8_MODEL, "wait": True})
+        a1, r1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        pool_left = int8_engine.pool_bytes  # after close(): what its pool still holds
+        after_status, _ = admin.request("POST", f"/predict?model={INT8_MODEL}", jpegs[0])
+        unload = {"status": status, "state": body.get("state"), "pool_bytes": g["pool_bytes"],
+                  "static_bytes": g["static_bytes"], "allocated_before": a0,
+                  "allocated_after": a1, "reserved_before": r0, "reserved_after": r1,
+                  "allocated_freed": a0 - a1, "reserved_freed": r0 - r1,
+                  "predict_after": after_status, "pool_bytes_left": pool_left}
+        row["unload"] = unload
+        if (status, body.get("state"), after_status, pool_left) != (200, "UNLOADED", 503, 0) or \
+                a0 - a1 < g["static_bytes"] or r0 - r1 < g["static_bytes"] + g["pool_bytes"]:
+            bad["unload"] = unload
+        admin.close()
+    finally:
+        srv.close()
+    emit(row)
+    if bad:
+        raise AssertionError(f"registry: {bad}")
+    return row
+
+
+def phase_sigterm(jpegs: list[bytes]) -> dict:
+    """``python -m tensorflow_web_deploy_tpu_torch.server`` serving
+    MobileNetV2 int8 (canvas 512) through its real entry point: 8 keep-alive
+    connections × 25 requests; SIGTERM while at least 8 are in flight (HTTP/1.1
+    without pipelining carries one request at a time on a connection, so 8
+    in flight take 8 connections). The connections connected once each
+    before the signal; every request in flight at the signal answers 200;
+    the process exits 0 within the drain grace + 10 s; a new connection is
+    refused afterwards."""
+    port = free_port()
+    log = tempfile.TemporaryFile("w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "tensorflow_web_deploy_tpu_torch.server",
+                             "--model", "native:mobilenet_v2,dtype=int8", "--host", "127.0.0.1",
+                             "--port", str(port), "--canvas-buckets", "512"],
+                            stdout=log, stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    row = {"phase": "sigterm", "nvidia_smi": nvidia_smi(), "connections": SIGTERM_CONNS,
+           "requests_per_connection": SIGTERM_REQUESTS}
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"the server exited {proc.returncode}")
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("the server did not answer /healthz in 300 s")
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5).read()
+                break
+            except OSError:
+                time.sleep(0.5)
+        row["boot_s"] = time.perf_counter() - t0
+        loop = ClosedLoop(port, SIGTERM_CONNS, [("mobilenet_v2", d) for d in jpegs],
+                          per_conn=SIGTERM_REQUESTS).start()
+        deadline = time.perf_counter() + 120
+        while True:
+            with loop.lock:
+                done = [sum(r["conn"] == i and r["t1"] is not None for r in loop.records)
+                        for i in range(SIGTERM_CONNS)]
+                flight = [r for r in loop.records if r["t1"] is None]
+                if min(done) >= 5 and len(flight) >= SIGTERM_IN_FLIGHT:
+                    connects = loop.connects()
+                    t_signal = time.perf_counter()
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"never {SIGTERM_IN_FLIGHT} in flight: {done}")
+            time.sleep(0.001)
+        try:
+            code = proc.wait(DRAIN_GRACE_S + 10)
+        except subprocess.TimeoutExpired:
+            code = None
+        drain_s = time.perf_counter() - t_signal
+        recs = loop.finish(60)
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=2).close()
+            refused = False
+        except ConnectionRefusedError:
+            refused = True
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.seek(0)
+        tail = log.read().splitlines()[-6:]
+        log.close()
+    answered = [r for r in flight if r["status"] == 200]
+    row.update(exit_code=code, drain_s=drain_s, connects_before_signal=connects,
+               in_flight_at_signal=len(flight), in_flight_answered_200=len(answered),
+               answered_before_signal=sum(r["t1"] is not None and r["t1"] < t_signal
+                                          for r in recs),
+               after_signal=dict(Counter(str(r["status"]) for r in recs if r["t0"] > t_signal)),
+               new_connection_refused=refused, latency_ms=latency_ms(
+                   [r for r in recs if r["t1"] is not None and r["t1"] < t_signal]),
+               server_log_tail=tail)
+    emit(row)
+    if connects != SIGTERM_CONNS or len(flight) < SIGTERM_IN_FLIGHT or \
+            len(answered) != len(flight) or code != 0 or not refused:
+        raise AssertionError(f"sigterm: {row}")
+    return row
+
+
 def main(argv: list[str]) -> int:
     sweeps = ("--sweep-fused-dw", "--sweep-preprocess")
     if not (argv == [] or (len(argv) == 1 and argv[0] in sweeps)):
@@ -1856,7 +2383,10 @@ def main(argv: list[str]) -> int:
     phase_pipeline_depth(jpegs)
     phase_backlog(make_jpegs(48, SEED + 1))
     phase_default_server(jpegs)
+    registry = phase_registry(jpegs)
+    phase_sigterm(jpegs)
     by_path = {p["path"]: p["kernel_launches"] for p in (inception, mobilenet, *ragged)}
+    by_path["registry"] = registry["kernel_launches"]
     emit({"kernels": [{
         "name": "preprocess_i420",
         "route": "cuda",

@@ -1,15 +1,21 @@
 """HTTP inference server on one CUDA device.
 
     python -m tensorflow_web_deploy_tpu_torch.server --model native:inception_v3 \\
+        [--model native:mobilenet_v2,dtype=int8,as=mobilenet_v2_int8 ...] [--default-model NAME]
         [--no-ragged] [--resize matmul|gather] [--wire-format yuv420 --resize kernel]
         [--dtype bf16|f32|int8] [--fused-dw auto|on|off] [--device cuda|cpu]
         [--pipeline-depth 4] [--max-queue 0] [--no-adaptive-delay] [--lease-timeout-s 10]
-        [--aot-cache-dir DIR]
-    curl -X POST --data-binary @cat.jpg http://localhost:8500/predict
+        [--http-workers 16] [--keepalive-timeout-s 15] [--aot-cache-dir DIR]
+    curl -X POST --data-binary @cat.jpg http://localhost:8500/predict?model=mobilenet_v2_int8
+    curl -X POST -d '{"name": "inception_v3", "wait": true}' http://localhost:8500/models/swap
+    kill -TERM <pid>    # drains every model and exits 0
 
 Counterpart of the JAX package's root ``server.py``, with the flags this
-port reads. :func:`start_server` runs the same stack in-process (tests and
-``chip_smoke.py`` use it).
+port reads. Every ``--model`` becomes an entry of the model registry,
+built and warmed at boot (a model that cannot load fails the boot);
+``POST /models/{load,swap,unload}`` change them at run time. SIGTERM takes
+the same drain path as Ctrl-C. :func:`start_server` runs the same stack
+in-process (tests and ``chip_smoke.py`` use it).
 """
 
 from __future__ import annotations
@@ -17,37 +23,62 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import signal
+import sys
 import threading
 
-from .serving.batcher import Batcher
 from .serving.engine import InferenceEngine
-from .serving.http import App, make_http_server
-from .utils.config import ServerConfig, model_config
+from .serving.http import App, make_http_server, shutdown_gracefully
+from .serving.registry import ModelRegistry
+from .utils.config import ServerConfig, model_config, normalize_dtype
 
 log = logging.getLogger("tpu_serve_torch.server")
 
 
 class Server:
-    """A running engine + batcher + HTTP server; ``close()`` stops all."""
+    """A running registry (an engine and a batcher per model) behind the
+    HTTP front end; ``close()`` drains and stops all.
+
+    Every model of ``cfg.serve_models`` is built and warmed here, in order,
+    and adopted as SERVING; the first that fails closes the ones built and
+    raises. ``engine``, ``batcher`` and ``app`` are the default model's
+    live handles."""
 
     def __init__(self, cfg: ServerConfig, device=None, seed: int = 0):
         self.cfg = cfg
-        self.engine = InferenceEngine(cfg, device=device, seed=seed)
+        self.registry = ModelRegistry(cfg, default_model=cfg.default_name, device=device,
+                                      seed=seed)
         try:
-            self.batcher = Batcher(
-                self.engine, cfg.max_batch, cfg.max_delay_ms,
-                pipeline_depth=cfg.pipeline_depth, adaptive_delay=cfg.adaptive_delay,
-                max_queue=cfg.max_queue, lease_timeout_s=cfg.lease_timeout_s,
-            ).start(warmup=cfg.warmup)
-            self.app = App(self.engine, self.batcher, cfg)
-            self.httpd = make_http_server(self.app, cfg.host, cfg.port)
+            for mc in cfg.serve_models:
+                engine = InferenceEngine(dataclasses.replace(cfg, model=mc), device=device,
+                                         seed=seed)
+                try:
+                    batcher = self.registry.build_batcher(engine)
+                except BaseException:
+                    engine.close()
+                    raise
+                self.registry.adopt(mc.serve_name, engine, batcher, mc)
+            self.app = App(self.registry, cfg)
+            self.httpd = make_http_server(
+                self.app, cfg.host, cfg.port, pool_size=cfg.http_workers,
+                keepalive_timeout_s=cfg.keepalive_timeout_s,
+                request_read_timeout_s=cfg.request_timeout_s)
         except BaseException:
-            self.engine.close()
+            self.registry.stop()
+            self.registry.close_engines()
             raise
         self.port = self.httpd.server_address[1]
         self._thread = threading.Thread(target=self.httpd.serve_forever, name="http",
                                         daemon=True)
         self._thread.start()
+
+    @property
+    def engine(self):
+        return self.app.engine
+
+    @property
+    def batcher(self):
+        return self.app.batcher
 
     @property
     def url(self) -> str:
@@ -58,12 +89,14 @@ class Server:
         """Block until the HTTP server stops."""
         self._thread.join()
 
-    def close(self) -> None:
-        self.httpd.shutdown()
-        self.httpd.server_close()
-        self._thread.join(10)
-        self.batcher.stop()
-        self.engine.close()
+    def close(self, grace_s: float = 10.0) -> None:
+        """The reference's drain order: stop accepting, stop the registry
+        (every batcher dispatches what it holds and resolves every future),
+        half-close the pool's connections and join its workers, close the
+        socket, then close every engine."""
+        shutdown_gracefully(self.httpd, self.registry, grace_s)
+        self._thread.join(grace_s)
+        self.registry.close_engines()
 
     def __enter__(self):
         return self
@@ -78,8 +111,13 @@ def start_server(cfg: ServerConfig, device=None, seed: int = 0) -> Server:
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--model", default="native:inception_v3",
-                   help="native:<zoo name> or a .json ModelConfig")
+    p.add_argument("--model", action="append", default=None,
+                   help="native:<zoo name> or a .json ModelConfig, with optional ,dtype=… "
+                        "and ,as=<serve name> suffixes; repeat to serve several models "
+                        "(default: native:inception_v3)")
+    p.add_argument("--default-model", default=None,
+                   help="serve name that /predict without ?model= resolves to "
+                        "(default: the first --model)")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8500)
     p.add_argument("--max-batch", type=int, default=32)
@@ -97,6 +135,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-queue", type=int, default=0,
                    help="backlog in images at which a request is answered 503 with "
                         "Retry-After at once (0: leasing blocks at the slot cap instead)")
+    p.add_argument("--http-workers", type=int, default=16,
+                   help="HTTP worker pool size (each owns one keep-alive connection at a "
+                        "time)")
+    p.add_argument("--keepalive-timeout-s", type=float, default=15.0,
+                   help="how long an idle keep-alive connection may hold a worker")
     p.add_argument("--canvas-buckets", default=None,
                    help="comma-separated canvas sides, e.g. 256,512")
     p.add_argument("--wire-format", choices=["rgb", "yuv420"], default="rgb")
@@ -110,7 +153,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "index), or kernel, the fused I420 CUDA preprocess (yuv420 wire "
                         "only)")
     p.add_argument("--dtype", default=None,
-                   help="bf16 (default), f32, or int8 (int8 kernels, bf16 compute)")
+                   help="bf16 (default), f32, or int8 (int8 kernels, bf16 compute), for "
+                        "every --model")
     p.add_argument("--fused-dw", choices=["auto", "on", "off"], default=None,
                    help="fused depthwise cells; auto (default) fuses the int8 tier")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -130,40 +174,65 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def config_from_args(args: argparse.Namespace) -> ServerConfig:
-    mc = model_config(args.model)
-    overrides = {
-        "dtype": args.dtype, "labels_path": args.labels, "zoo_width": args.zoo_width,
-        "zoo_classes": args.zoo_classes, "topk": args.topk, "fused_dw": args.fused_dw,
-    }
-    mc = dataclasses.replace(mc, **{k: v for k, v in overrides.items() if v is not None})
+    """The ServerConfig of the CLI: one ModelConfig per ``--model`` (the
+    default one as ``model``). ``--labels``/``--zoo-width``/``--zoo-classes``
+    apply to exactly one model; with several, a .json config per model
+    carries them."""
+    specs = args.model or ["native:inception_v3"]
+    single = {"labels_path": args.labels, "zoo_width": args.zoo_width,
+              "zoo_classes": args.zoo_classes}
+    if len(specs) > 1 and any(v is not None for v in single.values()):
+        raise ValueError("--labels/--zoo-width/--zoo-classes apply to exactly one model; with "
+                         "repeated --model flags use .json model configs to carry per-model "
+                         "settings")
+    every = {"topk": args.topk, "fused_dw": args.fused_dw,
+             "dtype": normalize_dtype(args.dtype) if args.dtype else None}
+    overrides = {k: v for k, v in {**single, **every}.items() if v is not None}
+    mcs = [dataclasses.replace(model_config(spec), **overrides) for spec in specs]
+    default = args.default_model or mcs[0].serve_name
     kw = {}
     if args.canvas_buckets:
         kw["canvas_buckets"] = tuple(int(s) for s in args.canvas_buckets.split(","))
     return ServerConfig(
-        model=mc, host=args.host, port=args.port, max_batch=args.max_batch,
+        model=next((m for m in mcs if m.serve_name == default), mcs[0]), models=tuple(mcs),
+        default_model=default, host=args.host, port=args.port, max_batch=args.max_batch,
         max_delay_ms=args.max_delay_ms, adaptive_delay=not args.no_adaptive_delay,
         pipeline_depth=args.pipeline_depth, max_queue=args.max_queue,
-        lease_timeout_s=args.lease_timeout_s, wire_format=args.wire_format, resize=args.resize,
-        ragged=args.ragged, warmup=not args.no_warmup, aot_cache_dir=args.aot_cache_dir, **kw,
+        lease_timeout_s=args.lease_timeout_s, http_workers=args.http_workers,
+        keepalive_timeout_s=args.keepalive_timeout_s, wire_format=args.wire_format,
+        resize=args.resize, ragged=args.ragged, warmup=not args.no_warmup,
+        aot_cache_dir=args.aot_cache_dir, **kw,
     )
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=args.log_level,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     cfg = config_from_args(args)
     srv = start_server(cfg, device=args.device, seed=args.seed)
-    log.info("listening on %s (%s, %s, %s wire%s, %s decode)", srv.url, cfg.model.name,
-             srv.engine.device, cfg.wire_format, ", ragged" if srv.engine.ragged else "",
-             "native" if srv.engine.decoder["available"] else "PIL")
+    eng = srv.engine
+    log.info("listening on %s (%s; default %s, %s, %s wire%s, %s decode)", srv.url,
+             ", ".join(m.serve_name for m in cfg.serve_models), cfg.default_name, eng.device,
+             cfg.wire_format, ", ragged" if eng.ragged else "",
+             "native" if eng.decoder["available"] else "PIL")
+
+    # Orchestrators stop containers with SIGTERM: the same drain path as
+    # Ctrl-C. Single-shot: a second signal takes the default action (an
+    # immediate kill) instead of interrupting the drain.
+    def _sigterm(signum, frame):
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _sigterm)
     try:
         srv.wait()
     except KeyboardInterrupt:
-        pass
+        log.info("draining")
     finally:
         srv.close()
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

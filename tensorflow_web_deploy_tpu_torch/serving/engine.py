@@ -84,8 +84,16 @@ from . import aotcache
 log = logging.getLogger("tpu_serve_torch.engine")
 
 _HOLE_TRAILER = (0, 1, 0, 1)  # hw = (1, 1): the resize reads one pixel
-# one CUDA graph capture at a time in the process (torch's rule)
+# one CUDA graph capture at a time in the process (torch's rule); it also
+# guards _capture_streams
 _CAPTURE_LOCK = threading.Lock()
+# device index → the one stream every capture, and the eager run before it,
+# runs on. cuBLAS keeps a workspace per (thread's handle, stream) for the
+# life of the process: made by the eager run, it lies outside every graph
+# pool, and one stream bounds their number by the threads' handles. (A
+# workspace first made inside a capture would pin its graph pool's segment
+# after the engine closed.)
+_capture_streams: dict = {}
 
 
 def _align16(x: int) -> int:
@@ -540,28 +548,36 @@ class InferenceEngine:
             self._static_input(kind, s)[:b].copy_(dev)
 
     def _capture(self, kind: str, s: int, b: int) -> Executable:
-        """The executable of one (kind, side, bucket). On the card: one eager
-        run on a side stream (cuDNN/cuBLAS plans and workspaces, the kernels'
-        one-time attributes), then the capture into the engine's graph pool.
-        A capture that fails raises."""
+        """The executable of one (kind, side, bucket). On the card, under
+        ``_CAPTURE_LOCK`` and on the process's capture stream: one eager run
+        (cuDNN/cuBLAS plans, this thread's cuBLAS workspace for the stream,
+        the kernels' one-time attributes), then the capture into the
+        engine's graph pool. A capture that fails raises."""
         key = (kind, s, b)
         fn = self._static_fn(kind, s, b)
         if self.device.type != "cuda":
             return Executable(key, fn)
         t0 = time.perf_counter()
         compute = torch.cuda.current_stream(self.device)
-        with torch.inference_mode():
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(compute)
-            with torch.cuda.stream(side):
+        # thread_local: during a hot swap this capture runs while the old
+        # version's launch and completion threads replay graphs, sync events
+        # and allocate (a batch of a shape never captured runs eagerly);
+        # their CUDA calls must not fail the capture, nor the capture theirs.
+        # close() returns freed segments only under _CAPTURE_LOCK, never
+        # during a capture.
+        with torch.inference_mode(), _CAPTURE_LOCK:
+            stream = _capture_streams.get(self.device.index)
+            if stream is None:
+                stream = _capture_streams[self.device.index] = torch.cuda.Stream(self.device)
+            stream.wait_stream(compute)
+            with torch.cuda.stream(stream):
                 fn()
-            compute.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            # thread_local: the batcher's other threads are idle during warmup,
-            # but a capture must not fail for another thread's CUDA call
-            with _CAPTURE_LOCK, launches.recording() as record, torch.cuda.graph(
-                    graph, pool=self._graph_pool, capture_error_mode="thread_local"):
+            with launches.recording() as record, torch.cuda.graph(
+                    graph, pool=self._graph_pool, stream=stream,
+                    capture_error_mode="thread_local"):
                 out = fn()
+            compute.wait_stream(stream)
         return Executable(key, fn, graph, out, record, time.perf_counter() - t0)
 
     def _graph_pool_bytes(self) -> int:
@@ -854,6 +870,11 @@ class InferenceEngine:
                       "eager_batches": self.eager_batches,
                       "capture_s": sum(e.capture_s for e in self._exes.values()),
                       "pool_bytes": self.pool_bytes, "static_bytes": self._static_bytes()}
+        # the process's device memory, every engine in it: what a retired
+        # version gave back shows here
+        cuda = self.device.type == "cuda"
+        graphs["memory_allocated"] = torch.cuda.memory_allocated(self.device) if cuda else None
+        graphs["memory_reserved"] = torch.cuda.memory_reserved(self.device) if cuda else None
         return {
             "model": self.model_cfg.name,
             "device": str(self.device),
@@ -880,13 +901,28 @@ class InferenceEngine:
         }
 
     def close(self) -> None:
-        """Drop the device weights and the staging buffers; the engine must
+        """Drop every CUDA graph, static input, weight and staging buffer,
+        then give the freed segments back to the device: the caching
+        allocator keeps them reserved otherwise, the graph pool's included.
+        The segments are returned under ``_CAPTURE_LOCK``, never during
+        another engine's capture; ``pool_bytes`` then holds what the pool
+        still has (0 unless a live tensor pins a segment). The engine must
         not be used afterwards."""
         with self._lock:
             self._pool.clear()
             self._exes.clear()
             self._static.clear()
+            self._device_events.clear()
             self.model = None
+            self._preprocess = None
+        if self.device.type == "cuda":
+            with _CAPTURE_LOCK:
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
+                if self._graph_pool is not None:
+                    self.pool_bytes = self._graph_pool_bytes()
+            if self.pool_bytes:
+                log.warning("closed engine's graph pool still holds %d bytes", self.pool_bytes)
 
     # ------------------------------------------------------------------ host
 

@@ -4,6 +4,9 @@
 ``resize="kernel"`` is the port's name for the JAX ``resize="pallas"``:
 the fused I420 preprocess runs on the hand-written CUDA kernel
 (``ops/preprocess_i420.py``). The validation rules are the reference's.
+``--model`` specs take the reference's ``,dtype=`` and ``,as=`` suffixes
+(:func:`split_model_spec`); placement (``,replicas=``/``,shard=``) is not
+ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -56,6 +59,10 @@ class ModelConfig:
     # Fused depthwise cells (ops/depthwise.py): "auto" fuses the int8 tier
     # only, "on"/"off" force it
     fused_dw: str = "auto"
+    # Registry serve name (GET /models, /predict?model=...): ``name`` unless
+    # set, via --model ...,as=<serve name>, so that two dtype variants of one
+    # architecture can serve side by side
+    alias: str | None = None
 
     def __post_init__(self):
         if self.source != "native":
@@ -73,6 +80,11 @@ class ModelConfig:
                 f"got {self.fused_dw!r}"
             )
         self.input_size = tuple(self.input_size)
+
+    @property
+    def serve_name(self) -> str:
+        """The registry/HTTP-facing name (``alias`` wins over ``name``)."""
+        return self.alias or self.name
 
     @property
     def fuse_depthwise(self) -> bool:
@@ -98,6 +110,21 @@ class ServerConfig:
     max_queue: int = 0
     # a leased slot not committed within this many seconds becomes a hole
     lease_timeout_s: float = 10.0
+    # how long a request waits for its batch (503/504 past it), and the
+    # HTTP front end's total read deadline for one request (408 past it)
+    request_timeout_s: float = 30.0
+    # Model-registry drain window: after a hot swap (or unload) the retired
+    # version waits this long for its in-flight requests before its batcher
+    # is stopped anyway
+    drain_grace_s: float = 30.0
+    # HTTP front end: a bounded pool of workers speaking HTTP/1.1 keep-alive;
+    # keepalive_timeout_s is how long an idle connection may hold a worker
+    http_workers: int = 16
+    keepalive_timeout_s: float = 15.0
+    # Every model the server boots (empty: ``model`` alone), and the serve
+    # name that requests without ``?model=`` resolve to (None: ``model``'s)
+    models: tuple[ModelConfig, ...] = ()
+    default_model: str | None = None
     # canvas size buckets for host-padded decoded images; the device
     # resizes from each image's valid region
     canvas_buckets: tuple[int, ...] = (256, 512, 1024, 2048)
@@ -124,6 +151,14 @@ class ServerConfig:
     def __post_init__(self):
         # pick_bucket relies on ascending order
         self.canvas_buckets = tuple(sorted(set(self.canvas_buckets)))
+        self.models = tuple(self.models)
+        names = [m.serve_name for m in self.serve_models]
+        dup = sorted({n for n in names if names.count(n) > 1})
+        if dup:
+            raise ValueError(f"duplicate model names {dup}")
+        if self.default_name not in names:
+            raise ValueError(
+                f"default model {self.default_name!r} is not among the models {names}")
         if self.wire_format not in ("rgb", "yuv420"):
             raise ValueError(f"wire_format must be 'rgb' or 'yuv420', got {self.wire_format!r}")
         if self.resize not in ("matmul", "gather", "kernel"):
@@ -132,11 +167,12 @@ class ServerConfig:
         if self.resize == "kernel":
             if self.wire_format != "yuv420":
                 raise ValueError("resize='kernel' requires wire_format='yuv420'")
-            if self.model.preprocess not in ("inception", "zero_one", "raw"):
-                raise ValueError(
-                    "resize='kernel' supports preprocess inception/zero_one/raw, "
-                    f"not {self.model.preprocess!r}"
-                )
+            for m in self.serve_models:
+                if m.preprocess not in ("inception", "zero_one", "raw"):
+                    raise ValueError(
+                        "resize='kernel' supports preprocess inception/zero_one/raw, "
+                        f"not {m.preprocess!r}"
+                    )
         if self.wire_format == "yuv420":
             bad = [s for s in self.canvas_buckets if s % 4]
             if bad:
@@ -144,9 +180,57 @@ class ServerConfig:
                     f"yuv420 wire format needs canvas buckets divisible by 4; got {bad}"
                 )
 
+    @property
+    def serve_models(self) -> tuple[ModelConfig, ...]:
+        return self.models or (self.model,)
+
+    @property
+    def default_name(self) -> str:
+        return self.default_model or self.model.serve_name
+
+
+def split_model_spec(spec: str) -> tuple[str, dict[str, str]]:
+    """Split ``--model``'s option suffixes off a model spec:
+    ``"native:mobilenet_v2,dtype=int8,as=mobilenet_v2_int8"`` → the base
+    plus ``{"dtype": "int8", "alias": "mobilenet_v2_int8"}``. Raises
+    ValueError on an unknown suffix key or a bad dtype — a typo must not
+    silently serve the defaults — and on ``replicas=``/``shard=``, which wait
+    for placement (ROADMAP.md Queue 1 item 9)."""
+    base, _, rest = spec.partition(",")
+    opts: dict[str, str] = {}
+    if not rest:
+        return base, opts
+    for t in [t.strip() for t in rest.split(",") if t.strip()]:
+        key, _, val = t.partition("=")
+        if key in ("replicas", "shard"):
+            raise ValueError(
+                f"--model option {t!r} in {spec!r}: placement is not ported yet "
+                "(ROADMAP.md Queue 1 item 9)"
+            )
+        if key == "dtype":
+            opts["dtype"] = normalize_dtype(val)
+        elif key == "as":
+            if not val:
+                raise ValueError(f"empty serve name in {t!r} in {spec!r}")
+            opts["alias"] = val
+        else:
+            raise ValueError(
+                f"unknown --model option {t!r} in {spec!r} "
+                "(supported: dtype=int8|bf16|f32, as=<serve name>)"
+            )
+    return base, opts
+
 
 def model_config(name_or_path: str) -> ModelConfig:
-    """Resolve ``native:<zoo name>`` or a JSON config path."""
+    """Resolve ``native:<zoo name>`` or a JSON config path, each optionally
+    carrying option suffixes (``name,dtype=int8`` / ``name,as=<serve
+    name>``)."""
+    name_or_path, opts = split_model_spec(name_or_path)
+    if opts:
+        mc = model_config(name_or_path)
+        mc.dtype = opts.get("dtype", mc.dtype)
+        mc.alias = opts.get("alias", mc.alias)
+        return mc
     if name_or_path.startswith("native:"):
         from ..models import get as zoo_get, names as zoo_names
 

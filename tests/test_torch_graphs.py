@@ -156,7 +156,10 @@ def test_engine_stats_carry_the_cache_and_graph_blocks():
     assert st["aot_cache"]["enabled"] is False and st["aot_cache"]["dir"] is None
     assert st["aot_cache"]["libraries"] == ["preprocess_i420"]
     assert set(st["graphs"]) == {"captured", "executables", "replays", "eager_batches",
-                                 "capture_s", "pool_bytes", "static_bytes"}
+                                 "capture_s", "pool_bytes", "static_bytes",
+                                 "memory_allocated", "memory_reserved"}
+    # the process's device memory: none on the CPU
+    assert st["graphs"]["memory_allocated"] is st["graphs"]["memory_reserved"] is None
     assert st["kernel_launches"].keys() == {"preprocess_i420", "fused_dw", "unpack_ragged"}
     eng.close()
 
@@ -217,6 +220,26 @@ def test_a_second_thread_only_replays_on_card():
     assert st["graphs"]["captured"] == n and st["graphs"]["replays"] == 2 * n
     assert len(st["warmup_s"]["execution"]) == 2
     eng.close()
+
+
+@pytest.mark.cuda
+def test_close_gives_the_graph_pool_back_on_card():
+    """``close()`` drops the graphs, static inputs and weights and returns
+    the freed segments: allocated memory falls by at least the static
+    bytes, reserved by at least those and the graph pool's bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    eng = _engine("ragged", CARD_MODELS["mobilenet_v2-int8"], device="cuda")
+    eng.warmup()
+    st = eng.stats()["graphs"]
+    torch.cuda.synchronize()
+    allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    assert (st["memory_allocated"], st["memory_reserved"]) == (allocated, reserved)
+    eng.close()
+    assert st["pool_bytes"] > 0 and st["static_bytes"] > 0
+    assert eng.pool_bytes == 0  # no segment of the pool is left
+    assert allocated - torch.cuda.memory_allocated() >= st["static_bytes"]
+    assert reserved - torch.cuda.memory_reserved() >= st["pool_bytes"] + st["static_bytes"]
 
 
 def _arena(images, holes=(), slack=0):
