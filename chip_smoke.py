@@ -57,6 +57,18 @@ Inception three times under that load (no answer but 200, no nvcc, the
 device memory back after each retired version) and unloads MobileNetV2;
 ``sigterm`` starts the server through its entry point and sends SIGTERM
 with requests in flight (each answers 200, the process exits 0).
+``overload`` serves MobileNetV2 bf16 and its int8 tier in one process with
+the response cache and overload control on: a pass of hits that runs
+nothing on the card, 16 identical requests coalesced onto one row, a 304
+for a current ETag, a tenant over its quota answered 429, a hot swap that
+drops the old version's entries, a flood of 256 distinct images with a 100
+ms deadline (statuses, sheds and ladder levels reported), a drill that
+holds the queue at 0.75 so that the ladder reroutes to the int8 tier (the
+fused depthwise kernel's launches counted on it), and a chaos drill on a
+second server whose answers match the faults injected. Every earlier phase
+that counts device work or compares top-k runs with the cache off and a
+ladder that cannot climb (``PINNED``); ``default_server`` runs the CLI's
+defaults and checks its ``X-Cache`` and 304.
 
 The preprocess kernel is checked through both of its entries (the
 ``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
@@ -76,6 +88,12 @@ instead build the kernels, print nvcc's register report for one kernel,
 check it against its plain version at every shape, and time it under
 every launch shape that fits, beside the launch rule's choice; they print
 no ``ok`` line.
+
+    python3 chip_smoke.py --sweep-overload
+
+runs ``overload``'s flood on fresh servers under other pipeline depths,
+assembly windows and image sizes and records the queue fraction every
+ladder observation saw (no ``ok`` line).
 """
 
 from __future__ import annotations
@@ -134,6 +152,14 @@ MAIN_PATHS = (("inception_v3", "bfloat16", {}), ("mobilenet_v2", "int8", {}),
                 for name, dtype, resize in RAGGED_PATHS))
 # the default server's buckets: canvas 256..2048 × batch 1..32
 DEFAULT_PAIRS = 4 * 6
+# Every phase that counts device work or compares top-k serves with the
+# response cache off and a degradation ladder that cannot climb (a queue
+# fraction never reaches 2): a repeat would be answered from the cache, and
+# a burst could clamp top-k to 1 or move images to a smaller canvas.
+# ``default_server`` runs the CLI's defaults; ``overload`` sets its own.
+NO_LADDER = "2:2,2:2,2:2"
+PINNED = {"cache_bytes": 0, "pressure_rungs": NO_LADDER}
+PINNED_ARGS = ["--cache-bytes", "0", "--pressure-rungs", NO_LADDER]
 
 
 def emit(obj) -> None:
@@ -691,6 +717,19 @@ def post(url: str, data: bytes) -> tuple[int, dict, float]:
         return r.status, body, time.perf_counter() - t0
 
 
+def post_full(url: str, data: bytes, headers: dict | None = None
+              ) -> tuple[int, dict, bytes]:
+    """POST one image with ``headers``; (status, headers in lower case, the
+    raw body) whatever the status."""
+    req = urllib.request.Request(url, data=data, method="POST",
+                                 headers={"Content-Type": "image/jpeg", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, {k.lower(): v for k, v in r.headers.items()}, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, {k.lower(): v for k, v in e.headers.items()}, e.read()
+
+
 def burst(srv, jpegs: list[bytes]) -> tuple[list, dict]:
     """POST every image at once and stamp each stage on the host clock: the
     client's send and receive, the server's accept (``process_request``,
@@ -825,7 +864,7 @@ def _config(name: str, dtype: str, wire: str = "yuv420", resize: str = "kernel",
 
     return ServerConfig(model=replace(model_config(f"native:{name}"), dtype=dtype),
                         canvas_buckets=BUCKETS, max_batch=8, wire_format=wire, resize=resize,
-                        ragged=ragged, **kw)
+                        ragged=ragged, **{**PINNED, **kw})
 
 
 def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
@@ -1729,6 +1768,14 @@ def boot_default_server(jpegs: list[bytes], big: bytes, cache_dir: str) -> dict:
         answers = [post(url + "/predict", d) for d in (jpegs[2], jpegs[7], big)]
         with urllib.request.urlopen(url + "/stats", timeout=60) as r:
             eng = json.loads(r.read())["engine"]
+        # the CLI's response cache: a repeat is a hit with the same ETag, and
+        # the ETag as If-None-Match answers 304 with no body
+        repeat = post_full(url + "/predict", jpegs[2])
+        etag = repeat[1].get("etag")
+        unchanged = post_full(url + "/predict", jpegs[2], {"If-None-Match": etag or ""})
+        x_cache = {"repeat": [repeat[0], repeat[1].get("x-cache")],
+                   "if_none_match": [unchanged[0], len(unchanged[2])],
+                   "same_etag": bool(etag) and unchanged[1].get("etag") == etag}
     finally:
         proc.send_signal(signal.SIGINT)
         try:
@@ -1741,7 +1788,7 @@ def boot_default_server(jpegs: list[bytes], big: bytes, cache_dir: str) -> dict:
                       if "warmup:" in ln]
         log.close()
     return {"boot_s": boot_s, "exit_code": proc.returncode, "eng": eng, "answers": answers,
-            "warmup_log": warmup_log}
+            "warmup_log": warmup_log, "x_cache": x_cache}
 
 
 def phase_default_server(jpegs: list[bytes]) -> dict:
@@ -1754,8 +1801,11 @@ def phase_default_server(jpegs: list[bytes]) -> dict:
     stores them, the second must load every one from the cache and run no
     nvcc (``hits_total`` = its libraries, ``compile_seconds_total`` 0). Each
     boot gets two main-path JPEGs and one over the top canvas bucket, every
-    batch a graph replay, and must exit on SIGINT. Reports each boot's
-    seconds, its warmup phases, the graph pool and the static bytes."""
+    batch a graph replay, and must exit on SIGINT. The CLI's 256 MiB response
+    cache is on: after its ``/stats``, a repeat of the first JPEG must answer
+    ``X-Cache: hit`` with the same ETag, and that ETag as ``If-None-Match`` a
+    304 with no body. Reports each boot's seconds, its warmup phases, the
+    graph pool and the static bytes."""
     from PIL import Image
 
     from tensorflow_web_deploy_tpu_torch import native
@@ -1777,12 +1827,14 @@ def phase_default_server(jpegs: list[bytes]) -> dict:
                                         "resize", "decodes", "batches", "canvas_buckets",
                                         "batch_buckets")},
                  "decoder_available": eng["decoder"]["available"],
-                 "decoder_reason": eng["decoder"]["reason"]}
+                 "decoder_reason": eng["decoder"]["reason"], "x_cache": got["x_cache"]}
             row[boot] = b
             want = {"model": "inception_v3", "device": "cuda", "dtype": "bfloat16",
                     "wire_format": "rgb", "ragged": True, "resize": "matmul",
                     "decoder_available": st["available"], "statuses": [200] * 3,
-                    "predictions": [5] * 3, "exit_code": 0}
+                    "predictions": [5] * 3, "exit_code": 0,
+                    "x_cache": {"repeat": [200, "hit"], "if_none_match": [304, 0],
+                                "same_etag": True}}
             bad = {k: b[k] for k, v in want.items() if b[k] != v}
             graphs, cache = b["graphs"], b["aot_cache"]
             libs = len(cache["libraries"])
@@ -1838,6 +1890,14 @@ class KeepAlive:
                 ) -> tuple[int, dict]:
         if isinstance(body, dict):
             body, ctype = json.dumps(body).encode(), "application/json"
+        status, _, data = self.exchange(method, path, body, {"Content-Type": ctype})
+        return status, json.loads(data or b"null")
+
+    def exchange(self, method: str, path: str, body=b"", headers: dict | None = None
+                 ) -> tuple[int, dict, bytes]:
+        """One request with ``headers``: (status, headers in lower case,
+        the raw body)."""
+        headers = {"Content-Type": "image/jpeg", **(headers or {})}
         for retry in (False, True):
             reused = self.conn is not None
             if not reused:
@@ -1846,7 +1906,7 @@ class KeepAlive:
                 self.conn.connect()
                 self.connects += 1
             try:
-                self.conn.request(method, path, body=body, headers={"Content-Type": ctype})
+                self.conn.request(method, path, body=body, headers=headers)
                 r = self.conn.getresponse()
                 data = r.read()
             except (BrokenPipeError, ConnectionResetError, http.client.RemoteDisconnected):
@@ -1859,7 +1919,7 @@ class KeepAlive:
                 raise
             if r.will_close:
                 self.close()
-            return r.status, json.loads(data or b"null")
+            return r.status, {k.lower(): v for k, v in r.getheaders()}, data
 
     def close(self) -> None:
         if self.conn is not None:
@@ -2065,7 +2125,7 @@ def phase_registry(jpegs: list[bytes]) -> dict:
 
     mcs = tuple(model_config(spec) for spec in REGISTRY_MODELS)
     cfg = ServerConfig(model=mcs[0], models=mcs, host="127.0.0.1", port=0,
-                       canvas_buckets=REGISTRY_BUCKETS, ragged=True)
+                       canvas_buckets=REGISTRY_BUCKETS, ragged=True, **PINNED)
     names = [m.serve_name for m in mcs]
     targets = [(n, d) for d in jpegs for n in names]
     row = {"phase": "registry", "nvidia_smi": nvidia_smi(), "models": list(REGISTRY_MODELS),
@@ -2249,7 +2309,7 @@ def phase_sigterm(jpegs: list[bytes]) -> dict:
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-m", "tensorflow_web_deploy_tpu_torch.server",
                              "--model", "native:mobilenet_v2,dtype=int8", "--host", "127.0.0.1",
-                             "--port", str(port), "--canvas-buckets", "512"],
+                             "--port", str(port), "--canvas-buckets", "512", *PINNED_ARGS],
                             stdout=log, stderr=subprocess.STDOUT, text=True,
                             cwd=os.path.dirname(os.path.abspath(__file__)))
     row = {"phase": "sigterm", "nvidia_smi": nvidia_smi(), "connections": SIGTERM_CONNS,
@@ -2316,8 +2376,504 @@ def phase_sigterm(jpegs: list[bytes]) -> dict:
     return row
 
 
+# ------------------------------------------------ the cache and overload control
+
+# one process, one registry: MobileNetV2 bf16 and its int8 tier, both at full
+# width on the ragged rgb wire with the gather resize, canvas 512 only (6
+# graphs a version, as in ``registry``)
+OVERLOAD_MODELS = ("native:mobilenet_v2", "native:mobilenet_v2,dtype=int8,as=mobilenet_v2_int8")
+BF16_MODEL = "mobilenet_v2"
+# four rungs put the int8 reroute (level 3) before the shedding of misses (4);
+# 48 HTTP workers so that 32 connections are served at once
+OVERLOAD = {"cache_bytes": 64 << 20, "max_queue": 32,
+            "pressure_rungs": "0.30:0.15,0.50:0.30,0.70:0.50,0.95:0.80",
+            "pressure_dwell_s": 0.1, "tenant_quota": "metered=50", "http_workers": 48}
+CACHE_CONNS, COALESCED, QUOTA_CONNS, QUOTA_S = 4, 16, 8, 1.5
+FLOOD_IMAGES, FLOOD_CONNS, FLOOD_DEADLINE_MS = 256, 32, 100
+# the reroute drill: slots of the bf16 model's open batch held leased (as by
+# uploads still decoding), so that its queue fraction sits at 24/32 = 0.75,
+# past the reroute rung's 0.70; a probe request every 1.2 dwells
+HELD_SLOTS, PROBES = 24, 10
+CHAOS_SPEC = "decode_fail=0.1,dispatch_fail=0.05,slow_replica=0.2:20,seed=7"
+CHAOS_REQUESTS = 96
+
+
+def fan_out(port: int, items: list[bytes], conns: int, path: str,
+            headers: dict | None = None, timeout: float = 120.0) -> list[dict]:
+    """POST ``items`` over ``conns`` keep-alive connections, connection i
+    taking items i, i + conns, … back to back; one record per item, in
+    order: status, headers, the JSON answer (None for an empty body) and
+    the client's ms."""
+    out: list = [None] * len(items)
+
+    def run(i: int) -> None:
+        client = KeepAlive(port, timeout=timeout)
+        try:
+            for j in range(i, len(items), conns):
+                t = time.perf_counter()
+                status, hdrs, data = client.exchange("POST", path, items[j], headers)
+                out[j] = {"status": status, "headers": hdrs, "ms": (time.perf_counter() - t) * 1e3,
+                          "doc": json.loads(data) if data else None}
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(conns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout + 30)
+    if any(t.is_alive() for t in threads) or None in out:
+        raise AssertionError(f"a client hung or failed: {sum(r is None for r in out)} unanswered")
+    return out
+
+
+def topk_of(rec: dict) -> list[int]:
+    return [p["index"] for p in rec["doc"]["predictions"]]
+
+
+def phase_overload(jpegs: list[bytes]) -> dict:
+    """The response cache and overload control on one registry serving
+    MobileNetV2 bf16 (``mobilenet_v2``) and its int8 tier
+    (``mobilenet_v2_int8``, the 17 depthwise cells on the fused kernel), with
+    a 64 MiB cache, ``max_queue`` 32, the four-rung ladder (dwell 0.1 s) and
+    a 50 img/s quota for tenant ``metered``:
+
+    - cache: the 24 JPEGs twice over 4 connections; the second pass all
+      ``X-Cache: hit`` with the first pass's payloads, and no unpack or
+      fused launch, no batch of either engine meanwhile; the first answer's
+      ETag as ``If-None-Match`` answers 304 with no body;
+    - coalescing: 16 concurrent POSTs of one new JPEG (``?topk=1``, the key
+      every ladder level below the reroute gives) dispatch one row, and the
+      others answer ``coalesced`` or ``hit``;
+    - quota: 8 connections as ``metered`` for 1.5 s get 429s, each with
+      ``reason: quota`` and ``Retry-After``, while 2 of the default tenant
+      get only 200s;
+    - swap: a hot swap of ``mobilenet_v2`` drops its entries, and the next
+      repeat is a miss from version 2;
+    - flood: 256 distinct JPEGs from 32 connections, each posting its 8
+      back to back with ``X-Deadline-Ms: 100``: only 200, 503 and 504, each
+      non-200 with a ``reason`` and ``Retry-After``; the statuses, the
+      lease-time and seal-time deadline sheds, the levels entered and the
+      reroutes are reported; probes one dwell apart then walk the ladder
+      back to level 0, which must hold;
+    - reroute: 24 of the bf16 model's 32 queue slots held leased (as by
+      uploads still decoding) while 10 requests arrive 1.2 dwells apart:
+      the ladder climbs to the reroute rung and requests on
+      ``mobilenet_v2`` answer from ``mobilenet_v2_int8`` (every probe 200);
+      with the kernels' counts set to 0 just before the flood and read just
+      after the drill, ``fused_dw`` launched 17 times per int8 batch, the
+      unpack kernel once per batch of either engine, every batch a replay;
+      the ladder walks back to level 0;
+    - chaos: a second server of the int8 tier alone with
+      ``--chaos decode_fail=0.1,dispatch_fail=0.05,slow_replica=0.2:20,seed=7``
+      takes 96 requests one at a time (a row per batch): only 200, 400 and
+      500, the 400s the injected decode failures, the 500s the injected
+      dispatch failures, ``/healthz`` answers after, and each 200's top-k is
+      the first server's for the same image (one at a time there too)."""
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
+    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
+    from tensorflow_web_deploy_tpu_torch.server import start_server
+    from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
+
+    mcs = tuple(model_config(spec) for spec in OVERLOAD_MODELS)
+    cfg = ServerConfig(model=mcs[0], models=mcs, host="127.0.0.1", port=0,
+                       canvas_buckets=REGISTRY_BUCKETS, ragged=True, resize="gather",
+                       **OVERLOAD)
+    row = {"phase": "overload", "nvidia_smi": nvidia_smi(), "models": list(OVERLOAD_MODELS),
+           "canvas_buckets": list(REGISTRY_BUCKETS), "max_batch": cfg.max_batch,
+           "resize": cfg.resize, **OVERLOAD}
+    flood_jpegs = make_jpegs(FLOOD_IMAGES, SEED + 2)
+    probe_jpegs = make_jpegs(PROBES, SEED + 4)
+    fresh = make_jpegs(1, SEED + 3)[0]
+    bad: dict = {}
+    t_phase = t0 = time.perf_counter()
+    srv = start_server(cfg, device="cuda", seed=SEED)
+    row["boot_s"] = time.perf_counter() - t0
+    try:
+        reg, app, port = srv.registry, srv.app, srv.port
+        predict = f"/predict?model={BF16_MODEL}"
+
+        def serving():
+            return {mv.name: mv for mv in reg.serving_entries()}
+
+        def counts():
+            return {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
+                    "unpack_ragged": unpack_ragged.launches}
+
+        def reset():
+            preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+
+        # cache: a pass of misses, then one of hits that runs nothing
+        first = fan_out(port, jpegs, CACHE_CONNS, predict)
+        eng0 = {n: mv.engine.stats() for n, mv in serving().items()}
+        ladder0 = app.pressure.stats()["transitions_total"]
+        reset()
+        second = fan_out(port, jpegs, CACHE_CONNS, predict)
+        launches, eng1 = counts(), {n: mv.engine.stats() for n, mv in serving().items()}
+        cache = {
+            "first": dict(Counter(f"{r['status']} {r['headers'].get('x-cache')}" for r in first)),
+            "second": dict(Counter(f"{r['status']} {r['headers'].get('x-cache')}"
+                                   for r in second)),
+            "same_payloads": all(a["doc"]["predictions"] == b["doc"]["predictions"]
+                                 and a["headers"]["etag"] == b["headers"]["etag"]
+                                 for a, b in zip(first, second)),
+            "launches_during_hits": launches,
+            "batches_during_hits": {n: eng1[n]["batches"] - eng0[n]["batches"] for n in eng1},
+            "miss_ms": latency_of(first), "hit_ms": latency_of(second),
+            "ladder_moved": app.pressure.stats()["transitions_total"] != ladder0}
+        etag = first[0]["headers"]["etag"]
+        client = KeepAlive(port)
+        status, hdrs, data = client.exchange("POST", predict, jpegs[0], {"If-None-Match": etag})
+        cache["if_none_match"] = {"status": status, "body_bytes": len(data),
+                                  "etag": hdrs.get("etag") == etag}
+        row["cache"] = cache
+        if (cache["first"] != {"200 miss": len(jpegs)} or cache["second"] != {
+                "200 hit": len(jpegs)} or not cache["same_payloads"]
+                or any(launches.values()) or any(cache["batches_during_hits"].values())
+                or cache["if_none_match"] != {"status": 304, "body_bytes": 0, "etag": True}
+                or cache["ladder_moved"]):
+            bad["cache"] = cache
+
+        # coalescing: one new JPEG, 16 at once
+        batcher = serving()[BF16_MODEL].batcher
+        images0 = batcher.stats()["images"]
+        gate = threading.Barrier(COALESCED)
+        answers: list = [None] * COALESCED
+
+        def one(i: int) -> None:
+            c = KeepAlive(port)
+            try:
+                gate.wait(30)
+                answers[i] = c.exchange("POST", predict + "&topk=1", fresh)
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=one, args=(i,), daemon=True)
+                   for i in range(COALESCED)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        kinds = Counter(f"{a[0]} {a[1].get('x-cache')}" if a else "none" for a in answers)
+        rows = batcher.stats()["images"] - images0
+        row["coalescing"] = {"requests": COALESCED, "answers": dict(kinds),
+                             "rows_dispatched": rows,
+                             "coalesced_share": kinds["200 coalesced"] / COALESCED}
+        if rows != 1 or kinds["200 miss"] != 1 or \
+                kinds["200 miss"] + kinds["200 coalesced"] + kinds["200 hit"] != COALESCED:
+            bad["coalescing"] = row["coalescing"]
+
+        # quota: tenant metered over its 50 img/s beside the default tenant
+        stop = time.monotonic() + QUOTA_S
+        quota: dict = {"metered": Counter(), "default": Counter(), "bad_429": 0}
+        lock = threading.Lock()
+
+        def tenant_loop(i: int, tenant: str | None) -> None:
+            c, k = KeepAlive(port), i
+            try:
+                while time.monotonic() < stop:
+                    status, hdrs, data = c.exchange(
+                        "POST", predict, jpegs[k % len(jpegs)],
+                        {"X-Tenant": tenant} if tenant else None)
+                    k += 1
+                    with lock:
+                        quota[tenant or "default"][status] += 1
+                        if status == 429 and (json.loads(data).get("reason") != "quota"
+                                              or "retry-after" not in hdrs):
+                            quota["bad_429"] += 1
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=tenant_loop, args=(i, "metered"), daemon=True)
+                   for i in range(QUOTA_CONNS)]
+        threads += [threading.Thread(target=tenant_loop, args=(i, None), daemon=True)
+                    for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        row["quota"] = {"seconds": QUOTA_S, "metered": dict(quota["metered"]),
+                        "default": dict(quota["default"]), "bad_429": quota["bad_429"],
+                        "admission": app.admission.stats()["tenants"].get("metered")}
+        if not quota["metered"][429] or set(quota["metered"]) - {200, 429} or \
+                set(quota["default"]) != {200} or quota["bad_429"]:
+            bad["quota"] = row["quota"]
+
+        # swap: version 2 of mobilenet_v2 starts with none of version 1's entries
+        inval0 = app.cache.stats()["invalidations_total"]
+        t0 = time.perf_counter()
+        status, body = client.request("POST", "/models/swap", {"name": BF16_MODEL, "wait": True})
+        swap_s = time.perf_counter() - t0
+        per_model = app.cache.stats()["per_model"][BF16_MODEL]
+        again = client.exchange("POST", predict, jpegs[0])
+        row["swap"] = {"status": status, "state": body.get("state"), "version": body.get(
+            "version"), "seconds": swap_s,
+            "invalidated": app.cache.stats()["invalidations_total"] - inval0,
+            "entries_after": per_model["entries"], "repeat": [
+                again[0], again[1].get("x-cache"), json.loads(again[2]).get("model_version")]}
+        if (status, body.get("state"), body.get("version")) != (200, "SERVING", 2) or \
+                row["swap"]["invalidated"] < len(jpegs) or per_model["entries"] or \
+                row["swap"]["repeat"] != [200, "miss", 2]:
+            bad["swap"] = row["swap"]
+
+        # flood: 256 distinct JPEGs, a 100 ms deadline each; then the reroute
+        # drill; the kernels' counts span both
+        mvs = serving()
+        b0 = {n: mv.batcher.stats() for n, mv in mvs.items()}
+        e0 = {n: mv.engine.stats() for n, mv in mvs.items()}
+        p0 = app.pressure.stats()
+        reset()
+        t0 = time.perf_counter()
+        flood = fan_out(port, flood_jpegs, FLOOD_CONNS, predict,
+                        {"X-Deadline-Ms": str(FLOOD_DEADLINE_MS)})
+        wall = time.perf_counter() - t0
+        b1 = {n: mv.batcher.stats() for n, mv in mvs.items()}
+        p1 = app.pressure.stats()
+        by = Counter()
+        unexplained = 0
+        for r in flood:
+            if r["status"] == 200:
+                by[f"200 {r['doc']['model']}"] += 1
+            else:
+                reason = (r["doc"] or {}).get("reason")
+                by[f"{r['status']} {reason}"] += 1
+                unexplained += reason is None or "retry-after" not in r["headers"]
+        probes = walk_down(app, client, predict, jpegs)
+        row["flood"] = {
+            "requests": FLOOD_IMAGES, "connections": FLOOD_CONNS,
+            "deadline_ms": FLOOD_DEADLINE_MS, "wall_ms": wall * 1e3, "answers": dict(by),
+            "unexplained_non_200": unexplained, "latency_200_ms": latency_of(
+                [r for r in flood if r["status"] == 200]),
+            "latency_shed_ms": latency_of([r for r in flood if r["status"] != 200]),
+            "sheds": {n: {k: b1[n][k] - b0[n][k] for k in (
+                "deadline_sheds_total", "deadline_seal_sheds_total", "backlog_rejects",
+                "quota_sheds_total")} for n in mvs},
+            "levels_entered": {k: v - p0["entered_total"].get(k, 0)
+                               for k, v in p1["entered_total"].items()},
+            "level_after": p1["level"], "quant_reroutes": p1["quant_reroutes"] - p0[
+                "quant_reroutes"], "probes_to_level_0": probes,
+            "level_after_probes": app.pressure.level}
+        if set(r["status"] for r in flood) - {200, 503, 504} or unexplained or \
+                app.pressure.level != 0:
+            bad["flood"] = row["flood"]
+
+        # reroute drill: the bf16 model's queue held at 0.75, a request every
+        # 1.2 dwells; the ladder climbs a rung per dwell and, at the reroute
+        # rung, sends requests to the int8 tier
+        bf16 = mvs[BF16_MODEL].batcher
+        p2 = app.pressure.stats()
+        held = [bf16.lease_ragged(8 * 8 * 3, REGISTRY_BUCKETS[0]) for _ in range(HELD_SLOTS)]
+        drill: list = [None] * PROBES
+
+        def probe(i: int) -> None:
+            c = KeepAlive(port)
+            try:
+                t = time.perf_counter()
+                status, hdrs, data = c.exchange("POST", predict, probe_jpegs[i])
+                drill[i] = {"status": status, "ms": (time.perf_counter() - t) * 1e3,
+                            "doc": json.loads(data), "level": app.pressure.level}
+            finally:
+                c.close()
+
+        threads = []
+        try:
+            for i in range(PROBES):
+                threads.append(threading.Thread(target=probe, args=(i,), daemon=True))
+                threads[-1].start()
+                time.sleep(OVERLOAD["pressure_dwell_s"] * 1.2)
+        finally:
+            for lease in held:  # they ship as holes
+                lease.release()
+        for t in threads:
+            t.join(120)
+        p3 = app.pressure.stats()
+        launches = counts()
+        e1 = {n: mv.engine.stats() for n, mv in mvs.items()}
+        batches = {n: e1[n]["batches"] - e0[n]["batches"] for n in mvs}
+        replays = {n: e1[n]["graphs"]["replays"] - e0[n]["graphs"]["replays"] for n in mvs}
+        want = {"preprocess_i420": 0, "fused_dw": DW_CELLS * batches[INT8_MODEL],
+                "unpack_ragged": sum(batches.values())}
+        probes = walk_down(app, client, predict, jpegs)
+        row["reroute"] = {
+            "held_slots": HELD_SLOTS, "probes": PROBES,
+            "answers": dict(Counter(f"{r['status']} {r['doc'].get('model')}" if r else "none"
+                                    for r in drill)),
+            "levels_entered": {k: v - p2["entered_total"].get(k, 0)
+                               for k, v in p3["entered_total"].items()},
+            "quant_reroutes": p3["quant_reroutes"] - p2["quant_reroutes"],
+            "int8_ms": latency_of([r for r in drill if r and r["doc"].get("model") ==
+                                   INT8_MODEL]),
+            "probes_to_level_0": probes, "level_after_probes": app.pressure.level}
+        row["kernel_launches"] = launches
+        row["batches"], row["replays"] = batches, replays
+        if not row["reroute"]["quant_reroutes"] or None in drill or \
+                any(r["status"] != 200 for r in drill) or \
+                not any(r["doc"]["model"] == INT8_MODEL for r in drill) or \
+                launches != want or replays != batches or not batches[INT8_MODEL] or \
+                app.pressure.level != 0:
+            bad["reroute"] = {**row["reroute"], "launches": launches, "want_launches": want,
+                              "batches": batches, "replays": replays}
+
+        # the int8 tier's answers one at a time, for the chaos server's
+        int8_first = fan_out(port, jpegs, 1, f"/predict?model={INT8_MODEL}")
+        client.close()
+    finally:
+        srv.close()
+
+    # chaos: the int8 tier alone, faults injected, one request at a time
+    ccfg = ServerConfig(model=mcs[1], models=mcs[1:], host="127.0.0.1", port=0,
+                        canvas_buckets=REGISTRY_BUCKETS, ragged=True, resize="gather",
+                        chaos=CHAOS_SPEC, **PINNED)
+    srv = start_server(ccfg, device="cuda", seed=SEED)
+    try:
+        items = [jpegs[i % len(jpegs)] for i in range(CHAOS_REQUESTS)]
+        t0 = time.perf_counter()
+        drill = fan_out(srv.port, items, 1, "/predict", timeout=30)
+        drill_s = time.perf_counter() - t0
+        injected = srv.app.chaos.stats()
+        with urllib.request.urlopen(srv.url + "/healthz", timeout=60) as r:
+            health = (r.status, json.loads(r.read()))
+        codes = Counter(r["status"] for r in drill)
+        same = [topk_of(r) == topk_of(int8_first[i % len(jpegs)])
+                for i, r in enumerate(drill) if r["status"] == 200]
+        delta = max((abs(p["score"] - q["score"]) for i, r in enumerate(drill)
+                     if r["status"] == 200 for p, q in zip(
+                         r["doc"]["predictions"], int8_first[i % len(jpegs)]["doc"][
+                             "predictions"])), default=0.0)
+        row["chaos"] = {"spec": CHAOS_SPEC, "requests": CHAOS_REQUESTS, "seconds": drill_s,
+                        "answers": {str(k): v for k, v in sorted(codes.items())},
+                        "injected": injected, "healthz": list(health),
+                        "same_topk": all(same), "max_score_delta": delta}
+        if set(codes) - {200, 400, 500} or sum(codes.values()) != CHAOS_REQUESTS or \
+                codes[400] != injected["decode_failures_injected"] or \
+                codes[500] != injected["dispatch_failures_injected"] or \
+                health != (200, {"ok": True}) or not same or not all(same):
+            bad["chaos"] = row["chaos"]
+    finally:
+        srv.close()
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    if bad:
+        raise AssertionError(f"overload: {bad}")
+    return row
+
+
+def make_photos(n: int, seed: int, side: int = 1024) -> list[bytes]:
+    """``n`` distinct seeded 4:3 JPEGs ``side`` px wide (quality 90): smooth
+    colour fields (each channel a sine along y, x or x + y) plus noise cut
+    from one seeded field at a per-image offset; encoded on 8 threads."""
+    from PIL import Image
+
+    h, w = side * 3 // 4, side
+    rs = np.random.RandomState(seed)
+    noise = rs.normal(0, 12, (2 * h, 2 * w, 3)).astype(np.float32)
+    params = rs.uniform(0.5, 3.0, (n, 3))
+    offsets = rs.randint(0, h, (n, 2))
+    y, x, xy = np.arange(h)[:, None], np.arange(w)[None, :], np.arange(h + w)
+
+    def one(i: int) -> bytes:
+        f = params[i]
+        r = 127 + 120 * np.sin(f[0] * y / h * math.pi + i)
+        g = 127 + 120 * np.cos(f[1] * x / w * math.pi)
+        b = (127 + 120 * np.sin(f[2] * xy / (h + w) * math.pi))[y + x]
+        img = np.stack(np.broadcast_arrays(r, g, b), -1)
+        oy, ox = offsets[i]
+        img = np.clip(img + noise[oy:oy + h, ox:ox + w], 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", quality=90)
+        return buf.getvalue()
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, range(n)))
+
+
+def sweep_overload() -> None:
+    """The flood of ``overload`` (256 distinct JPEGs, 32 connections,
+    ``X-Deadline-Ms: 100``) on a fresh overload server per (pipeline depth,
+    assembly window cap, images): the seeded JPEGs of the main paths (≤ 512
+    px) or 1024-px photos (decoded at half scale). Each server takes the
+    flood twice, 2 s apart, with fresh images. Every ladder observation's
+    queue fraction and level are recorded; one line per flood: answers,
+    levels seen, the highest, reroutes, deadline sheds at the lease and at
+    the seal, and the fraction's quantiles and tail shares."""
+    from tensorflow_web_deploy_tpu_torch.server import start_server
+    from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
+
+    mcs = tuple(model_config(spec) for spec in OVERLOAD_MODELS)
+    images = {"jpegs": [make_jpegs(FLOOD_IMAGES, SEED + 10 + k) for k in range(2)],
+              "photos": [make_photos(FLOOD_IMAGES, SEED + 20 + k) for k in range(2)]}
+    for depth, window in ((4, 2.0), (1, 20.0)):
+        for kind, sets in images.items():
+            cfg = ServerConfig(model=mcs[0], models=mcs, host="127.0.0.1", port=0,
+                               canvas_buckets=REGISTRY_BUCKETS, ragged=True, resize="gather",
+                               pipeline_depth=depth, max_delay_ms=window, **OVERLOAD)
+            with start_server(cfg, device="cuda", seed=SEED) as srv:
+                app, seen = srv.app, []
+                observe = app.pressure.observe_pressure
+
+                def recording(frac, now=None, _observe=observe):
+                    level = _observe(frac, now)
+                    seen.append((frac, level))
+                    return level
+
+                app.pressure.observe_pressure = recording
+                for k, jpegs in enumerate(sets):
+                    if k:
+                        time.sleep(2.0)
+                    seen.clear()
+                    b0 = serving_batchers(srv)
+                    r0 = app.pressure.stats()["quant_reroutes"]
+                    t0 = time.perf_counter()
+                    flood = fan_out(srv.port, jpegs, FLOOD_CONNS, f"/predict?model={BF16_MODEL}",
+                                    {"X-Deadline-Ms": str(FLOOD_DEADLINE_MS)})
+                    wall = time.perf_counter() - t0
+                    b1 = serving_batchers(srv)
+                    fr = np.array([f for f, _ in seen])
+                    levels = Counter(lv for _, lv in seen)
+                    emit({"phase": "overload_sweep", "pipeline_depth": depth,
+                          "max_delay_ms": window, "images": kind, "flood": k,
+                          "wall_ms": wall * 1e3, "answers": dict(Counter(
+                              f"{r['status']} {r['doc'].get('model') or r['doc'].get('reason')}"
+                              for r in flood)),
+                          "levels_seen": {str(lv): n for lv, n in sorted(levels.items())},
+                          "max_level": max(levels),
+                          "quant_reroutes": app.pressure.stats()["quant_reroutes"] - r0,
+                          "sheds": {n: [b1[n][key] - b0[n][key] for key in (
+                              "deadline_sheds_total", "deadline_seal_sheds_total",
+                              "backlog_rejects")] for n in b1},
+                          "observations": len(fr),
+                          "frac_p10_p50_p90": [float(np.percentile(fr, q)) for q in (10, 50, 90)],
+                          "frac_at_least": {str(x): float((fr >= x).mean())
+                                            for x in (0.30, 0.50, 0.70, 0.95)},
+                          "nvidia_smi": nvidia_smi()})
+
+
+def serving_batchers(srv) -> dict:
+    return {mv.name: mv.batcher.stats() for mv in srv.registry.serving_entries()}
+
+
+def walk_down(app, client: KeepAlive, path: str, jpegs: list[bytes]) -> int:
+    """Requests one dwell apart until the ladder is back at level 0 (each
+    request is one step); how many it took, at most 20."""
+    n = 0
+    while app.pressure.level and n < 20:
+        time.sleep(OVERLOAD["pressure_dwell_s"] * 1.2)
+        client.exchange("POST", path, jpegs[n % len(jpegs)])
+        n += 1
+    return n
+
+
+def latency_of(records: list[dict]) -> dict:
+    lat = [r["ms"] for r in records]
+    if not lat:
+        return {"n": 0}
+    return {"n": len(lat), "p50": float(np.percentile(lat, 50)),
+            "p99": float(np.percentile(lat, 99))}
+
+
 def main(argv: list[str]) -> int:
-    sweeps = ("--sweep-fused-dw", "--sweep-preprocess")
+    sweeps = ("--sweep-fused-dw", "--sweep-preprocess", "--sweep-overload")
     if not (argv == [] or (len(argv) == 1 and argv[0] in sweeps)):
         print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)}], not {argv}",
               file=sys.stderr)
@@ -2362,6 +2918,9 @@ def main(argv: list[str]) -> int:
         emit({"phase": "kernel_check", "max_abs_err": phase_kernel(gen)})
         sweep_preprocess(gen)
         return 0
+    if argv == ["--sweep-overload"]:
+        sweep_overload()
+        return 0
     kern_err = phase_kernel(gen)
     dw = phase_fused_dw_kernel(gen, dw_layer_shapes())
     jpegs = make_jpegs(24, SEED)
@@ -2385,8 +2944,10 @@ def main(argv: list[str]) -> int:
     phase_default_server(jpegs)
     registry = phase_registry(jpegs)
     phase_sigterm(jpegs)
+    overload = phase_overload(jpegs)
     by_path = {p["path"]: p["kernel_launches"] for p in (inception, mobilenet, *ragged)}
     by_path["registry"] = registry["kernel_launches"]
+    by_path["overload"] = overload["kernel_launches"]
     emit({"kernels": [{
         "name": "preprocess_i420",
         "route": "cuda",

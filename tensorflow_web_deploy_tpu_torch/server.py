@@ -6,6 +6,9 @@
         [--dtype bf16|f32|int8] [--fused-dw auto|on|off] [--device cuda|cpu]
         [--pipeline-depth 4] [--max-queue 0] [--no-adaptive-delay] [--lease-timeout-s 10]
         [--http-workers 16] [--keepalive-timeout-s 15] [--aot-cache-dir DIR]
+        [--cache-bytes 268435456] [--slo-classes interactive=1000,batch=10000]
+        [--tenant-quota alice=50,*=100] [--tenant-burst-s 1]
+        [--pressure-rungs 0.60:0.40,0.80:0.60,0.95:0.75] [--chaos SPEC]
     curl -X POST --data-binary @cat.jpg http://localhost:8500/predict?model=mobilenet_v2_int8
     curl -X POST -d '{"name": "inception_v3", "wait": true}' http://localhost:8500/models/swap
     kill -TERM <pid>    # drains every model and exits 0
@@ -23,6 +26,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
 import signal
 import sys
 import threading
@@ -167,6 +171,28 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="kernel build cache: warmup loads the verified kernel libraries "
                         "built before from this directory instead of running nvcc "
                         "(default: the package's .build/); '0' or empty disables")
+    p.add_argument("--cache-bytes", type=int, default=256 << 20,
+                   help="byte budget of the content-addressed response cache (decoded-pixel "
+                        "digest keys, single-flight dedup of concurrent identical requests, "
+                        "entries dropped when their version retires); 0 disables")
+    p.add_argument("--slo-classes", default="interactive=1000,batch=10000",
+                   metavar="NAME=MS,...",
+                   help="SLO class -> default deadline in ms; a request picks a class with "
+                        "?slo= or X-SLO and may tighten it with X-Deadline-Ms / ?deadline_ms=")
+    p.add_argument("--tenant-quota", default="", metavar="TENANT=RATE,...",
+                   help="per-tenant admission quotas in images/s keyed by X-Tenant ('*' sets "
+                        "the default for unlisted tenants; empty/0 = unlimited); 429 past it")
+    p.add_argument("--tenant-burst-s", type=float, default=1.0,
+                   help="token-bucket depth in seconds of quota")
+    p.add_argument("--pressure-rungs", default="0.60:0.40,0.80:0.60,0.95:0.75",
+                   metavar="ENTER:EXIT,...",
+                   help="degradation-ladder thresholds as queue fractions. 3 rungs (the "
+                        "default): 1 clamps topk, 2 takes the smallest canvas bucket, 3 sheds "
+                        "cache-miss work. 4 rungs: rung 3 instead reroutes to a loaded int8 "
+                        "variant of the same model (,dtype=int8,as=…) and rung 4 sheds")
+    p.add_argument("--chaos", default=os.environ.get("TWD_CHAOS") or None, metavar="SPEC",
+                   help="fault-injection spec for drills, e.g. 'decode_fail=0.05,"
+                        "dispatch_fail=0.02,slow_replica=0.1:50,seed=7' (default: $TWD_CHAOS)")
     p.add_argument("--no-warmup", action="store_true",
                    help="capture no CUDA graphs: every batch runs eagerly")
     p.add_argument("--log-level", default="INFO")
@@ -201,7 +227,10 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
         lease_timeout_s=args.lease_timeout_s, http_workers=args.http_workers,
         keepalive_timeout_s=args.keepalive_timeout_s, wire_format=args.wire_format,
         resize=args.resize, ragged=args.ragged, warmup=not args.no_warmup,
-        aot_cache_dir=args.aot_cache_dir, **kw,
+        aot_cache_dir=args.aot_cache_dir, cache_bytes=args.cache_bytes,
+        slo_classes=args.slo_classes, tenant_quota=args.tenant_quota,
+        tenant_burst_s=args.tenant_burst_s, pressure_rungs=args.pressure_rungs,
+        chaos=args.chaos, **kw,
     )
 
 

@@ -41,8 +41,19 @@ force-expired lessee may still be writing into its row while its batch
 runs: the row ships as a hole, its future has failed, and the slab returns
 to the engine's pool only once that thread resolves its lease.
 
-Left out of the reference: the bulk traffic class, tenant/deadline/chaos
-admission, spans and rolling statistics, replica routing.
+**Overload admission.** A lease sheds in the reference's order, before
+any decode or device time: the backlog at ``max_queue`` (:class:`BacklogFull`),
+the tenant's token bucket (``admission``, :class:`~.overload.QuotaExceeded`),
+then the request's deadline against the expected wait (backlog ÷ the
+drain rate + the live window + the device-time EMA of
+:class:`~..utils.metrics.RollingStats`), checked only with a backlog, so
+an idle server never sheds on an estimate of nothing
+(:class:`~.overload.DeadlineExceeded`). At seal a committed row whose
+deadline passed becomes a hole and its future fails. ``chaos`` injects
+dispatch failures in the launch and straggling fetches in the completion
+threads.
+
+Left out of the reference: the bulk traffic class, spans, replica routing.
 """
 
 from __future__ import annotations
@@ -56,6 +67,10 @@ from collections import deque
 from concurrent.futures import Future
 
 import numpy as np
+
+from ..utils.metrics import RollingStats
+from .chaos import ChaosError
+from .overload import DEFAULT_TENANT, DeadlineExceeded, QuotaExceeded
 
 log = logging.getLogger("tpu_serve_torch.batcher")
 
@@ -91,9 +106,10 @@ class SlotLease:
     indices) row arrives on ``future``."""
 
     __slots__ = ("_batcher", "builder", "index", "future", "state", "leased_at", "row",
-                 "slab_held")
+                 "slab_held", "deadline", "tenant")
 
-    def __init__(self, batcher: Batcher, builder: _Builder, index: int, row: np.ndarray):
+    def __init__(self, batcher: Batcher, builder: _Builder, index: int, row: np.ndarray,
+                 deadline: float | None = None, tenant: str | None = None):
         self._batcher = batcher
         self.builder = builder
         self.index = index
@@ -102,6 +118,9 @@ class SlotLease:
         self.leased_at = time.monotonic()
         self.row = row
         self.slab_held = True
+        # the monotonic deadline the sealer re-checks (None: no SLO)
+        self.deadline = deadline
+        self.tenant = tenant
 
     def commit(self, hw: tuple[int, int], canvas: np.ndarray | None = None) -> Future:
         """The slot holds an image of valid size ``hw``: decoded into
@@ -137,8 +156,11 @@ class _Builder:
 class Batcher:
     def __init__(self, engine, max_batch: int | None = None, max_delay_ms: float = 2.0,
                  pipeline_depth: int = 4, adaptive_delay: bool = True, max_queue: int = 0,
-                 lease_timeout_s: float = 10.0):
+                 lease_timeout_s: float = 10.0, admission=None, chaos=None):
         self.engine = engine
+        # the registry's shared tenant quotas and fault injector (None: off)
+        self.admission = admission
+        self.chaos = chaos
         # never more than the engine's top batch bucket
         self.max_batch = min(max_batch or engine.max_batch, engine.max_batch)
         self.max_delay_s = max_delay_ms / 1e3
@@ -176,7 +198,9 @@ class Batcher:
         self._sealed = self._discarded = 0
         self._holes = self._lease_timeouts = self._rejects = 0
         self._host_copies = 0
-        self._drained: deque = deque(maxlen=64)  # (t_done, rows): the Retry-After rate
+        self._deadline_sheds = self._deadline_seal_sheds = self._quota_sheds = 0
+        # resolved rows: the drain rate and device time admission reads
+        self.rolling = RollingStats()
         self._batch_seq = 0
         self._timeline: deque = deque(maxlen=512)
 
@@ -233,19 +257,41 @@ class Batcher:
 
     def _retry_after_locked(self) -> float:
         """Backlog over the recent drain rate, clamped to [1, 30] s."""
-        if len(self._drained) < 2:
-            return 1.0
-        span = time.monotonic() - self._drained[0][0]
-        rate = sum(n for _, n in self._drained) / span if span > 0 else 0.0
+        rate = self.rolling.rate_hint()
         if rate <= 0:
             return 1.0
         return min(30.0, max(1.0, math.ceil(self._pending_slots / rate)))
 
-    def _admit_locked(self) -> None:
+    def _expected_wait_locked(self) -> float:
+        """How long a slot leased now waits for its answer: backlog ÷ the
+        drain rate (0 before there is a rate) + the live window + device
+        time per row."""
+        rate = self.rolling.rate_hint()
+        backlog_s = self._pending_slots / rate if rate > 0 else 0.0
+        return backlog_s + self._delay_s + self.rolling.device_hint()
+
+    def _admit_locked(self, t0: float, deadline: float | None, tenant: str | None) -> None:
+        """Shed in the order backlog → quota → deadline, then block at the
+        outstanding-slot cap."""
         if self.max_queue and self._running and self._pending_slots >= self.max_queue:
             self._rejects += 1
             raise BacklogFull(f"batcher backlog {self._pending_slots} images ≥ max_queue "
                               f"{self.max_queue}", retry_after_s=self._retry_after_locked())
+        if self.admission is not None and self._running and not self.admission.try_charge(
+                tenant):
+            self._quota_sheds += 1
+            raise QuotaExceeded(f"tenant {tenant or DEFAULT_TENANT!r} quota exhausted",
+                                tenant=tenant or DEFAULT_TENANT,
+                                retry_after_s=self.admission.retry_after(tenant))
+        # with no backlog the estimate is all device EMA: never shed on it
+        if deadline is not None and self._running and self._pending_slots > 0:
+            wait = self._expected_wait_locked()
+            if t0 + wait > deadline:
+                self._deadline_sheds += 1
+                raise DeadlineExceeded(
+                    f"deadline in {max(0.0, deadline - t0) * 1e3:.0f} ms but expected wait "
+                    f"is {wait * 1e3:.0f} ms", expected_wait_s=wait,
+                    retry_after_s=self._retry_after_locked())
         while self._running and self._pending_slots >= self._max_pending:
             self._cond.wait(timeout=0.25)
         if not self._running:
@@ -257,8 +303,9 @@ class Batcher:
         self._open[key] = b
         return b
 
-    def _add_lease_locked(self, b: _Builder, index: int, row: np.ndarray) -> SlotLease:
-        lease = SlotLease(self, b, index, row)
+    def _add_lease_locked(self, b: _Builder, index: int, row: np.ndarray,
+                          deadline: float | None, tenant: str | None) -> SlotLease:
+        lease = SlotLease(self, b, index, row, deadline, tenant)
         b.leases.append(lease)
         b.n_pending += 1
         self._pending_slots += 1
@@ -268,30 +315,36 @@ class Batcher:
         self._cond.notify_all()  # the sealer: a new deadline or a full builder
         return lease
 
-    def lease(self, row_shape: tuple[int, ...]) -> SlotLease:
+    def lease(self, row_shape: tuple[int, ...], deadline: float | None = None,
+              tenant: str | None = None) -> SlotLease:
         """A slot for one classic-wire canvas of ``row_shape`` (the engine's
         ``canvas_shape(1, s)[1:]``) in the open builder of its canvas side.
-        Raises :class:`BacklogFull` or :class:`ShuttingDown`; blocks at the
-        outstanding-slot cap."""
+        ``deadline`` (monotonic) and ``tenant`` go through admission. Raises
+        :class:`BacklogFull`, :class:`~.overload.QuotaExceeded`,
+        :class:`~.overload.DeadlineExceeded` or :class:`ShuttingDown`; blocks
+        at the outstanding-slot cap."""
         key = tuple(int(d) for d in row_shape)
+        t0 = time.monotonic()
         with self._cond:
-            self._admit_locked()
+            self._admit_locked(t0, deadline, tenant)
             b = self._open.get(key)
             if b is None:
                 # the canvas side: (s, s, 3) on rgb, (3s/2, s) on yuv420
                 b = self._new_builder_locked(key, self.engine.acquire_staging(key[1]))
             i = len(b.leases)
-            return self._add_lease_locked(b, i, b.slab.row(i))
+            return self._add_lease_locked(b, i, b.slab.row(i), deadline, tenant)
 
-    def lease_ragged(self, need_bytes: int, s: int) -> SlotLease:
+    def lease_ragged(self, need_bytes: int, s: int, deadline: float | None = None,
+                     tenant: str | None = None) -> SlotLease:
         """``need_bytes`` (one image's h·w·3) of the open ragged arena of
         canvas side ``s``; an arena that cannot fit them seals, and a fresh
         one opens. Admission as :meth:`lease`."""
         key = ("ragged", int(s))
         if need_bytes > s * s * 3:
             raise ValueError(f"ragged lease of {need_bytes} B exceeds one {s}px canvas row")
+        t0 = time.monotonic()
         with self._cond:
-            self._admit_locked()
+            self._admit_locked(t0, deadline, tenant)
             b = self._open.get(key)
             if b is None:
                 b = self._new_builder_locked(key, self.engine.acquire_ragged(s))
@@ -300,24 +353,27 @@ class Batcher:
                 self._close_builder_locked(b)
                 b = self._new_builder_locked(key, self.engine.acquire_ragged(s))
                 got = b.slab.alloc(need_bytes)
-            return self._add_lease_locked(b, *got)
+            return self._add_lease_locked(b, *got, deadline, tenant)
 
-    def submit(self, canvas: np.ndarray, hw: tuple[int, int]) -> Future:
+    def submit(self, canvas: np.ndarray, hw: tuple[int, int], deadline: float | None = None,
+               tenant: str | None = None) -> Future:
         """Queue one decoded wire canvas (one copy into its slot); the
-        future resolves to its row."""
+        future resolves to its row. Admission sheds raise as from
+        :meth:`lease`."""
         try:
-            lease = self.lease(canvas.shape)
+            lease = self.lease(canvas.shape, deadline, tenant)
         except ShuttingDown as e:
             f: Future = Future()
             f.set_exception(e)
             return f
         return lease.commit(hw, canvas=canvas)
 
-    def submit_ragged(self, tight: np.ndarray, hw: tuple[int, int], s: int) -> Future:
+    def submit_ragged(self, tight: np.ndarray, hw: tuple[int, int], s: int,
+                      deadline: float | None = None, tenant: str | None = None) -> Future:
         """Queue one tight image (uint8 [h, w, 3]) of canvas side ``s`` for
         the ragged wire; the future resolves to its row."""
         try:
-            lease = self.lease_ragged(tight.nbytes, s)
+            lease = self.lease_ragged(tight.nbytes, s, deadline, tenant)
         except ShuttingDown as e:
             f: Future = Future()
             f.set_exception(e)
@@ -405,6 +461,29 @@ class Batcher:
         if expired:
             self._cond.notify_all()  # freed cap slots wake lease() waiters now
 
+    def _shed_dead_rows_locked(self, b: _Builder, now: float) -> None:
+        """Committed rows whose deadline passed while they waited become
+        holes before the batch takes a depth slot; each future fails with
+        :class:`~.overload.DeadlineExceeded` (HTTP: 504 at once, not after
+        device time nobody reads)."""
+        shed = False
+        for lease in b.leases:
+            if lease.state == _READY and lease.deadline is not None and now > lease.deadline:
+                lease.state = _HOLE
+                b.n_ready -= 1
+                self._pending_slots -= 1
+                self._holes += 1
+                self._deadline_seal_sheds += 1
+                shed = True
+                try:
+                    lease.future.set_exception(DeadlineExceeded(
+                        "deadline passed while the request waited for dispatch",
+                        retry_after_s=self._retry_after_locked()))
+                except Exception:
+                    pass  # the caller gave up on it already
+        if shed:
+            self._cond.notify_all()  # freed cap slots wake lease() waiters now
+
     def _pick_action_locked(self, now: float):
         """("dispatch" | "discard", builder) for one sealer wakeup, or None
         to wait. A dispatch has taken its pipeline-depth slot."""
@@ -421,6 +500,7 @@ class Batcher:
         for b in self._closing:
             if b.n_pending:
                 continue  # a lessee is still decoding; bounded by expiry
+            self._shed_dead_rows_locked(b, now)
             if b.n_ready == 0:
                 self._closing.remove(b)
                 b.dispatched = True
@@ -507,6 +587,9 @@ class Batcher:
         the engine's dispatch (H2D, serve enqueue, async D2H)."""
         rec["t_launch"] = time.monotonic()
         try:
+            if self.chaos is not None and self.chaos.dispatch_fault():
+                # inside the try: the organic failed-dispatch path below
+                raise ChaosError("chaos: injected dispatch failure")
             n = max(lease.index for lease in ready) + 1
             for lease in b.leases:
                 if lease.state == _HOLE and lease.index < n:
@@ -523,6 +606,9 @@ class Batcher:
             return
         rec["t_launched"] = time.monotonic()
         rec["bucket"] = self.engine.pick_batch_bucket(n)
+        # a batch that ran eagerly pays one-time costs: keep its time out of
+        # the device EMA that deadline admission reads
+        rec["replay"] = getattr(handle, "replay", True)
         self._done_q.put((ready, handle, rec))
 
     def _fetch_loop(self) -> None:
@@ -531,6 +617,10 @@ class Batcher:
             if item is None:
                 return
             ready, handle, rec = item
+            if self.chaos is not None:
+                delay = self.chaos.fetch_delay()  # a straggling device holds its depth slot
+                if delay > 0:
+                    time.sleep(delay)
             try:
                 scores, idx = self.engine.fetch_outputs(handle)
             except Exception as e:
@@ -540,21 +630,41 @@ class Batcher:
                 self._batch_done(rec["key"])
                 continue
             rec["t_done"] = now = time.monotonic()
+            t_launch = rec["t_launch"]
+            device_s = now - t_launch if rec["replay"] else None
             for lease in ready:
-                if not lease.future.done():  # not cancelled by a caller that gave up
+                try:
                     lease.future.set_result((scores[lease.index], idx[lease.index]))
+                except Exception:
+                    pass  # cancelled by a caller that gave up
+                self.rolling.record(latency_s=now - lease.leased_at,
+                                    queue_s=t_launch - lease.leased_at, device_s=device_s,
+                                    batch_size=len(ready))
             with self._cond:
                 self.batches += 1
                 self.images += len(ready)
-                self._drained.append((now, len(ready)))
             self._batch_done(rec["key"])
 
     def _fail(self, leases: list[SlotLease], e: Exception) -> None:
         for lease in leases:
-            if not lease.future.done():
+            try:
                 lease.future.set_exception(e)
+            except Exception:
+                pass  # resolved or cancelled already
+            self.rolling.record_error()
 
     # ------------------------------------------------------------ telemetry
+
+    @property
+    def queue_depth(self) -> int:
+        """Leased slots not yet handed off: the backlog the ladder reads."""
+        return self._pending_slots
+
+    @property
+    def queue_cap(self) -> int:
+        """The backlog the ladder's queue fraction is taken against:
+        ``max_queue``, else the outstanding-slot cap."""
+        return self.max_queue or self._max_pending
 
     def batch_timeline(self) -> list[dict]:
         """The recent batches' lifecycle on the monotonic clock: builder
@@ -583,5 +693,9 @@ class Batcher:
                 "lease_timeouts": self._lease_timeouts,
                 "max_queue": self.max_queue,
                 "backlog_rejects": self._rejects,
+                "quota_sheds_total": self._quota_sheds,
+                "deadline_sheds_total": self._deadline_sheds,
+                "deadline_seal_sheds_total": self._deadline_seal_sheds,
                 "host_copies": self._host_copies,
+                "rolling": self.rolling.snapshot(),
             }

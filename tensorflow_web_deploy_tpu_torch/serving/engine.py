@@ -268,6 +268,9 @@ class BatchHandle:
     # CUDA: timing events of the copy (copy stream) and of the serve
     # function (compute stream): H2D start, H2D end, compute start, end
     events: tuple[torch.cuda.Event, ...] = ()
+    # ran through its (canvas, batch) bucket's executable: on the card a
+    # graph replay, not an eager run that pays one-time costs
+    replay: bool = False
 
 
 @dataclass
@@ -672,6 +675,7 @@ class InferenceEngine:
                     events[3].record()
                 handle = self._fetchable(out, n)
         handle.events = events
+        handle.replay = exe is not None
         with self._lock:
             self.batches += 1
             self.images += n

@@ -23,8 +23,21 @@ HTTP/1.1 keep-alive front end (counterpart of the JAX package's
   header, given a leased batch slot, and decoded by libjpeg straight into
   that slot's pinned memory; anything else is decoded by PIL and copied
   in. An undecodable file answers 400 and releases the request's other
-  slots (they ship as holes); a full backlog answers 503 with
-  ``Retry-After``.
+  slots (they ship as holes).
+- **Response cache** (``serving/respcache.py``). The digest of what the
+  device would read is looked up after the decode: a hit or a wait on
+  another request's in-flight computation releases the slot as a hole,
+  a miss leads the computation and publishes its answer. Single-image
+  answers carry ``ETag`` and honor ``If-None-Match`` with 304; with the
+  cache on, ``X-Cache`` says ``hit``, ``miss`` or ``coalesced``.
+- **Overload control** (``serving/overload.py``). ``X-Tenant`` picks a
+  token bucket (429), ``X-SLO``/``?slo=`` and ``X-Deadline-Ms``/
+  ``?deadline_ms=`` a deadline (504 when the batcher's expected wait cannot
+  meet it, at the lease or at the seal), a full backlog answers 503; every
+  shed carries a JSON ``reason`` and ``Retry-After``. One ladder step per
+  request on the resolved version's queue: top-k clamped to 1, then the
+  smallest canvas bucket, then (four rungs) a reroute to the int8 variant
+  of the same network, then cache misses shed with 503 ``degraded``.
 
 Routes:
     POST /predict       image (raw body or multipart/form-data) → JSON
@@ -34,7 +47,10 @@ Routes:
                         read). One image answers ``{"predictions": [{"label",
                         "index", "score"}], "model", "model_version"}``;
                         several file parts, or ``?batch=1``, answer
-                        ``{"results": [...], ...}`` in upload order.
+                        ``{"results": [...], ...}`` in upload order (at most
+                        the batcher's ``max_batch``, else 413). Headers in:
+                        ``If-None-Match``, ``X-Tenant``, ``X-SLO``,
+                        ``X-Deadline-Ms``; out: ``ETag``, ``X-Cache``.
     GET  /healthz       one-image device round trip on the default model
     GET  /models        the registry: default model, every version's state,
                         transition history and counters
@@ -48,7 +64,9 @@ Routes:
                         ``graphs`` with the process's device memory,
                         ``aot_cache``, ``warmup_s``), ``models`` (each
                         version's batcher and engine counters under its
-                        name), ``http`` (keep-alive counters)
+                        name), ``http`` (keep-alive counters), ``cache``,
+                        ``overload`` (``admission``, ``pressure``,
+                        ``chaos``)
     GET  /              the upload page
 
 The admin routes are as open as the rest of the surface: deploy behind
@@ -73,12 +91,32 @@ from socketserver import TCPServer
 from .. import native
 from ..ops.image import decode_image, fit_to_bucket
 from .batcher import BacklogFull, LeaseExpired, ShuttingDown
+from .overload import (
+    DEFAULT_TENANT,
+    SHED_BACKLOG,
+    SHED_DEADLINE,
+    SHED_DEGRADED,
+    SHED_QUOTA,
+    DeadlineExceeded,
+    Degraded,
+    QuotaExceeded,
+    build_pressure,
+    parse_slo_classes,
+)
 from .registry import FAILED, ModelNotServing, ModelRegistry, UnknownModel
+from .respcache import ResponseCache, canvas_digest, make_key, packed_digest, payload_etag
 
 log = logging.getLogger("tpu_serve_torch.http")
 
 # /predict and admin body cap: larger uploads get 413 before the body is read
 MAX_BODY_MB = 32
+# a classic-wire slot row ends in the image's big-endian (h, w) trailer
+TRAILER_BYTES = 4
+
+
+class _CoalesceRetry(Exception):
+    """A request's coalesced flight aborted (its version retired, or its
+    leader failed): the request re-resolves its model and retries once."""
 
 _DEMO_PAGE = """<!doctype html>
 <title>tpu-serve</title>
@@ -187,10 +225,27 @@ def _qs_last(qs: dict[str, list[str]], key: str) -> str | None:
     return vals[-1] if vals else None
 
 
-_STATUS = {200: "200 OK", 202: "202 Accepted", 400: "400 Bad Request", 404: "404 Not Found",
-           405: "405 Method Not Allowed", 408: "408 Request Timeout", 409: "409 Conflict",
-           413: "413 Content Too Large", 500: "500 Internal Server Error",
-           503: "503 Service Unavailable", 504: "504 Gateway Timeout"}
+def _etag_matches(inm: str | None, etag: str) -> bool:
+    """RFC 9110 ``If-None-Match``: ``*``, or any listed entity-tag equal to
+    ``etag`` under the weak comparison (a ``W/`` prefix is ignored)."""
+    if not inm:
+        return False
+    if inm.strip() == "*":
+        return True
+    for tok in inm.split(","):
+        tok = tok.strip()
+        if tok[:2] in ("W/", "w/"):
+            tok = tok[2:].strip()
+        if tok.strip('"') == etag:
+            return True
+    return False
+
+
+_STATUS = {200: "200 OK", 202: "202 Accepted", 304: "304 Not Modified", 400: "400 Bad Request",
+           404: "404 Not Found", 405: "405 Method Not Allowed", 408: "408 Request Timeout",
+           409: "409 Conflict", 413: "413 Content Too Large", 429: "429 Too Many Requests",
+           500: "500 Internal Server Error", 503: "503 Service Unavailable",
+           504: "504 Gateway Timeout"}
 
 
 def _json(code: int, obj, headers: list | None = None) -> tuple:
@@ -211,6 +266,16 @@ class App:
         self.registry = registry
         self.cfg = server_cfg
         self.http_counters = None  # attached by make_http_server
+        # the response cache (0 bytes: off, its block still in /stats); a
+        # version's entries go the moment it enters DRAINING
+        self.cache = ResponseCache(server_cfg.cache_bytes)
+        registry.add_retire_listener(self.cache.invalidate)
+        # the registry's admission and chaos, shared with every batcher; the
+        # ladder and the SLO classes are the front end's
+        self.admission = registry.admission
+        self.chaos = registry.chaos
+        self.pressure = build_pressure(server_cfg)
+        self.slo_classes = parse_slo_classes(server_cfg.slo_classes)
 
     # The default model's serving unit, resolved on every read so that a
     # hot swap of the default model retargets /healthz and /stats.
@@ -280,6 +345,11 @@ class App:
         snap["models"] = self.registry.models_snapshot()
         if self.http_counters is not None:
             snap["http"] = self.http_counters.snapshot()
+        snap["cache"] = self.cache.stats()
+        snap["overload"] = {"admission": self.admission.stats(),
+                            "pressure": self.pressure.stats()}
+        if self.chaos is not None:
+            snap["overload"]["chaos"] = self.chaos.stats()
         return snap
 
     def _admin_models(self, environ, method: str, path: str):
@@ -354,16 +424,41 @@ class App:
         return None if len(body) > cap else body
 
     def _predict(self, environ):
+        t0 = time.monotonic()
         qs = urllib.parse.parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True)
-        # Resolve the model first, before the body is read, and hold an
-        # in-flight reference: a swap started mid-request drains the old
-        # version only after this reference drops.
+        # Tenant, SLO class and deadline come first: a malformed deadline
+        # answers 400 before the body is read. The client's deadline counts
+        # from receipt (its budget includes the upload); only a request that
+        # names a class or a deadline is bounded by one.
+        tenant = (environ.get("HTTP_X_TENANT") or "").strip()[:64] or DEFAULT_TENANT
+        raw_slo = (_qs_last(qs, "slo") or environ.get("HTTP_X_SLO") or "").strip()
+        slo_class = raw_slo or "interactive"
+        raw_deadline = _qs_last(qs, "deadline_ms") or environ.get("HTTP_X_DEADLINE_MS")
         try:
-            mv = self.registry.acquire(_qs_last(qs, "model"))
-        except UnknownModel as e:
-            return _error(404, str(e.args[0] if e.args else e))
-        except ModelNotServing as e:
-            return _error(503, str(e))
+            deadline_ms = float(raw_deadline) if raw_deadline else None
+        except ValueError:
+            return _error(400, "deadline_ms must be a number")
+        explicit = deadline_ms is not None and deadline_ms > 0
+        if not explicit:
+            deadline_ms = 1e3 * self.slo_classes.get(slo_class,
+                                                     self.slo_classes.get("interactive", 1.0))
+        slo_deadline = t0 + deadline_ms / 1e3 if (explicit or raw_slo) else None
+        spec = _qs_last(qs, "model")
+
+        def resolve():
+            try:
+                return self.registry.acquire(spec), None
+            except UnknownModel as e:
+                return None, _error(404, str(e.args[0] if e.args else e))
+            except ModelNotServing as e:
+                return None, _error(503, str(e))
+
+        # Resolve the model before the body is read, and hold an in-flight
+        # reference: a swap started mid-request drains the old version only
+        # after this reference drops.
+        mv, err = resolve()
+        if err is not None:
+            return err
         try:
             topk_raw = _qs_last(qs, "topk")
             try:
@@ -380,49 +475,166 @@ class App:
                     return _error(400, "no file part in multipart body")
             else:
                 named = [("body", body)]
-            return self._predict_on(mv, named, qs, topk_req)
+            inm = environ.get("HTTP_IF_NONE_MATCH")
+            if self.chaos is not None:  # a load spike, held against the client's deadline
+                hold = self.chaos.spike_delay()
+                if hold > 0.0:
+                    time.sleep(hold)
+            # one bound for both attempts, from after the body read; the
+            # client's deadline tightens it
+            deadline = time.monotonic() + self.cfg.request_timeout_s
+            if slo_deadline is not None:
+                deadline = min(deadline, slo_deadline)
+            last_exc: BaseException | None = None
+            for _attempt in (0, 1):
+                if mv is None:  # the retry re-resolves: the new version after a swap
+                    mv, err = resolve()
+                    if err is not None:
+                        return err
+                try:
+                    res = self._predict_on(mv, named, qs, topk_req, inm, deadline, tenant,
+                                           slo_class, slo_deadline)
+                    if res[0].startswith(("2", "304")):
+                        self.admission.count_admit(tenant, slo_class)
+                    return res
+                except _CoalesceRetry as e:
+                    last_exc = e.__cause__ or e
+                finally:
+                    self.registry.release(mv)
+                    mv = None
+            return _error(503, "coalesced computation aborted twice: "
+                               f"{type(last_exc).__name__}: {last_exc}")
         finally:
-            self.registry.release(mv)
+            if mv is not None:  # an answer before the attempts
+                self.registry.release(mv)
 
-    def _predict_on(self, mv, named: list[tuple[str, bytes]], qs, topk_req: int | None):
-        """The /predict body against one resolved model version: stage every
-        upload into a leased slot, then await the rows. The wait is bounded
-        by ``request_timeout_s`` from here, after the body read."""
+    def _predict_on(self, mv, named: list[tuple[str, bytes]], qs, topk_req: int | None, inm,
+                    deadline: float, tenant: str, slo_class: str, slo_deadline: float | None):
+        """The /predict body against one resolved model version: one ladder
+        step, stage every upload (a cached answer, a wait on another
+        request's flight, or a leased slot of its own), then await the rows
+        until ``deadline``."""
         batcher, engine = mv.batcher, mv.engine
         if batcher is None:
             return _error(503, f"{mv.ref} has no batcher")
         topk = engine.topk if topk_req is None else min(max(topk_req, 0), engine.topk)
-        deadline = time.monotonic() + self.cfg.request_timeout_s
-        leases, staged = [], False
-        try:
-            for name, data in named:
+        # the ladder, one observation per request on this version's queue
+        level = self.pressure.observe_pressure(batcher.queue_depth / batcher.queue_cap)
+        if level >= 1 and topk:
+            topk = min(topk, 1)
+        qlvl = self.pressure.quant_level
+        if qlvl is not None and level >= qlvl:
+            # the int8 variant of the same network answers before anything
+            # is shed; it serves int8 itself, so this recurses once at most
+            alt = self.registry.quant_variant(mv.name)
+            if alt is not None:
                 try:
-                    self._stage(engine, batcher, data, leases)
-                except ValueError as e:
-                    return _error(400, f"{name}: {e}")
-            staged = True
-        except BacklogFull as e:
-            return _error(503, str(e), [("Retry-After", str(max(1, round(e.retry_after_s))))])
-        except ShuttingDown:
-            return _error(503, "server shutting down")
-        finally:
-            if not staged:  # every error: the request's slots become holes
-                for lease in leases:
-                    lease.release()
+                    with self.registry.lease_model(alt.name) as amv:
+                        self.pressure.count_reroute(len(named))
+                        return self._predict_on(amv, named, qs, topk_req, inm, deadline,
+                                                tenant, slo_class, slo_deadline)
+                except (UnknownModel, ModelNotServing):
+                    pass  # the variant retired under us: serve here
+        if len(named) > batcher.max_batch:  # one request's images in one assembly window
+            return _error(413, f"at most {batcher.max_batch} images per request")
+        cache = self.cache if self.cache.enabled else None
+        slots, err = self._stage_leases(mv, named, topk, cache, level, tenant, slo_class,
+                                        slo_deadline)
+        if err is not None:
+            return err
+        payloads: list = [None] * len(slots)
+        etags: list = [None] * len(slots)
+        n_hit = n_wait = 0
         try:
-            rows = [lease.future.result(timeout=max(0.0, deadline - time.monotonic()))
-                    for lease in leases]
-        except (ShuttingDown, LeaseExpired) as e:
-            return _error(503, str(e))
+            # own rows first: a leader publishes its result (waking waiters
+            # of other requests) before this request waits on a flight
+            for i, slot in enumerate(slots):
+                if slot[0] == "done":
+                    n_hit += 1
+                    payloads[i], etags[i] = slot[1], slot[2]
+                elif slot[0] == "own":
+                    _, lease, flight = slot
+                    row = lease.future.result(timeout=max(0.0, deadline - time.monotonic()))
+                    payloads[i] = self._row(mv, row, topk)
+                    if flight is not None:
+                        etags[i] = self.cache.complete(flight, payloads[i])
+            for i, slot in enumerate(slots):
+                if slot[0] != "wait":
+                    continue
+                n_wait += 1
+                try:
+                    payloads[i], etags[i] = slot[1].future.result(
+                        timeout=max(0.0, deadline - time.monotonic()))
+                except FutureTimeout:
+                    raise
+                except BaseException as e:
+                    # the flight aborted (its version retired, or its leader
+                    # failed): _predict retries once as a miss
+                    raise _CoalesceRetry(e) from e
         except FutureTimeout:
-            return _error(504, "inference timed out")
-        payloads = [self._row(mv, r, topk) for r in rows]
+            self._abort_slots(slots, TimeoutError("inference timed out"))
+            return self._shed_response(DeadlineExceeded("inference timed out"), tenant,
+                                       slo_class)
+        except DeadlineExceeded as e:  # shed at seal
+            self._abort_slots(slots, e)
+            return self._shed_response(e, tenant, slo_class)
+        except (ShuttingDown, LeaseExpired) as e:
+            self._abort_slots(slots, e)
+            return _error(503, str(e))
+        except _CoalesceRetry as e:
+            self._abort_slots(slots, e.__cause__ or e)
+            raise
+        except BaseException as e:  # a failed batch: the led flights must not hang
+            self._abort_slots(slots, e)
+            raise
+        headers = []
+        if cache is not None:
+            token = "hit" if n_hit == len(slots) else "coalesced" if n_wait else "miss"
+            if len(slots) > 1:
+                token += f"; hits={n_hit}/{len(slots)}"
+            headers.append(("X-Cache", token))
         if len(payloads) == 1 and _qs_last(qs, "batch") != "1":
-            resp = payloads[0]
+            etag = etags[0] or payload_etag(payloads[0], mv.name, mv.version)
+            headers.append(("ETag", f'"{etag}"'))
+            if _etag_matches(inm, etag):
+                return _STATUS[304], b"", "application/json", headers
+            resp = dict(payloads[0])  # a cached payload is shared: never mutate it
         else:
             resp = {"results": payloads}
         resp.update(model=mv.name, model_version=mv.version)
-        return _json(200, resp)
+        return _json(200, resp, headers)
+
+    _SHED_CODE = {SHED_BACKLOG: 503, SHED_QUOTA: 429, SHED_DEADLINE: 504, SHED_DEGRADED: 503}
+
+    def _shed_response(self, e, tenant: str, slo_class: str):
+        """Every shed answers alike: a JSON ``reason`` and ``retry_after_s``
+        and a ``Retry-After`` header; counted per tenant and class."""
+        if isinstance(e, BacklogFull):
+            reason = SHED_BACKLOG
+        elif isinstance(e, QuotaExceeded):
+            reason = SHED_QUOTA
+        elif isinstance(e, DeadlineExceeded):
+            reason = SHED_DEADLINE
+        else:
+            reason = SHED_DEGRADED
+        retry = float(getattr(e, "retry_after_s", 1.0) or 1.0)
+        self.admission.count_shed(tenant, slo_class, reason)
+        return _json(self._SHED_CODE[reason],
+                     {"error": str(e), "reason": reason, "retry_after_s": round(retry, 1)},
+                     [("Retry-After", str(max(1, int(round(retry)))))])
+
+    def _abort_slots(self, slots: list, exc: BaseException) -> None:
+        """Unwind a request: its own slots become holes (a dispatched row's
+        result is dropped) and its led flights abort, so that their waiters
+        fail over at once. Hits and waits hold nothing of this request's."""
+        for slot in slots:
+            if slot[0] != "own":
+                continue
+            _, lease, flight = slot
+            lease.future.cancel()
+            lease.release()
+            if flight is not None:
+                self.cache.abort(flight, exc)
 
     @staticmethod
     def _row(mv, row, topk: int) -> dict:
@@ -434,47 +646,124 @@ class App:
             for s, i in zip(scores[:topk], idx[:topk])
         ]}
 
-    @staticmethod
-    def _stage(engine, batcher, data: bytes, leases: list) -> None:
-        """Put one upload into a leased, committed slot (appended to
-        ``leases``). A JPEG is planned from its header, its slot leased, and
-        libjpeg decodes it straight into the slot's pinned row; anything
-        else, or a stream the C side rejects, is decoded by PIL and copied
-        in. Raises ValueError if the bytes are no decodable image, and the
-        batcher's BacklogFull or ShuttingDown."""
-        buckets, wire = engine.cfg.canvas_buckets, engine.cfg.wire_format
+    def _stage_leases(self, mv, named: list[tuple[str, bytes]], topk: int, cache, level: int,
+                      tenant: str, slo_class: str, slo_deadline: float | None):
+        """Stage every upload of a request (:meth:`_stage`); ``(slots, None)``
+        or ``(None, error answer)``, the request's slots unwound. Rung 2
+        stages into the smallest canvas bucket."""
+        buckets = mv.engine.cfg.canvas_buckets
+        if level >= 2 and len(buckets) > 1:
+            buckets = buckets[:1]
+        slots: list = []
+        try:
+            for name, data in named:
+                try:
+                    self._stage(mv, data, buckets, topk, cache, level, slo_deadline, tenant,
+                                slots)
+                except ValueError as e:
+                    self._abort_slots(slots, e)
+                    return None, _error(400, f"{name}: {e}")
+        except ShuttingDown as e:
+            self._abort_slots(slots, e)
+            return None, _error(503, "server shutting down")
+        except (BacklogFull, QuotaExceeded, DeadlineExceeded, Degraded) as e:
+            self._abort_slots(slots, e)
+            return None, self._shed_response(e, tenant, slo_class)
+        except BaseException as e:
+            self._abort_slots(slots, e)
+            raise
+        return slots, None
+
+    def _stage(self, mv, data: bytes, buckets, topk: int, cache, level: int,
+               slo_deadline: float | None, tenant: str, slots: list) -> None:
+        """Stage one upload and append its slot to ``slots``. A JPEG is
+        planned from its header, its slot leased (admission sheds raise
+        here) and libjpeg decodes it straight into the slot's pinned row;
+        the digest of what the device would read is then looked up: a hit
+        (``("done", payload, etag)``) or a wait on another request's flight
+        (``("wait", flight)``) releases the slot as a hole, a miss commits
+        it (``("own", lease, flight)``; ``flight`` None without a cache)
+        unless the ladder's last rung sheds it. Anything else, or a
+        stream the C side rejects, is decoded by PIL and looked up before
+        any slot is leased. Raises ValueError if the bytes are no decodable
+        image."""
+        if self.chaos is not None and self.chaos.decode_fault():
+            raise ValueError("cannot decode image (chaos: injected decode failure)")
+        engine, batcher = mv.engine, mv.batcher
+        wire = engine.cfg.wire_format
         if engine.ragged:
             plan = native.plan_decode_packed(data, buckets)
             if plan is not None:
                 s, need, _, _ = plan
-                lease = batcher.lease_ragged(need, s)
-                leases.append(lease)
+                lease = batcher.lease_ragged(need, s, slo_deadline, tenant)
                 hw = native.decode_packed_into(data, lease.row, s)
         else:
             plan = native.plan_decode(data, buckets, wire)
             if plan is not None:
                 s, shape, _ = plan
-                lease = batcher.lease(shape)
-                leases.append(lease)
+                lease = batcher.lease(shape, slo_deadline, tenant)
                 hw = native.decode_into_row(data, lease.row, s, wire, trailer=True)
         if plan is not None:
             if hw is not None:
-                lease.commit(hw)
                 engine.count_decode("native")
+                # the reference's digest bytes: the tight h·w·3 decoded
+                # bytes, or the canvas without the row's 4-byte trailer
+                digest = (packed_digest(lease.row[: hw[0] * hw[1] * 3], hw, s) if engine.ragged
+                          else canvas_digest(lease.row[:-TRAILER_BYTES], hw)
+                          ) if cache is not None else None
+                self._settle(mv, digest, topk, cache, level, slots, lease, hw)
                 return
-            leases.pop().release()  # the header parsed, the stream did not: PIL tries
+            lease.release()  # the header parsed, the stream did not: PIL tries
         try:  # PIL: UnidentifiedImageError is an OSError
             if engine.ragged:
                 canvas, hw, s = fit_to_bucket(decode_image(data), buckets)
+                digest = packed_digest(canvas, hw, s) if cache is not None else None
             else:
                 canvas, hw, _ = native.decode_pil(data, buckets, wire)
+                digest = canvas_digest(canvas, hw) if cache is not None else None
         except (OSError, ValueError) as e:
             raise ValueError(f"cannot decode image: {e}") from e
-        lease = (batcher.lease_ragged(canvas.nbytes, s) if engine.ragged
-                 else batcher.lease(canvas.shape))
-        leases.append(lease)
-        lease.commit(hw, canvas=canvas)
         engine.count_decode("pil")
+
+        def take():
+            lease = (batcher.lease_ragged(canvas.nbytes, s, slo_deadline, tenant)
+                     if engine.ragged else batcher.lease(canvas.shape, slo_deadline, tenant))
+            lease.commit(hw, canvas=canvas)
+            return lease
+
+        self._settle(mv, digest, topk, cache, level, slots, take=take)
+
+    def _settle(self, mv, digest: str | None, topk: int, cache, level: int, slots: list,
+                lease=None, hw=None, take=None) -> None:
+        """One decoded upload's lookup and slot. ``lease`` holds it decoded
+        already, valid size ``hw`` (native); or ``take()`` leases a slot and
+        copies it in, on a miss only (PIL)."""
+        flight = None
+        try:
+            if cache is not None:
+                kind, obj = cache.begin(make_key(mv.name, mv.version, digest, topk,
+                                                 mv.model_cfg.dtype), mv.name)
+                if kind != "lead":
+                    if lease is not None:
+                        lease.release()  # no device work: the slot ships as a hole
+                    slots.append(("done", obj.payload, obj.etag) if kind == "hit"
+                                 else ("wait", obj))
+                    return
+                flight = obj
+            if level >= self.pressure.reject_level:
+                raise Degraded("shedding cache-miss work under overload "
+                               "(degradation reject rung)")
+            if lease is None:
+                lease = take()
+            else:
+                lease.commit(hw)
+        except BaseException as e:
+            if flight is not None:
+                self.cache.abort(flight, e)
+            if lease is not None:
+                lease.release()
+            raise
+        slots.append(("own", lease, flight))
 
 
 # ---------------------------------------------------------------- front end

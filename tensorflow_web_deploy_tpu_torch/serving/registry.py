@@ -38,10 +38,14 @@ warmup (the first captures the CUDA graphs) before it takes a batch. A
 warmup failure there parks the version in FAILED, stops its batcher,
 disposes of its engine and leaves the serving version untouched.
 
-Left for later, each under its ROADMAP item: ``quant_variant`` (7),
-placement (9), ``attach_pipelines`` (15), the admission and chaos hooks
-(7) and the bulk knobs of the batcher (14). The retire and serving
-listeners are here for the response cache (6).
+The registry owns one :class:`~.overload.AdmissionController` (quotas are
+per tenant, not per model) and one :class:`~.chaos.ChaosInjector` and
+hands both to every batcher it builds or adopts; the response cache
+listens for retired versions, and :meth:`ModelRegistry.quant_variant`
+finds the int8 tier the degradation ladder reroutes to.
+
+Left for later, each under its ROADMAP item: placement (9),
+``attach_pipelines`` (15) and the bulk knobs of the batcher (14).
 
 The registry is engine-agnostic through its factory seams: the tests
 drive the whole lifecycle with mock engines.
@@ -59,6 +63,8 @@ from contextlib import contextmanager
 from ..utils.config import model_config
 from ..utils.labels import load_labels
 from . import aotcache
+from .chaos import ChaosInjector
+from .overload import build_admission
 
 log = logging.getLogger("tpu_serve_torch.registry")
 
@@ -177,6 +183,9 @@ class ModelRegistry:
         self._engine_factory = engine_factory or self._build_engine
         self._spec_resolver = spec_resolver or model_config
         self._cond = threading.Condition()
+        # shared by every batcher of the registry and the App
+        self.admission = build_admission(server_cfg)
+        self.chaos = ChaosInjector.from_spec(server_cfg.chaos)
         self._models: dict[str, dict[int, ModelVersion]] = {}
         self._serving: dict[str, ModelVersion] = {}
         self._next_version: dict[str, int] = {}
@@ -210,7 +219,7 @@ class ModelRegistry:
         return Batcher(
             engine, engine.max_batch, cfg.max_delay_ms, pipeline_depth=cfg.pipeline_depth,
             adaptive_delay=cfg.adaptive_delay, max_queue=cfg.max_queue,
-            lease_timeout_s=cfg.lease_timeout_s,
+            lease_timeout_s=cfg.lease_timeout_s, admission=self.admission, chaos=self.chaos,
         ).start(warmup=cfg.warmup)
 
     def _resolve_spec(self, spec):
@@ -223,7 +232,12 @@ class ModelRegistry:
     def adopt(self, name: str, engine, batcher, model_cfg) -> ModelVersion:
         """Register a built, warm engine as SERVING at once (server boot:
         boot builds its engines inline and fails fast; only runtime loads
-        ride the loader thread)."""
+        ride the loader thread). A batcher built elsewhere gets the
+        registry's admission and chaos unless it has its own."""
+        if batcher.admission is None:
+            batcher.admission = self.admission
+        if batcher.chaos is None:
+            batcher.chaos = self.chaos
         labels = load_labels(model_cfg.labels_path, engine.num_classes)
         with self._cond:
             mv = self._new_version_locked(name, model_cfg)
@@ -526,6 +540,24 @@ class ModelRegistry:
             yield mv
         finally:
             self.release(mv)
+
+    def quant_variant(self, name: str) -> ModelVersion | None:
+        """A SERVING int8 variant of model ``name``: another serving entry
+        whose config quantizes the same network (same ``name`` and
+        ``input_size``; every model of the port classifies) at int8. None
+        when ``name`` serves int8 itself or nothing matches. Takes no
+        in-flight reference: the caller acquires the variant by name."""
+        with self._cond:
+            cur = self._serving.get(name)
+            if cur is None or cur.model_cfg.dtype == "int8":
+                return None
+            cfg = cur.model_cfg
+            for vname, mv in self._serving.items():
+                vc = mv.model_cfg
+                if (vname != name and vc.dtype == "int8" and vc.name == cfg.name
+                        and vc.input_size == cfg.input_size):
+                    return mv
+            return None
 
     def default_entry(self) -> ModelVersion | None:
         """The default model's serving version (for /healthz and the

@@ -147,6 +147,27 @@ class ServerConfig:
     # disables it, as in the reference (each process builds with nvcc into
     # a temporary directory); any other value names the directory.
     aot_cache_dir: str | None = None
+    # Response cache (serving/respcache.py): byte budget of the
+    # content-addressed LRU with single-flight dedup; 0 (the dataclass
+    # default, as in the reference) disables it. The CLI's default is 256 MiB.
+    cache_bytes: int = 0
+    # Overload control (serving/overload.py): SLO class → default deadline
+    # in ms (a request names its class with ?slo= or X-SLO and may tighten
+    # it with X-Deadline-Ms / ?deadline_ms=)
+    slo_classes: str = "interactive=1000,batch=10000"
+    # per-tenant token buckets in images/s keyed by X-Tenant ("*": unlisted
+    # tenants; empty or 0: unlimited), their depth in seconds of quota, and
+    # the tracked-tenant cap past which unknown tenants share "~other"
+    tenant_quota: str = ""
+    tenant_burst_s: float = 1.0
+    tenant_max_tracked: int = 64
+    # the degradation ladder: enter:exit queue fractions per rung (three:
+    # clamp topk, smallest canvas, shed cache misses; four put the int8
+    # reroute before the shedding) and the least seconds between moves
+    pressure_rungs: str = "0.60:0.40,0.80:0.60,0.95:0.75"
+    pressure_dwell_s: float = 0.5
+    # fault-injection spec for drills (serving/chaos.py); None: off
+    chaos: str | None = None
 
     def __post_init__(self):
         # pick_bucket relies on ascending order

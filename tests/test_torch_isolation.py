@@ -80,6 +80,29 @@ def test_port_runs_without_loading_jax():
     assert out.stdout.strip() == "clean"
 
 
+# the response cache and overload control: each is a numpy-only or pure
+# Python module in the JAX package, of which the port keeps its own copy
+OWN_COPIES = ("serving/respcache.py", "serving/overload.py", "serving/chaos.py",
+              "utils/metrics.py")
+
+
+@pytest.mark.parametrize("rel", OWN_COPIES)
+def test_the_ports_own_copies_import_nothing_of_the_jax_package(rel):
+    path = PORT / rel
+    assert path.exists() and path in set(PORT.rglob("*.py"))  # the scans above cover it
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not JAX_PATH.findall(path.read_text())
+    mod = "tensorflow_web_deploy_tpu_torch." + rel[:-3].replace("/", ".")
+    code = (f"import sys, importlib\nimportlib.import_module({mod!r})\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'jaxlib', 'flax', 'tensorflow_web_deploy_tpu')]\n"
+            "assert not bad, bad\nprint('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
     from tensorflow_web_deploy_tpu_torch.utils.config import ModelConfig, ServerConfig
