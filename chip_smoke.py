@@ -68,7 +68,15 @@ fused depthwise kernel's launches counted on it), and a chaos drill on a
 second server whose answers match the faults injected. Every earlier phase
 that counts device work or compares top-k runs with the cache off and a
 ladder that cannot climb (``PINNED``); ``default_server`` runs the CLI's
-defaults and checks its ``X-Cache`` and 304.
+defaults and checks its ``X-Cache`` and 304. ``observability`` serves
+``registry``'s two models with tracing, the access log and a 0.2 s
+telemetry sampler on, drives them with ``tools/loadgen.py`` from a process
+of its own, holds ``/metrics`` to its invariants, reads the MFU and
+roofline fraction of every (canvas, batch) cell against the card's peak
+and the device's idle share from CUDA events, checks the exported
+timeline, a ``torch.profiler`` capture, the telemetry history, a hot swap
+in the event ring and the access log, and reports the hub's and the log's
+overhead.
 
 The preprocess kernel is checked through both of its entries (the
 ``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
@@ -1581,6 +1589,7 @@ def phase_graphs(jpegs: list[bytes]) -> list[dict]:
                    "recorded_launches": {f.__name__: n for f, n in exe.launches.items()},
                    "capture_s_8x512": exe.capture_s, "warmup_s": st["warmup_s"],
                    "graphs": st["graphs"]}
+        del exe  # its graph and output would keep the graph pool alive past close()
         eng.close()
         emit(row)
         if not same:
@@ -2758,6 +2767,350 @@ def phase_overload(jpegs: list[bytes]) -> dict:
         raise AssertionError(f"overload: {bad}")
     return row
 
+# observability: the load generator's seconds and workers (closed loop,
+# from a process of its own), the sampler's interval, one SLO objective,
+# the profiler capture, and the symbols a profile is searched for
+OBS_LOAD_S = 6.0
+OBS_WORKERS = 8
+OBS_INTERVAL_S = 0.2
+OBS_SLO = "interactive=p99:1000ms:99"
+PROFILE_MS = 300
+KERNEL_SYMBOLS = {"preprocess_i420": ("preprocess_i420_kernel",),
+                  "fused_dw": ("fused_dw_kernel",),
+                  "unpack_ragged": ("unpack_words", "unpack_bytes")}
+# every stage a /predict on this path stamps (the cache's two are off here)
+PATH_STAGES = ("http_read", "body_read", "lease_wait", "image_decode", "staging_write",
+               "queue_wait", "device_transfer", "device_dispatch", "device_execute",
+               "postprocess", "serialize")
+# MFU sanity ranges from PERF.md §5's replay times (batch of 8, 512 canvas)
+# and the reference's MAC counts; printed beside the reading, not gated
+MFU_EXPECT = {"inception_v3": (0.03, 0.06), "mobilenet_v2_int8": (0.003, 0.01)}
+
+
+def run_loadgen(port: int, img_dir: str, names: list[str]) -> dict:
+    """``tools/loadgen.py`` in a process of its own: closed loop, 8
+    workers, ``OBS_LOAD_S`` seconds without warmup, both models by
+    ``?model=``, the telemetry history polled. Its exit code, its JSON
+    summary (the last line of its output) and its tables (its errors)."""
+    cmd = [sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                        "loadgen.py"),
+           "--url", f"http://127.0.0.1:{port}/predict", "--images", img_dir,
+           "--workers", str(OBS_WORKERS), "--duration", str(OBS_LOAD_S), "--warmup", "0",
+           "--model-mix", ",".join(names), "--history", "--timeout", "60"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=OBS_LOAD_S + 120)
+    lines = proc.stdout.strip().splitlines()
+    summary = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+    return {"rc": proc.returncode, "wall_s": time.perf_counter() - t0, "summary": summary,
+            "tables": proc.stderr.splitlines()[-80:]}
+
+
+def read_jsonl(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def kernels_in_trace(path: str) -> dict:
+    """Which hand-written kernels a ``torch.profiler`` Chrome trace names,
+    the device kernels it holds, and whether graph launches appear."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"device_kernels": len(kernels),
+            "graph_launches": sum(e.get("name") == "cudaGraphLaunch" for e in events),
+            "found": {k: any(sym in n for n in kernels for sym in syms)
+                      for k, syms in KERNEL_SYMBOLS.items()},
+            "top": Counter(n[:80] for n in kernels).most_common(8)}
+
+
+def phase_observability(jpegs: list[bytes], graphs: list[dict]) -> dict:
+    """The tracing, metrics, cost model and telemetry of the served path:
+    one server (``start_server``) with Inception-v3 bf16 and MobileNetV2
+    int8 as ``mobilenet_v2_int8`` on the reference server's defaults
+    (ragged rgb wire, matmul resize), canvas 512 only (the ``registry``
+    cut), the cache off and a ladder that cannot climb (every answer is
+    device work), a 0.2 s telemetry interval, an access log and one SLO
+    objective.
+
+    - Load from a process of its own: ``tools/loadgen.py``, 8 workers, both
+      models; its exit code, stage attribution and history, and its
+      roofline table over the port's ``/stats``. The kernels' counts are
+      set to 0 just before it and read just after, and attributed to the
+      engines by their batches.
+    - ``/metrics``: the +Inf count of ``request_duration_seconds`` equals
+      ``requests_total`` over status classes; ``inferences_total`` equals
+      the default model's ``model_inferences_total`` (the reference's
+      meaning: the unlabeled aggregate is the default model's); every
+      stage of the path in ``stage_duration_seconds``.
+    - Spans: each ``/debug/slow`` entry's stage sum is within its total;
+      the median share of a request's wall that its stages tile.
+    - MFU: the card's peak and its source; per model and (canvas, batch)
+      cell the MFU (every one in (0, 1]), roofline fraction, device
+      seconds and rows; device ms per batch from the CUDA events beside
+      ``graphs``' replay ms.
+    - Device idle share: busy seconds (the events) over the load window.
+    - ``GET /debug/trace`` after a burst: its execute bars number the
+      batches the burst dispatched. ``POST /debug/trace?ms=300`` during
+      traffic writes a trace (a second capture meanwhile answers 409):
+      which kernel names it holds.
+    - Telemetry: ``goodput_rps`` history has points; a hot swap of
+      ``mobilenet_v2_int8`` shows in ``/debug/events``; the access log has
+      one line per request, each with its trace ID.
+    - Overhead, reported: loadgen img/s and p99 with the hub and the access
+      log on, off (the App's hub stopped and its log unset, the state
+      ``--telemetry-interval 0`` without ``--access-log`` boots into), on
+      again, on the same server."""
+    import shutil
+
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
+    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
+    from tensorflow_web_deploy_tpu_torch.server import start_server
+    from tensorflow_web_deploy_tpu_torch.serving import http as thttp
+    from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
+    from tensorflow_web_deploy_tpu_torch.utils.metrics import (
+        make_access_logger,
+        parse_prometheus_text,
+    )
+    from tools.loadgen import format_econ_table
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="observability-")
+    img_dir = os.path.join(tmp, "images")
+    os.makedirs(img_dir)
+    for i, data in enumerate(jpegs):
+        with open(os.path.join(img_dir, f"{i:02d}.jpg"), "wb") as f:
+            f.write(data)
+    access = os.path.join(tmp, "access.log")
+    mcs = tuple(model_config(spec) for spec in REGISTRY_MODELS)
+    cfg = ServerConfig(model=mcs[0], models=mcs, host="127.0.0.1", port=0,
+                       canvas_buckets=REGISTRY_BUCKETS, ragged=True,
+                       telemetry_interval_s=OBS_INTERVAL_S, access_log=access,
+                       slo_objectives=OBS_SLO, **PINNED)
+    names = [m.serve_name for m in mcs]
+    targets = [(n, d) for d in jpegs for n in names]
+    row = {"phase": "observability", "nvidia_smi": nvidia_smi(), "models": list(REGISTRY_MODELS),
+           "canvas_buckets": list(REGISTRY_BUCKETS), "telemetry_interval_s": OBS_INTERVAL_S,
+           "slo_objectives": OBS_SLO}
+    bad: dict = {}
+    srv = start_server(cfg, device="cuda", seed=SEED)
+    try:
+        app = srv.app
+        engines = {mv.name: mv.engine for mv in srv.registry.serving_entries()}
+        admin = KeepAlive(srv.port)
+
+        def counters() -> tuple[dict, dict]:
+            st = {n: e.stats() for n, e in engines.items()}
+            return {n: s["busy_s"] for n, s in st.items()}, {n: s["batches"] for n, s in st.items()}
+
+        # load from a process of its own, the kernels' counts over it
+        busy0, batches0 = counters()
+        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+        lg = run_loadgen(srv.port, img_dir, names)
+        launches = {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
+                    "unpack_ragged": unpack_ragged.launches}
+        busy1, batches1 = counters()
+        nb = {n: batches1[n] - batches0[n] for n in names}
+        want = {"preprocess_i420": 0, "fused_dw": DW_CELLS * nb[INT8_MODEL],
+                "unpack_ragged": sum(nb.values())}
+        if launches != want or 0 in nb.values():
+            bad["launches"] = {"got": launches, "want": want, "batches": nb}
+        sm = lg["summary"]
+        row["kernel_launches"] = launches
+        row["batches"] = nb
+        row["loadgen"] = {"rc": lg["rc"], "wall_s": lg["wall_s"],
+                          **{k: sm.get(k) for k in ("mode", "duration_s", "completed", "errors",
+                                                    "images_per_sec", "latency_ms", "per_model",
+                                                    "server_stages", "stage_utilization",
+                                                    "device_busy_fraction",
+                                                    "server_timeline")}}
+        row["loadgen_tables"] = lg["tables"]
+        if lg["rc"] != 0 or sm.get("errors") or not sm.get("server_stages") \
+                or not sm.get("server_timeline"):
+            bad["loadgen"] = row["loadgen"]
+        _, stats = admin.request("GET", "/stats")
+        row["roofline_table"] = format_econ_table(stats["economics"]).splitlines()
+
+        # device idle share over the load generator's window
+        window = sm.get("duration_s") or OBS_LOAD_S
+        busy = {n: busy1[n] - busy0[n] for n in names}
+        row["device_time"] = {"window_s": window, "busy_s": busy,
+                              "busy_share": {n: b / window for n, b in busy.items()},
+                              "busy_share_sum": sum(busy.values()) / window,
+                              "idle_share": 1.0 - sum(busy.values()) / window}
+
+        # /metrics, parsed with the port's parser
+        status, _, body = admin.exchange("GET", "/metrics")
+        samples = parse_prometheus_text(body.decode())["samples"]
+
+        def family(name: str) -> dict:
+            return {lb: v for (n, lb), v in samples.items() if n == name}
+
+        requests = sum(family("tpu_serve_requests_total").values())
+        inf = samples[("tpu_serve_request_duration_seconds_bucket", (("le", "+Inf"),))]
+        per_model = {dict(lb)["model"]: v
+                     for lb, v in family("tpu_serve_model_inferences_total").items()}
+        stages = {dict(lb)["stage"] for lb in family("tpu_serve_stage_duration_seconds_count")}
+        metrics = {"requests_total": requests, "duration_inf_count": inf,
+                   "inferences_total": samples[("tpu_serve_inferences_total", ())],
+                   "model_inferences_total": per_model,
+                   "model_inferences_sum": sum(per_model.values()),
+                   "missing_stages": sorted(set(PATH_STAGES) - stages),
+                   "families": len({n for n, _ in samples})}
+        row["metrics"] = metrics
+        if status != 200 or requests != inf or \
+                metrics["inferences_total"] != per_model.get(mcs[0].serve_name) or \
+                metrics["missing_stages"]:
+            bad["metrics"] = metrics
+
+        # MFU against the card's peak, per model and cell
+        peaks = {dict(lb)["dtype"]: v
+                 for lb, v in family("tpu_serve_device_peak_flops_per_chip").items()}
+        mfu_rows = {}
+        for n in names:
+            econ = stats["economics"][f"{n}@1"]
+            cells_raw = {(c["canvas"], c["batch_bucket"]): c
+                         for c in engines[n].econ_stats()[0]["buckets"]}
+            cells = []
+            for c in econ["replicas"][0]["buckets"]:
+                raw = cells_raw[(c["canvas"], c["batch_bucket"])]
+                cells.append({k: c.get(k) for k in (
+                    "canvas", "batch_bucket", "rows", "rows_dispatched", "device_s", "mfu",
+                    "roofline_bound_fraction", "bound", "arithmetic_intensity")}
+                    | {"batches": raw["batches"],
+                       "device_ms_per_batch": 1e3 * raw["device_s"] / raw["batches"]})
+            dtype = econ["dtype"]
+            replay = next((g["replay_ms"] for g in graphs
+                           if g["model"] == mcs[names.index(n)].name and g["dtype"] == dtype
+                           and g["ragged"]), None)
+            lo, hi = MFU_EXPECT[n]
+            mfu_rows[n] = {"dtype": dtype, "peak_flops_per_chip": peaks.get(dtype),
+                           "peak_source": econ["peak"]["source"], "mfu": econ.get("mfu"),
+                           "mfu_expected": [lo, hi],
+                           "mfu_in_expected": econ.get("mfu") is not None
+                           and lo <= econ["mfu"] <= hi,
+                           "model_cost": econ["model_cost"], "cells": cells,
+                           "graphs_replay_ms_batch8_512": replay}
+            every = [econ.get("mfu")] + [c["mfu"] for c in cells if c["rows"]]
+            if not all(m is not None and 0.0 < m <= 1.0 for m in every):
+                bad.setdefault("mfu", {})[n] = every
+        row["mfu"] = mfu_rows
+
+        # spans: the flight recorder and the access log
+        _, slow = admin.request("GET", "/debug/slow")
+        over = [e for e in slow["slowest"]
+                if sum(e["stages_ms"].values()) > e["total_ms"] + 0.01]
+        lines = read_jsonl(access)
+        tiles = [sum(d["stages_ms"].values()) / d["total_ms"] for d in lines
+                 if d.get("meta", {}).get("path") == "/predict" and d["status"] == 200
+                 and d["total_ms"] > 0]
+        row["spans"] = {"slowest": len(slow["slowest"]), "stage_sum_over_total": len(over),
+                        "tile_share_median": statistics.median(tiles) if tiles else None,
+                        "tile_share_p10": float(np.percentile(tiles, 10)) if tiles else None,
+                        "slowest_example": slow["slowest"][0] if slow["slowest"] else None}
+        if over or not tiles:
+            bad["spans"] = over[:3]
+
+        # the exported timeline after a burst: its execute bars
+        time.sleep(1.5)  # the trace window below reaches back to no earlier batch
+        _, n_before = counters()
+        t_burst = time.monotonic()
+        ClosedLoop(srv.port, LOAD_CONNS, targets, per_conn=4).start().finish()
+        _, n_after = counters()
+        burst_batches = sum(n_after[n] - n_before[n] for n in names)
+        status, _, body = admin.exchange(
+            "GET", f"/debug/trace?last_s={time.monotonic() - t_burst + 0.05:.3f}")
+        doc = json.loads(body)
+        bars = sum(1 for e in doc["traceEvents"]
+                   if e["ph"] == "X" and e["name"].split(" ")[-2] == "execute")
+        row["trace_export"] = {"status": status, "events": len(doc["traceEvents"]),
+                               "execute_bars": bars, "burst_batches": burst_batches,
+                               "window_s": doc["otherData"]["effective_window_s"]}
+        if status != 200 or bars != burst_batches:
+            bad["trace_export"] = row["trace_export"]
+
+        # torch.profiler during traffic; a second capture meanwhile is refused
+        prof_dir = os.path.join(tmp, "profile")
+        load = ClosedLoop(srv.port, LOAD_CONNS, targets).start()
+        got: dict = {}
+        try:
+            while load.answered() < 2 * LOAD_CONNS:
+                time.sleep(0.01)
+            first = threading.Thread(target=lambda: got.update(first=post_full(
+                f"{srv.url}/debug/trace?ms={PROFILE_MS}&dir={prof_dir}", b"")))
+            first.start()
+            deadline = time.monotonic() + 30
+            while not thttp._PROFILE_LOCK.locked() and time.monotonic() < deadline:
+                time.sleep(0.005)
+            second = post_full(f"{srv.url}/debug/trace?ms=10&dir={prof_dir}", b"")[0]
+            first.join(120)
+        finally:
+            load.finish()
+        status, _, body = got.get("first", (None, None, b"{}"))
+        prof = json.loads(body)
+        row["profile"] = {"status": status, "second_capture": second,
+                          "captured_ms": prof.get("captured_ms"),
+                          "activities": prof.get("activities"),
+                          "trace_bytes": os.path.getsize(prof["trace_file"])
+                          if status == 200 else None,
+                          **(kernels_in_trace(prof["trace_file"]) if status == 200 else {})}
+        if status != 200 or second != 409:
+            bad["profile"] = row["profile"]
+
+        # telemetry: history, a hot swap in the events, the access log
+        _, hist = admin.request("GET", "/debug/history?series=goodput_rps&last_s=120")
+        points = hist["series"]["goodput_rps"]["rows"]
+        status, swap = admin.request("POST", "/models/swap", {"name": INT8_MODEL, "wait": True})
+        _, evs = admin.request("GET", "/debug/events?kind=hot_swap_serving,hot_swap_retired")
+        swap_events = [(e["kind"], e["model"], e["version"]) for e in evs["events"]]
+        _, tstats = admin.request("GET", "/stats")
+        n_req = app.obs.snapshot()["e2e"]["count"]
+        lines = read_jsonl(access)
+        ids = [d.get("trace_id") for d in lines]
+        row["telemetry"] = {"goodput_points": len(points),
+                            "goodput_max": max((r[3] for r in points), default=None),
+                            "swap": {"status": status, **swap}, "events": swap_events,
+                            "event_kinds": sorted({e["kind"] for e in app.telemetry.events()}),
+                            "slo": tstats["telemetry"]["slo"],
+                            "samples_total": tstats["telemetry"]["samples_total"],
+                            "memory_bytes": tstats["telemetry"]["memory_bytes"],
+                            "access_log_lines": len(lines), "requests_counted": n_req,
+                            "access_log_unique_ids": len(set(ids)),
+                            "loadgen_sample_id_logged": sm.get("sample_trace_id") in set(ids)}
+        if not points or status != 200 or \
+                ("hot_swap_serving", INT8_MODEL, 2) not in swap_events or \
+                ("hot_swap_retired", INT8_MODEL, 1) not in swap_events or \
+                len(lines) != n_req or len(set(ids)) != n_req or None in ids:
+            bad["telemetry"] = row["telemetry"]
+
+        # overhead: the hub and the access log on, off, on again
+        hub = app.telemetry
+        runs = {"on_1": lg}
+        hub.stop()
+        app.telemetry = None
+        app.obs.set_access_log(None)
+        runs["off"] = run_loadgen(srv.port, img_dir, names)
+        app.obs.set_access_log(make_access_logger(access))
+        app.telemetry = hub
+        hub.start()
+        runs["on_2"] = run_loadgen(srv.port, img_dir, names)
+        row["overhead"] = {k: {"rc": r["rc"], "images_per_sec": r["summary"].get("images_per_sec"),
+                               "p50_ms": (r["summary"].get("latency_ms") or {}).get("p50"),
+                               "p99_ms": (r["summary"].get("latency_ms") or {}).get("p99"),
+                               "errors": r["summary"].get("errors")}
+                           for k, r in runs.items()}
+        if any(r["rc"] != 0 or r["summary"].get("errors") for r in runs.values()):
+            bad["overhead"] = row["overhead"]
+        admin.close()
+    finally:
+        srv.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    if bad:
+        raise AssertionError(f"observability: {bad}")
+    return row
+
 
 def make_photos(n: int, seed: int, side: int = 1024) -> list[bytes]:
     """``n`` distinct seeded 4:3 JPEGs ``side`` px wide (quality 90): smooth
@@ -2926,7 +3279,7 @@ def main(argv: list[str]) -> int:
     jpegs = make_jpegs(24, SEED)
     phase_native_decode(jpegs)
     unpack = phase_ragged_unpack(jpegs)
-    phase_graphs(jpegs)
+    graphs = phase_graphs(jpegs)
     inception = phase_main_path(jpegs, "inception_v3", "bfloat16", fused_cells=0,
                                 second_burst=True)
     phase_parity(jpegs, inception["served"], "inception_v3", "bfloat16")
@@ -2945,9 +3298,11 @@ def main(argv: list[str]) -> int:
     registry = phase_registry(jpegs)
     phase_sigterm(jpegs)
     overload = phase_overload(jpegs)
+    observability = phase_observability(jpegs, graphs)
     by_path = {p["path"]: p["kernel_launches"] for p in (inception, mobilenet, *ragged)}
     by_path["registry"] = registry["kernel_launches"]
     by_path["overload"] = overload["kernel_launches"]
+    by_path["observability"] = observability["kernel_launches"]
     emit({"kernels": [{
         "name": "preprocess_i420",
         "route": "cuda",

@@ -9,8 +9,13 @@
         [--cache-bytes 268435456] [--slo-classes interactive=1000,batch=10000]
         [--tenant-quota alice=50,*=100] [--tenant-burst-s 1]
         [--pressure-rungs 0.60:0.40,0.80:0.60,0.95:0.75] [--chaos SPEC]
+        [--access-log PATH|-] [--flight-recorder-n 32] [--telemetry-interval 1]
+        [--slo-objectives interactive=p99:1000ms:99.9]
     curl -X POST --data-binary @cat.jpg http://localhost:8500/predict?model=mobilenet_v2_int8
     curl -X POST -d '{"name": "inception_v3", "wait": true}' http://localhost:8500/models/swap
+    curl http://localhost:8500/metrics       # also /debug/slow, /debug/history, /debug/events
+    curl http://localhost:8500/debug/trace > trace.json   # chrome://tracing or Perfetto
+    curl -X POST 'http://localhost:8500/debug/trace?ms=300&dir=/tmp/prof'   # torch.profiler
     kill -TERM <pid>    # drains every model and exits 0
 
 Counterpart of the JAX package's root ``server.py``, with the flags this
@@ -193,6 +198,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--chaos", default=os.environ.get("TWD_CHAOS") or None, metavar="SPEC",
                    help="fault-injection spec for drills, e.g. 'decode_fail=0.05,"
                         "dispatch_fail=0.02,slow_replica=0.1:50,seed=7' (default: $TWD_CHAOS)")
+    p.add_argument("--access-log", default=None, metavar="PATH",
+                   help="structured JSON access log, one line per request (trace id, "
+                        "per-stage timings, status); '-' for stderr")
+    p.add_argument("--flight-recorder-n", type=int, default=32,
+                   help="span breakdowns kept for the N slowest and N most recent erroring "
+                        "requests (GET /debug/slow)")
+    p.add_argument("--telemetry-interval", type=float, default=1.0, metavar="S",
+                   help="in-process telemetry sampler interval (seconds): history rings "
+                        "behind /debug/history + /debug/events and the SLO burn-rate "
+                        "evaluator; 0 disables the subsystem")
+    p.add_argument("--slo-objectives", default="", metavar="NAME=pXX:MS:PCT,...",
+                   help="SLO objectives as burn-rate alerts, e.g. 'interactive=p99:1000ms:99.9' "
+                        "- evaluated over 1m/5m fast + 30m slow windows, exposed as "
+                        "tpu_serve_slo_burn_rate gauges and alert state")
     p.add_argument("--no-warmup", action="store_true",
                    help="capture no CUDA graphs: every batch runs eagerly")
     p.add_argument("--log-level", default="INFO")
@@ -230,7 +249,8 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
         aot_cache_dir=args.aot_cache_dir, cache_bytes=args.cache_bytes,
         slo_classes=args.slo_classes, tenant_quota=args.tenant_quota,
         tenant_burst_s=args.tenant_burst_s, pressure_rungs=args.pressure_rungs,
-        chaos=args.chaos, **kw,
+        chaos=args.chaos, access_log=args.access_log, flight_recorder_n=args.flight_recorder_n,
+        telemetry_interval_s=args.telemetry_interval, slo_objectives=args.slo_objectives, **kw,
     )
 
 

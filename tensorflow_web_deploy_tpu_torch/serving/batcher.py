@@ -53,7 +53,16 @@ deadline passed becomes a hole and its future fails. ``chaos`` injects
 dispatch failures in the launch and straggling fetches in the completion
 threads.
 
-Left out of the reference: the bulk traffic class, spans, replica routing.
+**Spans.** A lease carries its request's :class:`~..utils.tracing.Span`:
+the lease stamps ``lease_wait``, the commit ``staging_write``, the launch
+``queue_wait`` (merged with ``add_max``: a request's images may ride
+concurrent batches) and notes ``batch_bucket``, the engine stamps
+``device_transfer`` and ``device_dispatch``, and the completion thread
+stamps ``device_execute`` before it resolves the future. Every dispatch
+feeds :meth:`~..utils.metrics.RollingStats.record_batch` and the padding
+counters per (canvas, batch bucket) behind ``model_padding_*``.
+
+Left out of the reference: the bulk traffic class, replica routing.
 """
 
 from __future__ import annotations
@@ -69,6 +78,7 @@ from concurrent.futures import Future
 import numpy as np
 
 from ..utils.metrics import RollingStats
+from ..utils.tracing import canvas_side
 from .chaos import ChaosError
 from .overload import DEFAULT_TENANT, DeadlineExceeded, QuotaExceeded
 
@@ -106,16 +116,19 @@ class SlotLease:
     indices) row arrives on ``future``."""
 
     __slots__ = ("_batcher", "builder", "index", "future", "state", "leased_at", "row",
-                 "slab_held", "deadline", "tenant")
+                 "slab_held", "deadline", "tenant", "span", "hw", "committed_at")
 
     def __init__(self, batcher: Batcher, builder: _Builder, index: int, row: np.ndarray,
-                 deadline: float | None = None, tenant: str | None = None):
+                 deadline: float | None = None, tenant: str | None = None, span=None):
         self._batcher = batcher
         self.builder = builder
         self.index = index
         self.future: Future = Future()
         self.state = _PENDING
         self.leased_at = time.monotonic()
+        self.committed_at: float | None = None
+        self.hw: tuple[int, int] | None = None
+        self.span = span  # the request's trace span, or None
         self.row = row
         self.slab_held = True
         # the monotonic deadline the sealer re-checks (None: no SLO)
@@ -203,6 +216,9 @@ class Batcher:
         self.rolling = RollingStats()
         self._batch_seq = 0
         self._timeline: deque = deque(maxlen=512)
+        # (canvas side, batch bucket) → [batches, real rows, bucket rows,
+        # real pixels, pixels shipped]
+        self._padding: dict[tuple[int, int], list] = {}
 
     # ------------------------------------------------------------ lifecycle
 
@@ -304,8 +320,8 @@ class Batcher:
         return b
 
     def _add_lease_locked(self, b: _Builder, index: int, row: np.ndarray,
-                          deadline: float | None, tenant: str | None) -> SlotLease:
-        lease = SlotLease(self, b, index, row, deadline, tenant)
+                          deadline: float | None, tenant: str | None, span) -> SlotLease:
+        lease = SlotLease(self, b, index, row, deadline, tenant, span)
         b.leases.append(lease)
         b.n_pending += 1
         self._pending_slots += 1
@@ -316,10 +332,11 @@ class Batcher:
         return lease
 
     def lease(self, row_shape: tuple[int, ...], deadline: float | None = None,
-              tenant: str | None = None) -> SlotLease:
+              tenant: str | None = None, span=None) -> SlotLease:
         """A slot for one classic-wire canvas of ``row_shape`` (the engine's
         ``canvas_shape(1, s)[1:]``) in the open builder of its canvas side.
-        ``deadline`` (monotonic) and ``tenant`` go through admission. Raises
+        ``deadline`` (monotonic) and ``tenant`` go through admission; the
+        time to a slot is ``span``'s ``lease_wait``. Raises
         :class:`BacklogFull`, :class:`~.overload.QuotaExceeded`,
         :class:`~.overload.DeadlineExceeded` or :class:`ShuttingDown`; blocks
         at the outstanding-slot cap."""
@@ -332,13 +349,15 @@ class Batcher:
                 # the canvas side: (s, s, 3) on rgb, (3s/2, s) on yuv420
                 b = self._new_builder_locked(key, self.engine.acquire_staging(key[1]))
             i = len(b.leases)
-            return self._add_lease_locked(b, i, b.slab.row(i), deadline, tenant)
+            lease = self._add_lease_locked(b, i, b.slab.row(i), deadline, tenant, span)
+        self._stamp_lease_wait(span, t0)
+        return lease
 
     def lease_ragged(self, need_bytes: int, s: int, deadline: float | None = None,
-                     tenant: str | None = None) -> SlotLease:
+                     tenant: str | None = None, span=None) -> SlotLease:
         """``need_bytes`` (one image's h·w·3) of the open ragged arena of
         canvas side ``s``; an arena that cannot fit them seals, and a fresh
-        one opens. Admission as :meth:`lease`."""
+        one opens. Admission and ``span`` as :meth:`lease`."""
         key = ("ragged", int(s))
         if need_bytes > s * s * 3:
             raise ValueError(f"ragged lease of {need_bytes} B exceeds one {s}px canvas row")
@@ -353,7 +372,15 @@ class Batcher:
                 self._close_builder_locked(b)
                 b = self._new_builder_locked(key, self.engine.acquire_ragged(s))
                 got = b.slab.alloc(need_bytes)
-            return self._add_lease_locked(b, *got, deadline, tenant)
+            lease = self._add_lease_locked(b, *got, deadline, tenant, span)
+        self._stamp_lease_wait(span, t0)
+        return lease
+
+    def _stamp_lease_wait(self, span, t0: float) -> None:
+        waited = time.monotonic() - t0
+        if span is not None:
+            span.add("lease_wait", waited)
+        self.rolling.record_lease_wait(waited)
 
     def submit(self, canvas: np.ndarray, hw: tuple[int, int], deadline: float | None = None,
                tenant: str | None = None) -> Future:
@@ -389,6 +416,7 @@ class Batcher:
 
     def _commit(self, lease: SlotLease, hw, canvas) -> Future:
         b = lease.builder
+        t0 = time.monotonic()
         # the slot is this lessee's alone until the state flips below
         try:
             if canvas is not None:
@@ -400,9 +428,13 @@ class Batcher:
         except BaseException:  # a canvas that does not fit its slot
             self._release_lease(lease)
             raise
+        if lease.span is not None:
+            lease.span.add("staging_write", time.monotonic() - t0)
         with self._cond:
             if lease.state == _PENDING:
                 lease.state = _READY
+                lease.hw = (int(hw[0]), int(hw[1]))
+                lease.committed_at = time.monotonic()
                 b.n_pending -= 1
                 b.n_ready += 1
                 # decoded into the slot: one copy; decoded elsewhere: two
@@ -585,7 +617,13 @@ class Batcher:
     def _launch(self, b: _Builder, ready: list[SlotLease], rec: dict) -> None:
         """Ship one sealed builder (launch-pool thread): mark its holes, then
         the engine's dispatch (H2D, serve enqueue, async D2H)."""
-        rec["t_launch"] = time.monotonic()
+        rec["t_launch"] = t0 = time.monotonic()
+        spans = []
+        for lease in ready:
+            if lease.span is not None:
+                # add_max: a request's images may ride concurrent batches
+                lease.span.add_max("queue_wait", t0 - (lease.committed_at or t0))
+                spans.append(lease.span)
         try:
             if self.chaos is not None and self.chaos.dispatch_fault():
                 # inside the try: the organic failed-dispatch path below
@@ -596,7 +634,14 @@ class Batcher:
                     b.slab.hole(lease.index)
             dispatch = self.engine.dispatch_ragged if b.slab.is_ragged \
                 else self.engine.dispatch_staged
-            handle = dispatch(b.slab, n)
+            if getattr(self.engine, "supports_span_tracing", False):
+                # the engine stamps device_transfer and device_dispatch
+                handle = dispatch(b.slab, n, spans=spans)
+            else:
+                handle = dispatch(b.slab, n)
+                t_disp = time.monotonic()
+                for span in spans:
+                    span.add_max("device_dispatch", t_disp - t0)
         except Exception as e:  # the batch fails, its requests fail, the server lives
             log.exception("dispatch of a batch of %d failed", len(ready))
             self._fail(ready, e)
@@ -605,11 +650,34 @@ class Batcher:
             self._batch_done(b.key)
             return
         rec["t_launched"] = time.monotonic()
-        rec["bucket"] = self.engine.pick_batch_bucket(n)
+        rec["bucket"] = bucket = self.engine.pick_batch_bucket(n)
+        for span in spans:
+            span.note("batch_bucket", bucket)
+        self.rolling.record_batch(len(ready), bucket)
+        self._record_padding(b.key, bucket, ready,
+                             getattr(handle, "rows_dispatched", bucket))
         # a batch that ran eagerly pays one-time costs: keep its time out of
         # the device EMA that deadline admission reads
         rec["replay"] = getattr(handle, "replay", True)
         self._done_q.put((ready, handle, rec))
+
+    def _record_padding(self, key, bucket: int, ready: list[SlotLease],
+                        rows_shipped: int) -> None:
+        """One dispatched batch into the padding counters of its (canvas,
+        batch bucket): rows that carried requests against the bucket, and
+        real image pixels against the pixels shipped (on the ragged wire the
+        shipped arena prefix, ``rows_shipped`` canvases)."""
+        s = canvas_side(key)
+        px_real = sum(lease.hw[0] * lease.hw[1] for lease in ready if lease.hw)
+        with self._cond:
+            cell = self._padding.get((s, bucket))
+            if cell is None:
+                cell = self._padding[(s, bucket)] = [0, 0, 0, 0, 0]
+            cell[0] += 1
+            cell[1] += len(ready)
+            cell[2] += bucket
+            cell[3] += px_real
+            cell[4] += rows_shipped * s * s
 
     def _fetch_loop(self) -> None:
         while True:
@@ -633,6 +701,9 @@ class Batcher:
             t_launch = rec["t_launch"]
             device_s = now - t_launch if rec["replay"] else None
             for lease in ready:
+                if lease.span is not None:
+                    # before the future resolves: then the worker owns the span
+                    lease.span.add_max("device_execute", now - rec["t_launched"])
                 try:
                     lease.future.set_result((scores[lease.index], idx[lease.index]))
                 except Exception:
@@ -646,12 +717,13 @@ class Batcher:
             self._batch_done(rec["key"])
 
     def _fail(self, leases: list[SlotLease], e: Exception) -> None:
+        now = time.monotonic()
         for lease in leases:
             try:
                 lease.future.set_exception(e)
             except Exception:
                 pass  # resolved or cancelled already
-            self.rolling.record_error()
+            self.rolling.record_error(latency_s=now - (lease.committed_at or lease.leased_at))
 
     # ------------------------------------------------------------ telemetry
 
@@ -697,5 +769,22 @@ class Batcher:
                 "deadline_sheds_total": self._deadline_sheds,
                 "deadline_seal_sheds_total": self._deadline_seal_sheds,
                 "host_copies": self._host_copies,
+                "open_builders": len(self._open) + len(self._closing),
+                # padding waste per (canvas, batch bucket): the batcher's
+                # half of /stats → economics
+                "padding": {
+                    f"{s}x{bk}": {
+                        "canvas": s,
+                        "batch_bucket": bk,
+                        "batches": c[0],
+                        "rows_real": c[1],
+                        "rows_dispatched": c[2],
+                        "padded_rows_fraction": round(1.0 - c[1] / c[2], 4) if c[2] else 0.0,
+                        "px_real": c[3],
+                        "px_dispatched": c[4],
+                        "padded_px_fraction": round(1.0 - c[3] / c[4], 4) if c[4] else 0.0,
+                    }
+                    for (s, bk), c in sorted(self._padding.items())
+                },
                 "rolling": self.rolling.snapshot(),
             }

@@ -49,10 +49,22 @@ The int8 tier keeps its kernels int8 on the device and dequantizes them
 inside every forward, computing in bf16 (``ops/quant.py``); before it
 serves, the golden parity gate holds it against the unfused float32 model
 on the same parameters, and a failing gate raises.
+
+**Device economics** (:meth:`InferenceEngine.econ_stats`, read by
+``serving/costmodel.py``): batches, rows and device seconds per (canvas,
+batch bucket), and ``busy_s`` over all. On the card a batch's device
+seconds are the interval between two CUDA events on the compute stream
+around its graph replay (or eager serve function), read after its fetch;
+the reference counts the host's dispatch → fetch wall, which with several
+batches in flight includes the wait behind the others. On the CPU they are
+the serve call's host wall. Request spans passed to the dispatch get
+``device_transfer`` (the H2D enqueue) and ``device_dispatch`` (the replay
+and the D2H enqueue).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -87,6 +99,11 @@ _HOLE_TRAILER = (0, 1, 0, 1)  # hw = (1, 1): the resize reads one pixel
 # one CUDA graph capture at a time in the process (torch's rule); it also
 # guards _capture_streams
 _CAPTURE_LOCK = threading.Lock()
+# One timed compute enqueue at a time in the process: every engine enqueues
+# on its thread's current stream, the device's default stream, so another
+# engine's work enqueued between a batch's two compute events would count
+# as this batch's device time.
+_COMPUTE_LOCK = threading.Lock()
 # device index → the one stream every capture, and the eager run before it,
 # runs on. cuBLAS keeps a workspace per (thread's handle, stream) for the
 # life of the process: made by the eager run, it lies outside every graph
@@ -271,6 +288,15 @@ class BatchHandle:
     # ran through its (canvas, batch) bucket's executable: on the card a
     # graph replay, not an eager run that pays one-time costs
     replay: bool = False
+    # economics: (canvas side, batch bucket), rows the wire carried
+    # (ragged: the shipped arena prefix in canvas rows), exact used rows
+    # (ragged arena bytes / canvas bytes; n on the classic wire), and the
+    # serve call's host seconds (the CPU's device time)
+    cell: tuple[int, int] = (0, 0)
+    rows_dispatched: int = 0
+    rows_tight: float = 0.0
+    host_compute_s: float = 0.0
+    t_put: float = 0.0  # monotonic, the H2D enqueued
 
 
 @dataclass
@@ -312,6 +338,8 @@ class InferenceEngine:
         "int8": {"prob": 0.15, "topk": 0.90},
         "bfloat16": {"prob": 0.08, "topk": 0.90},
     }
+    # the batcher passes request spans to the dispatch calls
+    supports_span_tracing = True
 
     def __init__(self, cfg: ServerConfig, device: str | torch.device | None = None,
                  seed: int = 0, params_flat: dict[str, np.ndarray] | None = None):
@@ -350,8 +378,15 @@ class InferenceEngine:
         self.warmup_s = {"one_time": time.perf_counter() - t0, "executables": None,
                          "execution": []}
         self._seed, self._params_flat = seed, params_flat
-        self.model = self._build_model(self.fused_dw, self.quantized).to(
-            self.device, self.dtype, memory_format=torch.channels_last)
+        # The engine's own memory pool for what it keeps until close(): the
+        # weights and the static inputs. In the process's shared pool they
+        # would share segments with other engines' tensors (a version built
+        # later fills the free blocks an unloaded one left), and an unload
+        # could not give those segments back.
+        self._mem_pool = torch.cuda.MemPool() if self.device.type == "cuda" else None
+        with self._own_pool():
+            self.model = self._build_model(self.fused_dw, self.quantized).to(
+                self.device, self.dtype, memory_format=torch.channels_last)
         self.num_classes = self.model.backbone.logits.out_features
         self.topk = min(self.model_cfg.topk, self.num_classes)
         self.parity: dict | None = None
@@ -397,6 +432,19 @@ class InferenceEngine:
         self.replays = 0
         self.eager_batches = 0
         self.pool_bytes = 0
+        # (canvas side, batch bucket) → [batches, rows, rows dispatched,
+        # device s, tight rows]; busy_s sums the device seconds
+        self._econ: dict[tuple[int, int], list] = {}
+        self.busy_s = 0.0
+
+    def _own_pool(self):
+        """Routes this thread's device allocations to the engine's own pool
+        (nothing on the CPU)."""
+        if self._mem_pool is None:
+            return contextlib.nullcontext()
+        index = self.device.index
+        return torch.cuda.use_mem_pool(
+            self._mem_pool, torch.cuda.current_device() if index is None else index)
 
     def _build_model(self, fused_dw: bool, int8: bool):
         return native_converted(
@@ -511,13 +559,15 @@ class InferenceEngine:
         key = (kind, s)
         if key not in self._static:
             cap = self.max_batch
-            if kind == "ragged":
-                buf = torch.zeros(_align16(cap * s * s * 3) + 16 * cap, dtype=torch.uint8,
-                                  device=self.device)
-            else:
-                buf = torch.zeros(self.packed_shape(cap, s), dtype=torch.uint8,
-                                  device=self.device)
-                buf[:, -4:] = torch.tensor(_HOLE_TRAILER, dtype=torch.uint8, device=self.device)
+            with self._own_pool():
+                if kind == "ragged":
+                    buf = torch.zeros(_align16(cap * s * s * 3) + 16 * cap,
+                                      dtype=torch.uint8, device=self.device)
+                else:
+                    buf = torch.zeros(self.packed_shape(cap, s), dtype=torch.uint8,
+                                      device=self.device)
+                    buf[:, -4:] = torch.tensor(_HOLE_TRAILER, dtype=torch.uint8,
+                                               device=self.device)
             self._static[key] = buf
         return self._static[key]
 
@@ -628,16 +678,17 @@ class InferenceEngine:
         failed); it reaches the pool once its last lessee resolves."""
         slab.finish()
 
-    def _ship(self, buf: torch.Tensor, slab, n: int, bucket: int,
-              meta_off: int | None = None) -> BatchHandle:
+    def _ship(self, buf: torch.Tensor, slab, n: int, bucket: int, rows_dispatched: int,
+              rows_tight: float, meta_off: int | None = None) -> BatchHandle:
         """One batch: ``buf`` (a prefix of the slab's pinned buffer) to the
         device in one non-blocking copy into a fresh buffer on the copy
         stream; on the compute stream, waiting for that copy, its executable
         (a copy into the static input, one graph replay) or, for a shape
         warmup never captured, the same serve function run eagerly on the
         fresh buffer; then the output's copy back. ``meta_off``: where a
-        ragged wire's meta table starts. Returns without waiting for the
-        device."""
+        ragged wire's meta table starts; ``rows_dispatched`` and
+        ``rows_tight`` go to the batch's economics cell. Returns without
+        waiting for the device."""
         key = (slab.key[0], slab.s, bucket)
         exe = self._exes.get(key)
         with torch.inference_mode():
@@ -651,6 +702,7 @@ class InferenceEngine:
                     dev = buf.to(self.device, non_blocking=True)
                     events[1].record()
                 slab.copied = events[1]
+            t_put = time.monotonic()
             # One enqueue at a time: the two launch threads share the compute
             # stream, the static inputs and the graph pool, and an eager
             # enqueue is host-bound Python (PERF.md). The other thread's copy
@@ -661,21 +713,28 @@ class InferenceEngine:
                     dev.record_stream(compute)
                 if exe is not None:
                     self._stage_static(key, dev, meta_off)
-                if events:
-                    events[2].record()
-                if exe is not None:
-                    out = exe()
-                elif meta_off is not None:
-                    out = self._serve_ragged(dev[:meta_off],
-                                             dev[meta_off:].view(torch.int32).view(-1, 4),
-                                             slab.s)
-                else:
-                    out = self._serve_packed(dev)
-                if events:
-                    events[3].record()
+                # the CPU has no shared stream: its engines compute side by side
+                with _COMPUTE_LOCK if events else contextlib.nullcontext():
+                    if events:
+                        events[2].record()
+                    t_compute = time.perf_counter()
+                    if exe is not None:
+                        out = exe()
+                    elif meta_off is not None:
+                        out = self._serve_ragged(dev[:meta_off],
+                                                 dev[meta_off:].view(torch.int32).view(-1, 4),
+                                                 slab.s)
+                    else:
+                        out = self._serve_packed(dev)
+                    if events:
+                        events[3].record()
+                    host_compute_s = time.perf_counter() - t_compute
                 handle = self._fetchable(out, n)
         handle.events = events
         handle.replay = exe is not None
+        handle.cell = (slab.s, bucket)
+        handle.rows_dispatched, handle.rows_tight = rows_dispatched, rows_tight
+        handle.host_compute_s, handle.t_put = host_compute_s, t_put
         with self._lock:
             self.batches += 1
             self.images += n
@@ -688,34 +747,47 @@ class InferenceEngine:
                 self._device_events.append((slab.key, events))
         return handle
 
-    def dispatch_staged(self, slab: StagingSlab, n: int) -> BatchHandle:
+    def dispatch_staged(self, slab: StagingSlab, n: int, spans=()) -> BatchHandle:
         """Ship the first ``n`` rows of a filled slab (holes included) at the
         batch bucket that covers them, and enqueue the serve function;
         returns without waiting for the device. The slab goes back to its
-        pool once the copy is enqueued and its lessees are done."""
+        pool once the copy is enqueued and its lessees are done. ``spans``
+        get ``device_transfer`` and ``device_dispatch``."""
+        t0 = time.monotonic()
         bucket = self.pick_batch_bucket(n)
         if n > bucket:
             raise ValueError(f"batch of {n} exceeds the top batch bucket {bucket}")
         slab.trailer[n:bucket] = _HOLE_TRAILER
-        handle = self._ship(slab.buf[:bucket], slab, n, bucket)
+        handle = self._ship(slab.buf[:bucket], slab, n, bucket, bucket, float(n))
         slab.finish()
+        self._stamp_dispatch(spans, t0, handle.t_put)
         return handle
 
-    def dispatch_ragged(self, slab: RaggedSlab, n: int) -> BatchHandle:
+    @staticmethod
+    def _stamp_dispatch(spans, t0: float, t_put: float) -> None:
+        t_disp = time.monotonic()
+        for span in spans:
+            span.add_max("device_transfer", t_put - t0)
+            span.add_max("device_dispatch", t_disp - t_put)
+
+    def dispatch_ragged(self, slab: RaggedSlab, n: int, spans=()) -> BatchHandle:
         """Ship a filled ragged slab's first ``n`` slots (holes included;
         slots past ``n`` are dropped) and enqueue unpack → serve, as
         :meth:`dispatch_staged`. The arena's used prefix and the meta table
         go in one non-blocking copy. A committed row that does not fit the
         canvas or the shipped arena raises ValueError here, on the host: the
         device unpack reads the table without checking it."""
+        t0 = time.monotonic()
         bucket = self.pick_batch_bucket(n)
         if n > bucket:
             raise ValueError(f"batch of {n} exceeds the top batch bucket {bucket}")
         slab.truncate(n)
         nbytes, meta_off = slab.stage(bucket)
         check_ragged_rows(slab.meta[:n], slab.s, meta_off)
-        handle = self._ship(slab.buf[:nbytes], slab, n, bucket, meta_off)
+        handle = self._ship(slab.buf[:nbytes], slab, n, bucket, slab.rows_shipped(bucket),
+                            slab.used / slab.row_bytes, meta_off)
         slab.finish()
+        self._stamp_dispatch(spans, t0, handle.t_put)
         return handle
 
     def dispatch_batch(self, canvases: np.ndarray, hws: np.ndarray) -> BatchHandle:
@@ -759,12 +831,50 @@ class InferenceEngine:
 
     def fetch_outputs(self, handle: BatchHandle) -> tuple[np.ndarray, np.ndarray]:
         """Wait for a dispatched batch; returns (scores float32 [n, k],
-        indices int32 [n, k]) for the real rows."""
+        indices int32 [n, k]) for the real rows. Its device seconds go to
+        its economics cell."""
         if handle.done is not None:
             handle.done.synchronize()
+        self._account(handle)
         packed = handle.out.numpy()[: handle.n]
         k = self.topk
         return packed[:, :k].copy(), packed[:, k:].astype(np.int32)
+
+    def _account(self, handle: BatchHandle) -> None:
+        """Fold one fetched batch into its economics cell and ``busy_s``:
+        on the card the compute-stream events' interval (the ``done`` event
+        follows them on that stream, so both have completed and
+        ``elapsed_time`` does not block), on the CPU the serve call's wall."""
+        if handle.events:
+            device_s = handle.events[2].elapsed_time(handle.events[3]) / 1e3
+        else:
+            device_s = handle.host_compute_s
+        with self._lock:
+            cell = self._econ.get(handle.cell)
+            if cell is None:
+                cell = self._econ[handle.cell] = [0, 0, 0, 0.0, 0.0]
+            cell[0] += 1
+            cell[1] += handle.n
+            cell[2] += handle.rows_dispatched
+            cell[3] += device_s
+            cell[4] += handle.rows_tight
+            self.busy_s += device_s
+
+    def econ_stats(self) -> list[dict]:
+        """The reference's per-replica economics counters for one replica
+        of one device: a row per (canvas, batch bucket) cell a fetched
+        batch has exercised (``rows_tight`` meaningful on the ragged wire)."""
+        with self._lock:
+            return [{
+                "replica": 0,
+                "devices": 1,
+                "buckets": [
+                    {"canvas": ck, "batch_bucket": bk, "batches": c[0], "rows": c[1],
+                     "rows_dispatched": c[2], "device_s": round(c[3], 4),
+                     "rows_tight": round(c[4], 3)}
+                    for (ck, bk), c in sorted(self._econ.items())
+                ],
+            }]
 
     def run_batch(self, canvases: np.ndarray, hws: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Dispatch + fetch (tests, warmup); batches above the top bucket go
@@ -824,10 +934,18 @@ class InferenceEngine:
         run phase 3 alone (per-thread first use, measured in its line)."""
         with self._warmup_lock:
             if not self._warmed:
+                # the economics peak: a table lookup on the card, a one-time
+                # calibration on the CPU that no /metrics scrape should pay
+                t0 = time.perf_counter()
+                from . import costmodel
+
+                peak = costmodel.backend_peak(self.model_cfg.dtype, self.device)
                 log.info("warmup: one-time costs %.2fs at build (kernels %s through the "
-                         "build cache, %s decoder)", self.warmup_s["one_time"],
+                         "build cache, %s decoder), econ peak %s %.2fs",
+                         self.warmup_s["one_time"],
                          self.kernels if self.device.type == "cuda" else [],
-                         "native" if self.decoder["available"] else "PIL")
+                         "native" if self.decoder["available"] else "PIL", peak["source"],
+                         time.perf_counter() - t0)
                 t0 = time.perf_counter()
                 pairs = sorted(((s, b) for s in self.cfg.canvas_buckets
                                 for b in self.batch_buckets), reverse=True)
@@ -867,8 +985,11 @@ class InferenceEngine:
         with self._lock:
             batches, images, h2d, decodes = (self.batches, self.images, self.h2d_bytes,
                                              dict(self.decodes))
+            busy_s = self.busy_s
             slabs = {"allocated": self.slabs_allocated,
-                     "pooled": sum(len(v) for v in self._pool.values())}
+                     "pooled": sum(len(v) for v in self._pool.values()),
+                     "pooled_bytes": sum(slab.buf.nbytes for v in self._pool.values()
+                                         for slab in v)}
             graphs = {"captured": sum(e.graph is not None for e in self._exes.values()),
                       "executables": len(self._exes), "replays": self.replays,
                       "eager_batches": self.eager_batches,
@@ -896,6 +1017,7 @@ class InferenceEngine:
             "canvas_buckets": list(self.cfg.canvas_buckets),
             "batches": batches,
             "images": images,
+            "busy_s": round(busy_s, 6),
             "kernel_launches": {"preprocess_i420": preprocess_i420.launches,
                                 "fused_dw": fused_dw.launches,
                                 "unpack_ragged": unpack_ragged.launches},
@@ -919,6 +1041,7 @@ class InferenceEngine:
             self._device_events.clear()
             self.model = None
             self._preprocess = None
+            self._mem_pool = None  # its segments are freeable once its tensors are gone
         if self.device.type == "cuda":
             with _CAPTURE_LOCK:
                 torch.cuda.synchronize(self.device)

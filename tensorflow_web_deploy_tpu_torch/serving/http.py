@@ -38,6 +38,15 @@ HTTP/1.1 keep-alive front end (counterpart of the JAX package's
   request on the resolved version's queue: top-k clamped to 1, then the
   smallest canvas bucket, then (four rungs) a reroute to the int8 variant
   of the same network, then cache misses shed with 503 ``degraded``.
+- **Tracing and telemetry** (``utils/tracing.py``, ``utils/metrics.py``,
+  ``serving/telemetry.py``, ``serving/costmodel.py``). Every request gets a
+  :class:`~..utils.tracing.Span` when its bytes start arriving (a
+  well-formed inbound ``X-Trace-Id`` is kept), stamped by each layer it
+  crosses; the finished span feeds the per-stage histograms, the flight
+  recorder and the opt-in access log before the answer is written, and its
+  ID answers in ``X-Trace-Id`` on every response, sheds and 304s included.
+  The telemetry hub's sampler starts with the App and stops first in
+  :func:`shutdown_gracefully`.
 
 Routes:
     POST /predict       image (raw body or multipart/form-data) → JSON
@@ -59,14 +68,34 @@ Routes:
     POST /models/swap   admin: ``{"name"?, "model"?, "wait"?}``, a new
                         version takes the traffic once warm, the old drains
     POST /models/unload admin: ``{"name", "version"?, "wait"?}``
-    GET  /stats         the default model's ``batcher`` and ``engine``
+    GET  /stats         the default model's rolling stats at the top level
+                        and its ``batcher`` and ``engine``
                         counters (kernel launches, decodes, the decoder,
                         ``graphs`` with the process's device memory,
                         ``aot_cache``, ``warmup_s``), ``models`` (each
                         version's batcher and engine counters under its
                         name), ``http`` (keep-alive counters), ``cache``,
                         ``overload`` (``admission``, ``pressure``,
-                        ``chaos``)
+                        ``chaos``), ``tracing`` (per-stage count, total,
+                        p50/p99), ``economics`` (per serving version: MFU,
+                        roofline per (canvas, batch) cell, padding),
+                        ``telemetry``
+    GET  /metrics       Prometheus text exposition (``tpu_serve_`` families:
+                        requests and stage histograms, batcher, admission,
+                        ladder, chaos, cache, build cache, registry, per
+                        model, economics with ``model_mfu`` and the card's
+                        ``device_peak_*``, telemetry)
+    GET  /debug/slow    the flight recorder: span breakdowns of the slowest
+                        and the erroring requests, with its limits
+    GET  /debug/history ``?series=a,b&last_s=N&res=1s|10s|60s``: telemetry
+                        rings (without ``series``: their names)
+    GET  /debug/events  ``?last_s=N&kind=a,b``: hot swaps, ladder moves,
+                        chaos injections, parity gates, SLO alerts
+    GET  /debug/trace   ``?last_s=N``: batch timelines + recent request spans
+                        + events as Chrome-trace JSON
+    POST /debug/trace   ``?ms=N&dir=D``: a ``torch.profiler`` capture of N ms
+                        (at most 60,000) written to D as a Chrome trace; 409
+                        while another capture runs
     GET  /              the upload page
 
 The admin routes are as open as the rest of the surface: deploy behind
@@ -77,10 +106,12 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import queue
 import select
 import socket
 import sys
+import tempfile
 import threading
 import time
 import urllib.parse
@@ -90,6 +121,9 @@ from socketserver import TCPServer
 
 from .. import native
 from ..ops.image import decode_image, fit_to_bucket
+from ..utils.metrics import Observability, PromText, make_access_logger
+from ..utils.tracing import Span, accept_trace_id, chrome_trace, effective_window
+from . import aotcache, costmodel
 from .batcher import BacklogFull, LeaseExpired, ShuttingDown
 from .overload import (
     DEFAULT_TENANT,
@@ -105,6 +139,7 @@ from .overload import (
 )
 from .registry import FAILED, ModelNotServing, ModelRegistry, UnknownModel
 from .respcache import ResponseCache, canvas_digest, make_key, packed_digest, payload_etag
+from .telemetry import build_hub
 
 log = logging.getLogger("tpu_serve_torch.http")
 
@@ -241,6 +276,10 @@ def _etag_matches(inm: str | None, etag: str) -> bool:
     return False
 
 
+# POST /debug/trace: the longest capture, and one capture at a time per process
+MAX_TRACE_MS = 60_000
+_PROFILE_LOCK = threading.Lock()
+
 _STATUS = {200: "200 OK", 202: "202 Accepted", 304: "304 Not Modified", 400: "400 Bad Request",
            404: "404 Not Found", 405: "405 Method Not Allowed", 408: "408 Request Timeout",
            409: "409 Conflict", 413: "413 Content Too Large", 429: "429 Too Many Requests",
@@ -276,6 +315,17 @@ class App:
         self.chaos = registry.chaos
         self.pressure = build_pressure(server_cfg)
         self.slo_classes = parse_slo_classes(server_cfg.slo_classes)
+        # span aggregation: every observability surface reads it
+        self.obs = Observability(recorder_n=server_cfg.flight_recorder_n,
+                                 recorder_recent_n=server_cfg.flight_recorder_recent_n,
+                                 recorder_bytes=server_cfg.flight_recorder_bytes)
+        if server_cfg.access_log:
+            self.obs.set_access_log(make_access_logger(server_cfg.access_log))
+        # the telemetry hub (None with telemetry_interval_s 0): its sampler
+        # runs from here until shutdown_gracefully stops it
+        self.telemetry = build_hub(self, server_cfg)
+        if self.telemetry is not None:
+            self.telemetry.start()
 
     # The default model's serving unit, resolved on every read so that a
     # hot swap of the default model retargets /healthz and /stats.
@@ -298,6 +348,16 @@ class App:
     def __call__(self, environ, start_response):
         path = environ.get("PATH_INFO", "/")
         method = environ.get("REQUEST_METHOD", "GET")
+        # the pooled front end makes the span when the request's bytes start
+        # arriving and finishes it before the answer goes out; a direct WSGI
+        # caller gets one made and finished here
+        span = environ.get("tpu_serve.span")
+        own_span = span is None
+        if own_span:
+            span = Span(accept_trace_id(environ.get("HTTP_X_TRACE_ID")))
+            environ["tpu_serve.span"] = span
+        span.note_default("method", method)
+        span.note_default("path", path)
         try:
             if path == "/predict" and method == "POST":
                 res = self._predict(environ)
@@ -309,6 +369,18 @@ class App:
                 res = self._admin_models(environ, method, path)
             elif path == "/stats":
                 res = _json(200, self._stats())
+            elif path == "/metrics":
+                res = "200 OK", self._metrics().encode(), "text/plain; version=0.0.4", []
+            elif path == "/debug/slow":
+                res = _json(200, self.obs.flight.snapshot())
+            elif path == "/debug/history":
+                res = self._history(environ)
+            elif path == "/debug/events":
+                res = self._events(environ)
+            elif path == "/debug/trace" and method == "POST":
+                res = self._profile(environ)
+            elif path == "/debug/trace":
+                res = self._trace_export(environ)
             elif path == "/":
                 res = "200 OK", _DEMO_PAGE.encode(), "text/html", []
             else:
@@ -321,8 +393,10 @@ class App:
             log.exception("request failed: %s %s", method, path)
             res = _error(500, f"{type(e).__name__}: {e}")
         status, body, ctype, headers = res
+        if own_span:
+            self.obs.finish(span, int(status.split(None, 1)[0]))
         start_response(status, [("Content-Type", ctype), ("Content-Length", str(len(body))),
-                                *headers])
+                                ("X-Trace-Id", span.trace_id), *headers])
         return [body]
 
     def _healthz(self):
@@ -337,9 +411,14 @@ class App:
 
     def _stats(self) -> dict:
         mv = self.registry.default_entry()
-        snap = {"model": mv.name if mv is not None else None}
-        if mv is not None and mv.batcher is not None:
-            snap["batcher"] = mv.batcher.stats()
+        batcher = mv.batcher if mv is not None else None
+        bstats = batcher.stats() if batcher is not None else None
+        # the reference's top level: the default model's rolling window
+        snap = dict(bstats["rolling"]) if bstats is not None else {}
+        snap["model"] = mv.name if mv is not None else None
+        if batcher is not None:
+            snap["queue_depth"] = batcher.queue_depth
+            snap["batcher"] = bstats
         if mv is not None and mv.engine is not None:
             snap["engine"] = mv.engine.stats()
         snap["models"] = self.registry.models_snapshot()
@@ -350,7 +429,411 @@ class App:
                             "pressure": self.pressure.stats()}
         if self.chaos is not None:
             snap["overload"]["chaos"] = self.chaos.stats()
+        # per-stage span aggregates, cumulative (tools/loadgen.py diffs two)
+        snap["tracing"] = self.obs.stage_summary()
+        snap["economics"] = self._economics()
+        snap["telemetry"] = (self.telemetry.stats() if self.telemetry is not None
+                             else {"enabled": False})
         return snap
+
+    def _economics(self) -> dict:
+        """Per serving version: the cost model's roofline attribution over
+        the engine's measured cells, and the batcher's padding block; a
+        version with neither (a mock engine and no batcher) is absent."""
+        out = {}
+        for mv in self.registry.serving_entries():
+            try:
+                econ = costmodel.economics_snapshot(mv.engine, mv.model_cfg)
+            except Exception:  # economics must never fail /stats
+                log.exception("economics snapshot failed for %s", mv.ref)
+                econ = None
+            batcher = mv.batcher
+            pad = (batcher.stats().get("padding") or None) if batcher is not None else None
+            if econ is None and pad is None:
+                continue
+            entry = econ if econ is not None else {}
+            if pad is not None:
+                entry["padding"] = pad
+            out[mv.ref] = entry
+        return out
+
+    # --------------------------------------------------------- observability
+
+    def _metrics(self) -> str:
+        """Every counter, gauge and histogram as Prometheus text under the
+        reference's family names. The span families come from one
+        Observability snapshot, so the +Inf count of
+        ``request_duration_seconds`` equals ``requests_total`` summed over
+        status classes."""
+        p = PromText()
+        mv0 = self.registry.default_entry()  # resolved once: a swap may drain it meanwhile
+        batcher = mv0.batcher if mv0 is not None else None
+        obs = self.obs.snapshot()
+        p.scalar("uptime_seconds", obs["uptime_s"],
+                 help_="Seconds since this app started (monotonic).")
+        for klass in sorted(obs["requests_by_status"]):
+            p.scalar("requests_total", obs["requests_by_status"][klass], mtype="counter",
+                     labels={"status": klass}, help_="Finished HTTP requests by status class.")
+        p.histogram("request_duration_seconds", obs["e2e"],
+                    help_="End-to-end request latency (span total).")
+        for stage in sorted(obs["stages"]):
+            p.histogram("stage_duration_seconds", obs["stages"][stage], labels={"stage": stage},
+                        help_="Per-stage request latency (span stages).")
+        if batcher is not None:
+            bs = batcher.stats()
+            snap = bs["rolling"]
+            p.scalar("inferences_total", snap["requests_total"], mtype="counter",
+                     help_="Images through the batcher (incl. errors).")
+            p.scalar("inference_errors_total", snap["errors_total"], mtype="counter",
+                     help_="Failed batcher requests.")
+            p.scalar("batches_dispatched_total", snap["batches_dispatched_total"],
+                     mtype="counter", help_="Device batches dispatched.")
+            if snap["batch_occupancy"] is not None:
+                p.scalar("batch_occupancy", snap["batch_occupancy"],
+                         help_="Real rows / bucket rows, rolling window.")
+            p.scalar("queue_depth", batcher.queue_depth,
+                     help_="Leased-but-undispatched batch slots (assembly backlog).")
+            p.scalar("batch_delay_seconds", bs["current_delay_ms"] / 1e3,
+                     help_="Live adaptive batch-assembly window.")
+            p.scalar("builders_open", bs["open_builders"],
+                     help_="Batch builders assembling (open + sealing).")
+            p.scalar("batches_sealed_total", bs["sealed"] + bs["discarded"], mtype="counter",
+                     help_="Batch builders sealed and dispatched or discarded.")
+            p.scalar("lease_timeouts_total", bs["lease_timeouts"], mtype="counter",
+                     help_="Slot leases force-expired (lessee died or exceeded the lease "
+                     "timeout).")
+            p.scalar("batch_holes_total", bs["holes"], mtype="counter",
+                     help_="Batch slots dispatched as holes (released, failed, or expired "
+                     "leases).")
+            p.scalar("pipeline_depth", bs["pipeline_depth"],
+                     help_="Configured batches in flight per canvas bucket "
+                     "(sealed->launched->unfetched).")
+            p.scalar("pipeline_inflight_batches", bs["inflight"],
+                     help_="Batches currently in flight on the device pipeline (launched, "
+                     "outputs not yet fetched).")
+            p.scalar("backlog_rejections_total", bs["backlog_rejects"], mtype="counter",
+                     help_="Requests fast-rejected with 503 because the batcher backlog hit "
+                     "max_queue.")
+            p.scalar("deadline_sheds_total", bs["deadline_sheds_total"], mtype="counter",
+                     help_="Requests shed at admission because the expected wait exceeded "
+                     "their deadline.")
+            p.scalar("deadline_seal_sheds_total", bs["deadline_seal_sheds_total"],
+                     mtype="counter", help_="Leases shed at batch seal: the deadline passed "
+                     "while the slot waited for dispatch.")
+            p.scalar("quota_sheds_total", bs["quota_sheds_total"], mtype="counter",
+                     help_="Requests shed by per-tenant token-bucket quota (answered 429).")
+        a = self.admission.stats()
+        for tname, t in a["tenants"].items():
+            p.scalar("tenant_admitted_total", t["admitted"], mtype="counter",
+                     labels={"tenant": tname}, help_="Requests admitted, by tenant.")
+            for reason in sorted(t["shed"]):
+                p.scalar("tenant_shed_total", t["shed"][reason], mtype="counter",
+                         labels={"tenant": tname, "reason": reason},
+                         help_="Requests shed, by tenant and reason.")
+        for cname, c in a["classes"].items():
+            p.scalar("slo_class_admitted_total", c["admitted"], mtype="counter",
+                     labels={"slo_class": cname}, help_="Requests admitted, by SLO class.")
+            for reason in sorted(c["shed"]):
+                p.scalar("slo_class_shed_total", c["shed"][reason], mtype="counter",
+                         labels={"slo_class": cname, "reason": reason},
+                         help_="Requests shed, by SLO class and reason.")
+        pr = self.pressure.stats()
+        p.scalar("pressure_level", pr["level"],
+                 help_="Degradation-ladder rung (0 = normal service).")
+        p.scalar("pressure_transitions_total", pr["transitions_total"], mtype="counter",
+                 help_="Degradation-ladder rung transitions.")
+        if self.chaos is not None:
+            ch = self.chaos.stats()
+            for k in ("decode_failures_injected", "dispatch_failures_injected",
+                      "slow_fetches_injected", "spike_holds_injected"):
+                p.scalar(f"chaos_{k}_total", ch[k], mtype="counter",
+                         help_="Chaos-injector fault injections.")
+        if self.http_counters is not None:
+            h = self.http_counters.snapshot()
+            p.scalar("http_connections_total", h["connections_total"], mtype="counter",
+                     help_="TCP connections accepted.")
+            p.scalar("http_requests_total", h["requests_total"], mtype="counter",
+                     help_="HTTP requests served (all routes).")
+            p.scalar("http_active_connections", h["active_connections"],
+                     help_="Currently open connections.")
+        engine = mv0.engine if mv0 is not None else None
+        slabs = engine.stats().get("slabs") if engine is not None else None
+        if slabs is not None:
+            p.scalar("staging_slab_allocs_total", slabs["allocated"], mtype="counter",
+                     help_="Lifetime staging-slab allocations.")
+            p.scalar("staging_slabs_pooled", slabs["pooled"],
+                     help_="Idle staging slabs in the pool.")
+            p.scalar("staging_pooled_bytes", slabs["pooled_bytes"],
+                     help_="Host bytes held by idle staging slabs.")
+        reg = self.registry.models_snapshot()
+        for name, info in reg["models"].items():
+            for v in info["versions"]:
+                p.scalar("model_state", 1,
+                         labels={"model": name, "version": v["version"], "state": v["state"]},
+                         help_="Lifecycle state per model version (enum: the current state's "
+                         "sample is 1).")
+        p.scalar("model_swaps_total", reg["swaps_total"], mtype="counter",
+                 help_="Hot-swap requests accepted by the registry.")
+        p.scalar("model_loads_failed_total", reg["loads_failed_total"], mtype="counter",
+                 help_="Model loads that FAILED (build or warmup).")
+        peak_done: set = set()  # each dtype's peak pair once a scrape
+        for mv in self.registry.serving_entries():
+            mb = mv.batcher
+            if mb is None:
+                continue
+            mbs = mb.stats()
+            ms = mbs["rolling"]
+            labels = {"model": mv.name, "version": mv.version}
+            p.scalar("model_inferences_total", ms["requests_total"], mtype="counter",
+                     labels=labels, help_="Images through this model's batcher (incl. errors).")
+            p.scalar("model_inference_errors_total", ms["errors_total"], mtype="counter",
+                     labels=labels, help_="Failed requests on this model's batcher.")
+            p.scalar("model_latency_p50_seconds", ms["latency_ms"]["p50"] / 1e3, labels=labels,
+                     help_="Rolling p50 latency through this model's batcher.")
+            p.scalar("model_queue_depth", mb.queue_depth, labels=labels,
+                     help_="This model's leased-but-undispatched slots.")
+            p.scalar("model_backlog_rejections_total", mbs["backlog_rejects"],
+                     mtype="counter", labels=labels,
+                     help_="503 fast-rejects on this model's bounded queue.")
+            p.scalar("model_pipeline_inflight_batches", mbs["inflight"], labels=labels,
+                     help_="This model's batches in flight on the device pipeline.")
+            p.scalar("model_inflight_requests", mv.inflight, labels=labels,
+                     help_="HTTP requests currently holding this version.")
+            engine = mv.engine
+            if hasattr(engine, "econ_stats"):
+                est = engine.stats()
+                rl = dict(labels, replica=0)
+                p.scalar("model_replica_dispatches_total", est["batches"], mtype="counter",
+                         labels=rl, help_="Batches dispatched to this placement replica.")
+                p.scalar("model_replica_busy_seconds_total", est["busy_s"], mtype="counter",
+                         labels=rl, help_="Cumulative device seconds on this replica: CUDA "
+                         "events around each batch's compute on the card (not host wall).")
+            self._econ_metrics(p, mv, mbs, peak_done)
+        c = self.cache.stats()
+        p.scalar("cache_hits_total", c["hits_total"], mtype="counter",
+                 help_="Requests served from the response cache.")
+        p.scalar("cache_misses_total", c["misses_total"], mtype="counter",
+                 help_="Cache lookups that led a fresh computation.")
+        p.scalar("cache_coalesced_total", c["coalesced_total"], mtype="counter",
+                 help_="Requests coalesced onto another request's in-flight computation "
+                 "(single-flight dedup).")
+        p.scalar("cache_evictions_total", c["evictions_total"], mtype="counter",
+                 help_="Entries evicted by the LRU byte budget.")
+        p.scalar("cache_invalidations_total", c["invalidations_total"], mtype="counter",
+                 help_="Entries dropped by model retire (hot-swap/unload).")
+        p.scalar("cache_bytes", c["bytes"],
+                 help_="Bytes held by cached responses (budget: --cache-bytes; 0 = cache "
+                 "disabled).")
+        p.scalar("cache_entries", c["entries"], help_="Live cached responses.")
+        p.scalar("cache_inflight", c["inflight"],
+                 help_="Single-flight computations currently in flight.")
+        ac = aotcache.stats()
+        p.scalar("aot_cache_hits_total", ac["hits_total"], mtype="counter",
+                 help_="Kernel libraries loaded from the build cache instead of built.")
+        p.scalar("aot_cache_misses_total", ac["misses_total"], mtype="counter",
+                 help_="Build-cache lookups that fell through to nvcc.")
+        p.scalar("aot_cache_writes_total", ac["writes_total"], mtype="counter",
+                 help_="Freshly built kernel libraries written to the build cache.")
+        p.scalar("aot_cache_corrupt_total", ac["corrupt_total"], mtype="counter",
+                 help_="Build-cache entries rejected as unusable; each fell back to nvcc.")
+        p.scalar("aot_cache_bytes_total", ac["bytes_written_total"], mtype="counter",
+                 help_="Bytes of kernel libraries written to the build cache.")
+        for name, mc in c["per_model"].items():
+            ml = {"model": name}
+            p.scalar("model_cache_hits_total", mc["hits"], mtype="counter", labels=ml,
+                     help_="Cache hits for this model.")
+            p.scalar("model_cache_misses_total", mc["misses"], mtype="counter", labels=ml,
+                     help_="Cache misses for this model.")
+            p.scalar("model_cache_coalesced_total", mc["coalesced"], mtype="counter",
+                     labels=ml, help_="Coalesced (single-flight) waits for this model.")
+            p.scalar("model_cache_bytes", mc["bytes"], labels=ml,
+                     help_="Bytes of this model's cached responses.")
+        if self.telemetry is not None:
+            self._telemetry_metrics(p)
+        return p.render()
+
+    def _telemetry_metrics(self, p: PromText) -> None:
+        ts = self.telemetry.stats()
+        p.scalar("telemetry_memory_bytes", ts["memory_bytes"],
+                 help_="Live bytes held by the telemetry history rings (fixed arrays; "
+                 "bounded by series cap x resolutions).")
+        p.scalar("telemetry_series", ts["series_count"],
+                 help_="Named series currently held by the telemetry rings.")
+        p.scalar("telemetry_samples_total", ts["samples_total"], mtype="counter",
+                 help_="Completed telemetry sampler ticks.")
+        p.scalar("telemetry_overruns_total", ts["overruns_total"], mtype="counter",
+                 help_="Sampler ticks that took longer than the sample interval.")
+        for name, al in sorted(ts["slo"].items()):
+            for window, burn in sorted(al["burn"].items()):
+                p.scalar("slo_burn_rate", burn, labels={"class": name, "window": window},
+                         help_="SLO error-budget burn rate per objective and window (1.0 = "
+                         "burning exactly the budget; the fast pair pages at 14.4, the slow "
+                         "window at 6).")
+            p.scalar("slo_alert_firing", al["state"] == "firing", labels={"class": name},
+                     help_="1 while the objective's multi-window burn-rate alert is firing, "
+                     "else 0.")
+
+    def _econ_metrics(self, p: PromText, mv, bstats: dict, peak_done: set) -> None:
+        """One serving version's economics: MFU, and per (canvas, batch
+        bucket) cell its device seconds, rows, achieved FLOP/s, MFU,
+        arithmetic intensity and roofline fraction; the batcher's padding
+        counters; the card's peak per serving dtype, once a scrape."""
+        if not hasattr(mv.engine, "econ_stats"):
+            return
+        try:
+            econ = costmodel.economics_snapshot(mv.engine, mv.model_cfg)
+        except Exception:  # economics must never fail a scrape
+            log.exception("economics metrics failed for %s", mv.ref)
+            return
+        if not econ:
+            return
+        base = {"model": mv.name, "version": mv.version, "dtype": econ["dtype"]}
+        if "mfu" in econ:
+            p.scalar("model_mfu", econ["mfu"], labels=base,
+                     help_="Whole-model FLOP utilization: useful FLOP/s over measured device "
+                     "time, against the card's peak (spec table; CPU: calibrated once).")
+        p.scalar("model_padded_rows_fraction", econ["padded_rows_fraction"], labels=base,
+                 help_="Lifetime fraction of dispatched batch rows that carried no request.")
+        for rep in econ["replicas"]:
+            for cell in rep["buckets"]:
+                cl = dict(base, replica=rep["replica"], canvas=cell["canvas"],
+                          bucket=cell["batch_bucket"])
+                p.scalar("model_econ_device_seconds_total", cell["device_s"], mtype="counter",
+                         labels=cl, help_="Measured device seconds per (replica, canvas, "
+                         "batch bucket) cell (CUDA events on the card).")
+                p.scalar("model_econ_rows_total", cell["rows"], mtype="counter", labels=cl,
+                         help_="Rows staged (requests + holes) per economics cell.")
+                p.scalar("model_econ_rows_dispatched_total", cell["rows_dispatched"],
+                         mtype="counter", labels=cl,
+                         help_="Rows the bucket shape dispatched per economics cell.")
+                if cell.get("achieved_flops") is None:
+                    continue
+                p.scalar("model_achieved_flops", cell["achieved_flops"], labels=cl,
+                         help_="Useful FLOP/s achieved in this cell.")
+                p.scalar("model_cell_mfu", cell["mfu"], labels=cl,
+                         help_="This cell's useful FLOP/s over the card's peak.")
+                p.scalar("model_arithmetic_intensity", cell["arithmetic_intensity"], labels=cl,
+                         help_="Analytic FLOPs per memory byte at this (canvas, batch) point.")
+                if cell.get("roofline_bound_fraction") is not None:
+                    p.scalar("model_roofline_bound_fraction", cell["roofline_bound_fraction"],
+                             labels=cl, help_="Achieved FLOP/s over the BINDING roofline "
+                             "ceiling (compute peak or AI x bandwidth, whichever is lower).")
+        for cell in (bstats.get("padding") or {}).values():
+            cl = dict(base, canvas=cell["canvas"], bucket=cell["batch_bucket"])
+            p.scalar("model_padding_rows_real_total", cell["rows_real"], mtype="counter",
+                     labels=cl, help_="Dispatched rows that carried a committed request.")
+            p.scalar("model_padding_rows_dispatched_total", cell["rows_dispatched"],
+                     mtype="counter", labels=cl,
+                     help_="Rows dispatched at the batch-bucket shape.")
+            p.scalar("model_padding_px_real_total", cell["px_real"], mtype="counter",
+                     labels=cl, help_="Real image pixels shipped.")
+            p.scalar("model_padding_px_dispatched_total", cell["px_dispatched"],
+                     mtype="counter", labels=cl, help_="Canvas pixels shipped (incl. padding).")
+        peak = econ["peak"]
+        dtype = base["dtype"]
+        if ("peak", dtype) not in peak_done:
+            peak_done.add(("peak", dtype))
+            dl = {"dtype": dtype}
+            p.scalar("device_peak_flops_per_chip", peak["flops_per_chip"], labels=dl,
+                     help_="Peak FLOP/s the MFU gauges divide by at this serving dtype (card: "
+                     "spec table, float32 on the CUDA cores, int8 at bf16's; CPU: "
+                     "calibrated once per compute dtype).")
+            p.scalar("device_peak_hbm_bytes_per_s_per_chip", peak["hbm_bytes_per_s_per_chip"],
+                     labels=dl, help_="Peak memory bandwidth for the roofline ridge point.")
+
+    def _history(self, environ):
+        """GET /debug/history?series=a,b&last_s=N&res=1s|10s|60s: bounded
+        rows from the telemetry rings; without ``series``, their names."""
+        if self.telemetry is None:
+            return _error(404, "telemetry disabled (--telemetry-interval 0)")
+        qs = urllib.parse.parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True)
+        try:
+            raw = _qs_last(qs, "last_s")
+            last_s = float(raw) if raw is not None else 300.0
+        except ValueError:
+            return _error(400, "last_s must be a number")
+        names_raw = _qs_last(qs, "series")
+        if not names_raw:
+            return _json(200, {"series": self.telemetry.series_names(),
+                               "hint": "GET /debug/history?series=a,b&last_s=300&res=10s"})
+        names = [n for n in names_raw.split(",") if n]
+        if len(names) > 16:
+            return _error(400, "at most 16 series per query")
+        try:
+            doc = self.telemetry.query(names, last_s=last_s, res=_qs_last(qs, "res") or None)
+        except KeyError as e:
+            return _json(400, {"error": f"unknown series {e.args[0]!r}",
+                               "series": self.telemetry.series_names()})
+        except ValueError as e:
+            return _error(400, str(e))
+        return _json(200, doc)
+
+    def _events(self, environ):
+        """GET /debug/events?last_s=N&kind=a,b: the event ring, newest last."""
+        if self.telemetry is None:
+            return _error(404, "telemetry disabled (--telemetry-interval 0)")
+        qs = urllib.parse.parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True)
+        try:
+            raw = _qs_last(qs, "last_s")
+            last_s = float(raw) if raw is not None else None
+        except ValueError:
+            return _error(400, "last_s must be a number")
+        kinds_raw = _qs_last(qs, "kind")
+        kinds = {k for k in kinds_raw.split(",") if k} if kinds_raw else None
+        return _json(200, {"now": round(time.monotonic(), 3), "clock": "monotonic",
+                           "events": self.telemetry.events(last_s, kinds)})
+
+    def _trace_export(self, environ):
+        """GET /debug/trace?last_s=N: every serving version's batch
+        timeline, the flight recorder's recent spans and the telemetry
+        events as Chrome-trace JSON, over the effective window it reports."""
+        qs = urllib.parse.parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True)
+        try:
+            raw = _qs_last(qs, "last_s")
+            requested_s = float(raw) if raw is not None else None
+        except ValueError:
+            return _error(400, "last_s must be a number")
+        last_s = effective_window(requested_s, self.obs.flight.retention_s())
+        models = [{"name": mv.ref, "timeline": mv.batcher.batch_timeline()}
+                  for mv in self.registry.serving_entries() if mv.batcher is not None]
+        events = self.telemetry.events(last_s) if self.telemetry is not None else None
+        doc = chrome_trace(models, self.obs.flight.trace_records(last_s), last_s=last_s,
+                           instants=events)
+        doc["otherData"]["requested_window_s"] = requested_s
+        doc["otherData"]["effective_window_s"] = last_s
+        return _json(200, doc)
+
+    def _profile(self, environ):
+        """POST /debug/trace?ms=N&dir=D: ``torch.profiler`` (CPU, and CUDA
+        activities on the card) for N ms (default 1,000, at most 60,000),
+        exported as a Chrome trace into D (default ``tpu_serve_trace`` in
+        the temporary directory). One capture at a time: a second answers
+        409 while the first runs."""
+        qs = urllib.parse.parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True)
+        try:
+            raw = _qs_last(qs, "ms")
+            ms = max(0, min(int(raw) if raw is not None else 1000, MAX_TRACE_MS))
+        except ValueError:
+            return _error(400, "ms must be an integer")
+        out_dir = _qs_last(qs, "dir") or os.path.join(tempfile.gettempdir(), "tpu_serve_trace")
+        if not _PROFILE_LOCK.acquire(blocking=False):
+            return _error(409, "a profiler capture is already running")
+        try:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            os.makedirs(out_dir, exist_ok=True)
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            with profile(activities=activities) as prof:
+                time.sleep(ms / 1e3)
+            path = os.path.join(out_dir, f"trace-{os.getpid()}-{time.monotonic_ns()}.json")
+            prof.export_chrome_trace(path)
+        finally:
+            _PROFILE_LOCK.release()
+        return _json(200, {"trace_dir": out_dir, "trace_file": path, "captured_ms": ms,
+                           "activities": [a.name for a in activities]})
 
     def _admin_models(self, environ, method: str, path: str):
         """POST /models/{load,swap,unload}: a JSON body in, the affected
@@ -425,6 +908,8 @@ class App:
 
     def _predict(self, environ):
         t0 = time.monotonic()
+        # the fresh span serves direct callers only; theirs go unaggregated
+        span = environ.get("tpu_serve.span") or Span()
         qs = urllib.parse.parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True)
         # Tenant, SLO class and deadline come first: a malformed deadline
         # answers 400 before the body is read. The client's deadline counts
@@ -466,6 +951,7 @@ class App:
             except ValueError:
                 return _error(400, "topk must be an integer")
             body = self._read_body(environ)
+            span.add("body_read", time.monotonic() - t0)
             if body is None:
                 return _error(413, f"body exceeds {MAX_BODY_MB} MB cap")
             ctype = environ.get("CONTENT_TYPE", "")
@@ -492,8 +978,9 @@ class App:
                     if err is not None:
                         return err
                 try:
+                    span.note("model", mv.ref)
                     res = self._predict_on(mv, named, qs, topk_req, inm, deadline, tenant,
-                                           slo_class, slo_deadline)
+                                           slo_class, slo_deadline, span)
                     if res[0].startswith(("2", "304")):
                         self.admission.count_admit(tenant, slo_class)
                     return res
@@ -509,11 +996,13 @@ class App:
                 self.registry.release(mv)
 
     def _predict_on(self, mv, named: list[tuple[str, bytes]], qs, topk_req: int | None, inm,
-                    deadline: float, tenant: str, slo_class: str, slo_deadline: float | None):
+                    deadline: float, tenant: str, slo_class: str, slo_deadline: float | None,
+                    span: Span):
         """The /predict body against one resolved model version: one ladder
         step, stage every upload (a cached answer, a wait on another
         request's flight, or a leased slot of its own), then await the rows
-        until ``deadline``."""
+        until ``deadline``. ``span`` gets ``cache_wait``, ``postprocess``
+        and ``serialize``."""
         batcher, engine = mv.batcher, mv.engine
         if batcher is None:
             return _error(503, f"{mv.ref} has no batcher")
@@ -531,20 +1020,23 @@ class App:
                 try:
                     with self.registry.lease_model(alt.name) as amv:
                         self.pressure.count_reroute(len(named))
+                        span.note("quant_reroute", amv.name)
                         return self._predict_on(amv, named, qs, topk_req, inm, deadline,
-                                                tenant, slo_class, slo_deadline)
+                                                tenant, slo_class, slo_deadline, span)
                 except (UnknownModel, ModelNotServing):
                     pass  # the variant retired under us: serve here
         if len(named) > batcher.max_batch:  # one request's images in one assembly window
             return _error(413, f"at most {batcher.max_batch} images per request")
+        span.note("images", len(named))
         cache = self.cache if self.cache.enabled else None
         slots, err = self._stage_leases(mv, named, topk, cache, level, tenant, slo_class,
-                                        slo_deadline)
+                                        slo_deadline, span)
         if err is not None:
             return err
         payloads: list = [None] * len(slots)
         etags: list = [None] * len(slots)
         n_hit = n_wait = 0
+        post_s = wait_s = 0.0
         try:
             # own rows first: a leader publishes its result (waking waiters
             # of other requests) before this request waits on a flight
@@ -555,13 +1047,16 @@ class App:
                 elif slot[0] == "own":
                     _, lease, flight = slot
                     row = lease.future.result(timeout=max(0.0, deadline - time.monotonic()))
+                    t_p = time.monotonic()
                     payloads[i] = self._row(mv, row, topk)
+                    post_s += time.monotonic() - t_p
                     if flight is not None:
                         etags[i] = self.cache.complete(flight, payloads[i])
             for i, slot in enumerate(slots):
                 if slot[0] != "wait":
                     continue
                 n_wait += 1
+                t_w = time.monotonic()
                 try:
                     payloads[i], etags[i] = slot[1].future.result(
                         timeout=max(0.0, deadline - time.monotonic()))
@@ -571,6 +1066,8 @@ class App:
                     # the flight aborted (its version retired, or its leader
                     # failed): _predict retries once as a miss
                     raise _CoalesceRetry(e) from e
+                finally:
+                    wait_s += time.monotonic() - t_w
         except FutureTimeout:
             self._abort_slots(slots, TimeoutError("inference timed out"))
             return self._shed_response(DeadlineExceeded("inference timed out"), tenant,
@@ -587,22 +1084,32 @@ class App:
         except BaseException as e:  # a failed batch: the led flights must not hang
             self._abort_slots(slots, e)
             raise
+        if wait_s:
+            span.add("cache_wait", wait_s)
         headers = []
         if cache is not None:
             token = "hit" if n_hit == len(slots) else "coalesced" if n_wait else "miss"
             if len(slots) > 1:
                 token += f"; hits={n_hit}/{len(slots)}"
             headers.append(("X-Cache", token))
+        t_post = time.monotonic()
         if len(payloads) == 1 and _qs_last(qs, "batch") != "1":
             etag = etags[0] or payload_etag(payloads[0], mv.name, mv.version)
             headers.append(("ETag", f'"{etag}"'))
             if _etag_matches(inm, etag):
+                span.add("postprocess", post_s)
                 return _STATUS[304], b"", "application/json", headers
             resp = dict(payloads[0])  # a cached payload is shared: never mutate it
         else:
             resp = {"results": payloads}
+        t_ser = time.monotonic()
+        span.add("postprocess", post_s + (t_ser - t_post))
+        # the trace ID rides the X-Trace-Id header only (the reference also
+        # puts it and latency_ms in the body): a hit's body stays the miss's
         resp.update(model=mv.name, model_version=mv.version)
-        return _json(200, resp, headers)
+        out = _json(200, resp, headers)
+        span.add("serialize", time.monotonic() - t_ser)
+        return out
 
     _SHED_CODE = {SHED_BACKLOG: 503, SHED_QUOTA: 429, SHED_DEADLINE: 504, SHED_DEGRADED: 503}
 
@@ -647,7 +1154,7 @@ class App:
         ]}
 
     def _stage_leases(self, mv, named: list[tuple[str, bytes]], topk: int, cache, level: int,
-                      tenant: str, slo_class: str, slo_deadline: float | None):
+                      tenant: str, slo_class: str, slo_deadline: float | None, span: Span):
         """Stage every upload of a request (:meth:`_stage`); ``(slots, None)``
         or ``(None, error answer)``, the request's slots unwound. Rung 2
         stages into the smallest canvas bucket."""
@@ -659,7 +1166,7 @@ class App:
             for name, data in named:
                 try:
                     self._stage(mv, data, buckets, topk, cache, level, slo_deadline, tenant,
-                                slots)
+                                slots, span)
                 except ValueError as e:
                     self._abort_slots(slots, e)
                     return None, _error(400, f"{name}: {e}")
@@ -675,7 +1182,7 @@ class App:
         return slots, None
 
     def _stage(self, mv, data: bytes, buckets, topk: int, cache, level: int,
-               slo_deadline: float | None, tenant: str, slots: list) -> None:
+               slo_deadline: float | None, tenant: str, slots: list, span: Span) -> None:
         """Stage one upload and append its slot to ``slots``. A JPEG is
         planned from its header, its slot leased (admission sheds raise
         here) and libjpeg decodes it straight into the slot's pinned row;
@@ -686,63 +1193,86 @@ class App:
         unless the ladder's last rung sheds it. Anything else, or a
         stream the C side rejects, is decoded by PIL and looked up before
         any slot is leased. Raises ValueError if the bytes are no decodable
-        image."""
+        image. ``span`` gets ``image_decode`` (header probe and decode) and
+        ``cache_lookup`` (digest and lookup); the lease stamps its wait."""
         if self.chaos is not None and self.chaos.decode_fault():
             raise ValueError("cannot decode image (chaos: injected decode failure)")
         engine, batcher = mv.engine, mv.batcher
         wire = engine.cfg.wire_format
+        t_d = time.monotonic()
         if engine.ragged:
             plan = native.plan_decode_packed(data, buckets)
+            decode_s = time.monotonic() - t_d
             if plan is not None:
                 s, need, _, _ = plan
-                lease = batcher.lease_ragged(need, s, slo_deadline, tenant)
+                lease = batcher.lease_ragged(need, s, slo_deadline, tenant, span)
+                t_d = time.monotonic()
                 hw = native.decode_packed_into(data, lease.row, s)
         else:
             plan = native.plan_decode(data, buckets, wire)
+            decode_s = time.monotonic() - t_d
             if plan is not None:
                 s, shape, _ = plan
-                lease = batcher.lease(shape, slo_deadline, tenant)
+                lease = batcher.lease(shape, slo_deadline, tenant, span)
+                t_d = time.monotonic()
                 hw = native.decode_into_row(data, lease.row, s, wire, trailer=True)
         if plan is not None:
+            decode_s += time.monotonic() - t_d
             if hw is not None:
+                span.add("image_decode", decode_s)
                 engine.count_decode("native")
+                t_c = time.monotonic()
                 # the reference's digest bytes: the tight h·w·3 decoded
                 # bytes, or the canvas without the row's 4-byte trailer
                 digest = (packed_digest(lease.row[: hw[0] * hw[1] * 3], hw, s) if engine.ragged
                           else canvas_digest(lease.row[:-TRAILER_BYTES], hw)
                           ) if cache is not None else None
-                self._settle(mv, digest, topk, cache, level, slots, lease, hw)
+                self._settle(mv, digest, topk, cache, level, slots, span,
+                             time.monotonic() - t_c, lease, hw)
                 return
             lease.release()  # the header parsed, the stream did not: PIL tries
+        t_d = time.monotonic()
         try:  # PIL: UnidentifiedImageError is an OSError
             if engine.ragged:
                 canvas, hw, s = fit_to_bucket(decode_image(data), buckets)
-                digest = packed_digest(canvas, hw, s) if cache is not None else None
             else:
                 canvas, hw, _ = native.decode_pil(data, buckets, wire)
-                digest = canvas_digest(canvas, hw) if cache is not None else None
         except (OSError, ValueError) as e:
+            span.add("image_decode", decode_s + time.monotonic() - t_d)
             raise ValueError(f"cannot decode image: {e}") from e
+        t_c = time.monotonic()
+        span.add("image_decode", decode_s + t_c - t_d)
         engine.count_decode("pil")
+        if cache is None:
+            digest = None
+        elif engine.ragged:
+            digest = packed_digest(canvas, hw, s)
+        else:
+            digest = canvas_digest(canvas, hw)
 
         def take():
-            lease = (batcher.lease_ragged(canvas.nbytes, s, slo_deadline, tenant)
-                     if engine.ragged else batcher.lease(canvas.shape, slo_deadline, tenant))
+            lease = (batcher.lease_ragged(canvas.nbytes, s, slo_deadline, tenant, span)
+                     if engine.ragged
+                     else batcher.lease(canvas.shape, slo_deadline, tenant, span))
             lease.commit(hw, canvas=canvas)
             return lease
 
-        self._settle(mv, digest, topk, cache, level, slots, take=take)
+        self._settle(mv, digest, topk, cache, level, slots, span, time.monotonic() - t_c,
+                     take=take)
 
     def _settle(self, mv, digest: str | None, topk: int, cache, level: int, slots: list,
-                lease=None, hw=None, take=None) -> None:
+                span: Span, digest_s: float, lease=None, hw=None, take=None) -> None:
         """One decoded upload's lookup and slot. ``lease`` holds it decoded
         already, valid size ``hw`` (native); or ``take()`` leases a slot and
-        copies it in, on a miss only (PIL)."""
+        copies it in, on a miss only (PIL). The digest's ``digest_s`` and
+        the lookup are the span's ``cache_lookup``."""
         flight = None
         try:
             if cache is not None:
+                t_c = time.monotonic()
                 kind, obj = cache.begin(make_key(mv.name, mv.version, digest, topk,
                                                  mv.model_cfg.dtype), mv.name)
+                span.add("cache_lookup", digest_s + time.monotonic() - t_c)
                 if kind != "lead":
                     if lease is not None:
                         lease.release()  # no device work: the slot ships as a hole
@@ -961,6 +1491,9 @@ class KeepAliveWSGIHandler(BaseHTTPRequestHandler):
     def _handle_with_deadline(self):
         self.rfile.deadline = time.monotonic() + self.server.request_read_timeout_s
         self._responded = False
+        # the trace starts once the request's bytes are arriving: header
+        # reading is request work, keep-alive idling is not
+        self._req_t0 = time.monotonic()
         try:
             self.handle_one_request()
         finally:
@@ -1026,6 +1559,11 @@ class KeepAliveWSGIHandler(BaseHTTPRequestHandler):
             # reused without a trusted body length
             self.close_connection = True
         reader = _BodyReader(self.rfile, declared)
+        # the span: a well-formed inbound X-Trace-Id or a fresh one; the
+        # header read that just happened is its first stage
+        span = Span(accept_trace_id(self.headers.get("X-Trace-Id")),
+                    t0=getattr(self, "_req_t0", None))
+        span.add("http_read", time.monotonic() - span.t0)
         environ = {
             "REQUEST_METHOD": self.command,
             "PATH_INFO": urllib.parse.unquote(path),
@@ -1043,6 +1581,7 @@ class KeepAliveWSGIHandler(BaseHTTPRequestHandler):
             "wsgi.multithread": True,
             "wsgi.multiprocess": False,
             "wsgi.run_once": False,
+            "tpu_serve.span": span,
         }
         # PEP 3333 HTTP_* request headers; repeats comma-join
         for hk, hv in self.headers.items():
@@ -1075,13 +1614,27 @@ class KeepAliveWSGIHandler(BaseHTTPRequestHandler):
         if self.server.draining:
             self.close_connection = True
 
+        # the span folds into the app's aggregates before the answer goes
+        # out: a client that read its answer finds it in the next scrape
+        obs = getattr(self.server.app, "obs", None)
+        if obs is not None:
+            try:
+                code_i = int(code_s)
+            except ValueError:
+                code_i = 500
+            obs.finish(span, code_i)
+
         self.send_response(int(code_s), reason or None)
-        have_length = False
+        have_length = have_trace = False
         for k, v in captured.get("headers", []):
-            have_length |= k.lower() == "content-length"
+            kl = k.lower()
+            have_length |= kl == "content-length"
+            have_trace |= kl == "x-trace-id"
             self.send_header(k, v)
         if not have_length:
             self.send_header("Content-Length", str(len(body)))
+        if not have_trace:  # a WSGI app that knows nothing of spans
+            self.send_header("X-Trace-Id", span.trace_id)
         if self.close_connection:
             self.send_header("Connection", "close")
         self.end_headers()
@@ -1225,9 +1778,9 @@ def make_http_server(app, host: str, port: int, pool_size: int = 16,
 
 
 def shutdown_gracefully(srv, batcher, grace_s: float = 10.0) -> None:
-    """Ordered drain: stop accepting → resolve every queued and in-flight
-    request → let the pool's workers flush their answers and exit → close
-    the listening socket.
+    """Ordered drain: stop accepting → stop the telemetry sampler → resolve
+    every queued and in-flight request → let the pool's workers flush their
+    answers and exit → close the listening socket.
 
     ``batcher`` is anything with the drain-on-``stop()`` contract: one
     :class:`~.batcher.Batcher` or a whole :class:`~.registry.ModelRegistry`
@@ -1239,6 +1792,11 @@ def shutdown_gracefully(srv, batcher, grace_s: float = 10.0) -> None:
     stops reading delays exit by at most ``grace_s``.
     """
     srv.shutdown()  # returns at once if serve_forever has unwound already
+    # the sampler only reads the registry and batchers: stopped first, no
+    # tick observes a half-stopped stack
+    telemetry = getattr(getattr(srv, "app", None), "telemetry", None)
+    if telemetry is not None:
+        telemetry.stop()
     batcher.stop()
     srv.close_pool(grace_s)
     srv.server_close()

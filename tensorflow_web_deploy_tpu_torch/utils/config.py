@@ -168,6 +168,21 @@ class ServerConfig:
     pressure_dwell_s: float = 0.5
     # fault-injection spec for drills (serving/chaos.py); None: off
     chaos: str | None = None
+    # Observability (utils/metrics.py): the flight recorder keeps the span
+    # breakdown of the N slowest and N most recent erroring requests
+    # (GET /debug/slow), and a recent-requests ring for GET /debug/trace of
+    # at most this many spans and approximate bytes, whichever binds first
+    flight_recorder_n: int = 32
+    flight_recorder_recent_n: int = 512
+    flight_recorder_bytes: int = 4 << 20
+    # JSON access log, one line per request: None off, "-" the
+    # tpu_serve.access logger, else a file to append to
+    access_log: str | None = None
+    # Telemetry history (serving/telemetry.py): the sampler's interval in
+    # seconds (0 turns the subsystem off), and SLO objectives
+    # "name=pXX:THRESHOLD:TARGET_PCT,..." evaluated as multi-window burn rates
+    telemetry_interval_s: float = 1.0
+    slo_objectives: str = ""
 
     def __post_init__(self):
         # pick_bucket relies on ascending order

@@ -242,6 +242,35 @@ def test_close_gives_the_graph_pool_back_on_card():
     assert reserved - torch.cuda.memory_reserved() >= st["pool_bytes"] + st["static_bytes"]
 
 
+@pytest.mark.cuda
+def test_close_gives_memory_back_beside_a_later_engine_on_card():
+    """An engine's weights and static inputs lie in its own pool: an engine
+    built after it, and a tensor made in the freed blocks of a third one,
+    never share its segments, so its close still returns its graph pool,
+    static inputs and weights whole while the later engine serves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    first = _engine("ragged", CARD_MODELS["mobilenet_v2-int8"], device="cuda")
+    first.warmup()
+    gone = _engine("ragged", CARD_MODELS["inception_v3-bf16"], device="cuda")
+    gone.warmup()
+    later = _engine("ragged", CARD_MODELS["inception_v3-bf16"], device="cuda")
+    gone.close()
+    later.warmup()
+    filler = [torch.empty(1 << 20, dtype=torch.uint8, device="cuda") for _ in range(64)]
+    st = first.stats()["graphs"]
+    weights = sum(p.nbytes for p in first.model.state_dict().values())
+    torch.cuda.synchronize()
+    allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    first.close()
+    assert first.pool_bytes == 0
+    assert allocated - torch.cuda.memory_allocated() >= st["static_bytes"] + weights
+    assert reserved - torch.cuda.memory_reserved() >= (
+        st["pool_bytes"] + st["static_bytes"] + weights)
+    assert len(filler) == 64 and later.stats()["graphs"]["captured"] > 0
+    later.close()
+
+
 def _arena(images, holes=(), slack=0):
     """``images`` packed tight, back to back, with ``slack`` random bytes
     after them; slots in ``holes`` keep their bytes but stay invalid."""

@@ -12,6 +12,7 @@ request in flight at SIGTERM answers 200 and the process exits 0, and a
 second signal during the drain kills it.
 """
 
+import dataclasses
 import http.client
 import json
 import os
@@ -31,6 +32,7 @@ import pytest
 from tensorflow_web_deploy_tpu.serving import http as jhttp
 from tensorflow_web_deploy_tpu.serving.registry import ModelRegistry as JaxRegistry
 from tensorflow_web_deploy_tpu_torch.server import start_server
+from tensorflow_web_deploy_tpu_torch.serving import http as thttp
 from tensorflow_web_deploy_tpu_torch.serving.http import (
     App,
     make_http_server,
@@ -38,6 +40,7 @@ from tensorflow_web_deploy_tpu_torch.serving.http import (
 )
 from tensorflow_web_deploy_tpu_torch.serving.registry import ModelRegistry
 from tensorflow_web_deploy_tpu_torch.utils.config import ModelConfig, ServerConfig
+from tensorflow_web_deploy_tpu_torch.utils.metrics import parse_prometheus_text
 from tests.test_registry import MockEngine as JaxMockEngine
 from tests.test_registry import _cfg as jax_cfg
 from tests.test_registry import _mc as jax_mc
@@ -391,7 +394,7 @@ WANT = {"unknown-model": "404", "bad-json": "400", "unload-without-name": "400",
 
 
 @pytest.fixture(scope="module")
-def both_apps():
+def both_servers():
     """The JAX App behind its pool server and the port's behind the port's,
     each over a one-model registry of mock engines, both with a 1 s read
     deadline."""
@@ -407,9 +410,15 @@ def both_apps():
                             request_read_timeout_s=1.0)
     for srv in (jsrv, tsrv):
         threading.Thread(target=srv.serve_forever, daemon=True).start()
-    yield jsrv.server_address[1], tsrv.server_address[1]
+    yield jsrv, tsrv
     jhttp.shutdown_gracefully(jsrv, jreg, grace_s=3.0)
     shutdown_gracefully(tsrv, treg, grace_s=3.0)
+
+
+@pytest.fixture(scope="module")
+def both_apps(both_servers):
+    """The two servers' ports: (JAX, port)."""
+    return tuple(srv.server_address[1] for srv in both_servers)
 
 
 @pytest.mark.parametrize("case", list(MALFORMED))
@@ -417,6 +426,191 @@ def test_malformed_requests_answer_as_the_jax_app(both_apps, case):
     jport, tport = both_apps
     data, trickle = MALFORMED[case]
     assert _raw(tport, data, trickle) == _raw(jport, data, trickle) == WANT[case]
+
+
+# ------------------------------------------------- tracing, metrics and telemetry
+
+
+def _get(port, method, path, body=b"", headers=None):
+    """(status, headers, body) of one request on a fresh connection."""
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    c.request(method, path, body=body, headers={"Content-Type": "image/jpeg",
+                                                **(headers or {})})
+    r = c.getresponse()
+    out = r.status, dict(r.getheaders()), r.read()
+    c.close()
+    return out
+
+
+def _traffic(port):
+    """The same requests to either server: two JPEGs, a 404, a 400."""
+    for seed in (0, 1):
+        assert _get(port, "POST", "/predict", jpeg(20, 30, seed))[0] == 200
+    assert _get(port, "POST", "/predict?model=nope", b"img")[0] == 404
+    assert _get(port, "POST", "/predict?deadline_ms=banana", b"img")[0] == 400
+
+
+_ID_RE = re.compile(r"^[0-9a-f]{10}-[0-9a-f]{8}$")
+
+
+@pytest.mark.parametrize("path,method", [("/healthz", "GET"), ("/predict?model=nope", "POST"),
+                                         ("/predict?deadline_ms=x", "POST"), ("/stats", "GET")])
+def test_trace_id_is_echoed_and_unsafe_ids_replaced(both_apps, path, method):
+    for port in both_apps:
+        _, hdr, _ = _get(port, method, path, b"img", {"X-Trace-Id": "client.trace-1"})
+        assert hdr["X-Trace-Id"] == "client.trace-1"
+        _, hdr, _ = _get(port, method, path, b"img", {"X-Trace-Id": "bad id; drop"})
+        assert _ID_RE.match(hdr["X-Trace-Id"])
+        _, hdr, _ = _get(port, method, path, b"img")
+        assert _ID_RE.match(hdr["X-Trace-Id"])
+
+
+def _families(port) -> tuple[dict, dict]:
+    """(family → type, sample name → label keys) of one /metrics scrape."""
+    status, hdr, body = _get(port, "GET", "/metrics")
+    assert status == 200 and hdr["Content-Type"].startswith("text/plain; version=0.0.4")
+    doc = parse_prometheus_text(body.decode())
+    labels: dict = {}
+    for name, lbls in doc["samples"]:
+        labels.setdefault(name, set()).add(tuple(sorted(k for k, _ in lbls)))
+    return doc["types"], labels
+
+
+# the reference's families of modules the port has not ported yet
+UNPORTED = ("tpu_serve_pipeline_", "tpu_serve_job", "tpu_serve_model_replica_dispatches_inflight",
+            "tpu_serve_model_replica_slab_bytes_inflight")
+
+
+def test_metrics_families_and_label_keys_are_the_references(both_apps):
+    jport, tport = both_apps
+    _traffic(jport)
+    _traffic(tport)
+    jtypes, jlabels = _families(jport)
+    ttypes, tlabels = _families(tport)
+    missing = {f for f in jtypes if not f.startswith(UNPORTED)} - set(ttypes)
+    assert not missing
+    assert all(ttypes[f] == jtypes[f] for f in set(jtypes) & set(ttypes))
+    for name in set(jlabels) & set(tlabels):
+        assert tlabels[name] == jlabels[name], name
+    # every family the port exports is named in the reference's front end
+    src = (ROOT / "tensorflow_web_deploy_tpu" / "serving" / "http.py").read_text()
+    named = set(re.findall(r'p\.(?:scalar|histogram)\(\s*f?"([a-z0-9_{}]+)"', src))
+    named |= {f"chaos_{k}_total" for k in ("decode_failures_injected",
+                                           "dispatch_failures_injected",
+                                           "slow_fetches_injected", "spike_holds_injected")}
+    assert {f[len("tpu_serve_"):] for f in ttypes} <= named
+
+
+def test_metrics_histogram_count_equals_requests_total(both_apps):
+    _, tport = both_apps
+    _traffic(tport)
+    status, _, body = _get(tport, "GET", "/metrics")
+    s = parse_prometheus_text(body.decode())["samples"]
+    total = sum(v for (n, _), v in s.items() if n == "tpu_serve_requests_total")
+    inf = s[("tpu_serve_request_duration_seconds_bucket", (("le", "+Inf"),))]
+    assert total == inf == s[("tpu_serve_request_duration_seconds_count", ())] > 0
+    stages = {dict(lb)["stage"] for (n, lb), _ in s.items()
+              if n == "tpu_serve_stage_duration_seconds_count"}
+    assert {"http_read", "body_read", "lease_wait", "image_decode", "staging_write",
+            "queue_wait", "device_dispatch", "device_execute", "postprocess",
+            "serialize"} <= stages
+
+
+def _keys(obj, depth=2):
+    """A JSON document's key structure, ``depth`` levels down."""
+    if not isinstance(obj, dict) or depth == 0:
+        return type(obj).__name__
+    return {k: _keys(v, depth - 1) for k, v in obj.items()}
+
+
+def test_debug_routes_and_stats_blocks_have_the_references_shapes(both_servers):
+    jsrv, tsrv = both_servers
+    docs = []
+    for srv in both_servers:
+        port = srv.server_address[1]
+        _traffic(port)
+        srv.app.telemetry.sample_once()
+        srv.app.telemetry.sample_once()
+        doc = {}
+        for path in ("/debug/slow", "/debug/history", "/debug/history?series=goodput_rps",
+                     "/debug/events", "/debug/trace?last_s=60", "/stats"):
+            status, _, body = _get(port, "GET", path)
+            assert status == 200, path
+            doc[path] = json.loads(body)
+        assert _get(port, "GET", "/debug/history?series=nope")[0] == 400
+        assert _get(port, "GET", "/debug/history?last_s=x")[0] == 400
+        docs.append(doc)
+    j, t = docs
+    slow_j, slow_t = j.pop("/debug/slow"), t.pop("/debug/slow")
+    assert _keys(slow_t) == _keys(slow_j)
+    assert _keys(slow_t["slowest"][0], 1) == _keys(slow_j["slowest"][0], 1)
+    hist_t = t["/debug/history?series=goodput_rps"]
+    assert _keys(hist_t, 1) == _keys(j["/debug/history?series=goodput_rps"], 1)
+    assert hist_t["series"]["goodput_rps"]["rows"]
+    assert _keys(t["/debug/history"], 1) == _keys(j["/debug/history"], 1)
+    assert _keys(t["/debug/events"], 1) == _keys(j["/debug/events"], 1)
+    trace_t, trace_j = t["/debug/trace?last_s=60"], j["/debug/trace?last_s=60"]
+    assert _keys(trace_t) == _keys(trace_j)
+    assert {e["ph"] for e in trace_t["traceEvents"]} >= {"M", "X", "b", "e"}
+    st_t, st_j = t["/stats"], j["/stats"]
+    # what tools/loadgen.py reads: the tracing block and the batch histogram
+    assert _keys(st_t["tracing"], 1) == _keys(st_j["tracing"], 1)
+    assert _keys(st_t["tracing"]["e2e"]) == _keys(st_j["tracing"]["e2e"])
+    assert _keys(st_t["tracing"]["stages"]["image_decode"]) == \
+        _keys(st_j["tracing"]["stages"]["http_read"])
+    assert "batch_size_histogram" in st_t and isinstance(st_t["economics"], dict)
+    assert _keys(st_t["telemetry"], 1) == _keys(st_j["telemetry"], 1)
+    assert st_t["economics"]["m1@1"]["padding"]  # the mock engine keeps no cells
+
+
+def test_access_log_has_one_line_per_request(tmp_path):
+    cfg = dataclasses.replace(_cfg(), access_log=str(tmp_path / "access.log"),
+                              telemetry_interval_s=0.0)
+    reg = ModelRegistry(cfg, engine_factory=lambda mc: MockEngine(cfg), spec_resolver=_mc)
+    reg.load("m1", wait=True)
+    srv = make_http_server(App(reg, cfg), "127.0.0.1", 0, pool_size=2)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        port = srv.server_address[1]
+        ids = [_get(port, "POST", "/predict", jpeg(20, 20, i))[1]["X-Trace-Id"]
+               for i in range(3)]
+        ids.append(_get(port, "GET", "/healthz")[1]["X-Trace-Id"])
+        ids.append(_get(port, "POST", "/predict?model=nope", b"x")[1]["X-Trace-Id"])
+        assert srv.app.telemetry is None
+        assert _get(port, "GET", "/debug/history")[0] == 404
+        assert _get(port, "GET", "/debug/events")[0] == 404
+    finally:
+        shutdown_gracefully(srv, reg, grace_s=3.0)
+    lines = [json.loads(ln) for ln in (tmp_path / "access.log").read_text().splitlines()]
+    assert [d["trace_id"] for d in lines[:5]] == ids
+    assert [d["status"] for d in lines[:5]] == [200, 200, 200, 200, 404]
+    assert all("stages_ms" in d and "ts" in d for d in lines)
+    assert lines[0]["meta"]["batch_bucket"] in MockEngine.batch_buckets
+
+
+def test_profiler_capture_writes_a_trace_and_refuses_a_second(both_apps, tmp_path):
+    _, port = both_apps
+    out = {}
+
+    def first():
+        out["first"] = _get(port, "POST", f"/debug/trace?ms=1500&dir={tmp_path}")
+
+    t = threading.Thread(target=first)
+    t.start()
+    deadline = time.monotonic() + 10
+    while not thttp._PROFILE_LOCK.locked() and time.monotonic() < deadline:
+        time.sleep(0.01)  # the first capture has begun
+    second = _get(port, "POST", f"/debug/trace?ms=10&dir={tmp_path}")
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert second[0] == 409
+    status, _, body = out["first"]
+    assert status == 200
+    doc = json.loads(body)
+    assert doc["captured_ms"] == 1500 and doc["activities"][0] == "CPU"
+    with open(doc["trace_file"]) as f:
+        assert "traceEvents" in json.load(f)
+    assert _get(port, "POST", "/debug/trace?ms=abc")[0] == 400
 
 
 # ------------------------------------------------- the real stack: drain and SIGTERM

@@ -176,6 +176,59 @@ def test_multipart_parser_keeps_payload_bytes():
     assert _parse_multipart_files(data2, ctype) == [("x.bin", payload)]
 
 
+def test_loadgen_reads_the_ports_stats(server):
+    """``tools/loadgen.py``'s stage attribution and roofline table on the
+    port's /stats around real requests, the engine's own span stages in
+    /debug/slow, and the economics gauges in /metrics."""
+    from tools.loadgen import fetch_stats, format_econ_table, format_stage_table, \
+        stage_attribution
+
+    from tensorflow_web_deploy_tpu_torch.utils.metrics import parse_prometheus_text
+
+    before = fetch_stats(server.url + "/predict")
+    for seed in range(4):
+        assert _post(server.url + "/predict", _jpeg(60, 90, seed))[0] == 200
+    after = fetch_stats(server.url + "/predict")
+    attr = stage_attribution(before["tracing"], after["tracing"])
+    assert {"image_decode", "device_transfer", "device_dispatch", "device_execute",
+            "postprocess", "_e2e"} <= set(attr)
+    assert "device_execute" in format_stage_table(attr, wall_s=1.0)
+    [ref] = [r for r in after["economics"] if r.startswith("inception_v3@")]
+    econ = after["economics"][ref]
+    assert econ["wire"] == "yuv420" and econ["rows_total"] >= 4 and econ["mfu"] > 0
+    assert econ["model_cost"]["macs_per_image"] > 0
+    table = format_econ_table(after["economics"])
+    assert ref in table and "MFU" in table and ("bandwidth" in table or "compute" in table)
+    with urllib.request.urlopen(server.url + "/debug/slow", timeout=30) as r:
+        slow = json.loads(r.read())
+    # one image a request: a multipart request's images ride batches that
+    # overlap its later decodes, so its stages may sum past its wall
+    predicts = [e for e in slow["slowest"]
+                if e["meta"]["path"] == "/predict" and e["meta"].get("images") == 1]
+    assert predicts and all(sum(e["stages_ms"].values()) <= e["total_ms"] + 1e-3
+                            for e in predicts)
+    with urllib.request.urlopen(server.url + "/metrics", timeout=30) as r:
+        samples = parse_prometheus_text(r.read().decode())["samples"]
+    names = {n for n, _ in samples}
+    assert {"tpu_serve_model_mfu", "tpu_serve_model_cell_mfu",
+            "tpu_serve_model_roofline_bound_fraction", "tpu_serve_device_peak_flops_per_chip",
+            "tpu_serve_model_replica_busy_seconds_total"} <= names
+    assert samples[("tpu_serve_inferences_total", ())] == sum(
+        v for (n, _), v in samples.items() if n == "tpu_serve_model_inferences_total")
+
+
+def test_cli_observability_flags():
+    cfg = config_from_args(parse_args(["--access-log", "-", "--flight-recorder-n", "8",
+                                       "--telemetry-interval", "0", "--slo-objectives",
+                                       "interactive=p99:500ms:99"]))
+    assert (cfg.access_log, cfg.flight_recorder_n, cfg.telemetry_interval_s,
+            cfg.slo_objectives) == ("-", 8, 0.0, "interactive=p99:500ms:99")
+    dflt = config_from_args(parse_args([]))
+    assert (dflt.access_log, dflt.flight_recorder_n, dflt.flight_recorder_recent_n,
+            dflt.flight_recorder_bytes, dflt.telemetry_interval_s, dflt.slo_objectives) == \
+        (None, 32, 512, 4 << 20, 1.0, "")
+
+
 def test_cli_flags_build_the_config():
     args = parse_args(["--model", "native:inception_v3", "--wire-format", "yuv420",
                        "--resize", "kernel", "--dtype", "f32", "--canvas-buckets", "512,256",
