@@ -76,7 +76,16 @@ roofline fraction of every (canvas, batch) cell against the card's peak
 and the device's idle share from CUDA events, checks the exported
 timeline, a ``torch.profiler`` capture, the telemetry history, a hot swap
 in the event ring and the access log, and reports the hub's and the log's
-overhead.
+overhead; its idle share is the union of both engines' compute intervals
+(each engine enqueues on a compute stream of its own). ``placement`` checks
+the placement parser on the card's mesh (its accepted specs, its refusals
+with the reference's texts, a server given ``,replicas=2`` failing that
+load), serves ``registry``'s pair again with each engine on its own stream
+under ``tools/loadgen.py``, holds both models' top-k on the 24 JPEGs bit for
+bit before and after the load, reports the union and summed busy shares,
+the idle share and the share of the window in which both engines computed
+at once, and unloads the int8 model with its memory margin held to the
+range ``registry`` measured before (``UNLOAD_MARGIN_MB``).
 
 The preprocess kernel is checked through both of its entries (the
 ``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
@@ -1564,7 +1573,8 @@ def phase_graphs(jpegs: list[bytes]) -> list[dict]:
                        for a, b in zip(e, r))
             kind = "ragged" if eng.ragged else "classic"
             key = (kind, 512, 8)
-            exe = eng._exes[key]
+            shard = eng._replicas[0].shards[0]  # the card: one replica of one device
+            exe = shard.exes[key]
             slab = fill_slab(eng, prepared)
             if eng.ragged:
                 nbytes, meta_off = slab.stage(8)
@@ -1582,7 +1592,7 @@ def phase_graphs(jpegs: list[bytes]) -> list[dict]:
                    "batch": 8, "canvas": 512, "bit_identical_full_and_holes": same,
                    "eager": eager_costs, "replay": replay_costs,
                    "replay_ms": cuda_time_ms(exe), "static_copy_ms": graph_time_ms(
-                       lambda: eng._stage_static(key, dev, meta_off)),
+                       lambda: eng._stage_static(shard, key, dev, meta_off)),
                    "static_copy_bytes": dev.numel(),
                    "kernels_per_graph": prof["kernels"] and prof["kernels"] / prof["calls"],
                    "profile_top": prof["top"][:5],
@@ -1838,7 +1848,8 @@ def phase_default_server(jpegs: list[bytes]) -> dict:
                  "decoder_available": eng["decoder"]["available"],
                  "decoder_reason": eng["decoder"]["reason"], "x_cache": got["x_cache"]}
             row[boot] = b
-            want = {"model": "inception_v3", "device": "cuda", "dtype": "bfloat16",
+            # the CLI's default mesh: every visible card, the first of them
+            want = {"model": "inception_v3", "device": "cuda:0", "dtype": "bfloat16",
                     "wire_format": "rgb", "ragged": True, "resize": "matmul",
                     "decoder_available": st["available"], "statuses": [200] * 3,
                     "predictions": [5] * 3, "exit_code": 0,
@@ -2805,6 +2816,52 @@ def run_loadgen(port: int, img_dir: str, names: list[str]) -> dict:
             "tables": proc.stderr.splitlines()[-80:]}
 
 
+def device_marker() -> torch.cuda.Event:
+    """A timed event recorded once the device is idle: the common base of
+    every engine's ``device_timeline(base)``."""
+    torch.cuda.synchronize()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def merged_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, lo, hi = 0.0, None, None
+    for a, b in sorted(intervals):
+        if hi is None or a > hi:
+            total += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return total + (0.0 if hi is None else hi - lo)
+
+
+def busy_union(engines: dict, base: torch.cuda.Event, batches: dict, window_s: float) -> dict:
+    """The compute intervals of each engine's last ``batches[name]``
+    batches (those of a window that began at ``base``; every engine on its
+    own stream, one clock): the share of the window that their union, their
+    sum and the overlap of two engines' busy time take, and the idle share
+    (1 - union). ``missing_intervals`` counts batches the engines' event
+    rings no longer hold."""
+    iv, missing = {}, 0
+    for n, eng in engines.items():
+        rows = eng.device_timeline(base)[-batches[n]:] if batches[n] else []
+        missing += batches[n] - len(rows) + sum(r["compute"][0] < 0 for r in rows)
+        iv[n] = [r["compute"] for r in rows]
+    every = [x for v in iv.values() for x in v]
+    union = merged_ms(every)
+    per = {n: merged_ms(v) for n, v in iv.items()}
+    total = sum(b - a for a, b in every)
+    w = window_s * 1e3
+    return {"busy_ms_union": union, "busy_ms_sum": total, "busy_ms": per,
+            "overlap_ms": sum(per.values()) - union,
+            "busy_share_union": union / w, "busy_share_sum": total / w,
+            "overlap_share": (sum(per.values()) - union) / w, "idle_share": 1.0 - union / w,
+            "span_ms": (max(b for _, b in every) - min(a for a, _ in every)) if every else 0.0,
+            "missing_intervals": missing}
+
+
 def read_jsonl(path: str) -> list[dict]:
     with open(path) as f:
         return [json.loads(ln) for ln in f]
@@ -2905,6 +2962,7 @@ def phase_observability(jpegs: list[bytes], graphs: list[dict]) -> dict:
 
         # load from a process of its own, the kernels' counts over it
         busy0, batches0 = counters()
+        base = device_marker()
         preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
         lg = run_loadgen(srv.port, img_dir, names)
         launches = {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
@@ -2931,13 +2989,15 @@ def phase_observability(jpegs: list[bytes], graphs: list[dict]) -> dict:
         _, stats = admin.request("GET", "/stats")
         row["roofline_table"] = format_econ_table(stats["economics"]).splitlines()
 
-        # device idle share over the load generator's window
+        # device idle share over the load generator's window: the union of
+        # both engines' compute intervals (their streams run side by side)
         window = sm.get("duration_s") or OBS_LOAD_S
         busy = {n: busy1[n] - busy0[n] for n in names}
         row["device_time"] = {"window_s": window, "busy_s": busy,
                               "busy_share": {n: b / window for n, b in busy.items()},
-                              "busy_share_sum": sum(busy.values()) / window,
-                              "idle_share": 1.0 - sum(busy.values()) / window}
+                              **busy_union(engines, base, nb, window)}
+        if row["device_time"]["missing_intervals"]:
+            bad["device_time"] = row["device_time"]
 
         # /metrics, parsed with the port's parser
         status, _, body = admin.exchange("GET", "/metrics")
@@ -3109,6 +3169,202 @@ def phase_observability(jpegs: list[bytes], graphs: list[dict]) -> dict:
     emit(row)
     if bad:
         raise AssertionError(f"observability: {bad}")
+    return row
+
+
+# the reference's refusals (its serving/placement.py), word for word; {n} is
+# the mesh's size
+PLACEMENT_REFUSALS = {
+    "replicas=2": "placement replicas=2 exceeds the {n}-device mesh",
+    "replicas=0": "placement needs replicas >= 1, got 0",
+    "replicas=x": "placement replicas='x' is not an integer",
+    "shard=model": "unknown shard axis in placement 'shard=model' (only shard=batch)",
+    "banana": "unknown placement 'banana' (want replicas=N or shard=batch)",
+}
+# `registry`'s unload margin (reserved freed past the static inputs and the
+# graph pool, MB) over its runs on the H100 before engines had streams of
+# their own (PERF.md §6), measured with the allocator's cached blocks in it;
+# `placement` releases those first, so its margin is the engine's own pool
+# past its static inputs (the weights) and must not pass the range's top
+UNLOAD_MARGIN_MB = (52.4, 71.3)
+
+
+def phase_placement(jpegs: list[bytes]) -> dict:
+    """Placement on the card's mesh, and two engines on streams of their own.
+
+    - Parser: on ``build_mesh()`` (every visible card), no spec,
+      ``shard=batch`` and ``replicas=1`` give ``shard`` with one replica;
+      ``replicas=2``, ``replicas=0``, ``replicas=x``, ``shard=model`` and
+      ``banana`` raise ValueError with the reference's texts; a server given
+      ``--model native:inception_v3,replicas=2`` fails that load, naming the
+      mesh.
+    - ``registry``'s pair (Inception-v3 bf16, MobileNetV2 int8 as
+      ``mobilenet_v2_int8``) in one process on the ragged rgb wire, canvas
+      512, cache off and a ladder that cannot climb (``PINNED``): each engine
+      on a compute stream of its own. The top-k of the 24 JPEGs from each,
+      one request at a time, before and after ``tools/loadgen.py`` (as
+      ``observability`` runs it) must be bit for bit the same: no two
+      concurrent replays shared a cuBLAS workspace or a graph pool.
+    - Over the load: img/s, p50, p99; the union busy share and the idle
+      share, the summed busy share and the share of the window in which both
+      engines' compute overlaps (CUDA events, one base); ``fused_dw`` = 17 ×
+      int8 batches and ``unpack_ragged`` = batches.
+    - Unload MobileNetV2 int8 under the running server: ``memory_allocated``
+      and ``memory_reserved`` before and after, with every stream's cached
+      free blocks released first. The segments freed must be all of its
+      graph pool and nothing outside its graph and own pools, and the margin
+      (reserved freed past its static bytes and graph pool: its weights'
+      segments) at most the top of ``UNLOAD_MARGIN_MB``, 71.3 MB. ``margin_with_cache_mb``
+      is the same measure with the cached blocks in it, as ``registry``
+      takes it.
+    """
+    import shutil
+
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
+    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
+    from tensorflow_web_deploy_tpu_torch.parallel.mesh import build_mesh
+    from tensorflow_web_deploy_tpu_torch.server import config_from_args, parse_args, start_server
+    from tensorflow_web_deploy_tpu_torch.serving.placement import parse_placement
+    from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
+
+    t_phase = time.perf_counter()
+    row = {"phase": "placement", "nvidia_smi": nvidia_smi(), "models": list(REGISTRY_MODELS),
+           "canvas_buckets": list(REGISTRY_BUCKETS)}
+    bad: dict = {}
+
+    # the parser on the card's mesh
+    mesh = build_mesh()
+    n = len(mesh)
+    accepted = {str(spec): parse_placement(spec, mesh).summary()
+                for spec in (None, "shard=batch", "replicas=1")}
+    refused = {}
+    for spec in PLACEMENT_REFUSALS:
+        try:
+            refused[spec] = parse_placement(spec, mesh).summary()
+        except ValueError as e:
+            refused[spec] = str(e)
+    want = {k: v.format(n=n) for k, v in PLACEMENT_REFUSALS.items()}
+    cfg = replace(config_from_args(parse_args(["--model", "native:inception_v3,replicas=2"])),
+                  host="127.0.0.1", port=0)
+    try:
+        start_server(cfg).close()
+        boot = "served"
+    except ValueError as e:
+        boot = str(e)
+    row["parser"] = {"mesh": [str(d) for d in mesh], "accepted": accepted, "refused": refused,
+                     "server_replicas_2": boot}
+    if any((a["strategy"], a["replicas"]) != ("shard", 1) for a in accepted.values()) or \
+            refused != want or f"exceeds the {n}-device mesh" not in boot:
+        bad["parser"] = row["parser"]
+
+    # two engines, two streams
+    tmp = tempfile.mkdtemp(prefix="placement-")
+    img_dir = os.path.join(tmp, "images")
+    os.makedirs(img_dir)
+    for i, data in enumerate(jpegs):
+        with open(os.path.join(img_dir, f"{i:02d}.jpg"), "wb") as f:
+            f.write(data)
+    mcs = tuple(model_config(spec) for spec in REGISTRY_MODELS)
+    cfg = ServerConfig(model=mcs[0], models=mcs, host="127.0.0.1", port=0,
+                       canvas_buckets=REGISTRY_BUCKETS, ragged=True, **PINNED)
+    names = [m.serve_name for m in mcs]
+    srv = start_server(cfg, device="cuda", seed=SEED)
+    try:
+        admin = KeepAlive(srv.port)
+        serving = {mv.name: mv for mv in srv.registry.serving_entries()}
+        engines = {nm: serving[nm].engine for nm in names}
+        streams = {nm: [sh.compute.cuda_stream for rep in e._replicas for sh in rep.shards]
+                   for nm, e in engines.items()}
+        flat = [x for v in streams.values() for x in v]
+        row["streams"] = {"compute": streams,
+                          "default": torch.cuda.default_stream().cuda_stream,
+                          "placement": {nm: e.placement_summary() for nm, e in engines.items()}}
+        if len(set(flat)) != len(flat) or row["streams"]["default"] in flat:
+            bad["streams"] = row["streams"]
+        before = {nm: serial_topk(admin, nm, jpegs) for nm in names}
+
+        batches0 = {nm: e.stats()["batches"] for nm, e in engines.items()}
+        base = device_marker()
+        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+        lg = run_loadgen(srv.port, img_dir, names)
+        launches = {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
+                    "unpack_ragged": unpack_ragged.launches}
+        nb = {nm: e.stats()["batches"] - batches0[nm] for nm, e in engines.items()}
+        want_launches = {"preprocess_i420": 0, "fused_dw": DW_CELLS * nb[INT8_MODEL],
+                         "unpack_ragged": sum(nb.values())}
+        row["kernel_launches"] = launches
+        row["batches"] = nb
+        if launches != want_launches or 0 in nb.values():
+            bad["launches"] = {"got": launches, "want": want_launches, "batches": nb}
+        sm = lg["summary"]
+        row["loadgen"] = {"rc": lg["rc"], "wall_s": lg["wall_s"],
+                          **{k: sm.get(k) for k in ("duration_s", "completed", "errors",
+                                                    "images_per_sec", "latency_ms",
+                                                    "per_model", "device_busy_fraction")}}
+        if lg["rc"] != 0 or sm.get("errors") or not sm.get("completed"):
+            bad["loadgen"] = row["loadgen"] | {"tables": lg["tables"][-20:]}
+        window = sm.get("duration_s") or OBS_LOAD_S
+        row["device_time"] = {"window_s": window, **busy_union(engines, base, nb, window)}
+        if row["device_time"]["missing_intervals"]:
+            bad["device_time"] = row["device_time"]
+
+        after = {nm: serial_topk(admin, nm, jpegs) for nm in names}
+        same = {nm: before[nm] == after[nm] for nm in names}
+        row["bit_identical_after_load"] = same
+        if not all(same.values()):
+            bad["bit_identical"] = {nm: [(a, b) for a, b in zip(before[nm], after[nm])
+                                         if a != b][:2] for nm in names}
+
+        # unload MobileNetV2 int8 under the running server; the cached free
+        # blocks of every stream go back first (empty_cache), so what the
+        # unload frees is what the engine held: its graph pool and its own pool
+        _, stats = admin.request("GET", "/stats")
+        g = next(v for v in stats["models"]["models"][INT8_MODEL]["versions"]
+                 if v["state"] == "SERVING")["engine"]["graphs"]
+        shard = engines[INT8_MODEL]._replicas[0].shards[0]
+        pools = {"graph": tuple(shard.graph_pool), "own": tuple(shard.mem_pool.id)}
+        del shard
+        torch.cuda.synchronize()
+        a0, r_cached = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        seg0 = {sg["address"]: sg for sg in torch.cuda.memory_snapshot()}
+        status, body = admin.request("POST", "/models/unload", {"name": INT8_MODEL, "wait": True})
+        a1, r1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        seg1 = {sg["address"] for sg in torch.cuda.memory_snapshot()}
+        freed = {"graph": 0, "own": 0, "other": 0}
+        for addr, sg in seg0.items():
+            if addr not in seg1:
+                pool = tuple(sg.get("segment_pool_id", ()))
+                freed[next((k for k, v in pools.items() if v == pool), "other")] += \
+                    sg["total_size"]
+        margin_mb = (r0 - r1 - g["static_bytes"] - g["pool_bytes"]) / 1e6
+        row["unload"] = {"status": status, "state": body.get("state"),
+                         "allocated_before": a0, "allocated_after": a1,
+                         "reserved_before": r0, "reserved_after": r1,
+                         "reserved_cached_before": r_cached, "freed_by_pool": freed,
+                         "static_bytes": g["static_bytes"], "pool_bytes": g["pool_bytes"],
+                         "margin_mb": margin_mb,
+                         "margin_with_cache_mb": (r_cached - r1 - g["static_bytes"]
+                                                  - g["pool_bytes"]) / 1e6,
+                         "margin_range_mb": UNLOAD_MARGIN_MB}
+        # all of the graph pool and nothing outside the engine's two pools
+        # (a cuBLAS workspace freed with it would show as "other" on its
+        # stream), and a margin no larger than the range's top
+        if (status, body.get("state")) != (200, "UNLOADED") or \
+                freed["graph"] != g["pool_bytes"] or freed["other"] or \
+                freed["own"] < g["static_bytes"] or \
+                not 0.0 <= margin_mb <= UNLOAD_MARGIN_MB[1]:
+            bad["unload"] = row["unload"]
+        admin.close()
+    finally:
+        srv.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    if bad:
+        raise AssertionError(f"placement: {bad}")
     return row
 
 
@@ -3299,10 +3555,12 @@ def main(argv: list[str]) -> int:
     phase_sigterm(jpegs)
     overload = phase_overload(jpegs)
     observability = phase_observability(jpegs, graphs)
+    placement = phase_placement(jpegs)
     by_path = {p["path"]: p["kernel_launches"] for p in (inception, mobilenet, *ragged)}
     by_path["registry"] = registry["kernel_launches"]
     by_path["overload"] = overload["kernel_launches"]
     by_path["observability"] = observability["kernel_launches"]
+    by_path["placement"] = placement["kernel_launches"]
     emit({"kernels": [{
         "name": "preprocess_i420",
         "route": "cuda",

@@ -1,7 +1,8 @@
-"""HTTP inference server on one CUDA device.
+"""HTTP inference server on a mesh of CUDA devices (one card by default on the H100).
 
     python -m tensorflow_web_deploy_tpu_torch.server --model native:inception_v3 \\
         [--model native:mobilenet_v2,dtype=int8,as=mobilenet_v2_int8 ...] [--default-model NAME]
+        [--model native:mobilenet_v2,replicas=N | ,shard=batch]
         [--no-ragged] [--resize matmul|gather] [--wire-format yuv420 --resize kernel]
         [--dtype bf16|f32|int8] [--fused-dw auto|on|off] [--device cuda|cpu]
         [--pipeline-depth 4] [--max-queue 0] [--no-adaptive-delay] [--lease-timeout-s 10]
@@ -21,7 +22,12 @@
 Counterpart of the JAX package's root ``server.py``, with the flags this
 port reads. Every ``--model`` becomes an entry of the model registry,
 built and warmed at boot (a model that cannot load fails the boot);
-``POST /models/{load,swap,unload}`` change them at run time. SIGTERM takes
+``POST /models/{load,swap,unload}`` change them at run time. The mesh is
+every visible CUDA device (``--device cuda``, the default) or the one
+device named; a model's ``,replicas=N`` splits it into N groups, each with
+a copy of the weights and streams of its own, and ``,shard=batch`` (the
+default) serves on all of it as one group. One card is a 1-device mesh,
+where ``replicas=N`` with N ≥ 2 fails the load. SIGTERM takes
 the same drain path as Ctrl-C. :func:`start_server` runs the same stack
 in-process (tests and ``chip_smoke.py`` use it).
 """
@@ -53,14 +59,14 @@ class Server:
     raises. ``engine``, ``batcher`` and ``app`` are the default model's
     live handles."""
 
-    def __init__(self, cfg: ServerConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: ServerConfig, device=None, seed: int = 0, mesh=None):
         self.cfg = cfg
         self.registry = ModelRegistry(cfg, default_model=cfg.default_name, device=device,
-                                      seed=seed)
+                                      seed=seed, mesh=mesh)
         try:
             for mc in cfg.serve_models:
                 engine = InferenceEngine(dataclasses.replace(cfg, model=mc), device=device,
-                                         seed=seed)
+                                         seed=seed, mesh=mesh)
                 try:
                     batcher = self.registry.build_batcher(engine)
                 except BaseException:
@@ -114,15 +120,16 @@ class Server:
         self.close()
 
 
-def start_server(cfg: ServerConfig, device=None, seed: int = 0) -> Server:
-    return Server(cfg, device=device, seed=seed)
+def start_server(cfg: ServerConfig, device=None, seed: int = 0, mesh=None) -> Server:
+    return Server(cfg, device=device, seed=seed, mesh=mesh)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", action="append", default=None,
-                   help="native:<zoo name> or a .json ModelConfig, with optional ,dtype=… "
-                        "and ,as=<serve name> suffixes; repeat to serve several models "
+                   help="native:<zoo name> or a .json ModelConfig, with optional "
+                        ",replicas=N|,shard=batch (placement over the mesh), ,dtype=… and "
+                        ",as=<serve name> suffixes; repeat to serve several models "
                         "(default: native:inception_v3)")
     p.add_argument("--default-model", default=None,
                    help="serve name that /predict without ?model= resolves to "
@@ -166,7 +173,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "every --model")
     p.add_argument("--fused-dw", choices=["auto", "on", "off"], default=None,
                    help="fused depthwise cells; auto (default) fuses the int8 tier")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default: a mesh of every visible card), cuda:N, or cpu")
     p.add_argument("--seed", type=int, default=0, help="seed of the weights")
     p.add_argument("--labels", default=None, help="label file, one label per line")
     p.add_argument("--zoo-width", type=float, default=None)
@@ -261,9 +269,11 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
     srv = start_server(cfg, device=args.device, seed=args.seed)
     eng = srv.engine
-    log.info("listening on %s (%s; default %s, %s, %s wire%s, %s decode)", srv.url,
-             ", ".join(m.serve_name for m in cfg.serve_models), cfg.default_name, eng.device,
-             cfg.wire_format, ", ragged" if eng.ragged else "",
+    for mv in srv.registry.serving_entries():
+        log.info("placement %s: %s", mv.ref, mv.engine.placement_summary())
+    log.info("listening on %s (%s; default %s, %d-device mesh from %s, %s wire%s, %s decode)",
+             srv.url, ", ".join(m.serve_name for m in cfg.serve_models), cfg.default_name,
+             len(eng.mesh), eng.device, cfg.wire_format, ", ragged" if eng.ragged else "",
              "native" if eng.decoder["available"] else "PIL")
 
     # Orchestrators stop containers with SIGTERM: the same drain path as

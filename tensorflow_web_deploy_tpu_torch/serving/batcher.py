@@ -25,10 +25,10 @@ through them:
     device            runs batch N while N+1 copies and N+2 assembles
     completion pool   waits for the outputs, resolves the futures
 
-``pipeline_depth`` bounds the batches sealed but not yet fetched per canvas
-bucket; the sealer waits at the cap, so batches grow while the device is
-the bottleneck. ``max_delay_ms`` caps the assembly window, which adapts to
-the backlog (:meth:`_update_delay`, starting at 0). With ``max_queue == 0``
+``pipeline_depth`` bounds the batches sealed but not yet fetched per
+(canvas bucket, replica); the sealer waits at the cap, so batches grow
+while the device is the bottleneck. ``max_delay_ms`` caps the assembly
+window, which adapts to the backlog (:meth:`_update_delay`, starting at 0). With ``max_queue == 0``
 leasing blocks at ``max_batch × max(2, pipeline_depth)`` outstanding slots;
 with ``max_queue > 0`` a backlog at that many images raises
 :class:`BacklogFull` (HTTP: 503 + Retry-After). Every batch's open, seal,
@@ -62,7 +62,17 @@ stamps ``device_execute`` before it resolves the future. Every dispatch
 feeds :meth:`~..utils.metrics.RollingStats.record_batch` and the padding
 counters per (canvas, batch bucket) behind ``model_padding_*``.
 
-Left out of the reference: the bulk traffic class, replica routing.
+**Replica routing.** An engine whose placement has several replicas
+(``supports_replica_routing``: ``num_replicas``, ``replica_loads``,
+``dispatch_*(replica=)``) gets each sealed batch routed at the dispatch
+decision to one replica with depth left for its bucket, the least loaded
+by the engine's in-flight count, round-robin order breaking ties; the
+batch records it (``_Builder.replica``, the timeline's ``replica``). N
+replicas sustain N × ``pipeline_depth`` batches in flight per bucket, and
+the launch and completion pools grow to one thread per replica (2 to 16).
+
+Left out of the reference: the bulk traffic class and its replica pick
+(ROADMAP.md Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -87,9 +97,6 @@ log = logging.getLogger("tpu_serve_torch.batcher")
 # slot states: PENDING, the lessee is decoding; READY, committed; HOLE,
 # released or expired
 _PENDING, _READY, _HOLE = 0, 1, 2
-# launch and completion threads: the reference's max(2, min(16, replicas))
-# for one replica
-POOL_THREADS = 2
 
 
 class ShuttingDown(RuntimeError):
@@ -151,7 +158,7 @@ class _Builder:
     its sealing deadline."""
 
     __slots__ = ("key", "slab", "capacity", "leases", "opened_at", "deadline", "accepting",
-                 "dispatched", "n_pending", "n_ready")
+                 "dispatched", "n_pending", "n_ready", "replica")
 
     def __init__(self, key, slab, capacity: int, deadline: float):
         self.key = key
@@ -164,6 +171,8 @@ class _Builder:
         self.dispatched = False
         self.n_pending = 0
         self.n_ready = 0
+        # the dispatch replica, set when the batch takes its depth slot
+        self.replica = 0
 
 
 class Batcher:
@@ -190,6 +199,11 @@ class Batcher:
         self._max_pending = self.max_batch * max(2, self.pipeline_depth)
         if self.max_queue:  # the bound must be reachable, or BacklogFull never fires
             self._max_pending = max(self._max_pending, self.max_queue)
+        # replica routing: engines without the API keep one stream
+        self._route = getattr(engine, "supports_replica_routing", False)
+        self._n_replicas = max(1, getattr(engine, "num_replicas", 1)) if self._route else 1
+        self._rr = 0  # round-robin cursor over replicas
+        # batches sealed, not yet fetched, per (canvas bucket key, replica)
         self._inflight_by_key: dict[tuple, int] = {}
         self._inflight_total = self._inflight_peak = 0
         # depth is gated at the seal decision, so these never block a stop
@@ -199,12 +213,14 @@ class Batcher:
         self._started = False
         self._sealer = threading.Thread(target=self._seal_loop, name="batch-sealer",
                                         daemon=True)
+        # every replica may have a copy in flight and a fetch waiting at once
+        threads = max(2, min(16, self._n_replicas))
         self._launchers = [threading.Thread(target=self._launch_loop, args=(i,),
                                             name=f"batch-launch-{i}", daemon=True)
-                           for i in range(POOL_THREADS)]
+                           for i in range(threads)]
         self._completions = [threading.Thread(target=self._fetch_loop,
                                               name=f"batch-complete-{i}", daemon=True)
-                             for i in range(POOL_THREADS)]
+                             for i in range(threads)]
         self._warm: list[Future] = [Future() for _ in self._launchers]
         self._warmup = False
         self.batches = self.images = 0
@@ -516,16 +532,34 @@ class Batcher:
         if shed:
             self._cond.notify_all()  # freed cap slots wake lease() waiters now
 
+    def _pick_replica_locked(self, key) -> int | None:
+        """The replica of one sealed batch of ``key``: among the replicas with
+        depth left for the bucket, the least loaded by the engine's in-flight
+        count, the round-robin cursor's order breaking ties; None when every
+        replica is at depth."""
+        n = self._n_replicas
+        cands = [r for r in range(n)
+                 if self._inflight_by_key.get((key, r), 0) < self.pipeline_depth]
+        if n == 1 or not cands:
+            return cands[0] if cands else None
+        loads = self.engine.replica_loads()
+        start = self._rr
+        return min(cands, key=lambda r: (loads[r], (r - start) % n))
+
+    def _depth_free_locked(self, key) -> bool:
+        return any(self._inflight_by_key.get((key, r), 0) < self.pipeline_depth
+                   for r in range(self._n_replicas))
+
     def _pick_action_locked(self, now: float):
         """("dispatch" | "discard", builder) for one sealer wakeup, or None
-        to wait. A dispatch has taken its pipeline-depth slot."""
+        to wait. A dispatch has taken its pipeline-depth slot on the replica
+        it was routed to."""
         draining = not self._running
         grace = min(self.lease_timeout_s, 2.0) if draining else self.lease_timeout_s
         for b in list(self._open.values()):
             self._expire_locked(b, now, grace)
             if draining or len(b.leases) >= b.capacity or (
-                    now >= b.deadline and not b.n_pending
-                    and self._inflight_by_key.get(b.key, 0) < self.pipeline_depth):
+                    now >= b.deadline and not b.n_pending and self._depth_free_locked(b.key)):
                 self._close_builder_locked(b)
         for b in self._closing:
             self._expire_locked(b, now, grace)
@@ -537,10 +571,17 @@ class Batcher:
                 self._closing.remove(b)
                 b.dispatched = True
                 return "discard", b
-            if draining or self._inflight_by_key.get(b.key, 0) < self.pipeline_depth:
+            replica = self._pick_replica_locked(b.key)
+            if draining and replica is None:
+                # a drain goes on with every replica at depth: past the gate
+                replica = self._rr % self._n_replicas
+            if replica is not None:
                 self._closing.remove(b)
                 b.dispatched = True
-                self._inflight_by_key[b.key] = self._inflight_by_key.get(b.key, 0) + 1
+                b.replica = replica
+                self._rr = (replica + 1) % self._n_replicas
+                slot = (b.key, replica)
+                self._inflight_by_key[slot] = self._inflight_by_key.get(slot, 0) + 1
                 self._inflight_total += 1
                 self._inflight_peak = max(self._inflight_peak, self._inflight_total)
                 return "dispatch", b
@@ -580,21 +621,24 @@ class Batcher:
             self._pending_slots -= len(ready)
             self._sealed += 1
             self._batch_seq += 1
-            rec = {"seq": self._batch_seq, "key": b.key, "rows": len(ready), "bucket": None,
-                   "t_open": b.opened_at, "t_seal": time.monotonic(), "t_launch": None,
-                   "t_launched": None, "t_done": None}
+            rec = {"seq": self._batch_seq, "key": b.key, "replica": b.replica,
+                   "rows": len(ready), "bucket": None, "t_open": b.opened_at,
+                   "t_seal": time.monotonic(), "t_launch": None, "t_launched": None,
+                   "t_done": None}
             self._timeline.append(rec)
             self._cond.notify_all()  # lease() waiters and the next seal decision
         self._launch_q.put((b, ready, rec))
 
-    def _batch_done(self, key) -> None:
-        """A batch left the pipeline (fetched or failed): free its depth slot."""
+    def _batch_done(self, key, replica: int = 0) -> None:
+        """A batch left the pipeline (fetched or failed): free its depth slot
+        on its replica."""
         with self._cond:
-            n = self._inflight_by_key.get(key, 0) - 1
+            slot = (key, replica)
+            n = self._inflight_by_key.get(slot, 0) - 1
             if n > 0:
-                self._inflight_by_key[key] = n
+                self._inflight_by_key[slot] = n
             else:
-                self._inflight_by_key.pop(key, None)
+                self._inflight_by_key.pop(slot, None)
             self._inflight_total -= 1
             self._cond.notify_all()
 
@@ -634,11 +678,13 @@ class Batcher:
                     b.slab.hole(lease.index)
             dispatch = self.engine.dispatch_ragged if b.slab.is_ragged \
                 else self.engine.dispatch_staged
+            # a routed engine gets the sealer's replica
+            kw = {"replica": b.replica} if self._route else {}
             if getattr(self.engine, "supports_span_tracing", False):
                 # the engine stamps device_transfer and device_dispatch
-                handle = dispatch(b.slab, n, spans=spans)
+                handle = dispatch(b.slab, n, spans=spans, **kw)
             else:
-                handle = dispatch(b.slab, n)
+                handle = dispatch(b.slab, n, **kw)
                 t_disp = time.monotonic()
                 for span in spans:
                     span.add_max("device_dispatch", t_disp - t0)
@@ -647,7 +693,7 @@ class Batcher:
             self._fail(ready, e)
             rec["t_launched"] = rec["t_done"] = time.monotonic()
             self.engine.release_staging(b.slab)
-            self._batch_done(b.key)
+            self._batch_done(b.key, b.replica)
             return
         rec["t_launched"] = time.monotonic()
         rec["bucket"] = bucket = self.engine.pick_batch_bucket(n)
@@ -686,7 +732,8 @@ class Batcher:
                 return
             ready, handle, rec = item
             if self.chaos is not None:
-                delay = self.chaos.fetch_delay()  # a straggling device holds its depth slot
+                # a straggling replica holds its batch's depth slot longer
+                delay = self.chaos.fetch_delay(rec["replica"])
                 if delay > 0:
                     time.sleep(delay)
             try:
@@ -695,7 +742,7 @@ class Batcher:
                 log.exception("fetch of a batch of %d failed", len(ready))
                 self._fail(ready, e)
                 rec["t_done"] = time.monotonic()
-                self._batch_done(rec["key"])
+                self._batch_done(rec["key"], rec["replica"])
                 continue
             rec["t_done"] = now = time.monotonic()
             t_launch = rec["t_launch"]
@@ -714,7 +761,7 @@ class Batcher:
             with self._cond:
                 self.batches += 1
                 self.images += len(ready)
-            self._batch_done(rec["key"])
+            self._batch_done(rec["key"], rec["replica"])
 
     def _fail(self, leases: list[SlotLease], e: Exception) -> None:
         now = time.monotonic()
@@ -742,12 +789,15 @@ class Batcher:
         """The recent batches' lifecycle on the monotonic clock: builder
         ``t_open`` → ``t_seal`` (assembly) → ``t_launch`` → ``t_launched``
         (H2D + serve enqueue) → ``t_done`` (outputs on the host); None for
-        a stage not reached yet."""
+        a stage not reached yet; and the ``replica`` each went to."""
         with self._cond:
             return [dict(r) for r in self._timeline]
 
     def stats(self) -> dict:
         with self._cond:
+            by_replica: dict[int, int] = {}
+            for (_key, r), cnt in self._inflight_by_key.items():
+                by_replica[r] = by_replica.get(r, 0) + cnt
             return {
                 "batches": self.batches,
                 "images": self.images,
@@ -759,6 +809,12 @@ class Batcher:
                 "pipeline_depth": self.pipeline_depth,
                 "inflight": self._inflight_total,
                 "inflight_peak": self._inflight_peak,
+                "replicas": self._n_replicas,
+                # batches in flight per replica (all buckets); the engine's
+                # staging_stats() has the device side
+                "inflight_by_replica": {str(r): by_replica.get(r, 0)
+                                        for r in range(self._n_replicas)}
+                if self._n_replicas > 1 else {},
                 "sealed": self._sealed,
                 "discarded": self._discarded,
                 "holes": self._holes,

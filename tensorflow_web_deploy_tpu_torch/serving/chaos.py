@@ -10,9 +10,12 @@ is consulted at four seams:
                         before the engine's dispatch (the failed-batch path:
                         futures fail, the slab goes back, the depth slot
                         frees);
-- ``slow_replica=P:MS`` the completion thread sleeps MS ms before a fetch
-                        (one card: a straggling device, which holds the
-                        batch's depth slot longer);
+- ``slow_replica=P:MS[:R]`` the completion thread sleeps MS ms before a
+                        fetch (a straggling device group, which holds the
+                        batch's depth slot longer); with ``R``, only before
+                        the fetches of batches routed to replica R — the
+                        port's one addition to the reference's spec, which
+                        delays any batch;
 - ``spike=ON:PERIOD``   for the first ON seconds of every PERIOD, each
                         request is held ``spike_hold`` ms (5 by default)
                         before staging;
@@ -43,12 +46,13 @@ class ChaosInjector:
 
     def __init__(self, decode_fail: float = 0.0, dispatch_fail: float = 0.0,
                  slow_replica_p: float = 0.0, slow_replica_ms: float = 0.0,
-                 spike_on_s: float = 0.0, spike_period_s: float = 0.0,
-                 spike_hold_ms: float = 5.0, seed: int = 1234):
+                 slow_replica_target: int | None = None, spike_on_s: float = 0.0,
+                 spike_period_s: float = 0.0, spike_hold_ms: float = 5.0, seed: int = 1234):
         self.decode_fail = max(0.0, min(1.0, decode_fail))
         self.dispatch_fail = max(0.0, min(1.0, dispatch_fail))
         self.slow_replica_p = max(0.0, min(1.0, slow_replica_p))
         self.slow_replica_s = max(0.0, slow_replica_ms) / 1e3
+        self.slow_replica_target = slow_replica_target
         self.spike_on_s = max(0.0, spike_on_s)
         self.spike_period_s = max(0.0, spike_period_s)
         self.spike_hold_s = max(0.0, spike_hold_ms) / 1e3
@@ -80,9 +84,12 @@ class ChaosInjector:
                 elif key == "dispatch_fail":
                     kw["dispatch_fail"] = float(val)
                 elif key == "slow_replica":
-                    p, _, ms = val.partition(":")
+                    p, _, rest = val.partition(":")
+                    ms, _, target = rest.partition(":")
                     kw["slow_replica_p"] = float(p)
                     kw["slow_replica_ms"] = float(ms or 50.0)
+                    if target:
+                        kw["slow_replica_target"] = int(target)
                 elif key == "spike":
                     on, _, period = val.partition(":")
                     kw["spike_on_s"] = float(on)
@@ -106,7 +113,9 @@ class ChaosInjector:
         if self.dispatch_fail:
             parts.append(f"dispatch_fail={self.dispatch_fail}")
         if self.slow_replica_p:
-            parts.append(f"slow_replica={self.slow_replica_p}:{self.slow_replica_s * 1e3:.0f}ms")
+            parts.append(f"slow_replica={self.slow_replica_p}:{self.slow_replica_s * 1e3:.0f}ms"
+                         + ("" if self.slow_replica_target is None
+                            else f":replica{self.slow_replica_target}"))
         if self.spike_period_s:
             parts.append(f"spike={self.spike_on_s}:{self.spike_period_s}")
         return ",".join(parts) or "(no faults)"
@@ -133,8 +142,12 @@ class ChaosInjector:
             return True
         return False
 
-    def fetch_delay(self) -> float:
-        """Seconds the completion thread sleeps before a fetch (0.0: none)."""
+    def fetch_delay(self, replica: int = 0) -> float:
+        """Seconds the completion thread sleeps before fetching a batch of
+        ``replica`` (0.0: none); a batch of a replica the spec does not
+        target draws nothing."""
+        if self.slow_replica_target is not None and replica != self.slow_replica_target:
+            return 0.0
         if self._hit(self.slow_replica_p):
             with self._lock:
                 self._slow_fetches += 1

@@ -410,16 +410,20 @@ def _calibrate_cpu(dtype: str = "bfloat16") -> dict:
             "calibration_s": round(time.perf_counter() - t_cal, 3)}
 
 
-def backend_peak(dtype: str = "bfloat16", device=None) -> dict:
-    """Peak FLOP/s and memory bytes/s of ``device`` (``"cuda"`` unless
+def backend_peak(dtype: str = "bfloat16", device=None, n_dev: int = 1) -> dict:
+    """Peak FLOP/s and memory bytes/s of one ``device`` (``"cuda"`` unless
     given) at one serving dtype, with its ``source``: the card's table row
-    (:func:`cuda_peak`), or the host calibrated once per compute dtype."""
+    (:func:`cuda_peak`), or the host calibrated once per compute dtype and
+    divided by the ``n_dev`` CPU entries of the mesh, which share the
+    host's cores (so MFU summed over replicas stays ≤ 1, the reference's
+    rule)."""
     import torch
 
     device = torch.device(device if device is not None else "cuda")
     cdtype = compute_dtype(dtype)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    cache_key = (device.type, name, cdtype)
+    n_dev = 1 if device.type == "cuda" else max(1, int(n_dev))
+    cache_key = (device.type, name, cdtype, n_dev)
     with _cost_lock:
         cached = _peak_cache.get(cache_key)
     if cached is not None:
@@ -428,9 +432,9 @@ def backend_peak(dtype: str = "bfloat16", device=None) -> dict:
         peak = cuda_peak(name, cdtype)
     else:
         host = _calibrate_cpu(cdtype)
-        peak = {"flops_per_chip": host["flops_per_chip"],
-                "bytes_per_s_per_chip": host["bytes_per_s_per_chip"],
-                "source": f"{host['source']}:{cdtype}:/1dev",
+        peak = {"flops_per_chip": host["flops_per_chip"] / n_dev,
+                "bytes_per_s_per_chip": host["bytes_per_s_per_chip"] / n_dev,
+                "source": f"{host['source']}:{cdtype}:/{n_dev}dev",
                 "calibration_s": host["calibration_s"]}
     with _cost_lock:
         _peak_cache[cache_key] = peak
@@ -499,7 +503,7 @@ def economics_snapshot(engine, model_cfg) -> dict | None:
         return None
     cost = model_cost(model_cfg)
     peak = backend_peak(getattr(model_cfg, "dtype", "bfloat16") or "bfloat16",
-                        getattr(engine, "device", None))
+                        getattr(engine, "device", None), len(getattr(engine, "mesh", ())) or 1)
     wire = getattr(engine.cfg, "wire_format", "rgb")
     if getattr(engine, "ragged", False):
         wire = "ragged"

@@ -1,5 +1,5 @@
-"""Inference engine for one device (counterpart of the JAX package's
-``serving/engine.py``).
+"""Inference engine over a placement's devices (counterpart of the JAX
+package's ``serving/engine.py``).
 
 One batch is one uint8 wire buffer — each image's canvas bytes followed by
 a 4-byte big-endian (h, w) trailer — in a pinned :class:`StagingSlab`,
@@ -17,11 +17,38 @@ shipped in one non-blocking copy; the device rebuilds the canvases
 (``ops/image.py::unpack_ragged``, one kernel that reads the table on the
 device) and the same serve path follows.
 
+**Placement** (``serving/placement.py``, the reference's ``_Replica``).
+The engine builds one :class:`_Replica` per device group of its
+placement: ``shard`` (the default) is one replica over the whole mesh,
+``replicas=N`` N replicas over disjoint groups. Each replica owns, per
+device of its group, a copy of the weights, its executables, its static
+inputs, its own memory and graph pools and, on CUDA, its own compute and
+copy streams; it owns one enqueue lock, its economics cells, its busy
+seconds and its in-flight counters. A batch goes to one replica (the
+caller's ``replica=``, else :meth:`InferenceEngine.route_replica`); a
+group of several devices splits the batch's rows evenly over them, as the
+reference's ``P(('data', 'model'))`` does over a replica's submesh, and
+gathers the k (score, index) pairs in row order. Batch buckets are
+multiples of the group's size. The card has one device, so there a
+placement is one replica of one device.
+
+**Streams.** Each device of a replica enqueues its work on a compute
+stream of its own, taken from a process-wide pool (:class:`_StreamPool`)
+at build and given back at :meth:`InferenceEngine.close`, so two engines
+(two models, or the old and new version during a hot swap) run their
+device work side by side, and the CUDA events around a batch's replay
+bracket that batch alone. A cuBLAS call captured into a graph keeps the
+workspace of the (thread's handle, stream) it was captured on: each
+graph is captured on the stream it replays on, so graphs that may replay
+at once never share a workspace, graphs of one pool replay one at a time
+on their replica's stream, and the pool's fixed set of streams bounds the
+workspaces across hot swaps.
+
 **Executables** (the counterpart of the reference's precompiled
 executable per (canvas bucket, batch bucket)). Warmup captures the serve
-function of every (wire kind, canvas side, batch bucket) as one CUDA graph
-(:class:`Executable`), largest first, into one graph memory pool per
-engine. Each canvas side has one static device input at the top batch
+function of every (wire kind, canvas side, rows per device) as one CUDA
+graph (:class:`Executable`), largest first, into the device's graph
+memory pool. Each canvas side has one static device input at the top
 bucket's capacity (the packed wire, or the arena and the meta table), and
 a smaller bucket's graph reads a prefix view of it. A batch then costs, on
 the compute stream, a device-to-device copy of its freshly copied wire
@@ -39,11 +66,14 @@ the rest.
 Slabs are leased row by row (``serving/batcher.py``): the decoder writes
 each upload straight into its slab, the image's one host copy. Dispatch
 and fetch are separate calls, so several batches can be in flight: the
-host→device copy goes on a copy stream of its own, and the compute stream
-waits for that copy's event, so batch N+1's transfer overlaps batch N's
-compute. A slab returns to its pool once its copy is enqueued (or it is
-released undispatched) and its last lessee has resolved; it is handed out
-again only after that copy's event.
+host→device copy goes on the replica's copy stream, and its compute
+stream waits for that copy's event, so batch N+1's transfer overlaps batch
+N's compute. A slab returns to its pool once its copy is enqueued (or it
+is released undispatched) and its last lessee has resolved; it is handed
+out again only after that copy's events. The pool keeps at most
+``staging_slabs`` idle slabs per (kind, canvas side) and
+``staging_pool_bytes`` over all of them, dropping the least recently used
+shape's slabs first (the reference's budget).
 
 The int8 tier keeps its kernels int8 on the device and dequantizes them
 inside every forward, computing in bf16 (``ops/quant.py``); before it
@@ -51,20 +81,26 @@ serves, the golden parity gate holds it against the unfused float32 model
 on the same parameters, and a failing gate raises.
 
 **Device economics** (:meth:`InferenceEngine.econ_stats`, read by
-``serving/costmodel.py``): batches, rows and device seconds per (canvas,
-batch bucket), and ``busy_s`` over all. On the card a batch's device
-seconds are the interval between two CUDA events on the compute stream
-around its graph replay (or eager serve function), read after its fetch;
-the reference counts the host's dispatch → fetch wall, which with several
+``serving/costmodel.py``): per replica, batches, rows and device seconds
+per (canvas, batch bucket), and ``busy_s`` over all. On the card a
+batch's device seconds are the interval between two CUDA events on its
+replica's compute stream around its graph replay (or eager serve
+function), read after its fetch (the longest of its group's devices); the
+reference counts the host's dispatch → fetch wall, which with several
 batches in flight includes the wait behind the others. On the CPU they are
-the serve call's host wall. Request spans passed to the dispatch get
-``device_transfer`` (the H2D enqueue) and ``device_dispatch`` (the replay
-and the D2H enqueue).
+the serve call's host wall. Intervals of concurrent streams overlap, so
+the device's idle share comes from the union of every engine's intervals
+(:meth:`InferenceEngine.device_timeline` with a common base event).
+Request spans passed to the dispatch get ``device_transfer`` (the H2D
+enqueue), ``device_dispatch`` (the replay and the D2H enqueue) and the
+``replica`` note.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
+import gc
 import logging
 import threading
 import time
@@ -89,28 +125,114 @@ from ..ops.image import (
     unpack_ragged,
 )
 from ..ops.preprocess_i420 import decode_trailer, preprocess_i420, preprocess_i420_wire
+from ..parallel.mesh import build_mesh, mesh_for
 from ..utils.config import ServerConfig
-from ..utils.device import resolve_device
 from . import aotcache
+from .placement import parse_placement
 
 log = logging.getLogger("tpu_serve_torch.engine")
 
 _HOLE_TRAILER = (0, 1, 0, 1)  # hw = (1, 1): the resize reads one pixel
-# one CUDA graph capture at a time in the process (torch's rule); it also
-# guards _capture_streams
+# one CUDA graph capture at a time in the process (torch's rule)
 _CAPTURE_LOCK = threading.Lock()
-# One timed compute enqueue at a time in the process: every engine enqueues
-# on its thread's current stream, the device's default stream, so another
-# engine's work enqueued between a batch's two compute events would count
-# as this batch's device time.
-_COMPUTE_LOCK = threading.Lock()
-# device index → the one stream every capture, and the eager run before it,
-# runs on. cuBLAS keeps a workspace per (thread's handle, stream) for the
-# life of the process: made by the eager run, it lies outside every graph
-# pool, and one stream bounds their number by the threads' handles. (A
-# workspace first made inside a capture would pin its graph pool's segment
-# after the engine closed.)
-_capture_streams: dict = {}
+# batches whose copy and compute events an engine keeps for device_timeline()
+TIMELINE_N = 4096
+
+
+def _cuda_index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+class _StreamPool:
+    """The process's CUDA streams for replicas, per device: a replica takes
+    two distinct streams per device (compute and copy) at build and gives
+    them back at close, and the next engine reuses them. cuBLAS keeps a
+    workspace per (thread's handle, stream) for the life of the process,
+    so a stream made per engine would leave one behind at every hot swap;
+    with the pool their number is bounded by the most replicas alive at
+    once. ``torch.cuda.Stream()`` hands out torch's own pooled streams
+    round robin, so one it returns that the pool already knows is skipped:
+    no two replicas ever share a stream."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._free: dict[int, list] = {}
+        self._known: set[int] = set()
+
+    def acquire(self, device: torch.device) -> torch.cuda.Stream:
+        index = _cuda_index(device)
+        with self._lock:
+            free = self._free.setdefault(index, [])
+            if free:
+                return free.pop()
+            for _ in range(128):
+                stream = torch.cuda.Stream(index)
+                if stream.cuda_stream not in self._known:
+                    self._known.add(stream.cuda_stream)
+                    return stream
+        raise RuntimeError(f"no unused CUDA stream left on cuda:{index}")
+
+    def release(self, stream: torch.cuda.Stream) -> None:
+        with self._lock:
+            self._free.setdefault(stream.device.index, []).append(stream)
+
+
+_STREAMS = _StreamPool()
+
+
+class _EnqueueGate:
+    """Shared by every engine's device enqueue and fetch wait, exclusive for
+    a profiler's start and stop (:func:`quiesced`). On the H100 with torch
+    2.11, ``torch.profiler``'s stop (a device synchronize, then Kineto and
+    CUPTI tearing down) hung the process while two launch threads were
+    inside ``cudaGraphLaunch`` and ``cudaEventRecord`` on their own streams
+    (PERF.md §6); with the gate no serving thread is in a CUDA call
+    then. Writers go first, so a steady stream of batches cannot starve a
+    profiler."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._shared = 0
+        self._writer = False
+        self._writers_waiting = 0
+
+    @contextlib.contextmanager
+    def shared(self):
+        with self._cond:
+            while self._writer or self._writers_waiting:
+                self._cond.wait()
+            self._shared += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._shared -= 1
+                if not self._shared:
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        with self._cond:
+            self._writers_waiting += 1
+            while self._writer or self._shared:
+                self._cond.wait()
+            self._writers_waiting -= 1
+            self._writer = True
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = False
+                self._cond.notify_all()
+
+
+_GATE = _EnqueueGate()
+
+
+def quiesced():
+    """Hold every engine's device enqueue and fetch wait off for the block
+    (the profiler route's start and stop)."""
+    return _GATE.exclusive()
 
 
 def _align16(x: int) -> int:
@@ -122,15 +244,16 @@ class _Leased:
     is out of its pool from :meth:`arm` (acquire) until both (a) its batch's
     host→device copy is enqueued, or it was released undispatched
     (:meth:`finish`), and (b) every lessee has dropped its lease: a
-    force-expired lessee may still be decoding into its row. ``copied`` is
-    the copy's event; the pool waits for it before the slab is reused."""
+    force-expired lessee may still be decoding into its row. ``copied``
+    holds the copy's events (one per device of the replica that shipped
+    it); the pool waits for them before the slab is reused."""
 
     def _init_lease(self) -> None:
         self._lease_lock = threading.Lock()
         self._leases = 0
         self._finished = True
         self._idle_cb = None
-        self.copied: torch.cuda.Event | None = None
+        self.copied: tuple[torch.cuda.Event, ...] = ()
 
     def arm(self, idle_cb) -> None:
         """Start one lease/dispatch cycle; ``idle_cb(slab)`` fires once."""
@@ -181,6 +304,7 @@ class StagingSlab(_Leased):
         self.canvases = self.host[:, : self.nbytes].reshape(capacity, *row_shape)
         self.trailer = self.host[:, self.nbytes :]
         self.trailer[:] = _HOLE_TRAILER
+        self.total_bytes = self.buf.nbytes
         self._init_lease()
 
     def arm(self, idle_cb) -> None:
@@ -226,6 +350,7 @@ class RaggedSlab(_Leased):
         self.host = self.buf.numpy()
         self.meta = np.zeros((capacity, 4), np.int32)
         self.used = self.slots = 0
+        self.total_bytes = self.buf.nbytes
         self._init_lease()
 
     def arm(self, idle_cb) -> None:
@@ -280,11 +405,12 @@ class RaggedSlab(_Leased):
 @dataclass
 class BatchHandle:
     out: torch.Tensor  # float32 [bucket, 2k] on the host
-    done: torch.cuda.Event | None
+    done: tuple  # CUDA: one event per device of the replica, after its D2H
     n: int
-    # CUDA: timing events of the copy (copy stream) and of the serve
-    # function (compute stream): H2D start, H2D end, compute start, end
-    events: tuple[torch.cuda.Event, ...] = ()
+    # CUDA: per device of the replica, the timing events of the copy (copy
+    # stream) and of the serve function (compute stream): H2D start, H2D
+    # end, compute start, end
+    events: tuple = ()
     # ran through its (canvas, batch) bucket's executable: on the card a
     # graph replay, not an eager run that pays one-time costs
     replay: bool = False
@@ -297,16 +423,18 @@ class BatchHandle:
     rows_tight: float = 0.0
     host_compute_s: float = 0.0
     t_put: float = 0.0  # monotonic, the H2D enqueued
+    replica: int = 0
+    slab_bytes: int = 0  # the slab's bytes, in flight on its replica until the fetch
 
 
 @dataclass
 class Executable:
-    """The serve function of one (wire kind, canvas side, batch bucket) on
-    its static input views (``fn``). On the card, ``graph`` is its CUDA
-    graph and ``out`` the graph's static output; ``launches`` holds the
-    hand-written kernels' launches its capture recorded, which every replay
-    adds to their counters. On the CPU there is no graph: calling it runs
-    ``fn``."""
+    """The serve function of one (wire kind, canvas side, rows per device)
+    on one device's static input views (``fn``). On the card, ``graph`` is
+    its CUDA graph and ``out`` the graph's static output; ``launches``
+    holds the hand-written kernels' launches its capture recorded, which
+    every replay adds to their counters. On the CPU there is no graph:
+    calling it runs ``fn``."""
 
     key: tuple[str, int, int]
     fn: Callable[[], torch.Tensor]
@@ -323,9 +451,68 @@ class Executable:
         return self.out
 
 
+class _Shard:
+    """One device of a replica's group: its copy of the weights, its static
+    inputs and executables, its own memory pool (the weights and static
+    inputs, freed at close whatever engines came after) and graph pool
+    and, on CUDA, its compute and copy streams from the process's pool."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        cuda = device.type == "cuda"
+        self.model = None
+        # (kind, canvas side, rows) → Executable, filled once by warmup
+        # (under the engine's warmup lock), read lock-free after
+        self.exes: dict[tuple[str, int, int], Executable] = {}
+        self.static: dict[tuple[str, int], torch.Tensor] = {}  # (kind, side) → input
+        self.mem_pool = torch.cuda.MemPool() if cuda else None
+        self.graph_pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.compute = _STREAMS.acquire(device) if cuda else None
+        self.copy = _STREAMS.acquire(device) if cuda else None
+
+    def own_pool(self):
+        """Routes this thread's device allocations to the shard's own pool
+        (nothing on the CPU)."""
+        if self.mem_pool is None:
+            return contextlib.nullcontext()
+        return torch.cuda.use_mem_pool(self.mem_pool, _cuda_index(self.device))
+
+    def release_streams(self) -> None:
+        for stream in (self.compute, self.copy):
+            if stream is not None:
+                _STREAMS.release(stream)
+        self.compute = self.copy = None
+
+
+class _Replica:
+    """One independent dispatch stream of an engine's placement: a device
+    group with a :class:`_Shard` per device, one enqueue lock (its launch
+    threads share its streams, static inputs and graph pools), and its own
+    in-flight, busy and economics accounting (under the engine's lock)."""
+
+    def __init__(self, index: int, devices: tuple[torch.device, ...]):
+        self.index = index
+        self.devices = devices
+        self.shards = [_Shard(d) for d in devices]
+        self.lock = threading.Lock()
+        self.dispatches_total = 0
+        self.dispatches_inflight = 0
+        self.slab_bytes_inflight = 0
+        # summed device seconds of its fetched batches (an interval sum)
+        self.busy_s = 0.0
+        # (canvas side, batch bucket) → [batches, rows, rows dispatched,
+        # device s, tight rows]
+        self.econ: dict[tuple[int, int], list] = {}
+
+
 class InferenceEngine:
-    """Serves batches of decoded images on one device (``"cuda"`` unless
-    the caller passes ``device="cpu"``).
+    """Serves batches of decoded images over a placement's replicas.
+
+    ``mesh`` (a tuple of devices, ``parallel/mesh.py``) is where the
+    engine may place the model; without one, ``device`` names it (one
+    device; ``"cuda"`` or None: every visible CUDA device). The model
+    config's ``placement`` splits the mesh into replicas; a spec the mesh
+    cannot honor raises ValueError before any weight is built.
 
     A float32 or int8 engine turns TF32 off in cuDNN and cuBLAS at build
     (float32 means float32; for int8, the parity gate's reference). Those
@@ -340,12 +527,20 @@ class InferenceEngine:
     }
     # the batcher passes request spans to the dispatch calls
     supports_span_tracing = True
+    # dispatch calls take replica=, and the engine has num_replicas,
+    # replica_loads and route_replica: the batcher routes across replicas
+    supports_replica_routing = True
 
     def __init__(self, cfg: ServerConfig, device: str | torch.device | None = None,
-                 seed: int = 0, params_flat: dict[str, np.ndarray] | None = None):
+                 seed: int = 0, params_flat: dict[str, np.ndarray] | None = None, mesh=None):
         self.cfg = cfg
         self.model_cfg = cfg.model
-        self.device = resolve_device(device)
+        self.mesh = build_mesh(mesh) if mesh is not None else mesh_for(device)
+        self.placement = parse_placement(self.model_cfg.placement, self.mesh)
+        self.num_replicas = self.placement.replicas
+        # rows split evenly over a replica's group: buckets are multiples of it
+        self.batch_multiple = len(self.placement.meshes[0])
+        self.device = self.mesh[0]
         # the reference's gating: tight packing exists for the rgb wire only
         self.ragged = cfg.ragged and cfg.wire_format == "rgb"
         if cfg.ragged and not self.ragged:
@@ -361,6 +556,7 @@ class InferenceEngine:
         # yuv420 + kernel: the kernel takes the wire buffer itself
         # (preprocess_packed); the other paths decode the trailers first
         self._wire_kernel = cfg.wire_format == "yuv420" and cfg.resize == "kernel"
+        self._pinned = self.device.type == "cuda"
         # Warmup's first phase, the one-time costs, runs here: the int8
         # parity gate below already launches the kernels. The kernel
         # libraries this engine's path runs are built or loaded through the
@@ -371,80 +567,80 @@ class InferenceEngine:
                                                 ("preprocess_i420", self._wire_kernel),
                                                 ("fused_dw", self.fused_dw)) if used]
         t0 = time.perf_counter()
-        if self.device.type == "cuda":
+        if self._pinned:
             for name in self.kernels:
                 _build.load(name, self.aot_cache)
         self.decoder = native.status()
         self.warmup_s = {"one_time": time.perf_counter() - t0, "executables": None,
                          "execution": []}
         self._seed, self._params_flat = seed, params_flat
-        # The engine's own memory pool for what it keeps until close(): the
-        # weights and the static inputs. In the process's shared pool they
-        # would share segments with other engines' tensors (a version built
-        # later fills the free blocks an unloaded one left), and an unload
-        # could not give those segments back.
-        self._mem_pool = torch.cuda.MemPool() if self.device.type == "cuda" else None
-        with self._own_pool():
-            self.model = self._build_model(self.fused_dw, self.quantized).to(
-                self.device, self.dtype, memory_format=torch.channels_last)
-        self.num_classes = self.model.backbone.logits.out_features
-        self.topk = min(self.model_cfg.topk, self.num_classes)
-        self.parity: dict | None = None
-        if self.quantized:
-            self.parity = self.parity_check()
-            if not self.parity["pass"]:
-                self.model = None
-                raise RuntimeError(
-                    f"numerical-parity gate failed for {self.model_cfg.name} "
-                    f"dtype={self.model_cfg.dtype}: {self.parity}")
-        h, w = self.model_cfg.input_size
-        self._preprocess = None if self._wire_kernel else make_preprocess_fn(
-            h, w, self.model_cfg.preprocess, wire=cfg.wire_format, resize=cfg.resize,
-            out_dtype=self.dtype,
-        )
-        self.batch_buckets = self._default_batch_buckets(cfg.max_batch)
-        self.max_batch = self.batch_buckets[-1]
-        self._pinned = self.device.type == "cuda"
-        # (kind, canvas side) → free slabs, at most pipeline_depth + 1 each:
-        # pinned memory is scarce (one rgb slab at a 2048 canvas and batch
-        # 32 is 403 MB), so slabs are allocated at first use
-        self._pool: dict[tuple[str, int], list] = {}
-        self._pool_cap = cfg.pipeline_depth + 1
-        self.slabs_allocated = 0
-        # the host→device copies' own stream: batch N+1's copy runs beside
-        # batch N's compute on the current stream
-        self._copy_stream = torch.cuda.Stream(self.device) if self._pinned else None
-        self._device_events: deque = deque(maxlen=256)  # BatchHandle.events
-        # Guards the pool and the counters only; never a wait on an event.
+        # Guards the staging pool, the counters and the replicas'
+        # accounting only; never a wait on an event.
         self._lock = threading.Lock()
-        self._enqueue_lock = threading.Lock()  # one serve-function enqueue at a time
+        self._replicas: list[_Replica] = []
+        self._device_events: deque = deque(maxlen=TIMELINE_N)
+        # (kind, canvas side) → idle slabs: at most staging_slabs each and
+        # staging_pool_bytes over all, the least recently used shape's
+        # dropped first; pinned memory is scarce (one rgb slab at a 2048
+        # canvas and batch 32 is 403 MB), so slabs are allocated at first use
+        self._pool: dict[tuple[str, int], list] = {}
+        self._pool_nbytes = 0
+        self._last_use: dict[tuple[str, int], float] = {}
+        self._staging_cap = max(2, cfg.staging_slabs)
+        self._staging_budget = int(cfg.staging_pool_bytes)
+        self.slabs_allocated = 0
+        self._rr = 0  # round-robin cursor of route_replica
         self.batches = 0
         self.images = 0
         self.h2d_bytes = 0
         self.decodes = {"native": 0, "pil": 0}
-        # the executables: (kind, canvas side, batch bucket) → Executable,
-        # filled once by warmup (under _warmup_lock), read lock-free after
-        self._exes: dict[tuple[str, int, int], Executable] = {}
-        self._static: dict[tuple[str, int], torch.Tensor] = {}  # (kind, side) → input
-        self._graph_pool = torch.cuda.graph_pool_handle() if self._pinned else None
         self._warmup_lock = threading.Lock()
         self._warmed = False
         self.replays = 0
         self.eager_batches = 0
         self.pool_bytes = 0
-        # (canvas side, batch bucket) → [batches, rows, rows dispatched,
-        # device s, tight rows]; busy_s sums the device seconds
-        self._econ: dict[tuple[int, int], list] = {}
-        self.busy_s = 0.0
+        self.parity: dict | None = None
+        try:
+            self._replicas = [_Replica(i, m) for i, m in enumerate(self.placement.meshes)]
+            self._place_weights()
+            self.num_classes = self.model.backbone.logits.out_features
+            self.topk = min(self.model_cfg.topk, self.num_classes)
+            if self.quantized:
+                self.parity = self.parity_check()
+                if not self.parity["pass"]:
+                    raise RuntimeError(
+                        f"numerical-parity gate failed for {self.model_cfg.name} "
+                        f"dtype={self.model_cfg.dtype}: {self.parity}")
+        except BaseException:
+            self.close()  # the streams go back to the pool
+            raise
+        h, w = self.model_cfg.input_size
+        self._preprocess = None if self._wire_kernel else make_preprocess_fn(
+            h, w, self.model_cfg.preprocess, wire=cfg.wire_format, resize=cfg.resize,
+            out_dtype=self.dtype,
+        )
+        self.batch_buckets = self._default_batch_buckets(cfg.max_batch, self.batch_multiple)
+        self.max_batch = self.batch_buckets[-1]
 
-    def _own_pool(self):
-        """Routes this thread's device allocations to the engine's own pool
-        (nothing on the CPU)."""
-        if self._mem_pool is None:
-            return contextlib.nullcontext()
-        index = self.device.index
-        return torch.cuda.use_mem_pool(
-            self._mem_pool, torch.cuda.current_device() if index is None else index)
+    def _shards(self) -> list[_Shard]:
+        return [sh for rep in self._replicas for sh in rep.shards]
+
+    @property
+    def model(self):
+        """Replica 0's model on its first device (None once closed)."""
+        return self._replicas[0].shards[0].model if self._replicas else None
+
+    def _place_weights(self) -> None:
+        """One model built on the host, a real copy of it per device of
+        every replica, each in its device's own memory pool."""
+        base = self._build_model(self.fused_dw, self.quantized)
+        shards = self._shards()
+        for i, sh in enumerate(shards):
+            m = base if i == len(shards) - 1 else copy.deepcopy(base)
+            with sh.own_pool():
+                sh.model = m.to(sh.device, self.dtype, memory_format=torch.channels_last)
+            if sh.compute is not None:  # the weights, made on this thread's stream, first
+                sh.compute.wait_stream(torch.cuda.current_stream(sh.device))
 
     def _build_model(self, fused_dw: bool, int8: bool):
         return native_converted(
@@ -486,10 +682,13 @@ class InferenceEngine:
     # ---------------------------------------------------------------- shapes
 
     @staticmethod
-    def _default_batch_buckets(max_batch: int) -> tuple[int, ...]:
-        """Powers of two below ``max_batch``, then ``max_batch`` itself."""
-        top = max(1, max_batch)
-        buckets, b = [], 1
+    def _default_batch_buckets(max_batch: int, multiple: int = 1) -> tuple[int, ...]:
+        """``multiple``, doubled while below ``max_batch`` rounded up to a
+        multiple, then that top: every bucket splits evenly over a replica's
+        devices (the reference's ladder)."""
+        m = max(1, multiple)
+        top = max(m, -(-max_batch // m) * m)
+        buckets, b = [], m
         while b < top:
             buckets.append(b)
             b *= 2
@@ -532,86 +731,91 @@ class InferenceEngine:
             canvases = buf[:, :nbytes].unflatten(1, (s, s, 3))
         return self._preprocess(canvases, decode_trailer(buf))
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, model, x: torch.Tensor) -> torch.Tensor:
         """Forward → softmax → top-k: [B, out_h, out_w, 3] → float32 [B, 2k]
         holding k scores then k class indices per image."""
         # softmax runs in the serving dtype; top-k reads it in float32
-        probs = self.model(x).float()
+        probs = model(x).float()
         scores, idx = torch.topk(probs, self.topk, dim=-1)
         return torch.cat([scores, idx.float()], dim=1)
 
-    def _serve_packed(self, buf: torch.Tensor) -> torch.Tensor:
+    def _serve_packed(self, model, buf: torch.Tensor) -> torch.Tensor:
         """Device side of one batch: packed uint8 [B, bytes + 4] → float32 [B, 2k]."""
-        return self._head(self.preprocess_packed(buf))
+        return self._head(model, self.preprocess_packed(buf))
 
-    def _serve_ragged(self, arena: torch.Tensor, meta: torch.Tensor, s: int) -> torch.Tensor:
-        """Device side of one ragged batch: the arena and the int32 [bucket,
+    def _serve_ragged(self, model, arena: torch.Tensor, meta: torch.Tensor,
+                      s: int) -> torch.Tensor:
+        """Device side of one ragged batch: the arena and the int32 [rows,
         4] meta table → unpack → preprocess → :meth:`_head`."""
         canvases, hws = unpack_ragged(arena, meta, s)
-        return self._head(self._preprocess(canvases, hws))
+        return self._head(model, self._preprocess(canvases, hws))
 
     # ----------------------------------------------------------- executables
 
-    def _static_input(self, kind: str, s: int) -> torch.Tensor:
-        """The static device input of one canvas side, at the top batch
-        bucket's capacity: packed wire rows (hole trailers until written),
-        or the arena (16-byte aligned) followed by the meta table."""
+    def _static_input(self, sh: _Shard, kind: str, s: int) -> torch.Tensor:
+        """A device's static input of one canvas side, at the top bucket's
+        rows per device: packed wire rows (hole trailers until written), or
+        the whole batch's arena (16-byte aligned; a device's rows point
+        into all of it) followed by the meta table."""
         key = (kind, s)
-        if key not in self._static:
-            cap = self.max_batch
-            with self._own_pool():
+        if key not in sh.static:
+            rows = self.max_batch // self.batch_multiple
+            with sh.own_pool():
                 if kind == "ragged":
-                    buf = torch.zeros(_align16(cap * s * s * 3) + 16 * cap,
-                                      dtype=torch.uint8, device=self.device)
+                    buf = torch.zeros(_align16(self.max_batch * s * s * 3) + 16 * rows,
+                                      dtype=torch.uint8, device=sh.device)
                 else:
-                    buf = torch.zeros(self.packed_shape(cap, s), dtype=torch.uint8,
-                                      device=self.device)
+                    buf = torch.zeros(self.packed_shape(rows, s), dtype=torch.uint8,
+                                      device=sh.device)
                     buf[:, -4:] = torch.tensor(_HOLE_TRAILER, dtype=torch.uint8,
-                                               device=self.device)
-            self._static[key] = buf
-        return self._static[key]
+                                               device=sh.device)
+            sh.static[key] = buf
+        return sh.static[key]
 
-    def _ragged_views(self, s: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """The ragged static input's arena and meta table [capacity, 4]."""
-        buf = self._static_input("ragged", s)
+    def _ragged_views(self, sh: _Shard, s: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The ragged static input's arena and meta table [rows, 4]."""
+        buf = self._static_input(sh, "ragged", s)
         arena = _align16(self.max_batch * s * s * 3)
         return buf[:arena], buf[arena:].view(torch.int32).view(-1, 4)
 
-    def _static_fn(self, kind: str, s: int, b: int) -> Callable[[], torch.Tensor]:
-        """The serve function of bucket ``b`` over prefix views of the side's
-        static input."""
+    def _static_fn(self, sh: _Shard, kind: str, s: int, p: int) -> Callable[[], torch.Tensor]:
+        """The serve function of ``p`` rows on one device over prefix views
+        of its side's static input."""
         if kind == "ragged":
-            arena, meta = self._ragged_views(s)
-            return lambda: self._serve_ragged(arena, meta[:b], s)
-        rows = self._static_input(kind, s)[:b]
-        return lambda: self._serve_packed(rows)
+            arena, meta = self._ragged_views(sh, s)
+            return lambda: self._serve_ragged(sh.model, arena, meta[:p], s)
+        rows = self._static_input(sh, kind, s)[:p]
+        return lambda: self._serve_packed(sh.model, rows)
 
-    def _stage_static(self, key: tuple[str, int, int], dev: torch.Tensor,
-                      meta_off: int | None) -> None:
-        """Copy one batch's freshly copied wire into its static input, on the
-        current (compute) stream: the wire rows, or the shipped arena prefix
-        and the meta table. Bytes past the prefix keep an earlier batch's
-        values; the unpack reads only the spans the meta table names."""
-        kind, s, b = key
+    def _stage_static(self, sh: _Shard, key: tuple[str, int, int], dev: torch.Tensor,
+                      meta_off: int | None, lo: int = 0) -> None:
+        """Copy one device's freshly copied wire into its static input, on
+        the current (compute) stream: the wire rows, or the shipped arena
+        prefix and meta rows ``lo`` … ``lo + p`` of the batch. Bytes past
+        the prefix keep an earlier batch's values; the unpack reads only
+        the spans the meta table names."""
+        kind, s, p = key
         if kind == "ragged":
-            arena, meta = self._ragged_views(s)
+            arena, meta = self._ragged_views(sh, s)
             arena[:meta_off].copy_(dev[:meta_off])
-            meta[:b].view(torch.uint8).view(-1).copy_(dev[meta_off:])
+            meta[:p].view(torch.uint8).view(-1).copy_(
+                dev[meta_off + 16 * lo:meta_off + 16 * (lo + p)])
         else:
-            self._static_input(kind, s)[:b].copy_(dev)
+            self._static_input(sh, kind, s)[:p].copy_(dev)
 
-    def _capture(self, kind: str, s: int, b: int) -> Executable:
-        """The executable of one (kind, side, bucket). On the card, under
-        ``_CAPTURE_LOCK`` and on the process's capture stream: one eager run
-        (cuDNN/cuBLAS plans, this thread's cuBLAS workspace for the stream,
-        the kernels' one-time attributes), then the capture into the
-        engine's graph pool. A capture that fails raises."""
-        key = (kind, s, b)
-        fn = self._static_fn(kind, s, b)
-        if self.device.type != "cuda":
+    def _capture(self, kind: str, s: int, p: int, sh: _Shard) -> Executable:
+        """The executable of one (kind, side, rows) on one device. On the
+        card, under ``_CAPTURE_LOCK`` and on the device's compute stream,
+        where the graph will replay: one eager run (cuDNN/cuBLAS plans,
+        this thread's cuBLAS workspace for that stream, made outside any
+        graph pool; the kernels' one-time attributes), then the capture
+        into the device's graph pool. A capture that fails raises."""
+        key = (kind, s, p)
+        fn = self._static_fn(sh, kind, s, p)
+        if sh.device.type != "cuda":
             return Executable(key, fn)
         t0 = time.perf_counter()
-        compute = torch.cuda.current_stream(self.device)
+        stream = sh.compute
         # thread_local: during a hot swap this capture runs while the old
         # version's launch and completion threads replay graphs, sync events
         # and allocate (a batch of a shape never captured runs eagerly);
@@ -619,23 +823,20 @@ class InferenceEngine:
         # close() returns freed segments only under _CAPTURE_LOCK, never
         # during a capture.
         with torch.inference_mode(), _CAPTURE_LOCK:
-            stream = _capture_streams.get(self.device.index)
-            if stream is None:
-                stream = _capture_streams[self.device.index] = torch.cuda.Stream(self.device)
-            stream.wait_stream(compute)
+            stream.wait_stream(torch.cuda.current_stream(sh.device))  # the static inputs
             with torch.cuda.stream(stream):
                 fn()
             graph = torch.cuda.CUDAGraph()
             with launches.recording() as record, torch.cuda.graph(
-                    graph, pool=self._graph_pool, stream=stream,
+                    graph, pool=sh.graph_pool, stream=stream,
                     capture_error_mode="thread_local"):
                 out = fn()
-            compute.wait_stream(stream)
         return Executable(key, fn, graph, out, record, time.perf_counter() - t0)
 
-    def _graph_pool_bytes(self) -> int:
-        """Device bytes the engine's graph memory pool holds."""
-        pool = tuple(self._graph_pool)
+    @staticmethod
+    def _graph_pool_bytes(sh: _Shard) -> int:
+        """Device bytes a device's graph memory pool holds."""
+        pool = tuple(sh.graph_pool)
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg.get("segment_pool_id", ())) == pool)
 
@@ -643,22 +844,37 @@ class InferenceEngine:
 
     def _acquire(self, key: tuple[str, int], make):
         with self._lock:
+            self._last_use[key] = time.monotonic()
             free = self._pool.get(key)
             slab = free.pop() if free else None
-            if slab is None:
+            if slab is not None:
+                self._pool_nbytes -= slab.total_bytes
+            else:
                 self.slabs_allocated += 1
         if slab is None:
             slab = make()
-        if slab.copied is not None:  # its last copy to the device
-            slab.copied.synchronize()
+        for ev in slab.copied:  # its last copies to the device
+            ev.synchronize()
         slab.arm(self._return)
         return slab
 
     def _return(self, slab) -> None:
+        """Pool an idle slab: at most ``staging_slabs`` per shape, then the
+        byte budget, dropping the least recently used shapes' slabs first
+        (slabs no shape in traffic uses give their memory back)."""
         with self._lock:
+            self._last_use[slab.key] = time.monotonic()
             free = self._pool.setdefault(slab.key, [])
-            if len(free) < self._pool_cap:  # else dropped: bounded pinned memory
-                free.append(slab)
+            if len(free) >= self._staging_cap:
+                return  # dropped: bounded pinned memory under bursts
+            free.append(slab)
+            self._pool_nbytes += slab.total_bytes
+            while self._pool_nbytes > self._staging_budget:
+                victim = min((k for k, v in self._pool.items() if v),
+                             key=lambda k: self._last_use.get(k, 0.0), default=None)
+                if victim is None:
+                    break
+                self._pool_nbytes -= self._pool[victim].pop().total_bytes
 
     def acquire_staging(self, s: int) -> StagingSlab:
         """An empty classic-wire slab of canvas side ``s`` at the top batch
@@ -678,99 +894,195 @@ class InferenceEngine:
         failed); it reaches the pool once its last lessee resolves."""
         slab.finish()
 
-    def _ship(self, buf: torch.Tensor, slab, n: int, bucket: int, rows_dispatched: int,
-              rows_tight: float, meta_off: int | None = None) -> BatchHandle:
-        """One batch: ``buf`` (a prefix of the slab's pinned buffer) to the
-        device in one non-blocking copy into a fresh buffer on the copy
-        stream; on the compute stream, waiting for that copy, its executable
+    def staging_stats(self) -> dict:
+        """The reference's staging block: the slab pool, and per replica its
+        dispatches (total and in flight), slab bytes in flight and busy
+        seconds, with the placement."""
+        with self._lock:
+            out = {"slab_allocs_total": self.slabs_allocated,
+                   "slabs_pooled": sum(len(v) for v in self._pool.values()),
+                   "slabs_pooled_bytes": self._pool_nbytes}
+            reps = [{"replica": rep.index, "devices": len(rep.devices),
+                     "dispatches_total": rep.dispatches_total,
+                     "dispatches_inflight": rep.dispatches_inflight,
+                     "slab_bytes_inflight": rep.slab_bytes_inflight,
+                     "busy_s": round(rep.busy_s, 3)}
+                    for rep in self._replicas]
+        out["dispatches_total"] = sum(r["dispatches_total"] for r in reps)
+        out["dispatches_inflight"] = sum(r["dispatches_inflight"] for r in reps)
+        out["placement"] = self.placement.summary()
+        out["replicas"] = reps
+        return out
+
+    # -------------------------------------------------------------- routing
+
+    def route_replica(self) -> int:
+        """The replica of one batch: the least in flight, round-robin order
+        breaking ties, so equal load walks the replicas in turn and a slow
+        one sheds work to the others."""
+        if self.num_replicas == 1:
+            return 0
+        with self._lock:
+            loads = [rep.dispatches_inflight for rep in self._replicas]
+            n, start = self.num_replicas, self._rr
+            best = min(range(n), key=lambda i: (loads[i], (i - start) % n))
+            self._rr = (best + 1) % n
+            return best
+
+    def replica_loads(self) -> list[int]:
+        """Batches in flight per replica: the batcher's routing input."""
+        with self._lock:
+            return [rep.dispatches_inflight for rep in self._replicas]
+
+    def placement_summary(self) -> dict:
+        """JSON-ready placement for /models and /stats."""
+        return self.placement.summary()
+
+    def _take_replica(self, replica: int | None, slab) -> _Replica:
+        """The dispatch's replica, counted in flight before any device work
+        so that concurrent routers see its load."""
+        r = self.route_replica() if replica is None else int(replica)
+        if not 0 <= r < self.num_replicas:
+            raise ValueError(f"replica {r} out of range ({self.num_replicas} replicas)")
+        rep = self._replicas[r]
+        with self._lock:
+            rep.dispatches_total += 1
+            rep.dispatches_inflight += 1
+            rep.slab_bytes_inflight += slab.total_bytes
+        return rep
+
+    def _drop_inflight(self, rep: _Replica, nbytes: int) -> None:
+        """A dispatch left its replica (fetched, or failed before it went);
+        ``dispatches_total`` stays: it is exported as a counter."""
+        with self._lock:
+            rep.dispatches_inflight -= 1
+            rep.slab_bytes_inflight -= nbytes
+
+    # ------------------------------------------------------------- dispatch
+
+    def _ship(self, rep: _Replica, buf: torch.Tensor, slab, n: int, bucket: int,
+              rows_dispatched: int, rows_tight: float,
+              meta_off: int | None = None) -> BatchHandle:
+        """One batch on one replica: per device of its group, its rows of
+        ``buf`` (a prefix of the slab's pinned buffer; on the ragged wire
+        all of it, since each device's meta rows point into the whole arena)
+        in one non-blocking copy into a fresh buffer on the device's copy
+        stream; on its compute stream, waiting for that copy, its executable
         (a copy into the static input, one graph replay) or, for a shape
         warmup never captured, the same serve function run eagerly on the
-        fresh buffer; then the output's copy back. ``meta_off``: where a
+        fresh buffer; then its output rows' copy back. ``meta_off``: where a
         ragged wire's meta table starts; ``rows_dispatched`` and
         ``rows_tight`` go to the batch's economics cell. Returns without
         waiting for the device."""
-        key = (slab.key[0], slab.s, bucket)
-        exe = self._exes.get(key)
-        with torch.inference_mode():
-            if self._copy_stream is None:
-                dev, events = buf.to(self.device), ()
-            else:
-                compute = torch.cuda.current_stream(self.device)
-                events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(4))
-                with torch.cuda.stream(self._copy_stream):
-                    events[0].record()
-                    dev = buf.to(self.device, non_blocking=True)
-                    events[1].record()
-                slab.copied = events[1]
+        d = len(rep.shards)
+        per = bucket // d
+        key = (slab.key[0], slab.s, per)
+        replay = all(key in sh.exes for sh in rep.shards)
+        cuda = self._pinned
+        with torch.inference_mode(), _GATE.shared():
+            parts = [buf if meta_off is not None else buf[j * per:(j + 1) * per]
+                     for j in range(d)]
+            devs, events = [], []
+            for sh, part in zip(rep.shards, parts):
+                if not cuda:
+                    devs.append(part.to(sh.device))
+                    continue
+                ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(4))
+                with torch.cuda.stream(sh.copy):
+                    ev[0].record()
+                    devs.append(part.to(sh.device, non_blocking=True))
+                    ev[1].record()
+                events.append(ev)
+            slab.copied = tuple(ev[1] for ev in events)
             t_put = time.monotonic()
-            # One enqueue at a time: the two launch threads share the compute
-            # stream, the static inputs and the graph pool, and an eager
-            # enqueue is host-bound Python (PERF.md). The other thread's copy
-            # is already queued meanwhile.
-            with self._enqueue_lock:
-                if events:
-                    compute.wait_event(events[1])
-                    dev.record_stream(compute)
-                if exe is not None:
-                    self._stage_static(key, dev, meta_off)
-                # the CPU has no shared stream: its engines compute side by side
-                with _COMPUTE_LOCK if events else contextlib.nullcontext():
-                    if events:
-                        events[2].record()
-                    t_compute = time.perf_counter()
-                    if exe is not None:
-                        out = exe()
-                    elif meta_off is not None:
-                        out = self._serve_ragged(dev[:meta_off],
-                                                 dev[meta_off:].view(torch.int32).view(-1, 4),
-                                                 slab.s)
-                    else:
-                        out = self._serve_packed(dev)
-                    if events:
-                        events[3].record()
-                    host_compute_s = time.perf_counter() - t_compute
-                handle = self._fetchable(out, n)
-        handle.events = events
-        handle.replay = exe is not None
-        handle.cell = (slab.s, bucket)
-        handle.rows_dispatched, handle.rows_tight = rows_dispatched, rows_tight
-        handle.host_compute_s, handle.t_put = host_compute_s, t_put
+            host_out = torch.empty((bucket, 2 * self.topk), dtype=torch.float32,
+                                   pin_memory=cuda)
+            outs, done = [], []
+            # One enqueue at a time on the replica: its launch threads share
+            # its streams, static inputs and graph pools, and an eager
+            # enqueue is host-bound Python. The other thread's copy is
+            # already queued meanwhile; other replicas and engines enqueue
+            # on streams of their own, so nothing of theirs falls between
+            # this batch's compute events.
+            with rep.lock:
+                t_compute = time.perf_counter()
+                for j, (sh, dev) in enumerate(zip(rep.shards, devs)):
+                    with torch.cuda.stream(sh.compute) if cuda else contextlib.nullcontext():
+                        if cuda:
+                            sh.compute.wait_event(events[j][1])
+                            dev.record_stream(sh.compute)
+                        if replay:
+                            self._stage_static(sh, key, dev, meta_off, j * per)
+                        if cuda:
+                            events[j][2].record()
+                        if replay:
+                            out = sh.exes[key]()
+                        elif meta_off is not None:
+                            meta = dev[meta_off:].view(torch.int32).view(-1, 4)
+                            out = self._serve_ragged(sh.model, dev[:meta_off],
+                                                     meta[j * per:(j + 1) * per], slab.s)
+                        else:
+                            out = self._serve_packed(sh.model, dev)
+                        if cuda:
+                            events[j][3].record()
+                            host_out[j * per:(j + 1) * per].copy_(out, non_blocking=True)
+                            done.append(torch.cuda.Event())
+                            done[-1].record()
+                        else:
+                            outs.append(out)
+                host_compute_s = time.perf_counter() - t_compute
+        if not cuda:
+            host_out = outs[0] if d == 1 else torch.cat(outs)
+        handle = BatchHandle(host_out, tuple(done), n, tuple(events), replay, (slab.s, bucket),
+                             rows_dispatched, rows_tight, host_compute_s, t_put, rep.index,
+                             slab.total_bytes)
         with self._lock:
             self.batches += 1
             self.images += n
-            self.h2d_bytes += buf.numel()
-            if exe is not None:
+            self.h2d_bytes += sum(part.numel() for part in parts)
+            if replay:
                 self.replays += 1
             else:
                 self.eager_batches += 1
-            if events:
-                self._device_events.append((slab.key, events))
+            for sh, ev in zip(rep.shards, events):
+                self._device_events.append((slab.key, rep.index, str(sh.device), ev))
         return handle
 
-    def dispatch_staged(self, slab: StagingSlab, n: int, spans=()) -> BatchHandle:
+    def _dispatch(self, slab, n: int, bucket: int, spans, replica: int | None, t0: float,
+                  *ship_args) -> BatchHandle:
+        """Route, ship and account one batch; its slab goes back to the
+        pool once its copy is enqueued and its lessees are done."""
+        rep = self._take_replica(replica, slab)
+        try:
+            handle = self._ship(rep, *ship_args)
+        except BaseException:
+            self._drop_inflight(rep, slab.total_bytes)
+            raise
+        slab.finish()
+        t_disp = time.monotonic()
+        for span in spans:
+            span.add_max("device_transfer", handle.t_put - t0)
+            span.add_max("device_dispatch", t_disp - handle.t_put)
+            span.note("replica", rep.index)
+        return handle
+
+    def dispatch_staged(self, slab: StagingSlab, n: int, spans=(),
+                        replica: int | None = None) -> BatchHandle:
         """Ship the first ``n`` rows of a filled slab (holes included) at the
-        batch bucket that covers them, and enqueue the serve function;
-        returns without waiting for the device. The slab goes back to its
-        pool once the copy is enqueued and its lessees are done. ``spans``
-        get ``device_transfer`` and ``device_dispatch``."""
+        batch bucket that covers them to ``replica`` (None: routed here by
+        :meth:`route_replica`), and enqueue the serve function; returns
+        without waiting for the device. ``spans`` get ``device_transfer``,
+        ``device_dispatch`` and the ``replica`` note."""
         t0 = time.monotonic()
         bucket = self.pick_batch_bucket(n)
         if n > bucket:
             raise ValueError(f"batch of {n} exceeds the top batch bucket {bucket}")
         slab.trailer[n:bucket] = _HOLE_TRAILER
-        handle = self._ship(slab.buf[:bucket], slab, n, bucket, bucket, float(n))
-        slab.finish()
-        self._stamp_dispatch(spans, t0, handle.t_put)
-        return handle
+        return self._dispatch(slab, n, bucket, spans, replica, t0, slab.buf[:bucket], slab, n,
+                              bucket, bucket, float(n))
 
-    @staticmethod
-    def _stamp_dispatch(spans, t0: float, t_put: float) -> None:
-        t_disp = time.monotonic()
-        for span in spans:
-            span.add_max("device_transfer", t_put - t0)
-            span.add_max("device_dispatch", t_disp - t_put)
-
-    def dispatch_ragged(self, slab: RaggedSlab, n: int, spans=()) -> BatchHandle:
+    def dispatch_ragged(self, slab: RaggedSlab, n: int, spans=(),
+                        replica: int | None = None) -> BatchHandle:
         """Ship a filled ragged slab's first ``n`` slots (holes included;
         slots past ``n`` are dropped) and enqueue unpack → serve, as
         :meth:`dispatch_staged`. The arena's used prefix and the meta table
@@ -784,111 +1096,117 @@ class InferenceEngine:
         slab.truncate(n)
         nbytes, meta_off = slab.stage(bucket)
         check_ragged_rows(slab.meta[:n], slab.s, meta_off)
-        handle = self._ship(slab.buf[:nbytes], slab, n, bucket, slab.rows_shipped(bucket),
-                            slab.used / slab.row_bytes, meta_off)
-        slab.finish()
-        self._stamp_dispatch(spans, t0, handle.t_put)
-        return handle
+        return self._dispatch(slab, n, bucket, spans, replica, t0, slab.buf[:nbytes], slab, n,
+                              bucket, slab.rows_shipped(bucket), slab.used / slab.row_bytes,
+                              meta_off)
 
-    def dispatch_batch(self, canvases: np.ndarray, hws: np.ndarray) -> BatchHandle:
+    def dispatch_batch(self, canvases: np.ndarray, hws: np.ndarray,
+                       replica: int | None = None) -> BatchHandle:
         """A stacked batch (n ≤ the top batch bucket) copied into a slab
         and dispatched."""
         wire_side = 2 if self.cfg.wire_format == "yuv420" else 1
         slab = self.acquire_staging(canvases.shape[wire_side])
         try:
             slab.write_rows(canvases, hws)
-            return self.dispatch_staged(slab, canvases.shape[0])
+            return self.dispatch_staged(slab, canvases.shape[0], replica=replica)
         except BaseException:
             self.release_staging(slab)
             raise
 
-    def _fetchable(self, out: torch.Tensor, n: int) -> BatchHandle:
-        """Start the output's non-blocking copy into pinned host memory."""
-        if self.device.type != "cuda":
-            return BatchHandle(out, None, n)
-        host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host_out.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return BatchHandle(host_out, done, n)
-
-    def device_timeline(self) -> list[dict]:
-        """The recent batches' copy and compute intervals on the device, in
-        ms from the first listed copy's start (CUDA events; waits for
-        them), in dispatch order: the slab's ``key`` (kind, canvas side),
-        ``h2d`` on the copy stream, ``compute`` on the compute stream (from
-        the copy's end, or the stream reaching the batch, to the end of its
-        serve function's enqueued work)."""
+    def device_timeline(self, base: torch.cuda.Event | None = None) -> list[dict]:
+        """The recent batches' copy and compute intervals on the device, per
+        device of their replica, in dispatch order (CUDA events; waits for
+        them): the slab's ``key`` (kind, canvas side), the ``replica`` and
+        ``device``, ``h2d`` on the copy stream and ``compute`` on the compute
+        stream (from the copy's end, or the stream reaching the batch, to
+        the end of its serve function's enqueued work). In ms from ``base``
+        (an event recorded earlier on the same device; so the intervals of
+        several engines share one clock), else from the first listed copy's
+        start."""
         with self._lock:
             rows = list(self._device_events)
         if not rows:
             return []
-        for ev in rows[-1][1]:
-            ev.synchronize()
-        at = rows[0][1][0].elapsed_time
-        return [{"key": key, "h2d": (at(a), at(b)), "compute": (at(c), at(d))}
-                for key, (a, b, c, d) in rows]
+        for *_, ev in rows:
+            ev[3].synchronize()
+        at = (base or rows[0][3][0]).elapsed_time
+        return [{"key": key, "replica": r, "device": dev, "h2d": (at(a), at(b)),
+                 "compute": (at(c), at(d))} for key, r, dev, (a, b, c, d) in rows]
 
     def fetch_outputs(self, handle: BatchHandle) -> tuple[np.ndarray, np.ndarray]:
         """Wait for a dispatched batch; returns (scores float32 [n, k],
         indices int32 [n, k]) for the real rows. Its device seconds go to
-        its economics cell."""
-        if handle.done is not None:
-            handle.done.synchronize()
-        self._account(handle)
+        its replica's economics cell; the replica counts it out of flight
+        either way."""
+        device_s = None
+        try:
+            with _GATE.shared():
+                for ev in handle.done:
+                    ev.synchronize()
+            if handle.events:
+                device_s = max(ev[2].elapsed_time(ev[3]) for ev in handle.events) / 1e3
+            else:
+                device_s = handle.host_compute_s
+        finally:
+            self._account(handle, device_s)
         packed = handle.out.numpy()[: handle.n]
         k = self.topk
         return packed[:, :k].copy(), packed[:, k:].astype(np.int32)
 
-    def _account(self, handle: BatchHandle) -> None:
-        """Fold one fetched batch into its economics cell and ``busy_s``:
-        on the card the compute-stream events' interval (the ``done`` event
-        follows them on that stream, so both have completed and
-        ``elapsed_time`` does not block), on the CPU the serve call's wall."""
-        if handle.events:
-            device_s = handle.events[2].elapsed_time(handle.events[3]) / 1e3
-        else:
-            device_s = handle.host_compute_s
+    def _account(self, handle: BatchHandle, device_s: float | None) -> None:
+        """Fold one fetched batch into its replica: out of flight, and (when
+        its device seconds were read) into its economics cell and busy
+        seconds. On the card the seconds are the compute-stream events'
+        interval (the ``done`` events follow them on those streams, so they
+        have completed and ``elapsed_time`` does not block), on the CPU the
+        serve call's wall."""
+        rep = self._replicas[handle.replica]
         with self._lock:
-            cell = self._econ.get(handle.cell)
+            rep.dispatches_inflight -= 1
+            rep.slab_bytes_inflight -= handle.slab_bytes
+            if device_s is None:
+                return
+            cell = rep.econ.get(handle.cell)
             if cell is None:
-                cell = self._econ[handle.cell] = [0, 0, 0, 0.0, 0.0]
+                cell = rep.econ[handle.cell] = [0, 0, 0, 0.0, 0.0]
             cell[0] += 1
             cell[1] += handle.n
             cell[2] += handle.rows_dispatched
             cell[3] += device_s
             cell[4] += handle.rows_tight
-            self.busy_s += device_s
+            rep.busy_s += device_s
 
     def econ_stats(self) -> list[dict]:
-        """The reference's per-replica economics counters for one replica
-        of one device: a row per (canvas, batch bucket) cell a fetched
-        batch has exercised (``rows_tight`` meaningful on the ragged wire)."""
+        """The reference's per-replica economics counters: per replica, a
+        row per (canvas, batch bucket) cell a fetched batch has exercised
+        (``rows_tight`` meaningful on the ragged wire)."""
         with self._lock:
             return [{
-                "replica": 0,
-                "devices": 1,
+                "replica": rep.index,
+                "devices": len(rep.devices),
                 "buckets": [
                     {"canvas": ck, "batch_bucket": bk, "batches": c[0], "rows": c[1],
                      "rows_dispatched": c[2], "device_s": round(c[3], 4),
                      "rows_tight": round(c[4], 3)}
-                    for (ck, bk), c in sorted(self._econ.items())
+                    for (ck, bk), c in sorted(rep.econ.items())
                 ],
-            }]
+            } for rep in self._replicas]
 
-    def run_batch(self, canvases: np.ndarray, hws: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    def run_batch(self, canvases: np.ndarray, hws: np.ndarray,
+                  replica: int | None = None) -> tuple[np.ndarray, np.ndarray]:
         """Dispatch + fetch (tests, warmup); batches above the top bucket go
-        in chunks, all dispatched before the first fetch."""
+        in chunks, all dispatched before the first fetch (each routed on
+        its own unless ``replica`` pins them)."""
         top = self.batch_buckets[-1]
         handles = [
-            self.dispatch_batch(canvases[i : i + top], hws[i : i + top])
+            self.dispatch_batch(canvases[i : i + top], hws[i : i + top], replica)
             for i in range(0, canvases.shape[0], top)
         ]
         parts = [self.fetch_outputs(h) for h in handles]
         return tuple(np.concatenate(p) for p in zip(*parts))
 
-    def run_ragged(self, images: list[np.ndarray], hws: np.ndarray,
-                   s: int) -> tuple[np.ndarray, np.ndarray]:
+    def run_ragged(self, images: list[np.ndarray], hws: np.ndarray, s: int,
+                   replica: int | None = None) -> tuple[np.ndarray, np.ndarray]:
         """Tight images (uint8 [h, w, 3] each, valid sizes ``hws``) of canvas
         side ``s`` through the ragged wire (tests, warmup): one memcpy each
         into a slab, batches above the top bucket in chunks, all dispatched
@@ -902,32 +1220,35 @@ class InferenceEngine:
                     slot, span = slab.alloc(img.nbytes)
                     span[:] = img.reshape(-1)
                     slab.write_hw(slot, hw)
-                handles.append(self.dispatch_ragged(slab, slab.slots))
+                handles.append(self.dispatch_ragged(slab, slab.slots, replica=replica))
             except BaseException:
                 self.release_staging(slab)
                 raise
         parts = [self.fetch_outputs(h) for h in handles]
         return tuple(np.concatenate(p) for p in zip(*parts))
 
-    def _run_blank(self, b: int, s: int) -> tuple[np.ndarray, np.ndarray]:
+    def _run_blank(self, b: int, s: int,
+                   replica: int | None = None) -> tuple[np.ndarray, np.ndarray]:
         """``b`` black full-canvas images through the wire this engine serves."""
         hws = np.full((b, 2), s, np.int32)
         if self.ragged:
-            return self.run_ragged([np.zeros((s, s, 3), np.uint8)] * b, hws, s)
-        return self.run_batch(np.zeros(self.canvas_shape(b, s), np.uint8), hws)
+            return self.run_ragged([np.zeros((s, s, 3), np.uint8)] * b, hws, s, replica)
+        return self.run_batch(np.zeros(self.canvas_shape(b, s), np.uint8), hws, replica)
 
     def warmup(self) -> None:
-        """Ready every (canvas, batch) bucket pair before traffic, in the
-        reference's three timed phases, each logged on its own line:
+        """Ready every (canvas, batch) bucket pair of every replica before
+        traffic, in the reference's three timed phases, each logged on its
+        own line:
 
         1. one-time costs — the kernel libraries through the build cache and
            the native decoder; paid at engine build (the int8 parity gate
            launches the kernels), logged here;
-        2. executables — for every pair, largest first, an eager warm run
-           and the CUDA graph's capture (on the CPU: the static-buffer
-           executable), once per engine under a lock;
-        3. execution — one batch per pair through dispatch and fetch, on the
-           calling thread, a graph replay each.
+        2. executables — for every pair, largest first, and every device of
+           every replica, an eager warm run and the CUDA graph's capture (on
+           the CPU: the static-buffer executable), once per engine under a
+           lock;
+        3. execution — one batch per pair and replica through dispatch and
+           fetch, on the calling thread, a graph replay each.
 
         Every launch thread of the batcher calls this before it takes a
         batch: the first captures, the others find the executables made and
@@ -939,42 +1260,48 @@ class InferenceEngine:
                 t0 = time.perf_counter()
                 from . import costmodel
 
-                peak = costmodel.backend_peak(self.model_cfg.dtype, self.device)
+                peak = costmodel.backend_peak(self.model_cfg.dtype, self.device,
+                                              len(self.mesh))
                 log.info("warmup: one-time costs %.2fs at build (kernels %s through the "
                          "build cache, %s decoder), econ peak %s %.2fs",
-                         self.warmup_s["one_time"],
-                         self.kernels if self.device.type == "cuda" else [],
+                         self.warmup_s["one_time"], self.kernels if self._pinned else [],
                          "native" if self.decoder["available"] else "PIL", peak["source"],
                          time.perf_counter() - t0)
                 t0 = time.perf_counter()
                 pairs = sorted(((s, b) for s in self.cfg.canvas_buckets
                                 for b in self.batch_buckets), reverse=True)
                 kind = "ragged" if self.ragged else "classic"
-                for s, b in pairs:
-                    self._exes[(kind, s, b)] = self._capture(kind, s, b)
-                if self._graph_pool is not None:
-                    torch.cuda.synchronize(self.device)
-                    self.pool_bytes = self._graph_pool_bytes()
+                for sh in self._shards():
+                    for s, b in pairs:
+                        p = b // self.batch_multiple
+                        sh.exes[(kind, s, p)] = self._capture(kind, s, p, sh)
+                if self._pinned:
+                    for dev in self.mesh:
+                        torch.cuda.synchronize(dev)
+                    self.pool_bytes = sum(map(self._graph_pool_bytes, self._shards()))
                 self.warmup_s["executables"] = time.perf_counter() - t0
-                log.info("warmup: executables %.2fs (%d pairs, %s; graph pool %d bytes, "
-                         "static %d bytes)", self.warmup_s["executables"], len(pairs),
-                         "CUDA graphs" if self._graph_pool is not None else "no capture",
-                         self.pool_bytes, self._static_bytes())
+                log.info("warmup: executables %.2fs (%d pairs × %d devices, %s; graph pools "
+                         "%d bytes, static %d bytes)", self.warmup_s["executables"],
+                         len(pairs), len(self._shards()),
+                         "CUDA graphs" if self._pinned else "no capture", self.pool_bytes,
+                         self._static_bytes())
                 self._warmed = True
             t0 = time.perf_counter()
-            for s in self.cfg.canvas_buckets:
-                for b in self.batch_buckets:
-                    self._run_blank(b, s)
+            for rep in self._replicas:
+                for s in self.cfg.canvas_buckets:
+                    for b in self.batch_buckets:
+                        self._run_blank(b, s, rep.index)
             dt = time.perf_counter() - t0
             self.warmup_s["execution"].append(dt)
             log.info("warmup: execution pass %.2fs (%d batches, thread %s)", dt,
-                     len(self.cfg.canvas_buckets) * len(self.batch_buckets),
+                     self.num_replicas * len(self.cfg.canvas_buckets) * len(self.batch_buckets),
                      threading.current_thread().name)
 
     def _static_bytes(self) -> int:
         """Bytes of the static inputs and the graphs' static outputs."""
-        outs = sum(e.out.nbytes for e in self._exes.values() if e.out is not None)
-        return sum(t.nbytes for t in self._static.values()) + outs
+        return sum(t.nbytes for sh in self._shards() for t in sh.static.values()) + sum(
+            e.out.nbytes for sh in self._shards() for e in sh.exes.values()
+            if e.out is not None)
 
     def healthcheck(self) -> bool:
         """One-image device round trip."""
@@ -982,24 +1309,26 @@ class InferenceEngine:
         return bool(np.all(np.isfinite(scores)))
 
     def stats(self) -> dict:
+        shards = self._shards()
+        exes = [e for sh in shards for e in sh.exes.values()]
         with self._lock:
             batches, images, h2d, decodes = (self.batches, self.images, self.h2d_bytes,
                                              dict(self.decodes))
-            busy_s = self.busy_s
+            busy_s = sum(rep.busy_s for rep in self._replicas)
             slabs = {"allocated": self.slabs_allocated,
                      "pooled": sum(len(v) for v in self._pool.values()),
-                     "pooled_bytes": sum(slab.buf.nbytes for v in self._pool.values()
-                                         for slab in v)}
-            graphs = {"captured": sum(e.graph is not None for e in self._exes.values()),
-                      "executables": len(self._exes), "replays": self.replays,
+                     "pooled_bytes": self._pool_nbytes}
+            graphs = {"captured": sum(e.graph is not None for e in exes),
+                      "executables": len(exes), "replays": self.replays,
                       "eager_batches": self.eager_batches,
-                      "capture_s": sum(e.capture_s for e in self._exes.values()),
+                      "capture_s": sum(e.capture_s for e in exes),
                       "pool_bytes": self.pool_bytes, "static_bytes": self._static_bytes()}
         # the process's device memory, every engine in it: what a retired
         # version gave back shows here
-        cuda = self.device.type == "cuda"
-        graphs["memory_allocated"] = torch.cuda.memory_allocated(self.device) if cuda else None
-        graphs["memory_reserved"] = torch.cuda.memory_reserved(self.device) if cuda else None
+        graphs["memory_allocated"] = (torch.cuda.memory_allocated(self.device) if self._pinned
+                                      else None)
+        graphs["memory_reserved"] = (torch.cuda.memory_reserved(self.device) if self._pinned
+                                     else None)
         return {
             "model": self.model_cfg.name,
             "device": str(self.device),
@@ -1027,29 +1356,40 @@ class InferenceEngine:
         }
 
     def close(self) -> None:
-        """Drop every CUDA graph, static input, weight and staging buffer,
-        then give the freed segments back to the device: the caching
-        allocator keeps them reserved otherwise, the graph pool's included.
-        The segments are returned under ``_CAPTURE_LOCK``, never during
-        another engine's capture; ``pool_bytes`` then holds what the pool
-        still has (0 unless a live tensor pins a segment). The engine must
-        not be used afterwards."""
+        """Drop every CUDA graph, static input, weight and staging buffer of
+        every replica, then give the freed segments back to the device: the
+        caching allocator keeps them reserved otherwise, the graph pools'
+        included. The segments are returned under ``_CAPTURE_LOCK``, never
+        during another engine's capture; ``pool_bytes`` then holds what the
+        pools still have (0 unless a live tensor pins a segment). The
+        streams go back to the process's pool once the devices are idle.
+        The engine must not be used afterwards."""
+        shards = self._shards()
         with self._lock:
             self._pool.clear()
-            self._exes.clear()
-            self._static.clear()
+            self._pool_nbytes = 0
             self._device_events.clear()
-            self.model = None
             self._preprocess = None
-            self._mem_pool = None  # its segments are freeable once its tensors are gone
-        if self.device.type == "cuda":
+            for sh in shards:
+                sh.exes.clear()
+                sh.static.clear()
+                sh.model = None
+                sh.mem_pool = None  # its segments are freeable once its tensors are gone
+        if self._pinned:
+            # On the H100 a retired version's graph pool stayed in use until
+            # Python's cycle collector next ran (seen after a profiler
+            # capture and a hot swap: its 386 MB came back after
+            # gc.collect()), so collect before giving the segments back.
+            gc.collect()
             with _CAPTURE_LOCK:
-                torch.cuda.synchronize(self.device)
+                for dev in self.mesh:
+                    torch.cuda.synchronize(dev)
                 torch.cuda.empty_cache()
-                if self._graph_pool is not None:
-                    self.pool_bytes = self._graph_pool_bytes()
+                self.pool_bytes = sum(map(self._graph_pool_bytes, shards))
+            for sh in shards:
+                sh.release_streams()
             if self.pool_bytes:
-                log.warning("closed engine's graph pool still holds %d bytes", self.pool_bytes)
+                log.warning("closed engine's graph pools still hold %d bytes", self.pool_bytes)
 
     # ------------------------------------------------------------------ host
 

@@ -54,15 +54,18 @@ Routes:
                         to any SERVING model (the default one without it;
                         unknown → 404, not serving → 503, before the body is
                         read). One image answers ``{"predictions": [{"label",
-                        "index", "score"}], "model", "model_version"}``;
-                        several file parts, or ``?batch=1``, answer
-                        ``{"results": [...], ...}`` in upload order (at most
-                        the batcher's ``max_batch``, else 413). Headers in:
+                        "index", "score"}], "model", "model_version",
+                        "latency_ms", "trace_id"}`` (the ETag covers the
+                        payload, not that envelope); several file parts, or
+                        ``?batch=1``, answer ``{"results": [...], ...}`` in
+                        upload order (at most the batcher's ``max_batch``,
+                        else 413). A body past ``max_body_mb`` × 10^6 bytes
+                        answers 413 before it is read. Headers in:
                         ``If-None-Match``, ``X-Tenant``, ``X-SLO``,
                         ``X-Deadline-Ms``; out: ``ETag``, ``X-Cache``.
     GET  /healthz       one-image device round trip on the default model
     GET  /models        the registry: default model, every version's state,
-                        transition history and counters
+                        transition history, placement and counters
     POST /models/load   admin: ``{"model": spec, "name"?, "activate"?,
                         "wait"?}``, built and warmed off the request path
     POST /models/swap   admin: ``{"name"?, "model"?, "wait"?}``, a new
@@ -72,7 +75,10 @@ Routes:
                         and its ``batcher`` and ``engine``
                         counters (kernel launches, decodes, the decoder,
                         ``graphs`` with the process's device memory,
-                        ``aot_cache``, ``warmup_s``), ``models`` (each
+                        ``aot_cache``, ``warmup_s``), ``staging`` (the slab
+                        pool and, per replica, dispatches, in flight, slab
+                        bytes in flight, busy seconds), ``config``
+                        (``devices``, ``placement``), ``models`` (each
                         version's batcher and engine counters under its
                         name), ``http`` (keep-alive counters), ``cache``,
                         ``overload`` (``admission``, ``pressure``,
@@ -83,8 +89,8 @@ Routes:
     GET  /metrics       Prometheus text exposition (``tpu_serve_`` families:
                         requests and stage histograms, batcher, admission,
                         ladder, chaos, cache, build cache, registry, per
-                        model, economics with ``model_mfu`` and the card's
-                        ``device_peak_*``, telemetry)
+                        model and per replica, economics with ``model_mfu``
+                        and the card's ``device_peak_*``, telemetry)
     GET  /debug/slow    the flight recorder: span breakdowns of the slowest
                         and the erroring requests, with its limits
     GET  /debug/history ``?series=a,b&last_s=N&res=1s|10s|60s``: telemetry
@@ -125,6 +131,7 @@ from ..utils.metrics import Observability, PromText, make_access_logger
 from ..utils.tracing import Span, accept_trace_id, chrome_trace, effective_window
 from . import aotcache, costmodel
 from .batcher import BacklogFull, LeaseExpired, ShuttingDown
+from .engine import quiesced
 from .overload import (
     DEFAULT_TENANT,
     SHED_BACKLOG,
@@ -143,8 +150,6 @@ from .telemetry import build_hub
 
 log = logging.getLogger("tpu_serve_torch.http")
 
-# /predict and admin body cap: larger uploads get 413 before the body is read
-MAX_BODY_MB = 32
 # a classic-wire slot row ends in the image's big-endian (h, w) trailer
 TRAILER_BYTES = 4
 
@@ -419,8 +424,19 @@ class App:
         if batcher is not None:
             snap["queue_depth"] = batcher.queue_depth
             snap["batcher"] = bstats
-        if mv is not None and mv.engine is not None:
-            snap["engine"] = mv.engine.stats()
+        engine = mv.engine if mv is not None else None
+        if engine is not None:
+            snap["engine"] = engine.stats()
+        if hasattr(engine, "staging_stats"):
+            # the slab pool and the per-replica dispatch attribution
+            snap["staging"] = engine.staging_stats()
+        if engine is not None:
+            # the reference's config keys for the default model's placement;
+            # each version's rides "models" and GET /models
+            snap["config"] = {
+                "devices": len(getattr(engine, "mesh", ())) or None,
+                "placement": (engine.placement_summary()
+                              if hasattr(engine, "placement_summary") else None)}
         snap["models"] = self.registry.models_snapshot()
         if self.http_counters is not None:
             snap["http"] = self.http_counters.snapshot()
@@ -557,13 +573,13 @@ class App:
             p.scalar("http_active_connections", h["active_connections"],
                      help_="Currently open connections.")
         engine = mv0.engine if mv0 is not None else None
-        slabs = engine.stats().get("slabs") if engine is not None else None
-        if slabs is not None:
-            p.scalar("staging_slab_allocs_total", slabs["allocated"], mtype="counter",
+        if hasattr(engine, "staging_stats"):
+            st = engine.staging_stats()
+            p.scalar("staging_slab_allocs_total", st["slab_allocs_total"], mtype="counter",
                      help_="Lifetime staging-slab allocations.")
-            p.scalar("staging_slabs_pooled", slabs["pooled"],
+            p.scalar("staging_slabs_pooled", st["slabs_pooled"],
                      help_="Idle staging slabs in the pool.")
-            p.scalar("staging_pooled_bytes", slabs["pooled_bytes"],
+            p.scalar("staging_pooled_bytes", st["slabs_pooled_bytes"],
                      help_="Host bytes held by idle staging slabs.")
         reg = self.registry.models_snapshot()
         for name, info in reg["models"].items():
@@ -599,15 +615,24 @@ class App:
                      help_="This model's batches in flight on the device pipeline.")
             p.scalar("model_inflight_requests", mv.inflight, labels=labels,
                      help_="HTTP requests currently holding this version.")
-            engine = mv.engine
-            if hasattr(engine, "econ_stats"):
-                est = engine.stats()
-                rl = dict(labels, replica=0)
-                p.scalar("model_replica_dispatches_total", est["batches"], mtype="counter",
-                         labels=rl, help_="Batches dispatched to this placement replica.")
-                p.scalar("model_replica_busy_seconds_total", est["busy_s"], mtype="counter",
+            # per replica of the placement: dispatches, slab bytes in flight
+            # and busy seconds; rate(busy) over wall is each group's busy share
+            est = getattr(mv.engine, "staging_stats", None)
+            for rep in (est()["replicas"] if est is not None else []):
+                rl = dict(labels, replica=rep["replica"])
+                p.scalar("model_replica_dispatches_total", rep["dispatches_total"],
+                         mtype="counter", labels=rl,
+                         help_="Batches dispatched to this placement replica.")
+                p.scalar("model_replica_dispatches_inflight", rep["dispatches_inflight"],
+                         labels=rl, help_="Batches in flight on this placement replica "
+                         "(dispatched, outputs not yet fetched).")
+                p.scalar("model_replica_slab_bytes_inflight", rep["slab_bytes_inflight"],
+                         labels=rl, help_="Staging-slab bytes owned by this replica's "
+                         "in-flight batches (slab occupancy per replica).")
+                p.scalar("model_replica_busy_seconds_total", rep["busy_s"], mtype="counter",
                          labels=rl, help_="Cumulative device seconds on this replica: CUDA "
-                         "events around each batch's compute on the card (not host wall).")
+                         "events around each batch's compute on its stream (an interval "
+                         "sum; concurrent replicas' intervals overlap).")
             self._econ_metrics(p, mv, mbs, peak_done)
         c = self.cache.stats()
         p.scalar("cache_hits_total", c["hits_total"], mtype="counter",
@@ -826,8 +851,16 @@ class App:
             activities = [ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(ProfilerActivity.CUDA)
-            with profile(activities=activities) as prof:
+            prof = profile(activities=activities)
+            # no serving thread in a CUDA call while the profiler starts
+            # and stops (engine.quiesced); batches run in between
+            with quiesced():
+                prof.start()
+            try:
                 time.sleep(ms / 1e3)
+            finally:
+                with quiesced():
+                    prof.stop()
             path = os.path.join(out_dir, f"trace-{os.getpid()}-{time.monotonic_ns()}.json")
             prof.export_chrome_trace(path)
         finally:
@@ -894,7 +927,7 @@ class App:
         """The request body; None when it exceeds the cap. The declared
         Content-Length gates before anything is read, and the read itself is
         capped, so an under-declaring client cannot stream more."""
-        cap = MAX_BODY_MB << 20
+        cap = int(self.cfg.max_body_mb * 1e6)
         try:
             length = int(environ.get("CONTENT_LENGTH") or 0)
         except ValueError:
@@ -953,7 +986,7 @@ class App:
             body = self._read_body(environ)
             span.add("body_read", time.monotonic() - t0)
             if body is None:
-                return _error(413, f"body exceeds {MAX_BODY_MB} MB cap")
+                return _error(413, f"body exceeds {self.cfg.max_body_mb} MB cap")
             ctype = environ.get("CONTENT_TYPE", "")
             if ctype.startswith("multipart/form-data"):
                 named = _parse_multipart_files(body, ctype)
@@ -980,7 +1013,7 @@ class App:
                 try:
                     span.note("model", mv.ref)
                     res = self._predict_on(mv, named, qs, topk_req, inm, deadline, tenant,
-                                           slo_class, slo_deadline, span)
+                                           slo_class, slo_deadline, span, t0)
                     if res[0].startswith(("2", "304")):
                         self.admission.count_admit(tenant, slo_class)
                     return res
@@ -997,12 +1030,13 @@ class App:
 
     def _predict_on(self, mv, named: list[tuple[str, bytes]], qs, topk_req: int | None, inm,
                     deadline: float, tenant: str, slo_class: str, slo_deadline: float | None,
-                    span: Span):
+                    span: Span, t0: float):
         """The /predict body against one resolved model version: one ladder
         step, stage every upload (a cached answer, a wait on another
         request's flight, or a leased slot of its own), then await the rows
         until ``deadline``. ``span`` gets ``cache_wait``, ``postprocess``
-        and ``serialize``."""
+        and ``serialize``; a 200's ``latency_ms`` counts from ``t0``, the
+        request's receipt."""
         batcher, engine = mv.batcher, mv.engine
         if batcher is None:
             return _error(503, f"{mv.ref} has no batcher")
@@ -1022,7 +1056,7 @@ class App:
                         self.pressure.count_reroute(len(named))
                         span.note("quant_reroute", amv.name)
                         return self._predict_on(amv, named, qs, topk_req, inm, deadline,
-                                                tenant, slo_class, slo_deadline, span)
+                                                tenant, slo_class, slo_deadline, span, t0)
                 except (UnknownModel, ModelNotServing):
                     pass  # the variant retired under us: serve here
         if len(named) > batcher.max_batch:  # one request's images in one assembly window
@@ -1104,9 +1138,11 @@ class App:
             resp = {"results": payloads}
         t_ser = time.monotonic()
         span.add("postprocess", post_s + (t_ser - t_post))
-        # the trace ID rides the X-Trace-Id header only (the reference also
-        # puts it and latency_ms in the body): a hit's body stays the miss's
-        resp.update(model=mv.name, model_version=mv.version)
+        # the envelope, after the copy: the ETag covers the payload only, and
+        # the trace ID in the body lets a client that logs answers join them
+        # to the access log
+        resp.update(model=mv.name, model_version=mv.version,
+                    latency_ms=round(1e3 * (t_ser - t0), 2), trace_id=span.trace_id)
         out = _json(200, resp, headers)
         span.add("serialize", time.monotonic() - t_ser)
         return out

@@ -44,8 +44,13 @@ hands both to every batcher it builds or adopts; the response cache
 listens for retired versions, and :meth:`ModelRegistry.quant_variant`
 finds the int8 tier the degradation ladder reroutes to.
 
-Left for later, each under its ROADMAP item: placement (9),
-``attach_pipelines`` (15) and the bulk knobs of the batcher (14).
+Each version keeps the placement of its model config (``,replicas=N``):
+its engine builds a replica per device group of the registry's mesh, a
+swap that re-specs from the serving version keeps it, and ``GET /models``
+shows it per version.
+
+Left for later, each under its ROADMAP item: ``attach_pipelines`` (15) and
+the bulk knobs of the batcher (14).
 
 The registry is engine-agnostic through its factory seams: the tests
 drive the whole lifecycle with mock engines.
@@ -141,6 +146,9 @@ class ModelVersion:
             d["error"] = self.error
         # local refs: a drain nulls them concurrently
         engine, batcher = self.engine, self.batcher
+        if engine is not None and hasattr(engine, "placement_summary"):
+            # where this version lives: strategy, replicas, device ids
+            d["placement"] = engine.placement_summary()
         if engine is not None and engine.parity is not None:
             d["parity"] = engine.parity
         # the version's batcher and engine counters
@@ -169,16 +177,19 @@ class ModelRegistry:
 
     - ``engine_factory(model_cfg)`` → engine. Default: an
       :class:`~.engine.InferenceEngine` for ``dataclasses.replace(cfg,
-      model=model_cfg)`` on ``device`` with weights from ``seed``.
+      model=model_cfg)`` on ``mesh`` (else ``device``) with weights from
+      ``seed``.
     - ``spec_resolver(str)`` → ModelConfig for admin-API load bodies.
       Default: :func:`~..utils.config.model_config`.
     """
 
     def __init__(self, server_cfg, *, default_model: str | None = None,
-                 engine_factory=None, spec_resolver=None, device=None, seed: int = 0):
+                 engine_factory=None, spec_resolver=None, device=None, seed: int = 0,
+                 mesh=None):
         self.cfg = server_cfg
         self.default_model = default_model
         self.device = device
+        self.mesh = mesh
         self.seed = seed
         self._engine_factory = engine_factory or self._build_engine
         self._spec_resolver = spec_resolver or model_config
@@ -207,7 +218,7 @@ class ModelRegistry:
         from .engine import InferenceEngine
 
         cfg = dataclasses.replace(self.cfg, model=model_cfg)
-        return InferenceEngine(cfg, device=self.device, seed=self.seed)
+        return InferenceEngine(cfg, device=self.device, seed=self.seed, mesh=self.mesh)
 
     def build_batcher(self, engine):
         """A started batcher for ``engine`` with the server's knobs, warmed

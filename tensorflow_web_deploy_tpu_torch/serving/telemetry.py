@@ -20,9 +20,8 @@ no hub lock while it calls its sources (each takes its own locks), and
 request threads never wait on the sampler. Timestamps are
 ``time.monotonic()``.
 
-Sources the port leaves out until their modules are ported: per-replica
-busy fraction and in-flight (placement), pipeline request rates and p99
-(DAG pipelines); the jobs tier has none here either.
+Sources the port leaves out until their modules are ported: pipeline
+request rates and p99 (DAG pipelines); the jobs tier has none here either.
 """
 
 from __future__ import annotations
@@ -445,12 +444,14 @@ def default_sources(app, hub: TelemetryHub):
     """The standard collector over the port's App: goodput and error rates,
     the SLO counters the burn evaluator reads back, the default model's
     latency percentiles, throughput and occupancy, per-model queue depth,
-    parity-gate events, cache hit rate and bytes, build-cache seconds, the
+    parity-gate events, the default engine's per-replica in-flight batches
+    and busy share, cache hit rate and bytes, build-cache seconds, the
     default model's econ gauges, the ladder's rung and its transitions,
     tenant admit and shed rates, chaos injections as events. Rates come
     from counter deltas between ticks; the closure keeps the last tick's."""
     prev: dict = {"t": None, "status": None, "shed": None, "admitted": None,
-                  "pressure": None, "chaos": None, "parity_seen": set(), "aot": None}
+                  "pressure": None, "chaos": None, "parity_seen": set(), "aot": None,
+                  "busy": {}}
 
     def collect() -> dict:
         now = time.monotonic()
@@ -490,6 +491,20 @@ def default_sources(app, hub: TelemetryHub):
                 if parity:
                     hub.record_event("parity_gate", model=mv.name, version=mv.version,
                                      result=parity)
+
+        # per replica of the default engine: batches in flight, and the busy
+        # share (busy-seconds delta over the tick, capped at 1: an interval
+        # sum can pass wall time)
+        engine = app.engine
+        if engine is not None and hasattr(engine, "staging_stats"):
+            for r in engine.staging_stats()["replicas"]:
+                i = r["replica"]
+                out[f"replica.inflight.{i}"] = float(r["dispatches_inflight"])
+                p_busy = prev["busy"].get(i)
+                if dt and dt > 0 and p_busy is not None:
+                    out[f"replica.busy_fraction.{i}"] = max(
+                        0.0, min(1.0, (r["busy_s"] - p_busy) / dt))
+                prev["busy"][i] = r["busy_s"]
 
         c = app.cache.stats()
         if c.get("hit_rate") is not None:

@@ -4,9 +4,8 @@
 ``resize="kernel"`` is the port's name for the JAX ``resize="pallas"``:
 the fused I420 preprocess runs on the hand-written CUDA kernel
 (``ops/preprocess_i420.py``). The validation rules are the reference's.
-``--model`` specs take the reference's ``,dtype=`` and ``,as=`` suffixes
-(:func:`split_model_spec`); placement (``,replicas=``/``,shard=``) is not
-ported yet and is refused.
+``--model`` specs take the reference's ``,replicas=N``/``,shard=batch``,
+``,dtype=`` and ``,as=`` suffixes (:func:`split_model_spec`).
 """
 
 from __future__ import annotations
@@ -63,6 +62,11 @@ class ModelConfig:
     # set, via --model ...,as=<serve name>, so that two dtype variants of one
     # architecture can serve side by side
     alias: str | None = None
+    # Device placement (serving/placement.py): None shards each batch over
+    # the whole mesh, "replicas=N" splits the mesh into N groups, each with
+    # a full copy of the weights and its own dispatch streams, "shard=batch"
+    # spells the default. On the CLI a --model suffix: native:mobilenet_v2,replicas=4
+    placement: str | None = None
 
     def __post_init__(self):
         if self.source != "native":
@@ -121,6 +125,15 @@ class ServerConfig:
     # keepalive_timeout_s is how long an idle connection may hold a worker
     http_workers: int = 16
     keepalive_timeout_s: float = 15.0
+    # Pinned staging slabs the engine keeps idle per (wire kind, canvas side),
+    # and the byte budget of every idle slab together: past it the slabs of
+    # the least recently used shapes are dropped first (slabs in flight are
+    # never counted)
+    staging_slabs: int = 6
+    staging_pool_bytes: int = 256 << 20
+    # /predict and admin body cap in MB of 10^6 bytes: a larger upload gets
+    # 413 before its body is read
+    max_body_mb: float = 32.0
     # Every model the server boots (empty: ``model`` alone), and the serve
     # name that requests without ``?model=`` resolve to (None: ``model``'s)
     models: tuple[ModelConfig, ...] = ()
@@ -227,11 +240,11 @@ class ServerConfig:
 
 def split_model_spec(spec: str) -> tuple[str, dict[str, str]]:
     """Split ``--model``'s option suffixes off a model spec:
-    ``"native:mobilenet_v2,dtype=int8,as=mobilenet_v2_int8"`` → the base
-    plus ``{"dtype": "int8", "alias": "mobilenet_v2_int8"}``. Raises
-    ValueError on an unknown suffix key or a bad dtype — a typo must not
-    silently serve the defaults — and on ``replicas=``/``shard=``, which wait
-    for placement (ROADMAP.md Queue 1 item 9)."""
+    ``"mobilenet_v2,replicas=8"`` → ``("mobilenet_v2", {"placement":
+    "replicas=8"})``; ``"native:mobilenet_v2,dtype=int8,as=mobilenet_v2_int8"``
+    → the base plus ``{"dtype": "int8", "alias": "mobilenet_v2_int8"}``.
+    Raises ValueError on an unknown suffix key, two placements or a bad
+    dtype — a typo must not silently serve the defaults."""
     base, _, rest = spec.partition(",")
     opts: dict[str, str] = {}
     if not rest:
@@ -239,11 +252,13 @@ def split_model_spec(spec: str) -> tuple[str, dict[str, str]]:
     for t in [t.strip() for t in rest.split(",") if t.strip()]:
         key, _, val = t.partition("=")
         if key in ("replicas", "shard"):
-            raise ValueError(
-                f"--model option {t!r} in {spec!r}: placement is not ported yet "
-                "(ROADMAP.md Queue 1 item 9)"
-            )
-        if key == "dtype":
+            if "placement" in opts:
+                raise ValueError(
+                    f"conflicting placement options in {spec!r}: "
+                    f"{opts['placement']!r} and {t!r}"
+                )
+            opts["placement"] = t
+        elif key == "dtype":
             opts["dtype"] = normalize_dtype(val)
         elif key == "as":
             if not val:
@@ -252,18 +267,20 @@ def split_model_spec(spec: str) -> tuple[str, dict[str, str]]:
         else:
             raise ValueError(
                 f"unknown --model option {t!r} in {spec!r} "
-                "(supported: dtype=int8|bf16|f32, as=<serve name>)"
+                "(supported: replicas=N, shard=batch, dtype=int8|bf16|f32, "
+                "as=<serve name>)"
             )
     return base, opts
 
 
 def model_config(name_or_path: str) -> ModelConfig:
     """Resolve ``native:<zoo name>`` or a JSON config path, each optionally
-    carrying option suffixes (``name,dtype=int8`` / ``name,as=<serve
-    name>``)."""
+    carrying option suffixes (``name,replicas=N`` / ``name,dtype=int8`` /
+    ``name,as=<serve name>``)."""
     name_or_path, opts = split_model_spec(name_or_path)
     if opts:
         mc = model_config(name_or_path)
+        mc.placement = opts.get("placement", mc.placement)
         mc.dtype = opts.get("dtype", mc.dtype)
         mc.alias = opts.get("alias", mc.alias)
         return mc

@@ -239,3 +239,46 @@ def test_every_fault_at_once_closes_the_ledger(concurrent):
         assert app.cache.stats()["inflight"] == 0
     finally:
         close_app(reg)
+
+
+# ------------------------------------------------- slow_replica per replica
+
+
+def test_slow_replica_names_the_replica_it_targets():
+    """``slow_replica=P:MS:R`` (the port's addition) delays the fetches of
+    replica R only and draws nothing for the others; without ``:R`` it is
+    the reference's, delaying every replica's."""
+    inj = ChaosInjector.from_spec("slow_replica=1.0:200:1")
+    assert inj.slow_replica_target == 1 and inj.describe() == "slow_replica=1.0:200ms:replica1"
+    assert [inj.fetch_delay(r) for r in (0, 1, 2, 1)] == [0.0, 0.2, 0.0, 0.2]
+    assert inj.stats()["slow_fetches_injected"] == 2
+    every = ChaosInjector.from_spec("slow_replica=1.0:200")
+    assert every.slow_replica_target is None
+    assert [every.fetch_delay(r) for r in (0, 1)] == [0.2, 0.2]
+
+
+def test_slow_replica_delays_only_the_batches_routed_to_its_replica():
+    from tensorflow_web_deploy_tpu_torch.parallel.mesh import cpu_mesh
+    from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
+    from tensorflow_web_deploy_tpu_torch.utils.config import ModelConfig, ServerConfig
+
+    mc = ModelConfig(name="mobilenet_v2", zoo_width=0.25, zoo_classes=12, input_size=(64, 64),
+                     topk=3, dtype="float32", placement="replicas=2")
+    eng = InferenceEngine(ServerConfig(model=mc, canvas_buckets=(96,), max_batch=4,
+                                       warmup=False), mesh=cpu_mesh(2))
+    delay = 0.3
+    b = Batcher(eng, max_batch=4, max_delay_ms=0.5,
+                chaos=ChaosInjector.from_spec(f"slow_replica=1.0:{delay * 1e3:.0f}:1")).start()
+    canvas = np.zeros((96, 96, 3), np.uint8)
+    try:
+        for _ in range(6):  # one image a wave: the batches alternate replicas
+            b.submit(canvas, (96, 96)).result(timeout=60)
+    finally:
+        b.stop()
+        eng.close()
+    took = {0: [], 1: []}
+    for rec in b.batch_timeline():
+        took[rec["replica"]].append(rec["t_done"] - rec["t_launched"])
+    assert took[0] and took[1]
+    assert min(took[1]) >= delay and max(took[0]) < delay
+    assert b.chaos.stats()["slow_fetches_injected"] == len(took[1])

@@ -119,7 +119,7 @@ class _FakeEngine:
 @pytest.mark.parametrize("wire,ragged", [("rgb", True), ("rgb", False), ("yuv420", False)])
 def test_economics_snapshot_equals_the_reference(monkeypatch, wire, ragged):
     peak = PEAKS[0]
-    monkeypatch.setattr(tc, "backend_peak", lambda dtype, device=None: peak)
+    monkeypatch.setattr(tc, "backend_peak", lambda dtype, device=None, n_dev=1: peak)
     monkeypatch.setattr(jc, "backend_peak", lambda dtype: peak)
     for name, hw in ARCHS.items():
         for dtype in ("bfloat16", "int8"):

@@ -119,3 +119,50 @@ def test_config_validation_matches_reference():
                                      ref.fused_dw)
     with pytest.raises(ValueError, match="unknown native model"):
         tcfg.model_config("native:nope")
+
+
+def test_enqueue_gate_keeps_every_enqueue_out_of_a_profiler_start_and_stop():
+    """The profiler route's exclusive hold waits for the enqueues inside
+    and keeps new ones out until it lets go; a steady stream of enqueues
+    does not starve it. Many threads, a short switch interval."""
+    import sys
+    import threading
+    import time
+
+    from tensorflow_web_deploy_tpu_torch.serving.engine import _EnqueueGate
+
+    gate = _EnqueueGate()
+    inside, overlaps, holds = [0], [], []
+    lock, stop = threading.Lock(), threading.Event()
+
+    def enqueue():
+        while not stop.is_set():
+            with gate.shared():
+                with lock:
+                    inside[0] += 1
+                time.sleep(0.0005)
+                with lock:
+                    inside[0] -= 1
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    threads = [threading.Thread(target=enqueue) for _ in range(16)]
+    try:
+        for t in threads:
+            t.start()
+        for _ in range(20):
+            t0 = time.monotonic()
+            with gate.exclusive():
+                holds.append(time.monotonic() - t0)
+                for _ in range(5):
+                    with lock:
+                        overlaps.append(inside[0])
+                    time.sleep(0.0005)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=10)
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert set(overlaps) == {0} and len(holds) == 20
+    assert max(holds) < 5.0  # writers go first: never starved

@@ -95,17 +95,19 @@ def test_static_path_is_bit_identical_to_eager(wire):
     # one static input per canvas side, at the top bucket's capacity: buckets
     # 4 and 2 above read prefix views of the 96 side's
     kind = "ragged" if eng.ragged else "classic"
-    assert sorted(eng._static) == [(kind, s) for s in BUCKETS]
-    assert st["static_bytes"] == sum(t.nbytes for t in eng._static.values())
+    static = eng._replicas[0].shards[0].static  # the one device of the one replica
+    assert sorted(static) == [(kind, s) for s in BUCKETS]
+    assert st["static_bytes"] == sum(t.nbytes for t in static.values())
     eng.close()
 
 
 def test_memo_keys_and_eager_batches():
     eng = _engine("ragged")
     eng.warmup()
-    assert sorted(eng._exes) == sorted(("ragged", s, b) for s in BUCKETS
-                                       for b in eng.batch_buckets)
-    assert all(e.key == k and e.graph is None for k, e in eng._exes.items())
+    exes = eng._replicas[0].shards[0].exes  # the one device of the one replica
+    assert sorted(exes) == sorted(("ragged", s, b) for s in BUCKETS
+                                  for b in eng.batch_buckets)
+    assert all(e.key == k and e.graph is None for k, e in exes.items())
     st = eng.stats()["graphs"]
     n = len(BUCKETS) * len(eng.batch_buckets)
     assert (st["executables"], st["replays"], st["eager_batches"]) == (n, n, 0)
@@ -126,7 +128,7 @@ def test_warmup_phases_and_one_capture_per_engine(caplog, monkeypatch):
     real = eng._capture
 
     def counted(*key):
-        captures.append(key)
+        captures.append(key[:3])  # (kind, side, rows); the last is the device's shard
         return real(*key)
 
     monkeypatch.setattr(eng, "_capture", counted)

@@ -397,13 +397,14 @@ WANT = {"unknown-model": "404", "bad-json": "400", "unload-without-name": "400",
 def both_servers():
     """The JAX App behind its pool server and the port's behind the port's,
     each over a one-model registry of mock engines, both with a 1 s read
-    deadline."""
-    jreg = JaxRegistry(jax_cfg(), engine_factory=lambda mc: JaxMockEngine(),
+    deadline and a 1 MiB response cache."""
+    jcfg = dataclasses.replace(jax_cfg(), cache_bytes=1 << 20)
+    jreg = JaxRegistry(jcfg, engine_factory=lambda mc: JaxMockEngine(),
                        spec_resolver=jax_mc)
     jreg.load("m1", wait=True)
-    jsrv = jhttp.make_http_server(jhttp.App.from_registry(jreg, jax_cfg()), "127.0.0.1", 0,
+    jsrv = jhttp.make_http_server(jhttp.App.from_registry(jreg, jcfg), "127.0.0.1", 0,
                                   pool_size=4, request_read_timeout_s=1.0)
-    cfg = _cfg()
+    cfg = dataclasses.replace(_cfg(), cache_bytes=1 << 20)
     treg = ModelRegistry(cfg, engine_factory=lambda mc: MockEngine(cfg), spec_resolver=_mc)
     treg.load("m1", wait=True)
     tsrv = make_http_server(App(treg, cfg), "127.0.0.1", 0, pool_size=4,
@@ -426,6 +427,56 @@ def test_malformed_requests_answer_as_the_jax_app(both_apps, case):
     jport, tport = both_apps
     data, trickle = MALFORMED[case]
     assert _raw(tport, data, trickle) == _raw(jport, data, trickle) == WANT[case]
+
+
+# ------------------------------------------ repairs: the body cap and the envelope
+
+
+def test_body_cap_is_the_references_32_000_000_bytes(both_apps):
+    """A declared Content-Length of 32,000,001 (past the reference's
+    int(32.0 * 1e6), within the 32 MiB the port capped at before) gets the
+    same 413 and body from both Apps, before the body is read."""
+    answers = []
+    for port in both_apps:
+        with socket.create_connection(("127.0.0.1", port), timeout=10) as s:
+            s.sendall(_http("POST", "/predict", b"", "image/jpeg", length="32000001"))
+            out = b""
+            while b"\r\n\r\n" not in out or not out.rstrip().endswith(b"}"):
+                chunk = s.recv(4096)
+                if not chunk:
+                    break
+                out += chunk
+        head, _, body = out.partition(b"\r\n\r\n")
+        answers.append((head.split(b" ", 2)[1], json.loads(body)))
+    assert answers[0] == answers[1] == (b"413", {"error": "body exceeds 32.0 MB cap"})
+
+
+def test_a_200_carries_latency_ms_and_trace_id_outside_the_etag(both_apps):
+    """On a miss, a hit and a 2-image answer both Apps' bodies have the same
+    keys, ``latency_ms`` among them; ``trace_id`` is the X-Trace-Id header;
+    the ETag of the hit is the miss's (it covers the payload, not the
+    envelope)."""
+    img = jpeg(24, 18, 7)
+    parts = b"".join(b"--zZ\r\nContent-Disposition: form-data; name=\"f\"; filename=\"%d.jpg\""
+                     b"\r\n\r\n" % i + jpeg(24, 18, 8 + i) + b"\r\n" for i in range(2))
+    multi = parts + b"--zZ--\r\n"
+    keys = []
+    for port in both_apps:
+        answers = [_get(port, "POST", "/predict", img) for _ in range(2)]
+        answers.append(_get(port, "POST", "/predict", multi,
+                            {"Content-Type": "multipart/form-data; boundary=zZ"}))
+        (_, miss, _), (_, hit, _) = answers[:2]
+        assert (miss["X-Cache"], hit["X-Cache"]) == ("miss", "hit")
+        assert miss["ETag"] == hit["ETag"]
+        docs = []
+        for status, hdr, body in answers:
+            doc = json.loads(body)
+            assert status == 200 and doc["trace_id"] == hdr["X-Trace-Id"]
+            assert isinstance(doc["latency_ms"], float) and doc["latency_ms"] >= 0
+            docs.append(doc)
+        assert len(docs[2]["results"]) == 2
+        keys.append([sorted(d) for d in docs])
+    assert keys[0] == keys[1]
 
 
 # ------------------------------------------------- tracing, metrics and telemetry
@@ -477,8 +528,7 @@ def _families(port) -> tuple[dict, dict]:
 
 
 # the reference's families of modules the port has not ported yet
-UNPORTED = ("tpu_serve_pipeline_", "tpu_serve_job", "tpu_serve_model_replica_dispatches_inflight",
-            "tpu_serve_model_replica_slab_bytes_inflight")
+UNPORTED = ("tpu_serve_pipeline_", "tpu_serve_job")
 
 
 def test_metrics_families_and_label_keys_are_the_references(both_apps):

@@ -567,9 +567,9 @@ def test_split_model_spec_matches_jax(spec):
 @pytest.mark.parametrize("spec", ["native:mobilenet_v2,replicas=4",
                                   "native:mobilenet_v2,shard=batch,dtype=int8"])
 def test_placement_suffixes_wait_for_item_9(spec):
-    assert jcfg.split_model_spec(spec)[1]["placement"]  # the reference accepts them
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        tcfg.split_model_spec(spec)
+    """Item 9 (placement) is ported: both packages take the suffixes alike."""
+    assert jcfg.split_model_spec(spec)[1]["placement"]
+    assert tcfg.split_model_spec(spec) == jcfg.split_model_spec(spec)
 
 
 def test_model_config_takes_the_suffixes():
@@ -600,7 +600,7 @@ def test_cli_builds_a_two_model_config():
         (["--model", "native:inception_v3", "--default-model", "nope"], "not among"),
         (["--model", "native:mobilenet_v2", "--model", "native:mobilenet_v2,dtype=int8"],
          "duplicate model names"),
-        (["--model", "native:mobilenet_v2,replicas=2"], "item 9"),
+        (["--model", "native:mobilenet_v2,replicas=2,shard=batch"], "conflicting placement"),
     ]:
         with pytest.raises(ValueError, match=match):
             config_from_args(parse_args(argv))

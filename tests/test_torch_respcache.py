@@ -321,7 +321,12 @@ def test_miss_hit_304_and_the_stats_block():
         assert etag.startswith('"') and etag.endswith('"')
         status, hdr2, body2 = post(app, a)
         assert status == 200 and hdr2["X-Cache"] == "hit" and hdr2["ETag"] == etag
-        assert json.loads(body2) == json.loads(body)
+        # the same payload; the envelope's latency_ms and trace_id are per request
+        envelope = ("latency_ms", "trace_id")
+        miss, hit = json.loads(body), json.loads(body2)
+        assert all(k in miss and k in hit for k in envelope)
+        assert {k: v for k, v in hit.items() if k not in envelope} == \
+            {k: v for k, v in miss.items() if k not in envelope}
         # the client's copy is current: 304, no body
         status, hdr3, body3 = post(app, a, headers={"If-None-Match": etag})
         assert status == 304 and body3 == b"" and hdr3["Content-Length"] == "0"

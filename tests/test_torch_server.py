@@ -16,7 +16,7 @@ from PIL import Image
 
 from tensorflow_web_deploy_tpu_torch.server import config_from_args, parse_args, start_server
 from tensorflow_web_deploy_tpu_torch.serving.batcher import Batcher
-from tensorflow_web_deploy_tpu_torch.serving.http import MAX_BODY_MB, _parse_multipart_files
+from tensorflow_web_deploy_tpu_torch.serving.http import _parse_multipart_files
 from tensorflow_web_deploy_tpu_torch.utils.config import ModelConfig, ServerConfig
 
 torch.set_num_threads(2)
@@ -131,7 +131,7 @@ def test_oversized_body_gets_413_unread(server):
     conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
     try:
         conn.putrequest("POST", "/predict")
-        conn.putheader("Content-Length", str((MAX_BODY_MB << 20) + 1))
+        conn.putheader("Content-Length", str(int(server.cfg.max_body_mb * 1e6) + 1))
         conn.endheaders()  # no body is sent: the answer must not wait for it
         r = conn.getresponse()
         assert r.status == 413 and "cap" in json.loads(r.read())["error"]

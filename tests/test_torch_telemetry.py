@@ -120,3 +120,38 @@ def test_hub_sample_once_gives_equal_series_burns_alerts_and_events():
         a.query("no.such.series")
     a.record_event("hot_swap_serving", model="m", version=2)
     assert a.events(kinds={"hot_swap_serving"})[0]["version"] == 2
+
+
+def test_replica_sources_join_the_hub_per_replica():
+    """A server whose default model serves ``replicas=4`` over four CPU
+    entries: the hub's catalog holds ``replica.inflight.<i>`` and
+    ``replica.busy_fraction.<i>`` for each replica (the series
+    ``tools/loadgen.py --history`` reads for its busy column), the busy
+    share in [0, 1]."""
+    import time
+
+    from tensorflow_web_deploy_tpu_torch.parallel.mesh import cpu_mesh
+    from tensorflow_web_deploy_tpu_torch.server import start_server
+    from tensorflow_web_deploy_tpu_torch.utils.config import ModelConfig, ServerConfig
+
+    mc = ModelConfig(name="mobilenet_v2", zoo_width=0.25, zoo_classes=12, input_size=(64, 64),
+                     topk=3, dtype="float32", placement="replicas=4")
+    cfg = ServerConfig(model=mc, host="127.0.0.1", port=0, canvas_buckets=(96,), max_batch=4,
+                       ragged=True, telemetry_interval_s=3600.0)
+    srv = start_server(cfg, mesh=cpu_mesh(4))
+    try:
+        hub = srv.app.telemetry
+        hub.sample_once()
+        for r in range(4):  # busy time on every replica between two ticks
+            srv.engine.run_batch(np.zeros((2, 96, 96, 3), np.uint8),
+                                 np.full((2, 2), 96, np.int32), replica=r)
+        time.sleep(0.05)
+        hub.sample_once()
+        names = set(hub.series_names())
+        for i in range(4):
+            assert {f"replica.inflight.{i}", f"replica.busy_fraction.{i}"} <= names
+            row = hub.query([f"replica.busy_fraction.{i}"], last_s=60.0)
+            point = row["series"][f"replica.busy_fraction.{i}"]["rows"][-1]
+            assert 0.0 < point[3] <= 1.0
+    finally:
+        srv.close()
