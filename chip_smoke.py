@@ -85,7 +85,13 @@ under ``tools/loadgen.py``, holds both models' top-k on the 24 JPEGs bit for
 bit before and after the load, reports the union and summed busy shares,
 the idle share and the share of the window in which both engines computed
 at once, and unloads the int8 model with its memory margin held to the
-range ``registry`` measured before (``UNLOAD_MARGIN_MB``).
+range ``registry`` measured before (``UNLOAD_MARGIN_MB``). ``resnet50``
+serves ResNet-50 in bf16 at full width with batch buckets up to 32 on the
+ragged rgb wire: a burst and the same JPEGs one at a time, batch-32 slabs
+back to back on the captured graph (img/s, ms per replay, MFU), the
+unpack kernel against its plain version on those slabs, a 96-image HTTP
+burst, its logits against a float32 engine's and the float32 engine's
+against the CPU's, and its int8 tier's load, whose verdict it reports.
 
 The preprocess kernel is checked through both of its entries (the
 ``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
@@ -111,6 +117,11 @@ no ``ok`` line.
 runs ``overload``'s flood on fresh servers under other pipeline depths,
 assembly windows and image sizes and records the queue fraction every
 ladder observation saw (no ``ok`` line).
+
+    python3 chip_smoke.py --phase resnet50
+
+builds the kernels and runs the ``resnet50`` phase alone on the 24 JPEGs
+(no ``kernels`` or ``ok`` line).
 """
 
 from __future__ import annotations
@@ -880,8 +891,8 @@ def _config(name: str, dtype: str, wire: str = "yuv420", resize: str = "kernel",
     from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
 
     return ServerConfig(model=replace(model_config(f"native:{name}"), dtype=dtype),
-                        canvas_buckets=BUCKETS, max_batch=8, wire_format=wire, resize=resize,
-                        ragged=ragged, **{**PINNED, **kw})
+                        **{"canvas_buckets": BUCKETS, "max_batch": 8, "wire_format": wire,
+                           "resize": resize, "ragged": ragged, **PINNED, **kw})
 
 
 def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
@@ -3368,6 +3379,385 @@ def phase_placement(jpegs: list[bytes]) -> dict:
     return row
 
 
+RESNET_BUCKETS = (512,)
+RESNET_MAX_BATCH = 32
+# the HTTP-level burst, each image on its own connection and worker, so that
+# the adaptive window can fill batches of 32
+RESNET_BURST = 96
+THROUGHPUT_S = 3.0
+THROUGHPUT_DEPTH = 4  # batches in flight, the batcher's default pipeline depth
+RESNET_INT8 = "native:resnet50,dtype=int8,as=resnet50_int8"
+GATE_FAILED = "numerical-parity gate failed"
+# Logits, max |Δ| over max |reference| (:func:`logit_rel`). The card's
+# float32 forward against the CPU's (the forward the tests hold to the JAX
+# package): the same math in another summation order. bf16 against float32
+# on the card: bf16 rounding. A wrong max-pool or stem pad moves float32
+# logits by 1e-3 to 1e-2 (tests/test_torch_resnet50.py::
+# test_logit_gates_see_what_they_are_meant_to_see), so the float32 check is
+# the one that sees a wrong forward.
+F32_LOGIT_RTOL = 1e-4
+BF16_LOGIT_RTOL = 1e-2
+
+
+def defined_topk(preds: list[dict]) -> list[tuple[int, float]]:
+    """The entries of an answer's top-k scored at least ``SERVED_TOL``: the
+    part whose order the bf16 softmax defines. The seeded ResNet-50's
+    softmax is near one-hot (its logits are in the thousands), so the
+    classes below tie at 0.0, where the order is the top-k kernel's."""
+    return [(p["index"], p["score"]) for p in preds if p["score"] >= SERVED_TOL]
+
+
+def answers_agree(a: list[dict], b: list[dict]) -> bool:
+    """Two answers for one image: the same defined top-k, in order, scores
+    within ``SERVED_TOL`` (another batch bucket may take another cuDNN
+    algorithm, so bf16 scores may move by rounding)."""
+    da, db = defined_topk(a), defined_topk(b)
+    return [i for i, _ in da] == [i for i, _ in db] and \
+        all(abs(x - y) <= SERVED_TOL for (_, x), (_, y) in zip(da, db))
+
+
+def model_probs(eng, canvases: torch.Tensor, hws: torch.Tensor) -> np.ndarray:
+    """The engine's preprocess and model, eagerly, on padded canvases:
+    softmax probabilities [n, classes] in float32."""
+    with torch.inference_mode():
+        return eng.model(eng._preprocess(canvases, hws)).float().cpu().numpy()
+
+
+def throughput(eng, items: list, seconds: float, depth: int) -> dict:
+    """Full slabs of ``items`` (``prepare_ragged`` results, one batch)
+    dispatched back to back on ``eng`` for ``seconds``, ``depth`` batches in
+    flight, each filled on the host as the batcher fills a slab: img/s on
+    the host clock, and from the engine's CUDA events each batch's compute
+    ms (the static copy and the replay) and the device's idle share of the
+    run. Every batch must be a graph replay."""
+    from collections import deque
+
+    for _ in range(depth):  # the slab pool and the stream at steady state
+        eng.fetch_outputs(dispatch(eng, fill_slab(eng, items), len(items)))
+    g0 = eng.stats()["graphs"]
+    inflight: deque = deque()
+    n = 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        inflight.append(dispatch(eng, fill_slab(eng, items), len(items)))
+        n += 1
+        if len(inflight) >= depth:
+            eng.fetch_outputs(inflight.popleft())
+    while inflight:
+        eng.fetch_outputs(inflight.popleft())
+    wall = time.perf_counter() - t0
+    g1 = eng.stats()["graphs"]
+    dev = eng.device_timeline()[-n:]
+    compute = [d["compute"][1] - d["compute"][0] for d in dev]
+    span = dev[-1]["compute"][1] - dev[0]["h2d"][0]
+    return {"batches": n, "batch": len(items), "wall_s": wall, "img_per_s": n * len(items) / wall,
+            "compute_ms_p50": statistics.median(compute), "compute_ms_min": min(compute),
+            "compute_ms_sum": sum(compute),
+            "idle_share": 1.0 - merged_ms([d["compute"] for d in dev]) / span,
+            "replays": g1["replays"] - g0["replays"],
+            "eager_batches": g1["eager_batches"] - g0["eager_batches"]}
+
+
+def slab_unpack_check(eng, items: list, n: int, holes: tuple[int, ...] = ()) -> dict:
+    """The unpack kernel on a slab of ``eng``'s pool holding the first ``n``
+    of ``items`` (``prepare_ragged`` results; slots in ``holes`` left
+    uncommitted), shipped as ``dispatch_ragged`` ships it at its batch
+    bucket: the canvases and valid sizes must equal its plain version and
+    the host's ``pad_to_canvas`` bit for bit (a hole, or a slot past ``n``:
+    a zero canvas, hw (1, 1))."""
+    from tensorflow_web_deploy_tpu_torch.ops.image import (
+        pad_to_canvas,
+        unpack_ragged,
+        unpack_ragged_plain,
+    )
+
+    s, bucket = 512, eng.pick_batch_bucket(n)
+    want = np.zeros((bucket, s, s, 3), np.uint8)
+    want_hw = np.ones((bucket, 2), np.int32)
+    for i, (tight, *_) in enumerate(items[:n]):
+        if i not in holes:
+            want[i], want_hw[i] = pad_to_canvas(tight, (s,))
+    slab = fill_slab(eng, items[:n], holes)
+    try:
+        slab.truncate(n)
+        nbytes, meta_off = slab.stage(bucket)
+        dev = slab.buf[:nbytes].to("cuda")
+    finally:
+        eng.release_staging(slab)
+    meta = dev[meta_off:].view(torch.int32).view(bucket, 4)
+    got, got_hw = unpack_ragged(dev[:meta_off], meta, s)
+    plain, plain_hw = unpack_ragged_plain(dev[:meta_off], meta, s)
+    return {"rows": n, "bucket": bucket, "holes": list(holes),
+            "kernel_is_plain": bool(torch.equal(got, plain) and torch.equal(got_hw, plain_hw)),
+            "kernel_is_host": bool(np.array_equal(got.cpu().numpy(), want)
+                                   and np.array_equal(got_hw.cpu().numpy(), want_hw))}
+
+
+def logit_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| over max |b|: logits [n, classes] against a reference."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def phase_resnet50(jpegs: list[bytes]) -> dict:
+    """ResNet-50 (BASELINE config 3, batch-32 throughput mode) served alone.
+
+    - Serve: one server with ``native:resnet50`` in bf16 at full width, the
+      ragged rgb wire, the matmul resize (the preprocess kernel refuses
+      caffe), canvas 512, ``max_batch`` 32: 6 graphs captured at boot
+      (batch 1, 2, 4, 8, 16, 32), each graph pool's bytes printed. A burst
+      of the 24 JPEGs with the kernels' counts set to 0 just before it and
+      read just after: every batch a replay, ``unpack_ragged`` once per
+      batch, ``preprocess_i420`` and ``fused_dw`` never. The same JPEGs
+      one at a time must answer as the burst did (:func:`answers_agree`).
+    - Throughput: full batch-32 slabs of the 24 JPEGs (cycled) dispatched
+      back to back on the captured graph (:func:`throughput`): img/s,
+      compute ms per batch (CUDA events), one replay's device time, MFU and
+      roofline fraction from the cost model against the card's peak, and
+      the bound, 32 × 8.18 GFLOP at 989.4 TFLOP/s (0.265 ms). Then the
+      unpack kernel against its plain version, bit for bit, on the
+      engine's batch-32 slabs (:func:`slab_unpack_check`).
+    - HTTP: a burst of 96 images at once with the adaptive window: the
+      batch sizes it sealed, img/s, p50 and p99; launches again = batches.
+    - float32: the 24 JPEGs through a float32 ResNet-50 engine (TF32 off):
+      its logits within ``F32_LOGIT_RTOL`` of the CPU's float32 forward
+      on the same inputs, the bf16 engine's within ``BF16_LOGIT_RTOL`` of
+      its, top-1 agreement 1.0; the max probability delta.
+    - int8: ``POST /models/load`` of ``native:resnet50,dtype=int8,as=
+      resnet50_int8`` into the server: the gate's verdict on the card and
+      its numbers, a passed version answering 200, and the bf16 version
+      still answering 200. At 64 px both packages refuse it on the CPU; at
+      the served 224 px the reference refuses it and the port's gate
+      passes it (ROADMAP Queue 3, fault 7), so either verdict is reported.
+    """
+    import ast
+    import re
+
+    from tensorflow_web_deploy_tpu_torch.models.adapter import native_converted
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
+    from tensorflow_web_deploy_tpu_torch.ops.image import pad_to_canvas, unpack_ragged
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
+    from tensorflow_web_deploy_tpu_torch.server import start_server
+    from tensorflow_web_deploy_tpu_torch.serving import costmodel
+    from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
+
+    t_phase = time.perf_counter()
+    common = dict(wire="rgb", resize="matmul", ragged=True, canvas_buckets=RESNET_BUCKETS,
+                  max_batch=RESNET_MAX_BATCH)
+    cfg = _config("resnet50", "bfloat16", http_workers=RESNET_BURST, host="127.0.0.1", port=0,
+                  **common)
+    row = {"phase": "resnet50", "nvidia_smi": nvidia_smi(), "model": "native:resnet50",
+           "width": 1.0, "dtype": "bfloat16", "wire": "rgb", "ragged": True, "resize": "matmul",
+           "canvas_buckets": list(RESNET_BUCKETS), "max_batch": RESNET_MAX_BATCH}
+    bad: dict = {}
+
+    def counts() -> dict:
+        return {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
+                "unpack_ragged": unpack_ragged.launches}
+
+    t0 = time.perf_counter()
+    srv = start_server(cfg, device="cuda", seed=SEED)
+    row["boot_s"] = time.perf_counter() - t0
+    admin = KeepAlive(srv.port)
+    try:
+        eng = srv.engine
+        shard = eng._replicas[0].shards[0]  # the card: one replica of one device
+        st = eng.stats()
+        # the replica's graphs share one graph pool: its bytes are theirs
+        row.update(batch_buckets=list(eng.batch_buckets), warmup_s=st["warmup_s"],
+                   graphs=st["graphs"], graph_pool={
+                       "graphs": [f"{k[0]}:{k[1]}x{k[2]}" for k in sorted(shard.exes)],
+                       "bytes": st["graphs"]["pool_bytes"],
+                       "static_bytes": st["graphs"]["static_bytes"]},
+                   memory_allocated=torch.cuda.memory_allocated(),
+                   memory_reserved=torch.cuda.memory_reserved())
+        if eng.batch_buckets != (1, 2, 4, 8, 16, 32) or \
+                st["graphs"]["captured"] != len(RESNET_BUCKETS) * len(eng.batch_buckets) or \
+                st["graphs"]["pool_bytes"] <= 0:
+            bad["graphs"] = {"buckets": eng.batch_buckets, "graphs": st["graphs"]}
+        urllib.request.urlopen(srv.url + "/healthz", timeout=120).read()
+
+        # the main path: a burst of the 24 JPEGs
+        before = eng.stats()
+        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+        results, timeline = burst(srv, jpegs)
+        launches = counts()
+        after = eng.stats()
+        batches = after["batches"] - before["batches"]
+        graphs = {k: after["graphs"][k] - before["graphs"][k]
+                  for k in ("replays", "eager_batches")}
+        row["kernel_launches"] = launches
+        row["serve"] = {"requests": len(jpegs), "batches": batches, "graphs": graphs,
+                        "statuses": dict(Counter(r[0] for r in results)),
+                        "img_per_s": len(jpegs) / timeline["wall_ms"] * 1e3,
+                        "p50_ms": timeline["client_latency_ms"]["p50"],
+                        "p99_ms": timeline["client_latency_ms"]["p99"],
+                        "decodes": {d: after["decodes"][d] - before["decodes"][d]
+                                    for d in after["decodes"]}}
+        want = {"preprocess_i420": 0, "fused_dw": 0, "unpack_ragged": batches}
+        if launches != want or batches == 0 or \
+                graphs != {"replays": batches, "eager_batches": 0} or \
+                row["serve"]["statuses"] != {200: len(jpegs)}:
+            bad["serve"] = {**row["serve"], "launches": launches, "want": want}
+        served = [r[1].get("predictions", []) for r in results]
+        if not all(len(p) == eng.topk and all(math.isfinite(q["score"]) and
+                                               0 <= q["index"] < 1000 for q in p)
+                   for p in served):
+            bad["answers"] = served[:2]
+        serial = [post(srv.url + "/predict", d) for d in jpegs]
+        serial_preds = [r[1]["predictions"] for r in serial]
+        agree = [answers_agree(a, b) for a, b in zip(served, serial_preds)]
+        lat = np.array([r[2] for r in serial]) * 1e3
+        row["serial_vs_burst"] = {
+            "images": len(jpegs), "agree": sum(agree),
+            "topk_identical": sum(a == b for a, b in zip(served, serial_preds)),
+            "defined_entries": [len(defined_topk(p)) for p in served],
+            "serial_p50_ms": float(np.percentile(lat, 50)),
+            "serial_p99_ms": float(np.percentile(lat, 99))}
+        if not all(agree):
+            bad["serial_vs_burst"] = [(a, b) for a, b, ok in zip(served, serial_preds, agree)
+                                      if not ok][:2]
+
+        # throughput mode: full batch-32 slabs on the captured graph
+        prepared = [eng.prepare_ragged(d) for d in jpegs]
+        items = [prepared[i % len(prepared)] for i in range(RESNET_MAX_BATCH)]
+        tp = throughput(eng, items, THROUGHPUT_S, THROUGHPUT_DEPTH)
+        exe = shard.exes[("ragged", 512, RESNET_MAX_BATCH)]
+        with eng._replicas[0].lock, torch.cuda.stream(shard.compute):
+            tp["replay_ms"] = cuda_time_ms(exe)
+        del exe  # its graph and output would keep the graph pool alive past close()
+        cost = costmodel.model_cost(eng.model_cfg)
+        peak = costmodel.backend_peak("bfloat16")
+        rows = tp["batches"] * RESNET_MAX_BATCH
+        tight = sum(t.nbytes for t, *_ in items) / (512 * 512 * 3) * tp["batches"]
+        econ = costmodel.bucket_economics(cost, 512, RESNET_MAX_BATCH, rows, rows,
+                                          tp["compute_ms_sum"] / 1e3, peak, 1,
+                                          eng.model_cfg.input_size, "ragged", rows_tight=tight)
+        flops = RESNET_MAX_BATCH * cost["flops_per_image"]
+        nbytes = RESNET_MAX_BATCH * costmodel.bytes_per_image(cost, 512, RESNET_MAX_BATCH,
+                                                              "ragged")
+        tp.update(flops_per_replay=flops, bytes_per_replay=nbytes,
+                  flops_bound_ms=flops / peak["flops_per_chip"] * 1e3,
+                  bytes_bound_ms=nbytes / peak["bytes_per_s_per_chip"] * 1e3,
+                  peak=peak, mfu=econ.get("mfu"),
+                  roofline_bound_fraction=econ.get("roofline_bound_fraction"),
+                  bound=econ.get("bound"), arithmetic_intensity=econ.get("arithmetic_intensity"),
+                  model_mfu_replay=flops / (tp["replay_ms"] / 1e3) / peak["flops_per_chip"])
+        tp["bound_ms"] = max(tp["flops_bound_ms"], tp["bytes_bound_ms"])
+        row["throughput"] = tp
+        if tp["replays"] != tp["batches"] or tp["eager_batches"] or \
+                not 0 < (tp["mfu"] or 0) <= 1:
+            bad["throughput"] = tp
+
+        # the unpack kernel at this path's shapes: batch-32 slabs of the
+        # 512 canvas, full, with a hole, and 31 rows in the 32 bucket (the
+        # HTTP burst's batches)
+        row["unpack_32"] = [slab_unpack_check(eng, items, n, holes)
+                            for n, holes in ((32, ()), (32, (7,)), (31, ()))]
+        if not all(c["kernel_is_plain"] and c["kernel_is_host"] for c in row["unpack_32"]):
+            bad["unpack_32"] = row["unpack_32"]
+
+        # HTTP: 96 images at once
+        big = [jpegs[i % len(jpegs)] for i in range(RESNET_BURST)]
+        b0 = eng.stats()
+        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+        res96, tl96 = burst(srv, big)
+        l96 = counts()
+        b1 = eng.stats()
+        recs = [r for r in srv.batcher.batch_timeline() if r["t_seal"] >= tl96["t0_monotonic"]]
+        n96 = b1["batches"] - b0["batches"]
+        row["http_burst"] = {
+            "requests": RESNET_BURST, "statuses": dict(Counter(r[0] for r in res96)),
+            "batch_sizes": [r["rows"] for r in recs], "buckets": [r["bucket"] for r in recs],
+            "batches": n96, "kernel_launches": l96,
+            "replays": b1["graphs"]["replays"] - b0["graphs"]["replays"],
+            "img_per_s": RESNET_BURST / tl96["wall_ms"] * 1e3,
+            "p50_ms": tl96["client_latency_ms"]["p50"], "p99_ms": tl96["client_latency_ms"]["p99"],
+            "batches_ms": tl96["batches_ms"]}
+        if row["http_burst"]["statuses"] != {200: RESNET_BURST} or \
+                l96 != {"preprocess_i420": 0, "fused_dw": 0, "unpack_ragged": n96} or \
+                row["http_burst"]["replays"] != n96:
+            bad["http_burst"] = row["http_burst"]
+
+        # bf16 against float32 on the same canvases: logits, and the
+        # float32 forward against the CPU's on the same inputs
+        canvases = torch.from_numpy(np.stack([pad_to_canvas(t, RESNET_BUCKETS)[0]
+                                              for t, *_ in prepared])).cuda()
+        hws = torch.tensor([hw for _, hw, *_ in prepared], dtype=torch.int32).cuda()
+        p16 = model_probs(eng, canvases, hws)
+        f32 = InferenceEngine(_config("resnet50", "float32", warmup=False, **common),
+                              device="cuda", seed=SEED)
+        try:
+            p32 = model_probs(f32, canvases, hws)
+            with torch.inference_mode():
+                x32 = f32._preprocess(canvases, hws)
+                l32 = f32.model.backbone(x32.permute(0, 3, 1, 2))
+                l16 = eng.model.backbone(eng._preprocess(canvases, hws).permute(0, 3, 1, 2))
+                cpu = native_converted("resnet50", seed=SEED).backbone
+                lcpu = cpu(x32.cpu().permute(0, 3, 1, 2))
+        finally:
+            f32.close()
+        top1 = np.array([p[0]["index"] for p in served])
+        row["float32"] = {
+            "images": len(jpegs), "top1_agreement": float(np.mean(p16.argmax(1) == p32.argmax(1))),
+            "logit_top1_agreement": float((l16.argmax(1) == l32.argmax(1)).float().mean()),
+            "max_prob_delta": float(np.abs(p16 - p32).max()),
+            "bf16_logit_rel": logit_rel(l16, l32), "bf16_logit_rtol": BF16_LOGIT_RTOL,
+            "f32_vs_cpu_logit_rel": logit_rel(l32.cpu(), lcpu), "f32_logit_rtol": F32_LOGIT_RTOL,
+            "max_abs_logit_f32": float(l32.abs().max()),
+            "served_top1_is_bf16_top1": float(np.mean(top1 == p16.argmax(1))),
+            "max_prob_f32": [float(np.min(p32.max(1))), float(np.max(p32.max(1)))],
+            "tf32": [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]}
+        f = row["float32"]
+        if not (np.isfinite(p16).all() and np.isfinite(p32).all()
+                and p16.shape == p32.shape == (len(jpegs), 1000)
+                and bool(torch.isfinite(l16).all()) and bool(torch.isfinite(l32).all())
+                and f["top1_agreement"] == f["logit_top1_agreement"] == 1.0
+                and f["bf16_logit_rel"] <= BF16_LOGIT_RTOL
+                and f["f32_vs_cpu_logit_rel"] <= F32_LOGIT_RTOL):
+            bad["float32"] = f
+
+        # the int8 tier at full width: the gate decides
+        t0 = time.perf_counter()
+        status, doc = admin.request("POST", "/models/load",
+                                    {"model": RESNET_INT8, "wait": True, "timeout_s": 300})
+        err = doc.get("error") or ""
+        found = re.search(r"\{.*\}", err)
+        gate = ast.literal_eval(found.group(0)) if found else None
+        if (status, doc.get("state")) == (500, "FAILED") and GATE_FAILED in err:
+            verdict = "refused"
+        elif (status, doc.get("state")) == (200, "SERVING"):
+            verdict = "passed"
+            _, models = admin.request("GET", "/models")
+            gate = next(v for v in models["models"]["resnet50_int8"]["versions"]
+                        if v["state"] == "SERVING").get("parity")
+        else:
+            verdict = "other"
+        again, body = admin.request("POST", "/predict?model=resnet50", jpegs[0])
+        row["int8"] = {"spec": RESNET_INT8, "status": status, "state": doc.get("state"),
+                       "verdict": verdict, "gate": gate, "load_s": time.perf_counter() - t0,
+                       "error": err[:160], "bf16_after": again,
+                       "bf16_after_matches": again == 200 and answers_agree(
+                           body["predictions"], serial_preds[0])}
+        if verdict == "passed":
+            # a version the gate passed serves (ROADMAP Queue 3, fault 7:
+            # the reference refuses it at this size)
+            q_status, q_body = admin.request("POST", "/predict?model=resnet50_int8", jpegs[0])
+            row["int8"]["int8_answer"] = q_status
+            if q_status != 200 or len(q_body.get("predictions", [])) != eng.topk:
+                bad["int8_answer"] = (q_status, q_body)
+        if verdict == "other" or gate is None or gate.get("pass") != (verdict == "passed") or \
+                not row["int8"]["bf16_after_matches"]:
+            bad["int8"] = row["int8"]
+    finally:
+        admin.close()
+        srv.close()
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    if bad:
+        raise AssertionError(f"resnet50: {bad}")
+    return row
+
+
 def make_photos(n: int, seed: int, side: int = 1024) -> list[bytes]:
     """``n`` distinct seeded 4:3 JPEGs ``side`` px wide (quality 90): smooth
     colour fields (each channel a sine along y, x or x + y) plus noise cut
@@ -3483,9 +3873,10 @@ def latency_of(records: list[dict]) -> dict:
 
 def main(argv: list[str]) -> int:
     sweeps = ("--sweep-fused-dw", "--sweep-preprocess", "--sweep-overload")
-    if not (argv == [] or (len(argv) == 1 and argv[0] in sweeps)):
-        print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)}], not {argv}",
-              file=sys.stderr)
+    if not (argv == [] or (len(argv) == 1 and argv[0] in sweeps)
+            or argv == ["--phase", "resnet50"]):
+        print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)} | --phase resnet50], "
+              f"not {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3530,6 +3921,9 @@ def main(argv: list[str]) -> int:
     if argv == ["--sweep-overload"]:
         sweep_overload()
         return 0
+    if argv == ["--phase", "resnet50"]:  # the phase alone, after the build
+        phase_resnet50(make_jpegs(24, SEED))
+        return 0
     kern_err = phase_kernel(gen)
     dw = phase_fused_dw_kernel(gen, dw_layer_shapes())
     jpegs = make_jpegs(24, SEED)
@@ -3556,11 +3950,13 @@ def main(argv: list[str]) -> int:
     overload = phase_overload(jpegs)
     observability = phase_observability(jpegs, graphs)
     placement = phase_placement(jpegs)
+    resnet = phase_resnet50(jpegs)
     by_path = {p["path"]: p["kernel_launches"] for p in (inception, mobilenet, *ragged)}
     by_path["registry"] = registry["kernel_launches"]
     by_path["overload"] = overload["kernel_launches"]
     by_path["observability"] = observability["kernel_launches"]
     by_path["placement"] = placement["kernel_launches"]
+    by_path["resnet50"] = resnet["kernel_launches"]
     emit({"kernels": [{
         "name": "preprocess_i420",
         "route": "cuda",

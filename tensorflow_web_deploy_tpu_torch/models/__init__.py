@@ -1,8 +1,8 @@
 """Model zoo (counterpart of the JAX package's ``models/__init__.py``).
 
 ``get(name)`` returns a :class:`ModelSpec`; ``spec.build(num_classes=...,
-width=...)`` an ``nn.Module``. Inception-v3 and MobileNetV2 are ported;
-the other names are listed so that configs resolve, and building one
+width=...)`` an ``nn.Module``. Inception-v3, MobileNetV2 and ResNet-50 are
+ported; SSD-MobileNet is listed so that configs resolve, and building it
 raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -13,6 +13,7 @@ from collections.abc import Callable
 
 from .inception_v3 import InceptionV3
 from .mobilenet_v2 import MobileNetV2
+from .resnet50 import ResNet50
 
 
 def _not_ported(name: str, item: str) -> Callable:
@@ -37,7 +38,7 @@ _ZOO: dict[str, ModelSpec] = {
     for s in [
         ModelSpec("inception_v3", InceptionV3, 299, "inception"),
         ModelSpec("mobilenet_v2", MobileNetV2, 224, "inception"),
-        ModelSpec("resnet50", _not_ported("resnet50", "the ResNet-50 item"), 224, "caffe"),
+        ModelSpec("resnet50", ResNet50, 224, "caffe"),
         ModelSpec("ssd_mobilenet", _not_ported("ssd_mobilenet", "the SSD + detection item"),
                   300, "inception", task="detect", num_classes=90),
     ]

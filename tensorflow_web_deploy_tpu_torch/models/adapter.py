@@ -150,9 +150,10 @@ def native_converted(name: str, num_classes: int | None = None, width: float = 1
     (:func:`quantize_int8`). Stays on the CPU in float32 (int8 kernels
     int8); the caller moves and casts it."""
     spec = get(name)
+    # an unported model raises here, naming the ROADMAP item that ports it
+    module, flat = init_variables(spec, num_classes=num_classes, width=width, seed=seed)
     if spec.task != "classify":
         raise NotImplementedError(f"{name}: only classifiers are ported")
-    module, flat = init_variables(spec, num_classes=num_classes, width=width, seed=seed)
     if params_flat is not None:
         module.load_state_dict(from_jax_params(params_flat))
         flat = params_flat

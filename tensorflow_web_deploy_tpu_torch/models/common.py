@@ -65,8 +65,8 @@ class BatchNorm(nn.Module):
 
 
 class ConvBNCell(nn.Module):
-    """Conv (no bias, held as ``self.<conv_attr>``) → BatchNorm (ε=1e-3) →
-    activation, with the serving-time BN fold.
+    """Conv (no bias, held as ``self.<conv_attr>``) → BatchNorm → activation,
+    with the serving-time BN fold.
 
     "SAME" pads are static where they do not depend on the input size
     (stride 1, odd kernels: (k//2, k//2)) and computed per input otherwise.
@@ -112,15 +112,16 @@ class ConvBNCell(nn.Module):
 
 
 class ConvBN(ConvBNCell):
-    """Conv (no bias) → BatchNorm (ε=1e-3) → activation ("relu", "relu6" or
-    None). ``padding`` is "SAME" (the reference's pads) or "VALID"."""
+    """Conv (no bias) → BatchNorm (ε ``bn_eps``, the reference's 1e-3 by
+    default; ResNet-50 passes 1e-5) → activation ("relu", "relu6" or None).
+    ``padding`` is "SAME" (the reference's pads) or "VALID"."""
 
     def __init__(self, cin: int, cout: int, kernel=(3, 3), stride: int = 1,
-                 padding: str = "SAME", act: str | None = "relu"):
+                 padding: str = "SAME", act: str | None = "relu", bn_eps: float = 1e-3):
         super().__init__()
         pad = self._init_cell(kernel, stride, padding, act)
         self.conv = nn.Conv2d(cin, cout, tuple(kernel), stride=stride, padding=pad, bias=False)
-        self.bn = BatchNorm(cout)
+        self.bn = BatchNorm(cout, eps=bn_eps)
         self.folded = False
 
     def forward(self, x):
@@ -204,6 +205,18 @@ def set_fused_dw(module: nn.Module, fused: bool) -> nn.Module:
         if isinstance(m, DepthwiseConvBN):
             m.fused = fused
     return module
+
+
+def max_pool_same(x, kernel: int = 3, stride: int = 2):
+    """flax's ``max_pool(padding="SAME")`` on NCHW: lax's pads (at stride 2
+    on an even input, (0, 1)) filled with −inf, then a VALID max pool.
+    ``F.max_pool2d(padding=1)`` would pad (1, 1) and shift every window of
+    an even input by one row and one column. −inf is exact in every float
+    dtype, so a padded tap never wins."""
+    (pt, pb), (pl, pr) = resolve_pads("SAME", x.shape[2:], (kernel, kernel), (stride, stride))
+    if pt or pb or pl or pr:
+        x = F.pad(x, (pl, pr, pt, pb), value=float("-inf"))
+    return F.max_pool2d(x, kernel, stride)
 
 
 def global_avg_pool(x):

@@ -2,7 +2,7 @@
 
     python -m tensorflow_web_deploy_tpu_torch.server --model native:inception_v3 \\
         [--model native:mobilenet_v2,dtype=int8,as=mobilenet_v2_int8 ...] [--default-model NAME]
-        [--model native:mobilenet_v2,replicas=N | ,shard=batch]
+        [--model native:mobilenet_v2,replicas=N | ,shard=batch] [--model native:resnet50]
         [--no-ragged] [--resize matmul|gather] [--wire-format yuv420 --resize kernel]
         [--dtype bf16|f32|int8] [--fused-dw auto|on|off] [--device cuda|cpu]
         [--pipeline-depth 4] [--max-queue 0] [--no-adaptive-delay] [--lease-timeout-s 10]

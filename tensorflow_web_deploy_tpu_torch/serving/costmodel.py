@@ -43,10 +43,8 @@ CUDA_PEAKS = {
     "NVIDIA H100 PCIe": {"bfloat16": 756.5, "float32": 51.2, "hbm_gbps": 2000.0},
 }
 
-# ResNet-50's stages (inner width, blocks, first stride) and SSD's anchor
-# aspect ratios: the JAX zoo's tables, for models the port lists but does
-# not build yet.
-_RESNET50_STAGES = [(64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2)]
+# SSD's anchor aspect ratios: the JAX zoo's table, for a model the port
+# lists but does not build yet.
 _SSD_ASPECT_RATIOS = (1.0, 2.0, 0.5)
 
 
@@ -187,11 +185,12 @@ def _walk_mobilenet_v2(t: _Tape, width: float, num_classes: int):
 
 def _walk_resnet50(t: _Tape, width: float, num_classes: int):
     from ..models.common import scale_ch
+    from ..models.resnet50 import _STAGES
 
     w = lambda c: scale_ch(c, width)  # noqa: E731
     t.conv(w(64), (7, 7), (2, 2))
     t.pool((3, 3), (2, 2), "SAME")
-    for c, n, s in _RESNET50_STAGES:
+    for c, n, s in _STAGES:
         for j in range(n):
             feats, stride = w(c), (s if j == 0 else 1)
             out_ch = feats * 4

@@ -112,4 +112,4 @@ def test_bn_fold_is_exact():
 
 def test_unported_models_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        native_converted("resnet50")
+        native_converted("ssd_mobilenet")
