@@ -92,6 +92,14 @@ back to back on the captured graph (img/s, ms per replay, MFU), the
 unpack kernel against its plain version on those slabs, a 96-image HTTP
 burst, its logits against a float32 engine's and the float32 engine's
 against the CPU's, and its int8 tier's load, whose verdict it reports.
+``ssd`` serves the detector SSD-MobileNet in bf16 at full width and 300
+px the same way: the 24 JPEGs one at a time and at once (every answer
+the reference's ``detections``/``num_detections``), batch-32 slabs back
+to back, the NMS kernel against its plain fixpoint bit for bit on a
+served batch's candidates and on adversarial rows, an anchor scene whose
+detections must equal the host's expectation exactly, its raw outputs
+against float32 and the CPU, the fused depthwise and preprocess kernels
+at its own shapes, and its int8 tier, refused at 300 px and served at 64.
 
 The preprocess kernel is checked through both of its entries (the
 ``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
@@ -119,9 +127,10 @@ assembly windows and image sizes and records the queue fraction every
 ladder observation saw (no ``ok`` line).
 
     python3 chip_smoke.py --phase resnet50
+    python3 chip_smoke.py --phase ssd
 
-builds the kernels and runs the ``resnet50`` phase alone on the 24 JPEGs
-(no ``kernels`` or ``ok`` line).
+build the kernels and run the ``resnet50`` or the ``ssd`` phase alone on
+the 24 JPEGs (no ``kernels`` or ``ok`` line).
 """
 
 from __future__ import annotations
@@ -152,7 +161,7 @@ MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 OUT = 299  # Inception-v3 input side
 SEED = 0
-KERNELS = ("preprocess_i420", "fused_dw", "unpack_ragged")
+KERNELS = ("preprocess_i420", "fused_dw", "unpack_ragged", "nms_fixed")
 # served top-1 vs the same bf16 computation outside the server
 SERVED_TOL = 1e-2
 # kernel vs plain float32: same taps and order; the plain version's matmul
@@ -435,15 +444,16 @@ def dw_bound_ms(b: int, c: int, h: int, w: int, oh: int, ow: int, elt: int, kk: 
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def dw_layer_shapes() -> list[dict]:
-    """Every depthwise cell of full-width MobileNetV2 at 224×224: its block,
-    input [C, H, W], stride and the reference's "SAME" pads, recorded by
-    forward hooks on one image."""
+def dw_layer_shapes(name: str = "mobilenet_v2", size: int = 224) -> list[dict]:
+    """Every depthwise cell of a full-width zoo model at ``size`` px
+    (MobileNetV2 at 224 unless given): its block, input [C, H, W], stride
+    and the reference's "SAME" pads, recorded by forward hooks on one
+    image. MobileNetV2 must have its 17 cells, 13 of them stride 1."""
     from tensorflow_web_deploy_tpu_torch.models.adapter import native_converted
     from tensorflow_web_deploy_tpu_torch.models.common import DepthwiseConvBN
     from tensorflow_web_deploy_tpu_torch.ops.depthwise import resolve_pads
 
-    model = native_converted("mobilenet_v2", seed=SEED).cuda()
+    model = native_converted(name, seed=SEED).cuda()
     shapes, hooks = [], []
 
     def record(mod, args, name):
@@ -457,10 +467,11 @@ def dw_layer_shapes() -> list[dict]:
             hooks.append(m.register_forward_pre_hook(
                 lambda mod, args, name=name: record(mod, args, name)))
     with torch.inference_mode():
-        model(torch.zeros((1, 224, 224, 3), device="cuda"))
+        model(torch.zeros((1, size, size, 3), device="cuda"))
     for h in hooks:
         h.remove()
-    if len(shapes) != DW_CELLS or sum(s["stride"] == 1 for s in shapes) != DW_STRIDE1_CELLS:
+    if name == "mobilenet_v2" and (len(shapes) != DW_CELLS or sum(
+            s["stride"] == 1 for s in shapes) != DW_STRIDE1_CELLS):
         raise AssertionError(f"MobileNetV2 depthwise cells: {shapes}")
     return shapes
 
@@ -483,15 +494,16 @@ def dw_inputs(gen: torch.Generator, layer: dict, b: int, dtype) -> tuple:
     return x, taps, bias
 
 
-def dw_check(gen: torch.Generator, layers: list[dict]) -> dict:
-    """Kernel vs plain version at every layer × B∈{1, 8, 32} × {float32,
-    bf16} × relu6 on/off: each cell must be bit-identical (the same float32
-    operations in the same order, one rounding)."""
+def dw_check(gen: torch.Generator, layers: list[dict], batches=DW_BATCHES) -> dict:
+    """Kernel vs plain version at every layer × B in ``batches`` (1, 8, 32
+    unless given) × {float32, bf16} × relu6 on/off: each cell must be
+    bit-identical (the same float32 operations in the same order, one
+    rounding)."""
     from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw, fused_dw_plain
 
     worst, cells = 0.0, 0
     for layer in layers:
-        for b in DW_BATCHES:
+        for b in batches:
             for dtype in (torch.float32, torch.bfloat16):
                 x, taps, bias = dw_inputs(gen, layer, b, dtype)
                 for relu6 in (True, False):
@@ -3871,11 +3883,593 @@ def latency_of(records: list[dict]) -> dict:
             "p99": float(np.percentile(lat, 99))}
 
 
+SSD_BUCKETS = (512,)
+SSD_MAX_BATCH = 32
+SSD_SIZE = 300
+SSD_INT8 = "native:ssd_mobilenet,dtype=int8,as=ssd_mobilenet_int8"
+# the int8 tier at 64 px: the reference's gate serves it at full width
+SSD_INT8_SMALL = 64
+# the reference's int8 gate for full-width SSD at 300 px, seeded weights,
+# its own probe, on a CPU: refused (tolerances 0.06 and 0.25)
+SSD_REF_GATE = {"max_score_delta": 0.10363, "max_box_delta": 0.37287}
+SSD_THROUGHPUT_S = 2.0
+SSD_ANSWER_KEYS = {"detections", "num_detections", "model", "model_version", "latency_ms",
+                   "trace_id"}
+# the served NMS: the reference's defaults
+NMS_IOU, NMS_SCORE, NMS_K = 0.6, 1e-8, 100
+# float32 operations per candidate pair of the NMS test (2 min, 2 max, 2
+# subtractions, 2 clamps, the intersection's product, the union's add and
+# subtraction, the threshold's product, the comparison)
+NMS_PAIR_OPS = 13
+# SSD-MobileNet's six depthwise cells at 300 px: (channels, input side,
+# stride); block1 and feat1 take odd inputs (75, 19), which pad (1, 1)
+SSD_DW = [(96, 150, 2), (144, 75, 2), (192, 38, 2), (384, 19, 1), (384, 19, 2), (768, 10, 2)]
+SSD_DW_BATCHES = (1, 32)
+# SSD's raw outputs in bf16 against float32 (max |Δ| over max |raw|): the
+# reference's own bf16 forward lies 1.15–1.56e-2 from its float32 forward
+# on the CPU (width 1.0 at 64 px, 0.25 at 300, 0.5 at 160), above the 1e-2
+# that ResNet-50's logits keep; tests/test_torch_ssd.py holds the port's
+# deviation to within a quarter of the reference's on the same inputs
+SSD_BF16_RTOL = 3e-2
+# a box coordinate of one answer against another's, in pixels over the
+# image's side: bf16 rounding moves raw box codes a little between batch
+# buckets (another cuDNN algorithm)
+BOX_TOL = 1e-2
+
+
+def ssd_answers_agree(a: dict, b: dict) -> bool:
+    """Two answers for one image: the same count and classes in order,
+    scores within ``SERVED_TOL`` and boxes within ``BOX_TOL`` of the image's
+    side (another batch bucket may take another cuDNN algorithm, so bf16
+    raw outputs may move by rounding)."""
+    da, db = a["detections"], b["detections"]
+    if a["num_detections"] != b["num_detections"] or len(da) != len(db):
+        return False
+    side = max(max(abs(v) for d in da for v in d["box"]) if da else 1.0, 1.0)
+    return all(x["class"] == y["class"] and abs(x["score"] - y["score"]) <= SERVED_TOL
+               and all(abs(u - v) <= BOX_TOL * side for u, v in zip(x["box"], y["box"]))
+               for x, y in zip(da, db))
+
+
+def ssd_answer_ok(body: dict, classes: int) -> bool:
+    """The reference's detect answer: its keys, ``num_detections`` entries,
+    each with a finite box, a class in range with its label, a score in
+    (0, 1], scores non-increasing."""
+    dets = body.get("detections", [])
+    scores = [d["score"] for d in dets]
+    return (set(body) == SSD_ANSWER_KEYS and body["num_detections"] == len(dets) <= NMS_K
+            and all(len(d["box"]) == 4 and all(math.isfinite(v) for v in d["box"])
+                    and 0 <= d["class"] < classes and d["label"] == f"class_{d['class']:04d}"
+                    and 0 < d["score"] <= 1 for d in dets)
+            and all(x >= y for x, y in zip(scores, scores[1:])))
+
+
+def scene_biases(classes: int, n_anchor: int, seed: int = 0) -> np.ndarray:
+    """The anchor scene's ``cls`` biases, [2 heads, n_anchor·(classes+1)]:
+    distinct values exactly representable in bf16, in [-6, 6), background
+    (class 0) lower than every class (tests/test_torch_ssd.py draws its
+    own the same way)."""
+    pool = np.arange(-6.0, 6.0, 1 / 64, dtype=np.float32)
+    pool = pool[torch.from_numpy(pool).to(torch.bfloat16).float().numpy() == pool]
+    rs = np.random.RandomState(seed)
+    n_bg, n_cls = 2 * n_anchor, 2 * n_anchor * classes
+    bg, rest = pool[:n_bg], rs.permutation(pool[n_bg:])[:n_cls]
+    out = np.empty((2, n_anchor, classes + 1), np.float32)
+    out[..., 0] = bg.reshape(2, n_anchor)
+    out[..., 1:] = rest.reshape(2, n_anchor, classes)
+    return out.reshape(2, -1)
+
+
+def scene_params(flat: dict, biases: np.ndarray) -> dict:
+    """``flat`` (the JAX layout) with the heads set to the anchor scene:
+    kernels zero, ``loc`` biases zero, ``cls`` biases ``biases``."""
+    p = dict(flat)
+    for h in (1, 2):
+        for part in ("loc", "cls"):
+            p[f"params/head{h}_{part}/kernel"] = np.zeros_like(p[f"params/head{h}_{part}/kernel"])
+        p[f"params/head{h}_loc/bias"] = np.zeros_like(p[f"params/head{h}_loc/bias"])
+        p[f"params/head{h}_cls/bias"] = biases[h - 1].astype(np.float32)
+    return p
+
+
+def scene_expectation(anchors: np.ndarray, biases: np.ndarray, n_pos: tuple[int, int],
+                      n_anchor: int, score_of, k: int = NMS_K, d: int = 100,
+                      iou: float = NMS_IOU, score_thr: float = NMS_SCORE):
+    """The anchor scene's detections, on the host (the same expectation as
+    tests/test_torch_ssd.py's): raw box codes 0, so each box is its anchor
+    (cy ∓ h/2, cx ∓ w/2 in float32); raw scores the ``cls`` bias of the
+    anchor's shape, by position then shape within each head; per class the
+    top ``k`` by score (stable), greedy NMS in float32 as the reference's,
+    then the top ``d`` of all classes (stable), zero past ``num``.
+    ``score_of`` maps raw scores to sigmoid scores."""
+    c1 = biases.shape[1] // n_anchor
+    raw = np.concatenate([np.tile(b.reshape(n_anchor, c1), (n, 1))
+                          for b, n in zip(biases, n_pos)])  # [A, C+1]
+    cy, cx, h, w = (anchors[:, i] for i in range(4))
+    two = np.float32(2)
+    boxes = np.stack([cy - h / two, cx - w / two, cy + h / two, cx + w / two], 1)
+    scores = score_of(raw)[:, 1:]
+    a, c = scores.shape
+    k, d = min(k, a), min(d, c * min(k, a))
+    thr = np.float32(iou)
+    cand_boxes = np.zeros((c, k, 4), np.float32)
+    kept = np.zeros((c, k), np.float32)
+    for cls in range(c):
+        order = np.argsort(-scores[:, cls], kind="stable")[:k]
+        cb, cs = boxes[order], scores[order, cls]
+        chosen: list[int] = []
+        for i in range(k):
+            if not cs[i] > np.float32(score_thr):
+                continue
+            ok = True
+            for j in chosen:
+                area = [max(b[2] - b[0], np.float32(0)) * max(b[3] - b[1], np.float32(0))
+                        for b in (cb[i], cb[j])]
+                hh = max(min(cb[i][2], cb[j][2]) - max(cb[i][0], cb[j][0]), np.float32(0))
+                ww = max(min(cb[i][3], cb[j][3]) - max(cb[i][1], cb[j][1]), np.float32(0))
+                inter = hh * ww
+                if inter > thr * ((area[0] + area[1]) - inter):
+                    ok = False
+                    break
+            if ok:
+                chosen.append(i)
+                kept[cls, i] = cs[i]
+        cand_boxes[cls] = cb
+    flat_scores = kept.reshape(-1)
+    top = np.argsort(-flat_scores, kind="stable")[:d]
+    valid = flat_scores[top] > np.float32(score_thr)
+    n = int(valid.sum())
+    out_boxes = np.zeros((d, 4), np.float32)
+    out_scores = np.zeros(d, np.float32)
+    out_classes = np.zeros(d, np.int32)
+    out_boxes[:n] = cand_boxes.reshape(-1, 4)[top[:n]]
+    out_scores[:n] = flat_scores[top[:n]]
+    out_classes[:n] = top[:n] // k
+    return out_boxes, out_scores, out_classes, np.int32(n)
+
+
+def nms_adversarial_rows(seed: int) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Rows for the NMS kernel beyond the served ones, each group [rows, K]
+    on the card in priority order (a stable descending sort): clustered
+    centers (deep suppression chains), scores quantized to eighths (ties),
+    a zero-area box in every fifth row, K from 1 to the kernel's 256 (K <
+    100 included), and a group with inf and NaN coordinates and NaN scores
+    (the plain version's max and min propagate NaN)."""
+    rs = np.random.RandomState(seed)
+    groups = []
+    for k in (1, 2, 7, 31, 32, 33, 63, 64, 65, 99, 100, 128, 200, 256):
+        n = 40
+        centers = rs.rand(n, max(1, k // 6), 2)
+        pick = centers[np.arange(n)[:, None], rs.randint(0, centers.shape[1], (n, k))]
+        size = 0.05 + rs.rand(n, k, 2) * 0.15
+        y0 = pick[..., 0] + rs.randn(n, k) * 0.03
+        x0 = pick[..., 1] + rs.randn(n, k) * 0.03
+        boxes = np.stack([y0, x0, y0 + size[..., 0], x0 + size[..., 1]], -1).astype(np.float32)
+        boxes[::5, 0, 2] = boxes[::5, 0, 0]
+        scores = (rs.randint(0, 8, (n, k)) / 8.0).astype(np.float32)
+        scores[1::2] += rs.rand(n // 2, k).astype(np.float32)
+        if k == 100:
+            boxes[:4, 3, 1] = np.inf
+            boxes[4:8, 5, 2] = np.nan
+            boxes[8:12, 7] = [-np.inf, -np.inf, np.inf, np.inf]
+            scores[12:16, 9] = np.nan
+        groups.append((boxes, scores))
+    out = []
+    for boxes, scores in groups:
+        b, s = torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda()
+        s, order = torch.sort(s, dim=-1, descending=True, stable=True)
+        out.append((torch.gather(b, 1, order[..., None].expand(-1, -1, 4)).contiguous(),
+                    s.contiguous()))
+    return out
+
+
+def ssd_raw(eng, canvases: torch.Tensor, hws: torch.Tensor) -> tuple:
+    """The engine's preprocess and model, eagerly, on padded canvases:
+    (raw_boxes, raw_scores, anchors)."""
+    with torch.inference_mode():
+        return eng.model(eng._preprocess(canvases, hws))
+
+
+def ssd_rel(got: tuple, ref: tuple) -> dict:
+    """max |Δ| over max |reference| of the raw box codes and the raw
+    scores, each against its reference."""
+    return {"raw_boxes": logit_rel(got[0], ref[0]), "raw_scores": logit_rel(got[1], ref[1])}
+
+
+def phase_ssd(jpegs: list[bytes]) -> dict:
+    """SSD-MobileNet (BASELINE config 4, the multi-output graph) served
+    alone, the zoo's detector: full width, 300 px, seeded weights, bf16.
+
+    - Serve: ``native:ssd_mobilenet`` behind ``POST /predict`` on the
+      ragged rgb wire, the matmul resize, canvas 512, batch buckets 1–32 (6
+      graphs captured at boot). The 24 JPEGs one at a time, then at once
+      with the kernels' counts set to 0 just before the burst and read just
+      after: every batch a replay, ``unpack_ragged`` and ``nms_fixed`` once
+      a batch, ``preprocess_i420`` and ``fused_dw`` never. Every answer 200
+      with the reference's keys; the burst's detections agree with the
+      serial ones for the same image (:func:`ssd_answers_agree`).
+    - Throughput: full batch-32 slabs back to back on the captured graph
+      (img/s, compute ms, one replay's device time, MFU), the unpack kernel
+      against its plain version on those slabs.
+    - NMS: the kernel's keep mask against ``nms_fixed_plain`` bit for bit
+      on a served batch's candidates (32 images × 90 classes × 100) and on
+      adversarial rows (:func:`nms_adversarial_rows`); ``multiclass_nms``
+      through the kernel and through the plain NMS on the same raw outputs,
+      all four arrays equal; the kernel's µs in a graph against its bound
+      and the plain version's.
+    - The anchor scene (head kernels zero, ``loc`` biases zero, distinct
+      bf16 ``cls`` biases, background lower): a bf16 engine's arrays for
+      every image equal :func:`scene_expectation` bit for bit, through its
+      graph replays.
+    - The forward: a float32 engine's raw outputs within ``F32_LOGIT_RTOL``
+      of the CPU's float32 forward, the bf16 engine's within
+      ``SSD_BF16_RTOL`` of the float32 engine's.
+    - The other kernels at this path's shapes: ``fused_dw`` at SSD's six
+      depthwise shapes × B ∈ {1, 32} × {float32, bf16} bit for bit, and a
+      bf16 engine with ``fused_dw="on"`` (6 launches a forward) held to
+      the float32 engine as the unfused one is and to the unfused one
+      within twice that; ``preprocess_i420`` at 300 out from the yuv420
+      wire: an engine with ``resize="kernel"`` serves a batch (one launch)
+      and the kernel equals its plain version on that batch's wire.
+    - int8: ``native:ssd_mobilenet,dtype=int8`` at 300 px ends in FAILED at
+      load (the reference's gate refuses it too, ``SSD_REF_GATE``), the
+      same at 64 px serves and launches ``fused_dw``. Both verdicts are
+      required.
+    """
+    import ast
+    import re
+
+    from tensorflow_web_deploy_tpu_torch.models import get as zoo_get
+    from tensorflow_web_deploy_tpu_torch.models.adapter import init_variables, native_converted
+    from tensorflow_web_deploy_tpu_torch.models.ssd_mobilenet import ASPECT_RATIOS, SSDMobileNet
+    from tensorflow_web_deploy_tpu_torch.ops.detection import (
+        decode_boxes,
+        multiclass_nms,
+        nms_fixed,
+        nms_fixed_plain,
+        select_candidates,
+    )
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
+    from tensorflow_web_deploy_tpu_torch.ops.image import pad_to_canvas, unpack_ragged
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import (
+        decode_trailer,
+        preprocess_i420,
+        preprocess_i420_plain,
+        preprocess_i420_wire,
+        wire_canvases,
+    )
+    from tensorflow_web_deploy_tpu_torch.server import start_server
+    from tensorflow_web_deploy_tpu_torch.serving import costmodel
+    from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine, quiesced
+
+    t_phase = time.perf_counter()
+    wrappers = {"preprocess_i420": preprocess_i420, "fused_dw": fused_dw,
+                "unpack_ragged": unpack_ragged, "nms_fixed": nms_fixed}
+
+    def counts() -> dict:
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def zero() -> None:
+        for w in wrappers.values():
+            w.launches = 0
+
+    common = dict(wire="rgb", resize="matmul", ragged=True, canvas_buckets=SSD_BUCKETS,
+                  max_batch=SSD_MAX_BATCH)
+    cfg = _config("ssd_mobilenet", "bfloat16", http_workers=len(jpegs), host="127.0.0.1",
+                  port=0, **common)
+    row = {"phase": "ssd", "nvidia_smi": nvidia_smi(), "model": "native:ssd_mobilenet",
+           "width": 1.0, "input": SSD_SIZE, "dtype": "bfloat16", "wire": "rgb", "ragged": True,
+           "resize": "matmul", "canvas_buckets": list(SSD_BUCKETS), "max_batch": SSD_MAX_BATCH}
+    bad: dict = {}
+    n_anchor = len(ASPECT_RATIOS)
+    t0 = time.perf_counter()
+    srv = start_server(cfg, device="cuda", seed=SEED)
+    row["boot_s"] = time.perf_counter() - t0
+    admin = KeepAlive(srv.port)
+    engines: list = []
+    try:
+        eng = srv.engine
+        classes, d = eng.num_classes, eng.max_detections
+        shard = eng._replicas[0].shards[0]
+        st = eng.stats()
+        row.update(batch_buckets=list(eng.batch_buckets), warmup_s=st["warmup_s"],
+                   graphs=st["graphs"], kernels_built=eng.kernels, task=st["task"],
+                   outputs=st["outputs"], row_width=eng.row_width,
+                   anchors=int(eng.model.anchors.shape[0]))
+        if (eng.batch_buckets != (1, 2, 4, 8, 16, 32) or st["graphs"]["captured"] != 6
+                or eng.kernels != ["unpack_ragged", "nms_fixed"] or st["task"] != "detect"
+                or (classes, d, eng.row_width, row["anchors"]) != (90, 100, 601, 375)):
+            bad["engine"] = {k: row[k] for k in ("batch_buckets", "graphs", "kernels_built",
+                                                  "task", "row_width", "anchors")}
+
+        # one at a time, then the main path: all 24 at once
+        serial = [post(srv.url + "/predict", data) for data in jpegs]
+        before = eng.stats()
+        zero()
+        results, timeline = burst(srv, jpegs)
+        launches = counts()
+        after = eng.stats()
+        batches = after["batches"] - before["batches"]
+        graphs = {k: after["graphs"][k] - before["graphs"][k]
+                  for k in ("replays", "eager_batches")}
+        row["kernel_launches"] = launches
+        row["serve"] = {"requests": len(jpegs), "batches": batches, "graphs": graphs,
+                        "statuses": dict(Counter(r[0] for r in results)),
+                        "img_per_s": len(jpegs) / timeline["wall_ms"] * 1e3,
+                        "p50_ms": timeline["client_latency_ms"]["p50"],
+                        "p99_ms": timeline["client_latency_ms"]["p99"],
+                        "serial_p50_ms": float(np.percentile([r[2] for r in serial], 50)) * 1e3}
+        want = {"preprocess_i420": 0, "fused_dw": 0, "unpack_ragged": batches,
+                "nms_fixed": batches}
+        if launches != want or batches == 0 or \
+                graphs != {"replays": batches, "eager_batches": 0} or \
+                row["serve"]["statuses"] != {200: len(jpegs)}:
+            bad["serve"] = {**row["serve"], "launches": launches, "want": want}
+        bodies = [r[1] for r in results]
+        serial_bodies = [r[1] for r in serial]
+        agree = [ssd_answers_agree(a, b) for a, b in zip(bodies, serial_bodies)]
+        row["serial_vs_burst"] = {
+            "images": len(jpegs), "agree": sum(agree),
+            "identical": sum(a["detections"] == b["detections"]
+                             for a, b in zip(bodies, serial_bodies)),
+            "num_detections": [b["num_detections"] for b in bodies],
+            "score_range": [min((x["score"] for b in bodies for x in b["detections"]),
+                                default=None),
+                            max((x["score"] for b in bodies for x in b["detections"]),
+                                default=None)]}
+        if not all(agree) or not all(ssd_answer_ok(b, classes) for b in bodies + serial_bodies):
+            bad["answers"] = [(a, b) for a, b, ok in zip(bodies, serial_bodies, agree)
+                              if not ok][:1] or bodies[:1]
+
+        # throughput mode: full batch-32 slabs on the captured graph
+        prepared = [eng.prepare_ragged(data) for data in jpegs]
+        items = [prepared[i % len(prepared)] for i in range(SSD_MAX_BATCH)]
+        tp = throughput(eng, items, SSD_THROUGHPUT_S, THROUGHPUT_DEPTH)
+        exe = shard.exes[("ragged", 512, SSD_MAX_BATCH)]
+        with eng._replicas[0].lock, torch.cuda.stream(shard.compute):
+            tp["replay_ms"] = cuda_time_ms(exe)
+        # where a replay's device time goes, by kernel (the profiler starts
+        # and stops with every engine's enqueue held off)
+        with quiesced(), eng._replicas[0].lock, torch.cuda.stream(shard.compute):
+            prof = profiled_calls(exe, calls=3)
+        tp["profile"] = {"kernels_per_replay": prof["kernels"] / prof["calls"],
+                         "device_us_per_replay": prof["device_us"] / prof["calls"],
+                         "top": prof["top"]}
+        del exe  # its graph and output would keep the graph pool alive past close()
+        cost = costmodel.model_cost(eng.model_cfg)
+        peak = costmodel.backend_peak("bfloat16")
+        rows = tp["batches"] * SSD_MAX_BATCH
+        tight = sum(t.nbytes for t, *_ in items) / (512 * 512 * 3) * tp["batches"]
+        econ = costmodel.bucket_economics(cost, 512, SSD_MAX_BATCH, rows, rows,
+                                          tp["compute_ms_sum"] / 1e3, peak, 1,
+                                          eng.model_cfg.input_size, "ragged", rows_tight=tight)
+        flops = SSD_MAX_BATCH * cost["flops_per_image"]
+        nbytes = SSD_MAX_BATCH * costmodel.bytes_per_image(cost, 512, SSD_MAX_BATCH, "ragged")
+        tp.update(flops_per_replay=flops, bytes_per_replay=nbytes,
+                  flops_bound_ms=flops / peak["flops_per_chip"] * 1e3,
+                  bytes_bound_ms=nbytes / peak["bytes_per_s_per_chip"] * 1e3,
+                  mfu=econ.get("mfu"), roofline_bound_fraction=econ.get("roofline_bound_fraction"),
+                  bound=econ.get("bound"))
+        tp["bound_ms"] = max(tp["flops_bound_ms"], tp["bytes_bound_ms"])
+        row["throughput"] = tp
+        if tp["replays"] != tp["batches"] or tp["eager_batches"] or \
+                not 0 < (tp["mfu"] or 0) <= 1:
+            bad["throughput"] = tp
+        row["unpack_32"] = [slab_unpack_check(eng, items, 32), slab_unpack_check(eng, items, 24)]
+        if not all(c["kernel_is_plain"] and c["kernel_is_host"] for c in row["unpack_32"]):
+            bad["unpack_32"] = row["unpack_32"]
+
+        # the NMS kernel on a served batch's candidates and on adversarial rows
+        canvases = torch.from_numpy(np.stack([pad_to_canvas(t, SSD_BUCKETS)[0]
+                                              for t, *_ in items])).cuda()
+        hws = torch.tensor([hw for _, hw, *_ in items], dtype=torch.int32).cuda()
+        raw16 = ssd_raw(eng, canvases, hws)
+        with torch.inference_mode():
+            boxes = decode_boxes(raw16[0].float(), raw16[2].float())
+            scores = torch.sigmoid(raw16[1].float())[..., 1:]
+            cand, cand_s = select_candidates(boxes, scores, NMS_K)
+            cb = cand.reshape(-1, NMS_K, 4).contiguous()
+            cs = cand_s.reshape(-1, NMS_K).contiguous()
+            keep = nms_fixed(cb, cs, NMS_IOU, NMS_SCORE)
+            keep_plain = nms_fixed_plain(cb, cs, NMS_IOU, NMS_SCORE)
+            adv = [(nms_fixed(b, s, 0.5, 0.05), nms_fixed_plain(b, s, 0.5, 0.05), s > 0.05)
+                   for b, s in nms_adversarial_rows(SEED)]
+            mc_kernel = multiclass_nms(boxes, scores)
+            mc_plain = multiclass_nms(boxes, scores, nms=nms_fixed_plain)
+        torch.cuda.synchronize()
+        n_rows = cb.shape[0]
+        nms = {"rows": n_rows, "k": NMS_K, "kept": int(keep.sum()),
+               "candidates": int((cs > NMS_SCORE).sum()),
+               "suppressed": int((cs > NMS_SCORE).sum() - keep.sum()),
+               "served_equal": bool(torch.equal(keep, keep_plain)),
+               "adversarial_rows": sum(int(k.shape[0]) for k, *_ in adv),
+               "adversarial_ks": [int(k.shape[1]) for k, *_ in adv],
+               "adversarial_suppressed": sum(int(c.sum() - k.sum()) for k, _, c in adv),
+               "adversarial_equal": all(torch.equal(k, p) for k, p, _ in adv),
+               "multiclass_equal": all(torch.equal(a, b) for a, b in zip(mc_kernel, mc_plain)),
+               "num_detections": [int(v) for v in mc_kernel[3][:4]]}
+        nms["ms"] = graph_time_ms(lambda: nms_fixed(cb, cs, NMS_IOU, NMS_SCORE))
+        nms["plain_ms"] = cuda_time_ms(lambda: nms_fixed_plain(cb, cs, NMS_IOU, NMS_SCORE),
+                                       repeats=5, warmup=1)
+        nms["host_us"] = host_us(lambda: nms_fixed(cb, cs, NMS_IOU, NMS_SCORE))
+        # least time: each candidate's box and score read once, its keep
+        # byte written once; or every pair's test at the float32 rate
+        t_bytes = n_rows * NMS_K * (16 + 4 + 1) / MEM_BYTES_PER_S * 1e3
+        t_ops = n_rows * NMS_K * (NMS_K - 1) // 2 * NMS_PAIR_OPS / F32_FLOPS_PER_S * 1e3
+        nms["bound_ms"], nms["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+        nms["share_of_bound"] = nms["bound_ms"] / nms["ms"]
+        row["nms"] = nms
+        if not (nms["served_equal"] and nms["adversarial_equal"] and nms["multiclass_equal"]
+                and nms["candidates"] > 0):
+            bad["nms"] = nms
+
+        # the forward at a stated tolerance: float32 against the CPU, bf16
+        # against float32, and the fused depthwise cells against both
+        f32 = InferenceEngine(_config("ssd_mobilenet", "float32", warmup=False, **common),
+                              device="cuda", seed=SEED)
+        engines.append(f32)
+        raw32 = ssd_raw(f32, canvases, hws)
+        with torch.inference_mode():
+            cpu = native_converted("ssd_mobilenet", seed=SEED)
+            raw_cpu = cpu(f32._preprocess(canvases, hws).cpu())
+        cfg_fused = _config("ssd_mobilenet", "bfloat16", warmup=False, **common)
+        cfg_fused = replace(cfg_fused, model=replace(cfg_fused.model, fused_dw="on"))
+        fused = InferenceEngine(cfg_fused, device="cuda", seed=SEED)
+        engines.append(fused)
+        zero()
+        raw_fused = ssd_raw(fused, canvases, hws)
+        torch.cuda.synchronize()
+        fused_launches = counts()["fused_dw"]
+        row["forward"] = {
+            "images": SSD_MAX_BATCH, "f32_vs_cpu": ssd_rel([t.cpu() for t in raw32], raw_cpu),
+            "f32_rtol": F32_LOGIT_RTOL, "bf16_vs_f32": ssd_rel(raw16, raw32),
+            "bf16_rtol": SSD_BF16_RTOL, "fused_vs_f32": ssd_rel(raw_fused, raw32),
+            "fused_vs_bf16": ssd_rel(raw_fused, raw16), "fused_launches": fused_launches,
+            "max_abs_raw_f32": [float(raw32[0].abs().max()), float(raw32[1].abs().max())],
+            "anchors_equal": bool(torch.equal(raw32[2].cpu(), raw_cpu[2])),
+            "tf32": [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]}
+        fw = row["forward"]
+        if not (all(torch.isfinite(t.float()).all() for t in (*raw16[:2], *raw32[:2]))
+                and max(fw["f32_vs_cpu"].values()) <= F32_LOGIT_RTOL
+                and max(fw["bf16_vs_f32"].values()) <= SSD_BF16_RTOL
+                and max(fw["fused_vs_f32"].values()) <= SSD_BF16_RTOL
+                and max(fw["fused_vs_bf16"].values()) <= 2 * SSD_BF16_RTOL
+                and fused_launches == len(SSD_DW) and fw["anchors_equal"]):
+            bad["forward"] = fw
+        for e in engines:
+            e.close()
+        engines.clear()
+
+        # fused_dw at SSD's own depthwise shapes, bit for bit
+        shapes = dw_layer_shapes("ssd_mobilenet", SSD_SIZE)
+        row["fused_dw_check"] = {"shapes": [(s["c"], s["h"], s["stride"], s["pads"])
+                                            for s in shapes],
+                                 **dw_check(torch.Generator(device="cuda").manual_seed(SEED),
+                                            shapes, SSD_DW_BATCHES)}
+        if [(s["c"], s["h"], s["stride"]) for s in shapes] != SSD_DW:
+            bad["fused_dw_shapes"] = row["fused_dw_check"]["shapes"]
+
+        # the preprocess kernel at 300 out from the yuv420 wire: an engine
+        # serves a batch, and the kernel equals its plain version there
+        yuv = InferenceEngine(_config("ssd_mobilenet", "bfloat16", wire="yuv420", resize="kernel",
+                                      canvas_buckets=SSD_BUCKETS, max_batch=SSD_MAX_BATCH,
+                                      warmup=False), device="cuda", seed=SEED)
+        engines.append(yuv)
+        staged = [yuv.prepare_bytes(data) for data in jpegs]
+        yc = np.stack([c for c, *_ in staged])
+        yhw = np.array([hw for _, hw, _ in staged], np.int32)
+        zero()
+        yout = yuv.run_batch(yc, yhw)
+        ylaunch = counts()
+        buf = wire_buffer(yc, yhw)
+        with torch.inference_mode():
+            x32 = preprocess_i420_wire(buf, 512, SSD_SIZE, SSD_SIZE, "inception", torch.float32)
+            x16 = preprocess_i420_wire(buf, 512, SSD_SIZE, SSD_SIZE, "inception", torch.bfloat16)
+            ref = preprocess_i420_plain(wire_canvases(buf, 512), decode_trailer(buf), SSD_SIZE,
+                                        SSD_SIZE)
+        row["preprocess_300"] = {
+            "batch": len(jpegs), "launches": ylaunch, "max_abs_err": float((x32 - ref).abs().max()),
+            **bf16_vs_plain(x16, ref, "inception"),
+            "num_detections": [int(v) for v in yout[3][:4]]}
+        if (ylaunch != {"preprocess_i420": 1, "fused_dw": 0, "unpack_ragged": 0, "nms_fixed": 1}
+                or row["preprocess_300"]["max_abs_err"] > KERNEL_TOL["inception"]
+                or not all(np.isfinite(o).all() for o in yout)):
+            bad["preprocess_300"] = row["preprocess_300"]
+        yuv.close()
+        engines.clear()
+
+        # the anchor scene, exact end to end through the graph replays
+        _, flat = init_variables(zoo_get("ssd_mobilenet"), seed=SEED)
+        biases = scene_biases(classes, n_anchor)
+        scene = InferenceEngine(_config("ssd_mobilenet", "bfloat16", **common), device="cuda",
+                                params_flat=scene_params(flat, biases))
+        engines.append(scene)
+        scene.warmup()
+        g0 = scene.stats()["graphs"]["replays"]
+        got = scene.run_ragged([t for t, *_ in prepared], np.array([hw for _, hw, *_ in prepared]),
+                               512)
+        replays = scene.stats()["graphs"]["replays"] - g0
+        f1 = -(-SSD_SIZE // 32)
+        expect = scene_expectation(
+            SSDMobileNet.anchors_for(SSD_SIZE), biases, (f1 * f1, (-(-f1 // 2)) ** 2), n_anchor,
+            lambda v: torch.sigmoid(torch.from_numpy(v).cuda()).cpu().numpy())
+        exact = [all(np.array_equal(g[i], e) for g, e in zip(got, expect))
+                 for i in range(len(prepared))]
+        row["anchor_scene"] = {"images": len(prepared), "exact": sum(exact), "replays": replays,
+                               "num_detections": int(expect[3]),
+                               "classes_first": [int(c) for c in expect[2][:5]],
+                               "scores_first": [float(s) for s in expect[1][:5]]}
+        if not all(exact) or replays != 1:
+            bad["anchor_scene"] = row["anchor_scene"]
+        scene.close()
+        engines.clear()
+
+        # the int8 tier: refused at 300 px, served at 64 px
+        t0 = time.perf_counter()
+        status, doc = admin.request("POST", "/models/load",
+                                    {"model": SSD_INT8, "wait": True, "timeout_s": 300})
+        err = doc.get("error") or ""
+        found = re.search(r"\{.*\}", err)
+        gate = ast.literal_eval(found.group(0)) if found else None
+        row["int8_300"] = {"spec": SSD_INT8, "status": status, "state": doc.get("state"),
+                           "gate": gate, "reference_gate_cpu": SSD_REF_GATE,
+                           "load_s": time.perf_counter() - t0}
+        if (status, doc.get("state")) != (500, "FAILED") or GATE_FAILED not in err or \
+                gate is None or gate.get("pass") is not False:
+            bad["int8_300"] = row["int8_300"]
+        answers: list = []
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "ssd64.json")
+            with open(path, "w") as f:
+                json.dump({"name": "ssd_mobilenet", "task": "detect",
+                           "input_size": [SSD_INT8_SMALL, SSD_INT8_SMALL]}, f)
+            spec = f"{path},dtype=int8,as=ssd_mobilenet_int8_64"
+            t0 = time.perf_counter()
+            status, doc = admin.request("POST", "/models/load",
+                                        {"model": spec, "wait": True, "timeout_s": 300})
+        row["int8_64"] = {"status": status, "state": doc.get("state"),
+                          "load_s": time.perf_counter() - t0}
+        if (status, doc.get("state")) == (200, "SERVING"):
+            _, models = admin.request("GET", "/models")
+            row["int8_64"]["gate"] = next(
+                v for v in models["models"]["ssd_mobilenet_int8_64"]["versions"]
+                if v["state"] == "SERVING").get("parity")
+            zero()
+            answers = [admin.request("POST", "/predict?model=ssd_mobilenet_int8_64", data)
+                       for data in jpegs[:4]]
+            row["int8_64"].update(launches=counts(),
+                                  statuses=[a for a, _ in answers],
+                                  num_detections=[b.get("num_detections") for _, b in answers])
+        lc = row["int8_64"].get("launches", {})
+        if (status, doc.get("state")) != (200, "SERVING") or \
+                row["int8_64"].get("statuses") != [200] * 4 or \
+                lc.get("fused_dw") != len(SSD_DW) * lc.get("nms_fixed", -1) or \
+                not lc.get("nms_fixed") or \
+                not all(ssd_answer_ok(b, classes) for _, b in answers):
+            bad["int8_64"] = row["int8_64"]
+        again, body = admin.request("POST", "/predict?model=ssd_mobilenet", jpegs[0])
+        row["bf16_after"] = again
+        if again != 200 or not ssd_answer_ok(body, classes):
+            bad["bf16_after"] = (again, body)
+    finally:
+        for e in engines:
+            e.close()
+        admin.close()
+        srv.close()
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    if bad:
+        raise AssertionError(f"ssd: {bad}")
+    return row
+
+
 def main(argv: list[str]) -> int:
     sweeps = ("--sweep-fused-dw", "--sweep-preprocess", "--sweep-overload")
     if not (argv == [] or (len(argv) == 1 and argv[0] in sweeps)
-            or argv == ["--phase", "resnet50"]):
-        print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)} | --phase resnet50], "
+            or argv in (["--phase", "resnet50"], ["--phase", "ssd"])):
+        print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)} | --phase resnet50 | "
+              "--phase ssd], "
               f"not {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3924,6 +4518,9 @@ def main(argv: list[str]) -> int:
     if argv == ["--phase", "resnet50"]:  # the phase alone, after the build
         phase_resnet50(make_jpegs(24, SEED))
         return 0
+    if argv == ["--phase", "ssd"]:
+        phase_ssd(make_jpegs(24, SEED))
+        return 0
     kern_err = phase_kernel(gen)
     dw = phase_fused_dw_kernel(gen, dw_layer_shapes())
     jpegs = make_jpegs(24, SEED)
@@ -3951,19 +4548,22 @@ def main(argv: list[str]) -> int:
     observability = phase_observability(jpegs, graphs)
     placement = phase_placement(jpegs)
     resnet = phase_resnet50(jpegs)
+    ssd = phase_ssd(jpegs)
     by_path = {p["path"]: p["kernel_launches"] for p in (inception, mobilenet, *ragged)}
     by_path["registry"] = registry["kernel_launches"]
     by_path["overload"] = overload["kernel_launches"]
     by_path["observability"] = observability["kernel_launches"]
     by_path["placement"] = placement["kernel_launches"]
     by_path["resnet50"] = resnet["kernel_launches"]
+    by_path["ssd"] = ssd["kernel_launches"]
+    by_kernel = {name: {m: n.get(name, 0) for m, n in by_path.items()} for name in KERNELS}
     emit({"kernels": [{
         "name": "preprocess_i420",
         "route": "cuda",
         "source": "tensorflow_web_deploy_tpu_torch/csrc/preprocess_i420.cu",
         "replaces": "tensorflow_web_deploy_tpu/ops/pallas_preprocess.py:109",
-        "launches": sum(n["preprocess_i420"] for n in by_path.values()),
-        "launches_by_path": {m: n["preprocess_i420"] for m, n in by_path.items()},
+        "launches": sum(by_kernel["preprocess_i420"].values()),
+        "launches_by_path": by_kernel["preprocess_i420"],
         # float32 through both entries at every cell, and the main paths'
         # stages; their bf16 outputs are in the kernel and preprocess_stage
         # lines
@@ -3984,8 +4584,8 @@ def main(argv: list[str]) -> int:
         "route": "cuda",
         "source": "tensorflow_web_deploy_tpu_torch/csrc/fused_dw.cu",
         "replaces": "tensorflow_web_deploy_tpu/ops/pallas_depthwise.py:57",
-        "launches": sum(n["fused_dw"] for n in by_path.values()),
-        "launches_by_path": {m: n["fused_dw"] for m, n in by_path.items()},
+        "launches": sum(by_kernel["fused_dw"].values()),
+        "launches_by_path": by_kernel["fused_dw"],
         "max_abs_err": dw["max_abs_err"],
         "ms": dw["ms"],
         "plain_ms": dw["plain_ms"],
@@ -4001,8 +4601,8 @@ def main(argv: list[str]) -> int:
         "source": "tensorflow_web_deploy_tpu_torch/csrc/unpack_ragged.cu",
         "replaces": "tensorflow_web_deploy_tpu/ops/image.py:107 (XLA work, a masked gather "
                     "with static shapes; not a Pallas kernel)",
-        "launches": sum(n["unpack_ragged"] for n in by_path.values()),
-        "launches_by_path": {m: n["unpack_ragged"] for m, n in by_path.items()},
+        "launches": sum(by_kernel["unpack_ragged"].values()),
+        "launches_by_path": by_kernel["unpack_ragged"],
         # bit-identical to its plain version and to pad_to_canvas
         "max_abs_err": 0.0,
         # batch of 8 main-path images, 512 canvas, full
@@ -4013,6 +4613,24 @@ def main(argv: list[str]) -> int:
         # no one PyTorch call rebuilds padded canvases from a ragged arena
         "library_ms": None,
         "host_us": unpack["host_us"],
+    }, {
+        "name": "nms_fixed",
+        "route": "cuda",
+        "source": "tensorflow_web_deploy_tpu_torch/csrc/nms_fixed.cu",
+        "replaces": "tensorflow_web_deploy_tpu/ops/detection.py:71 (XLA work, a fixpoint "
+                    "under lax.while_loop; not a Pallas kernel)",
+        "launches": sum(by_kernel["nms_fixed"].values()),
+        "launches_by_path": by_kernel["nms_fixed"],
+        # the keep mask, bit for bit against the plain fixpoint
+        "max_abs_err": 0.0,
+        # a served batch of 32: 32 images × 90 classes × 100 candidates
+        "ms": ssd["nms"]["ms"],
+        "plain_ms": ssd["nms"]["plain_ms"],
+        "bound_ms": ssd["nms"]["bound_ms"],
+        "bound_by": ssd["nms"]["bound_by"],
+        # no one PyTorch call computes a batched greedy NMS
+        "library_ms": None,
+        "host_us": ssd["nms"]["host_us"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,8 @@
 """Model zoo (counterpart of the JAX package's ``models/__init__.py``).
 
 ``get(name)`` returns a :class:`ModelSpec`; ``spec.build(num_classes=...,
-width=...)`` an ``nn.Module``. Inception-v3, MobileNetV2 and ResNet-50 are
-ported; SSD-MobileNet is listed so that configs resolve, and building it
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+width=...)`` an ``nn.Module``. The whole zoo is ported: Inception-v3,
+MobileNetV2 and ResNet-50 classify, SSD-MobileNet detects.
 """
 
 from __future__ import annotations
@@ -14,13 +13,7 @@ from collections.abc import Callable
 from .inception_v3 import InceptionV3
 from .mobilenet_v2 import MobileNetV2
 from .resnet50 import ResNet50
-
-
-def _not_ported(name: str, item: str) -> Callable:
-    def build(**_):
-        raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md Queue 1, {item}")
-
-    return build
+from .ssd_mobilenet import SSDMobileNet
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +32,8 @@ _ZOO: dict[str, ModelSpec] = {
         ModelSpec("inception_v3", InceptionV3, 299, "inception"),
         ModelSpec("mobilenet_v2", MobileNetV2, 224, "inception"),
         ModelSpec("resnet50", ResNet50, 224, "caffe"),
-        ModelSpec("ssd_mobilenet", _not_ported("ssd_mobilenet", "the SSD + detection item"),
-                  300, "inception", task="detect", num_classes=90),
+        ModelSpec("ssd_mobilenet", SSDMobileNet, 300, "inception", task="detect",
+                  num_classes=90),
     ]
 }
 

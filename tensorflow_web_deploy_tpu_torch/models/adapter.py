@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.quant import QSCALE_SUFFIX, Int8Linear, quantize_params
+from ..ops.quant import QSCALE_SUFFIX, Int8Conv2d, Int8Linear, quantize_params
 from . import get
 from .common import ConvBNCell, fold_bn, set_fused_dw
 
@@ -103,6 +103,8 @@ class Classifier(nn.Module):
     """Serving wrapper: NHWC float images → softmax probabilities, as the
     reference's ``fn`` (softmax runs in the model's dtype)."""
 
+    output_names = ["probs"]
+
     def __init__(self, backbone: nn.Module):
         super().__init__()
         self.backbone = backbone
@@ -113,6 +115,32 @@ class Classifier(nn.Module):
         return torch.softmax(logits, dim=-1)
 
 
+class Detector(nn.Module):
+    """Serving wrapper of a detector: NHWC float images → (raw_boxes [B, A,
+    4], raw_scores [B, A, C+1], anchors [A, 4]), as the reference's ``fn``.
+    The anchors are a float32 buffer computed at the configured input
+    size; a cast of the module moves them and keeps them float32 (the
+    reference closes over them as a float32 constant, so box coordinates
+    keep full precision whatever the serving dtype)."""
+
+    output_names = ["raw_boxes", "raw_scores", "anchors"]
+
+    def __init__(self, backbone: nn.Module, anchors: np.ndarray):
+        super().__init__()
+        self.backbone = backbone
+        self.register_buffer("anchors", torch.from_numpy(np.asarray(anchors, np.float32)))
+
+    def _apply(self, fn, recurse=True):
+        anchors = self.anchors
+        super()._apply(fn, recurse)
+        self.anchors = anchors.to(self.anchors.device)
+        return self
+
+    def forward(self, x_nhwc):
+        raw_boxes, raw_scores = self.backbone(x_nhwc.permute(0, 3, 1, 2))
+        return raw_boxes, raw_scores, self.anchors
+
+
 @torch.no_grad()
 def quantize_int8(module: nn.Module, params_flat: dict[str, np.ndarray]) -> nn.Module:
     """The int8 tier's serving form of an unfolded module holding
@@ -121,7 +149,9 @@ def quantize_int8(module: nn.Module, params_flat: dict[str, np.ndarray]) -> nn.M
     quantizes the same unfolded kernels) with its per-output-channel scale;
     each BN is folded into its conv's dequant scale (scale·s) and bias (t)
     rather than into the kernel. Weights stay int8 and are dequantized on
-    every call (``ops/quant.py``)."""
+    every call (``ops/quant.py``). A plain conv with a bias outside a cell
+    (the detector's heads) becomes an :class:`Int8Conv2d` with its bias
+    as is."""
     qp = quantize_params(params_flat)
 
     def quant(torch_key):
@@ -129,20 +159,29 @@ def quantize_int8(module: nn.Module, params_flat: dict[str, np.ndarray]) -> nn.M
         return _from_flax_layout(qp[key]), torch.from_numpy(qp[key + QSCALE_SUFFIX])
 
     for name, m in list(module.named_modules()):
+        parent, _, attr = name.rpartition(".")
         if isinstance(m, ConvBNCell) and not m.folded:
             m.fold(quant(f"{name}.{m.conv_attr}.weight"))
         elif isinstance(m, nn.Linear):
-            parent, _, attr = name.rpartition(".")
             setattr(module.get_submodule(parent), attr,
                     Int8Linear(*quant(f"{name}.weight"), m.bias.detach().clone()))
+        elif isinstance(m, nn.Conv2d) and not isinstance(module.get_submodule(parent),
+                                                         ConvBNCell):
+            setattr(module.get_submodule(parent), attr,
+                    Int8Conv2d(m, *quant(f"{name}.weight"), m.bias.detach().clone()))
     return module
 
 
 def native_converted(name: str, num_classes: int | None = None, width: float = 1.0,
                      seed: int = 0, params_flat: dict[str, np.ndarray] | None = None,
-                     fused_dw: bool = False, int8: bool = False) -> Classifier:
-    """A zoo classifier ready to serve: seeded init (or ``params_flat`` in
-    the JAX layout), BN folded into the convs, eval mode, no gradients.
+                     fused_dw: bool = False, int8: bool = False,
+                     input_size: int | None = None) -> Classifier | Detector:
+    """A zoo model ready to serve: seeded init (or ``params_flat`` in the
+    JAX layout), BN folded into the convs, eval mode, no gradients. A
+    classifier becomes a :class:`Classifier`, the detector a
+    :class:`Detector` whose anchors are those of ``input_size`` (the
+    spec's unless given: it must be the size the serving preprocess
+    resizes to).
 
     ``fused_dw=True`` serves the depthwise cells fused (one op each, the
     kernel on the card); the parameters are the same, and a model without
@@ -150,10 +189,7 @@ def native_converted(name: str, num_classes: int | None = None, width: float = 1
     (:func:`quantize_int8`). Stays on the CPU in float32 (int8 kernels
     int8); the caller moves and casts it."""
     spec = get(name)
-    # an unported model raises here, naming the ROADMAP item that ports it
     module, flat = init_variables(spec, num_classes=num_classes, width=width, seed=seed)
-    if spec.task != "classify":
-        raise NotImplementedError(f"{name}: only classifiers are ported")
     if params_flat is not None:
         module.load_state_dict(from_jax_params(params_flat))
         flat = params_flat
@@ -162,6 +198,9 @@ def native_converted(name: str, num_classes: int | None = None, width: float = 1
     else:
         fold_bn(module)
     set_fused_dw(module, fused_dw)
-    model = Classifier(module).eval()
+    if spec.task == "detect":
+        model = Detector(module, module.anchors_for(input_size or spec.input_size)).eval()
+    else:
+        model = Classifier(module).eval()
     model.requires_grad_(False)
     return model

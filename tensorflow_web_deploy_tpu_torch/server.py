@@ -3,6 +3,7 @@
     python -m tensorflow_web_deploy_tpu_torch.server --model native:inception_v3 \\
         [--model native:mobilenet_v2,dtype=int8,as=mobilenet_v2_int8 ...] [--default-model NAME]
         [--model native:mobilenet_v2,replicas=N | ,shard=batch] [--model native:resnet50]
+        [--model native:ssd_mobilenet]    # detection: {"detections": [...], "num_detections": n}
         [--no-ragged] [--resize matmul|gather] [--wire-format yuv420 --resize kernel]
         [--dtype bf16|f32|int8] [--fused-dw auto|on|off] [--device cuda|cpu]
         [--pipeline-depth 4] [--max-queue 0] [--no-adaptive-delay] [--lease-timeout-s 10]
@@ -127,7 +128,8 @@ def start_server(cfg: ServerConfig, device=None, seed: int = 0, mesh=None) -> Se
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", action="append", default=None,
-                   help="native:<zoo name> or a .json ModelConfig, with optional "
+                   help="native:<zoo name> (inception_v3, mobilenet_v2, resnet50, or the "
+                        "detector ssd_mobilenet) or a .json ModelConfig, with optional "
                         ",replicas=N|,shard=batch (placement over the mesh), ,dtype=… and "
                         ",as=<serve name> suffixes; repeat to serve several models "
                         "(default: native:inception_v3)")

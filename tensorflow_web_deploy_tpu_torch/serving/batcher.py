@@ -119,8 +119,9 @@ class LeaseExpired(RuntimeError):
 class SlotLease:
     """One reserved slot of an assembling batch. ``row`` is a writable view
     of the slot's pinned memory: decode into it, then :meth:`commit`.
-    Exactly one of commit and release must be called; the slot's (scores,
-    indices) row arrives on ``future``."""
+    Exactly one of commit and release must be called; the slot's row of
+    the engine's output arrays (``fetch_outputs``) arrives on ``future``
+    as a tuple."""
 
     __slots__ = ("_batcher", "builder", "index", "future", "state", "leased_at", "row",
                  "slab_held", "deadline", "tenant", "span", "hw", "committed_at")
@@ -737,7 +738,7 @@ class Batcher:
                 if delay > 0:
                     time.sleep(delay)
             try:
-                scores, idx = self.engine.fetch_outputs(handle)
+                outs = self.engine.fetch_outputs(handle)
             except Exception as e:
                 log.exception("fetch of a batch of %d failed", len(ready))
                 self._fail(ready, e)
@@ -752,7 +753,9 @@ class Batcher:
                     # before the future resolves: then the worker owns the span
                     lease.span.add_max("device_execute", now - rec["t_launched"])
                 try:
-                    lease.future.set_result((scores[lease.index], idx[lease.index]))
+                    # the row's arrays, whatever the task: (scores, indices)
+                    # for classify, (boxes, scores, classes, num) for detect
+                    lease.future.set_result(tuple(o[lease.index] for o in outs))
                 except Exception:
                     pass  # cancelled by a caller that gave up
                 self.rolling.record(latency_s=now - lease.leased_at,

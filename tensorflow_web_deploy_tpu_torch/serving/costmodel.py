@@ -43,10 +43,6 @@ CUDA_PEAKS = {
     "NVIDIA H100 PCIe": {"bfloat16": 756.5, "float32": 51.2, "hbm_gbps": 2000.0},
 }
 
-# SSD's anchor aspect ratios: the JAX zoo's table, for a model the port
-# lists but does not build yet.
-_SSD_ASPECT_RATIOS = (1.0, 2.0, 0.5)
-
 
 def compute_dtype(dtype: str) -> str:
     """Serving dtype → the dtype the arithmetic runs in: int8 dequantizes
@@ -276,9 +272,10 @@ def _walk_inception_v3(t: _Tape, width: float, num_classes: int):
 
 def _walk_ssd_mobilenet(t: _Tape, width: float, num_classes: int):
     from ..models.common import scale_ch
+    from ..models.ssd_mobilenet import ASPECT_RATIOS
 
     w = lambda c: scale_ch(c, width)  # noqa: E731
-    n_anchor = len(_SSD_ASPECT_RATIOS)
+    n_anchor = len(ASPECT_RATIOS)
     t.conv(w(16), (3, 3), (2, 2))
     for c, s in [(24, 2), (32, 2), (64, 2), (64, 1)]:
         _inverted_residual(t, w(c), s)

@@ -6,9 +6,13 @@ a 4-byte big-endian (h, w) trailer — in a pinned :class:`StagingSlab`,
 copied to the device with one non-blocking transfer. On the device the
 serve function runs preprocess (into the serving dtype) → forward →
 softmax → top-k, and only k (score, index) pairs per image come back, in
-one packed float32 array. On the yuv420 wire with the preprocess kernel,
-that stage is one launch: the kernel reads each row's trailer itself and
-stores the serving dtype. Batches are padded to a batch bucket; padding
+one packed float32 array. A detector (``task="detect"``) runs the
+reference's detect branch instead: box decode against the anchors,
+sigmoid scores and static-shape multi-class NMS (``ops/detection.py``, the
+NMS on the hand-written kernel ``csrc/nms_fixed.cu``), and each image's
+row packs D boxes, D scores, D classes and the count. On the yuv420 wire
+with the preprocess kernel, that stage is one launch: the kernel reads
+each row's trailer itself and stores the serving dtype. Batches are padded to a batch bucket; padding
 rows carry hw = 1×1 and are sliced off on the host.
 
 On the ragged wire (rgb only) a batch is one pinned :class:`RaggedSlab`
@@ -114,6 +118,7 @@ import torch
 from .. import native
 from ..models.adapter import native_converted
 from ..ops import _build, launches, quant
+from ..ops.detection import decode_boxes, multiclass_nms, nms_fixed
 from ..ops.fused_dw import fused_dw
 from ..ops.image import (
     check_ragged_rows,
@@ -404,7 +409,7 @@ class RaggedSlab(_Leased):
 
 @dataclass
 class BatchHandle:
-    out: torch.Tensor  # float32 [bucket, 2k] on the host
+    out: torch.Tensor  # float32 [bucket, row width] on the host
     done: tuple  # CUDA: one event per device of the replica, after its D2H
     n: int
     # CUDA: per device of the replica, the timing events of the copy (copy
@@ -520,10 +525,11 @@ class InferenceEngine:
 
     # Gate tolerances per serving dtype, the reference's _PARITY_TOL:
     # ``prob`` bounds the max probability delta and is the top-k agreement
-    # margin; ``topk`` is the least agreeing fraction.
+    # margin; ``topk`` is the least agreeing fraction. A detector is gated
+    # on its sigmoid scores (``score``) and raw box codes (``box``), L∞.
     PARITY_TOL = {
-        "int8": {"prob": 0.15, "topk": 0.90},
-        "bfloat16": {"prob": 0.08, "topk": 0.90},
+        "int8": {"prob": 0.15, "topk": 0.90, "score": 0.06, "box": 0.25},
+        "bfloat16": {"prob": 0.08, "topk": 0.90, "score": 0.05, "box": 0.15},
     }
     # the batcher passes request spans to the dispatch calls
     supports_span_tracing = True
@@ -547,6 +553,7 @@ class InferenceEngine:
             log.warning("ragged packing requires wire_format='rgb' (got %r); serving the "
                         "classic host-padded wire", cfg.wire_format)
         self.quantized = self.model_cfg.dtype == "int8"
+        self.task = self.model_cfg.task
         if self.model_cfg.dtype in ("float32", "int8"):
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -565,7 +572,8 @@ class InferenceEngine:
         self.aot_cache = aotcache.AotCache.from_config(cfg)
         self.kernels = [name for name, used in (("unpack_ragged", self.ragged),
                                                 ("preprocess_i420", self._wire_kernel),
-                                                ("fused_dw", self.fused_dw)) if used]
+                                                ("fused_dw", self.fused_dw),
+                                                ("nms_fixed", self.task == "detect")) if used]
         t0 = time.perf_counter()
         if self._pinned:
             for name in self.kernels:
@@ -603,8 +611,7 @@ class InferenceEngine:
         try:
             self._replicas = [_Replica(i, m) for i, m in enumerate(self.placement.meshes)]
             self._place_weights()
-            self.num_classes = self.model.backbone.logits.out_features
-            self.topk = min(self.model_cfg.topk, self.num_classes)
+            self._size_outputs()
             if self.quantized:
                 self.parity = self.parity_check()
                 if not self.parity["pass"]:
@@ -651,15 +658,37 @@ class InferenceEngine:
             params_flat=self._params_flat,
             fused_dw=fused_dw,
             int8=int8,
+            # the serving preprocess resizes to input_size, so the
+            # detector's anchor grid is derived from the same value
+            input_size=self.model_cfg.input_size[0],
         )
+
+    def _size_outputs(self) -> None:
+        """The task's class count, top-k and packed row width. Classify: k
+        scores then k class indices. Detect: the reference's static NMS
+        sizes (100 candidates a class, 100 detections, clamped to what the
+        anchors and classes supply), a row of D boxes (4 each), D scores,
+        D classes and the count."""
+        backbone = self.model.backbone
+        if self.task == "detect":
+            self.num_classes = backbone.num_classes
+            self.topk = self.model_cfg.topk
+            k = min(100, self.model.anchors.shape[0])
+            self.max_detections = min(100, self.num_classes * k)
+            self.row_width = 6 * self.max_detections + 1
+        else:
+            self.num_classes = backbone.logits.out_features
+            self.topk = min(self.model_cfg.topk, self.num_classes)
+            self.row_width = 2 * self.topk
 
     def parity_check(self, batch: int = 4, seed: int = 0) -> dict:
         """Golden numerical-parity gate: this engine's model, as it serves
         (int8 dequantized on the fly, fused depthwise, compute dtype),
         against the unfused float32 model on the same parameters, on a
-        seeded probe batch of NHWC images in [-1, 1]. Gates margin-aware
-        top-k agreement and the max probability delta. Runs at build for
-        int8; callable on any engine."""
+        seeded probe batch of NHWC images in [-1, 1]. Classify gates
+        margin-aware top-k agreement and the max probability delta; detect
+        gates the L∞ deltas of the sigmoid scores and of the raw box codes.
+        Runs at build for int8; callable on any engine."""
         tol = self.PARITY_TOL.get(self.model_cfg.dtype, self.PARITY_TOL["bfloat16"])
         h, w = self.model_cfg.input_size
         x = np.random.RandomState(seed).uniform(-1.0, 1.0, (batch, h, w, 3)).astype(np.float32)
@@ -667,14 +696,27 @@ class InferenceEngine:
         ref = self._build_model(fused_dw=False, int8=False).to(
             self.device, memory_format=torch.channels_last)
         with torch.inference_mode():
-            got = self.model(x.to(self.dtype)).float().cpu().numpy()
-            want = ref(x).cpu().numpy()
+            got = self.model(x.to(self.dtype))
+            want = ref(x)
+        if self.task == "detect":
+            (gb, gs, _), (wb, ws, _) = ([o.float().cpu().numpy() for o in outs]
+                                        for outs in (got, want))
+            sig = lambda v: 1.0 / (1.0 + np.exp(-v))  # noqa: E731
+            score_d = float(np.max(np.abs(sig(gs) - sig(ws))))
+            box_d = float(np.max(np.abs(gb - wb)))
+            return {
+                "dtype": self.model_cfg.dtype, "fused_dw": self.fused_dw, "task": self.task,
+                "probe_batch": batch, "max_score_delta": score_d, "max_box_delta": box_d,
+                "tol_score": tol["score"], "tol_box": tol["box"],
+                "pass": score_d <= tol["score"] and box_d <= tol["box"],
+            }
+        got, want = got.float().cpu().numpy(), want.cpu().numpy()
         k = self.topk
         prob_d = float(np.max(np.abs(got - want)))
         agree = quant.topk_agreement(want, got, k, tol["prob"])
         return {
-            "dtype": self.model_cfg.dtype, "fused_dw": self.fused_dw, "probe_batch": batch,
-            "max_prob_delta": prob_d, "topk_agreement": agree, "topk": k,
+            "dtype": self.model_cfg.dtype, "fused_dw": self.fused_dw, "task": self.task,
+            "probe_batch": batch, "max_prob_delta": prob_d, "topk_agreement": agree, "topk": k,
             "tol_prob": tol["prob"], "tol_topk": tol["topk"],
             "pass": prob_d <= tol["prob"] and agree >= tol["topk"],
         }
@@ -732,15 +774,28 @@ class InferenceEngine:
         return self._preprocess(canvases, decode_trailer(buf))
 
     def _head(self, model, x: torch.Tensor) -> torch.Tensor:
-        """Forward → softmax → top-k: [B, out_h, out_w, 3] → float32 [B, 2k]
-        holding k scores then k class indices per image."""
+        """The forward and the task's postprocess: [B, out_h, out_w, 3] →
+        float32 [B, row width]. Classify: softmax → top-k, k scores then k
+        class indices per image. Detect: the reference's branch — raw
+        outputs to float32, boxes decoded against the anchors, sigmoid
+        scores without the background class, static-shape NMS; D boxes,
+        D scores, D classes and the count per image (class ids and counts
+        are exact in float32). Nothing here reads the device on the host,
+        so a CUDA graph captures it."""
+        if self.task == "detect":
+            raw_boxes, raw_scores, anchors = model(x)
+            boxes = decode_boxes(raw_boxes.float(), anchors.float())
+            scores = torch.sigmoid(raw_scores.float())[..., 1:]
+            b, s, c, n = multiclass_nms(boxes, scores, max_detections=self.max_detections)
+            return torch.cat([b.flatten(1), s, c.float(), n.float()[:, None]], dim=1)
         # softmax runs in the serving dtype; top-k reads it in float32
         probs = model(x).float()
         scores, idx = torch.topk(probs, self.topk, dim=-1)
         return torch.cat([scores, idx.float()], dim=1)
 
     def _serve_packed(self, model, buf: torch.Tensor) -> torch.Tensor:
-        """Device side of one batch: packed uint8 [B, bytes + 4] → float32 [B, 2k]."""
+        """Device side of one batch: packed uint8 [B, bytes + 4] → float32
+        [B, row width]."""
         return self._head(model, self.preprocess_packed(buf))
 
     def _serve_ragged(self, model, arena: torch.Tensor, meta: torch.Tensor,
@@ -995,7 +1050,7 @@ class InferenceEngine:
                 events.append(ev)
             slab.copied = tuple(ev[1] for ev in events)
             t_put = time.monotonic()
-            host_out = torch.empty((bucket, 2 * self.topk), dtype=torch.float32,
+            host_out = torch.empty((bucket, self.row_width), dtype=torch.float32,
                                    pin_memory=cuda)
             outs, done = [], []
             # One enqueue at a time on the replica: its launch threads share
@@ -1133,11 +1188,13 @@ class InferenceEngine:
         return [{"key": key, "replica": r, "device": dev, "h2d": (at(a), at(b)),
                  "compute": (at(c), at(d))} for key, r, dev, (a, b, c, d) in rows]
 
-    def fetch_outputs(self, handle: BatchHandle) -> tuple[np.ndarray, np.ndarray]:
-        """Wait for a dispatched batch; returns (scores float32 [n, k],
-        indices int32 [n, k]) for the real rows. Its device seconds go to
-        its replica's economics cell; the replica counts it out of flight
-        either way."""
+    def fetch_outputs(self, handle: BatchHandle) -> tuple[np.ndarray, ...]:
+        """Wait for a dispatched batch; returns the task's arrays for the
+        real rows: classify (scores float32 [n, k], indices int32 [n, k]),
+        detect the reference's (boxes float32 [n, D, 4], scores float32
+        [n, D], classes int32 [n, D], num int32 [n]). Its device seconds go
+        to its replica's economics cell; the replica counts it out of
+        flight either way."""
         device_s = None
         try:
             with _GATE.shared():
@@ -1150,6 +1207,12 @@ class InferenceEngine:
         finally:
             self._account(handle, device_s)
         packed = handle.out.numpy()[: handle.n]
+        if self.task == "detect":
+            d = self.max_detections
+            return (packed[:, :4 * d].reshape(-1, d, 4).copy(),
+                    packed[:, 4 * d:5 * d].copy(),
+                    packed[:, 5 * d:6 * d].astype(np.int32),
+                    packed[:, 6 * d].astype(np.int32))
         k = self.topk
         return packed[:, :k].copy(), packed[:, k:].astype(np.int32)
 
@@ -1193,7 +1256,7 @@ class InferenceEngine:
             } for rep in self._replicas]
 
     def run_batch(self, canvases: np.ndarray, hws: np.ndarray,
-                  replica: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+                  replica: int | None = None) -> tuple[np.ndarray, ...]:
         """Dispatch + fetch (tests, warmup); batches above the top bucket go
         in chunks, all dispatched before the first fetch (each routed on
         its own unless ``replica`` pins them)."""
@@ -1206,7 +1269,7 @@ class InferenceEngine:
         return tuple(np.concatenate(p) for p in zip(*parts))
 
     def run_ragged(self, images: list[np.ndarray], hws: np.ndarray, s: int,
-                   replica: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+                   replica: int | None = None) -> tuple[np.ndarray, ...]:
         """Tight images (uint8 [h, w, 3] each, valid sizes ``hws``) of canvas
         side ``s`` through the ragged wire (tests, warmup): one memcpy each
         into a slab, batches above the top bucket in chunks, all dispatched
@@ -1228,7 +1291,7 @@ class InferenceEngine:
         return tuple(np.concatenate(p) for p in zip(*parts))
 
     def _run_blank(self, b: int, s: int,
-                   replica: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+                   replica: int | None = None) -> tuple[np.ndarray, ...]:
         """``b`` black full-canvas images through the wire this engine serves."""
         hws = np.full((b, 2), s, np.int32)
         if self.ragged:
@@ -1300,18 +1363,22 @@ class InferenceEngine:
     def _static_bytes(self) -> int:
         """Bytes of the static inputs and the graphs' static outputs."""
         return sum(t.nbytes for sh in self._shards() for t in sh.static.values()) + sum(
-            e.out.nbytes for sh in self._shards() for e in sh.exes.values()
+            e.out.nbytes for sh in self._shards() for e in list(sh.exes.values())
             if e.out is not None)
 
     def healthcheck(self) -> bool:
         """One-image device round trip."""
-        scores, _ = self._run_blank(1, self.cfg.canvas_buckets[0])
-        return bool(np.all(np.isfinite(scores)))
+        outs = self._run_blank(1, self.cfg.canvas_buckets[0])
+        return all(bool(np.all(np.isfinite(o))) for o in outs)
 
     def stats(self) -> dict:
         shards = self._shards()
-        exes = [e for sh in shards for e in sh.exes.values()]
         with self._lock:
+            # Counted under the lock and not held past it: close() clears
+            # the executables under the same lock, and a graph that a
+            # concurrent reader (``GET /models`` on a draining version)
+            # still held would keep close() from giving its pool back.
+            exes = [e for sh in shards for e in list(sh.exes.values())]
             batches, images, h2d, decodes = (self.batches, self.images, self.h2d_bytes,
                                              dict(self.decodes))
             busy_s = sum(rep.busy_s for rep in self._replicas)
@@ -1323,6 +1390,7 @@ class InferenceEngine:
                       "eager_batches": self.eager_batches,
                       "capture_s": sum(e.capture_s for e in exes),
                       "pool_bytes": self.pool_bytes, "static_bytes": self._static_bytes()}
+            del exes
         # the process's device memory, every engine in it: what a retired
         # version gave back shows here
         graphs["memory_allocated"] = (torch.cuda.memory_allocated(self.device) if self._pinned
@@ -1331,6 +1399,8 @@ class InferenceEngine:
                                      else None)
         return {
             "model": self.model_cfg.name,
+            "task": self.task,
+            "outputs": list(self.model.output_names) if self.model is not None else None,
             "device": str(self.device),
             "dtype": self.model_cfg.dtype,
             "fused_dw": self.fused_dw,
@@ -1349,7 +1419,8 @@ class InferenceEngine:
             "busy_s": round(busy_s, 6),
             "kernel_launches": {"preprocess_i420": preprocess_i420.launches,
                                 "fused_dw": fused_dw.launches,
-                                "unpack_ragged": unpack_ragged.launches},
+                                "unpack_ragged": unpack_ragged.launches,
+                                "nms_fixed": nms_fixed.launches},
             "graphs": graphs,
             "aot_cache": {**aotcache.stats(self.aot_cache), "libraries": self.kernels},
             "warmup_s": {**self.warmup_s, "execution": list(self.warmup_s["execution"])},

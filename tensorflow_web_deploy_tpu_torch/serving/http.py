@@ -132,6 +132,7 @@ from ..utils.tracing import Span, accept_trace_id, chrome_trace, effective_windo
 from . import aotcache, costmodel
 from .batcher import BacklogFull, LeaseExpired, ShuttingDown
 from .engine import quiesced
+from .jobs import format_result_row
 from .overload import (
     DEFAULT_TENANT,
     SHED_BACKLOG,
@@ -1079,10 +1080,10 @@ class App:
                     n_hit += 1
                     payloads[i], etags[i] = slot[1], slot[2]
                 elif slot[0] == "own":
-                    _, lease, flight = slot
+                    _, lease, flight, orig = slot
                     row = lease.future.result(timeout=max(0.0, deadline - time.monotonic()))
                     t_p = time.monotonic()
-                    payloads[i] = self._row(mv, row, topk)
+                    payloads[i] = format_result_row(row, orig, topk, mv)
                     post_s += time.monotonic() - t_p
                     if flight is not None:
                         etags[i] = self.cache.complete(flight, payloads[i])
@@ -1173,21 +1174,11 @@ class App:
         for slot in slots:
             if slot[0] != "own":
                 continue
-            _, lease, flight = slot
+            _, lease, flight, _ = slot
             lease.future.cancel()
             lease.release()
             if flight is not None:
                 self.cache.abort(flight, exc)
-
-    @staticmethod
-    def _row(mv, row, topk: int) -> dict:
-        scores, idx = row
-        labels = mv.labels
-        return {"predictions": [
-            {"label": labels[i] if i < len(labels) else f"class_{i}", "index": int(i),
-             "score": float(s)}
-            for s, i in zip(scores[:topk], idx[:topk])
-        ]}
 
     def _stage_leases(self, mv, named: list[tuple[str, bytes]], topk: int, cache, level: int,
                       tenant: str, slo_class: str, slo_deadline: float | None, span: Span):
@@ -1225,7 +1216,9 @@ class App:
         the digest of what the device would read is then looked up: a hit
         (``("done", payload, etag)``) or a wait on another request's flight
         (``("wait", flight)``) releases the slot as a hole, a miss commits
-        it (``("own", lease, flight)``; ``flight`` None without a cache)
+        it (``("own", lease, flight, orig)``; ``flight`` None without a
+        cache; ``orig`` the upload's original (h, w), which a detector's
+        boxes are scaled by)
         unless the ladder's last rung sheds it. Anything else, or a
         stream the C side rejects, is decoded by PIL and looked up before
         any slot is leased. Raises ValueError if the bytes are no decodable
@@ -1240,7 +1233,7 @@ class App:
             plan = native.plan_decode_packed(data, buckets)
             decode_s = time.monotonic() - t_d
             if plan is not None:
-                s, need, _, _ = plan
+                s, need, _, orig = plan
                 lease = batcher.lease_ragged(need, s, slo_deadline, tenant, span)
                 t_d = time.monotonic()
                 hw = native.decode_packed_into(data, lease.row, s)
@@ -1248,7 +1241,7 @@ class App:
             plan = native.plan_decode(data, buckets, wire)
             decode_s = time.monotonic() - t_d
             if plan is not None:
-                s, shape, _ = plan
+                s, shape, orig = plan
                 lease = batcher.lease(shape, slo_deadline, tenant, span)
                 t_d = time.monotonic()
                 hw = native.decode_into_row(data, lease.row, s, wire, trailer=True)
@@ -1264,15 +1257,17 @@ class App:
                           else canvas_digest(lease.row[:-TRAILER_BYTES], hw)
                           ) if cache is not None else None
                 self._settle(mv, digest, topk, cache, level, slots, span,
-                             time.monotonic() - t_c, lease, hw)
+                             time.monotonic() - t_c, orig, lease, hw)
                 return
             lease.release()  # the header parsed, the stream did not: PIL tries
         t_d = time.monotonic()
         try:  # PIL: UnidentifiedImageError is an OSError
             if engine.ragged:
-                canvas, hw, s = fit_to_bucket(decode_image(data), buckets)
+                image = decode_image(data)
+                canvas, hw, s = fit_to_bucket(image, buckets)
+                orig = tuple(image.shape[:2])
             else:
-                canvas, hw, _ = native.decode_pil(data, buckets, wire)
+                canvas, hw, orig = native.decode_pil(data, buckets, wire)
         except (OSError, ValueError) as e:
             span.add("image_decode", decode_s + time.monotonic() - t_d)
             raise ValueError(f"cannot decode image: {e}") from e
@@ -1294,14 +1289,16 @@ class App:
             return lease
 
         self._settle(mv, digest, topk, cache, level, slots, span, time.monotonic() - t_c,
-                     take=take)
+                     orig, take=take)
 
     def _settle(self, mv, digest: str | None, topk: int, cache, level: int, slots: list,
-                span: Span, digest_s: float, lease=None, hw=None, take=None) -> None:
+                span: Span, digest_s: float, orig: tuple[int, int], lease=None, hw=None,
+                take=None) -> None:
         """One decoded upload's lookup and slot. ``lease`` holds it decoded
         already, valid size ``hw`` (native); or ``take()`` leases a slot and
-        copies it in, on a miss only (PIL). The digest's ``digest_s`` and
-        the lookup are the span's ``cache_lookup``."""
+        copies it in, on a miss only (PIL). ``orig`` is the upload's
+        original (h, w). The digest's ``digest_s`` and the lookup are the
+        span's ``cache_lookup``."""
         flight = None
         try:
             if cache is not None:
@@ -1329,7 +1326,7 @@ class App:
             if lease is not None:
                 lease.release()
             raise
-        slots.append(("own", lease, flight))
+        slots.append(("own", lease, flight, orig))
 
 
 # ---------------------------------------------------------------- front end

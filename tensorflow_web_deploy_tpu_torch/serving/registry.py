@@ -137,6 +137,7 @@ class ModelVersion:
             "version": self.version,
             "state": self.state,
             "dtype": self.model_cfg.dtype,
+            "task": self.model_cfg.task,
             "age_s": round(time.monotonic() - self.created_at, 1),
             "inflight": self.inflight,
             # list() first: the loader appends transitions concurrently
@@ -554,10 +555,10 @@ class ModelRegistry:
 
     def quant_variant(self, name: str) -> ModelVersion | None:
         """A SERVING int8 variant of model ``name``: another serving entry
-        whose config quantizes the same network (same ``name`` and
-        ``input_size``; every model of the port classifies) at int8. None
-        when ``name`` serves int8 itself or nothing matches. Takes no
-        in-flight reference: the caller acquires the variant by name."""
+        whose config quantizes the same network (same ``name``, ``task``
+        and ``input_size``) at int8. None when ``name`` serves int8 itself
+        or nothing matches. Takes no in-flight reference: the caller
+        acquires the variant by name."""
         with self._cond:
             cur = self._serving.get(name)
             if cur is None or cur.model_cfg.dtype == "int8":
@@ -566,7 +567,7 @@ class ModelRegistry:
             for vname, mv in self._serving.items():
                 vc = mv.model_cfg
                 if (vname != name and vc.dtype == "int8" and vc.name == cfg.name
-                        and vc.input_size == cfg.input_size):
+                        and vc.task == cfg.task and vc.input_size == cfg.input_size):
                     return mv
             return None
 

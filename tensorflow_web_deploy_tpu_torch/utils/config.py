@@ -44,7 +44,13 @@ class ModelConfig:
     # the real architecture)
     zoo_width: float = 1.0
     zoo_classes: int | None = None
+    # "classify" (softmax top-k per image) or "detect" (decoded boxes
+    # through static-shape NMS: boxes, scores, classes, num)
+    task: str = "classify"
     labels_path: str | None = None
+    # the model's outputs by name (None: the zoo model's own; a detector
+    # gives raw_boxes, raw_scores, anchors)
+    output_names: list[str] | None = None
     input_size: tuple[int, int] = (299, 299)
     # normalization applied on the device: "inception" ([-1, 1]),
     # "zero_one" (/255), "caffe" (BGR, mean-subtracted), "raw"
@@ -82,6 +88,10 @@ class ModelConfig:
             raise ValueError(
                 f"model '{self.name}': fused_dw must be 'auto', 'on' or 'off', "
                 f"got {self.fused_dw!r}"
+            )
+        if self.task not in ("classify", "detect"):
+            raise ValueError(
+                f"model '{self.name}': task must be 'classify' or 'detect', got {self.task!r}"
             )
         self.input_size = tuple(self.input_size)
 
@@ -296,9 +306,12 @@ def model_config(name_or_path: str) -> ModelConfig:
             ) from None
         return ModelConfig(
             name=spec.name,
+            task=spec.task,
             input_size=(spec.input_size, spec.input_size),
             preprocess=spec.preprocess,
-            labels_path=str(_ARTIFACTS / "imagenet_labels.txt"),
+            labels_path=str(
+                _ARTIFACTS / ("coco_labels.txt" if spec.task == "detect" else "imagenet_labels.txt")
+            ),
         )
     p = Path(name_or_path)
     if p.suffix == ".json":

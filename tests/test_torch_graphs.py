@@ -162,8 +162,46 @@ def test_engine_stats_carry_the_cache_and_graph_blocks():
                                  "memory_allocated", "memory_reserved"}
     # the process's device memory: none on the CPU
     assert st["graphs"]["memory_allocated"] is st["graphs"]["memory_reserved"] is None
-    assert st["kernel_launches"].keys() == {"preprocess_i420", "fused_dw", "unpack_ragged"}
+    assert st["kernel_launches"].keys() == {"preprocess_i420", "fused_dw", "unpack_ragged",
+                                            "nms_fixed"}
     eng.close()
+
+
+def test_stats_holds_no_executable_past_its_lock(monkeypatch):
+    """A ``stats()`` that is still running when ``close()`` drops the
+    executables (``GET /models`` on a draining version) holds none of them
+    afterwards: on the card a graph it held would keep its pool from being
+    given back at close."""
+    import gc
+    import weakref
+
+    from tensorflow_web_deploy_tpu_torch.serving import engine as engine_mod
+
+    eng = _engine("ragged")
+    eng.warmup()
+    refs = [weakref.ref(e) for e in eng._replicas[0].shards[0].exes.values()]
+    inside, go_on = threading.Event(), threading.Event()
+    real_stats = engine_mod.aotcache.stats
+
+    def held_stats(cache):  # stats() is past its lock section here
+        inside.set()
+        assert go_on.wait(30)
+        return real_stats(cache)
+
+    monkeypatch.setattr(engine_mod.aotcache, "stats", held_stats)
+    out = {}
+    reader = threading.Thread(target=lambda: out.update(eng.stats()))
+    reader.start()
+    try:
+        assert inside.wait(30)
+        eng.close()
+        gc.collect()
+        alive = sum(r() is not None for r in refs)
+    finally:
+        go_on.set()
+        reader.join(30)
+    assert refs and alive == 0
+    assert out["graphs"]["executables"] == len(refs)
 
 
 # ------------------------------------------------------------------ the card

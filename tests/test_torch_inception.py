@@ -23,6 +23,7 @@ from tensorflow_web_deploy_tpu_torch.models.adapter import (
     to_jax_params,
 )
 from tensorflow_web_deploy_tpu_torch.models.common import BatchNorm, fold_bn
+from tensorflow_web_deploy_tpu_torch.utils.config import ModelConfig
 
 torch.set_num_threads(2)
 
@@ -111,5 +112,7 @@ def test_bn_fold_is_exact():
 
 
 def test_unported_models_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        native_converted("ssd_mobilenet")
+    """Every zoo model is ported; what the port still refuses is a frozen
+    graph (``source="pb"``), whose error names the converter's queue."""
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1"):
+        ModelConfig(name="inception_v3", source="pb")

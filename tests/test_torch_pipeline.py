@@ -138,7 +138,7 @@ def test_the_slice_end_to_end_matches_the_jax_engine():
     assert stats["decodes"] == {"native": 12, "pil": 0}
     assert batcher["host_copies"] == 12  # libjpeg straight into the pinned arenas
     assert stats["kernel_launches"] == {"preprocess_i420": 0, "fused_dw": 0,
-                                         "unpack_ragged": 0}  # CPU: plain
+                                         "unpack_ragged": 0, "nms_fixed": 0}  # CPU: plain
     # the JAX engine on the same seeded parameters, fed the same decoded bytes
     # (the two packages' decoders agree byte for byte, test_torch_native.py)
     jeng = JaxEngine(jcfg.ServerConfig(model=jcfg.ModelConfig(**MODEL), canvas_buckets=CANVASES,

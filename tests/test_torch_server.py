@@ -109,7 +109,7 @@ def test_concurrent_requests_share_batches(server):
     assert 2 <= done <= 8  # max_batch 4
     # CPU: the plain versions run
     assert stats["engine"]["kernel_launches"] == {"preprocess_i420": 0, "fused_dw": 0,
-                                         "unpack_ragged": 0}
+                                         "unpack_ragged": 0, "nms_fixed": 0}
     assert stats["engine"]["resize"] == "kernel"
 
 
