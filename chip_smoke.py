@@ -100,6 +100,16 @@ served batch's candidates and on adversarial rows, an anchor scene whose
 detections must equal the host's expectation exactly, its raw outputs
 against float32 and the CPU, the fused depthwise and preprocess kernels
 at its own shapes, and its int8 tier, refused at 300 px and served at 64.
+``converter`` writes full-width ``inception_v3.pb`` and ``mobilenet_v2.pb``
+into ``artifacts/`` with the port's TF-free tool (the zoo's seeded
+weights) and serves the preset ``inception_v3`` through the frozen-graph
+converter as CUDA graph replays, beside ``native:inception_v3`` on the same
+weights, in bf16 and float32: the .pb path's answers against native's, its
+preprocess kernel launches on the yuv420 wire and unpack launches on the
+ragged wire, and for both paths the load seconds, kernels per replay,
+device ms per batch-8 and batch-32 replay, batch-32 img/s and MFU; then
+``mobilenet_v2.pb`` in bf16 and int8 (the gate's verdict, no leaf
+quantized).
 
 The preprocess kernel is checked through both of its entries (the
 ``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
@@ -128,9 +138,10 @@ ladder observation saw (no ``ok`` line).
 
     python3 chip_smoke.py --phase resnet50
     python3 chip_smoke.py --phase ssd
+    python3 chip_smoke.py --phase converter
 
-build the kernels and run the ``resnet50`` or the ``ssd`` phase alone on
-the 24 JPEGs (no ``kernels`` or ``ok`` line).
+build the kernels and run the ``resnet50``, ``ssd`` or ``converter``
+phase alone on the 24 JPEGs (no ``kernels`` or ``ok`` line).
 """
 
 from __future__ import annotations
@@ -4464,12 +4475,271 @@ def phase_ssd(jpegs: list[bytes]) -> dict:
     return row
 
 
+# --------------------------------------------------------------------------
+# converter: frozen graphs written without TensorFlow, served beside native
+# --------------------------------------------------------------------------
+
+CONVERTER_BUCKETS = (512,)
+CONVERTER_MAX_BATCH = 32
+CONVERTER_THROUGHPUT_S = 2.0
+# the yuv420 server: the preset (the .pb) in bf16 and float32 beside the
+# zoo model on the same weights (seed 0) in both dtypes
+CONVERTER_MODELS = ("inception_v3", "native:inception_v3,as=native_inception_v3",
+                    "inception_v3,dtype=f32,as=inception_v3_f32",
+                    "native:inception_v3,dtype=f32,as=native_inception_v3_f32")
+# the ragged rgb server: the preset, and MobileNetV2's graph in bf16
+# (depthwise on cuDNN) and in the int8 tier
+CONVERTER_RAGGED_MODELS = ("inception_v3", "mobilenet_v2",
+                           "mobilenet_v2,dtype=int8,as=mobilenet_v2_int8")
+# Scores of the .pb path against native on the same weights and images.
+# float32 computes the same function in another order (each BN after its
+# conv, where native folds it into the conv's weight and bias; cuDNN with
+# TF32 off): within 1e-4. bf16 rounds the two orders differently: within
+# the served tolerance, 1e-2.
+PB_F32_TOL = 1e-4
+PB_BF16_TOL = SERVED_TOL
+
+
+def answers_match(a: list[dict], b: list[dict], tol: float) -> dict:
+    """Two answers' top-k for one image: the top-1 class must be equal; a
+    lower rank must name the same class wherever ``a``'s scores on both
+    sides of it differ from it by more than ``tol`` (the last rank has no
+    lower neighbour in the answer and is compared on scores only); every
+    class in both answers within ``tol``. Returns the verdict and the
+    largest score difference over the classes in both."""
+    ia, ib = [p["index"] for p in a], [p["index"] for p in b]
+    sa = [p["score"] for p in a]
+    defined = [j for j in range(1, len(sa) - 1)
+               if sa[j - 1] - sa[j] > tol and sa[j] - sa[j + 1] > tol]
+    score_b = {p["index"]: p["score"] for p in b}
+    diffs = [abs(p["score"] - score_b[p["index"]]) for p in a if p["index"] in score_b]
+    diff = max(diffs) if diffs else math.inf
+    ok = ia[0] == ib[0] and all(ia[j] == ib[j] for j in defined) and diff <= tol
+    return {"ok": ok, "max_score_diff": diff, "defined_ranks": len(defined) + 1}
+
+
+def phase_converter(jpegs: list[bytes]) -> dict:
+    """Frozen graphs served through the converter (ROADMAP Queue 1 item 13).
+
+    - Artifacts: ``tools/make_artifacts.py`` writes full-width
+      ``inception_v3.pb`` (299 px, 1000 classes) and ``mobilenet_v2.pb``
+      (224 px) into the checkout's ``artifacts/`` without TensorFlow, with
+      the zoo's seeded weights (seed 0): the presets then name them. A file
+      already there must be those bytes.
+    - yuv420 server (preprocess kernel, canvas 512, batch buckets 1–32):
+      the preset ``inception_v3`` in bf16 (the default model) and float32
+      beside ``native:inception_v3`` in both, on the same weights. A burst
+      of the 24 JPEGs on the .pb path with the kernels' counts set to 0
+      just before it and read just after: every batch a replay, the
+      preprocess kernel once a batch. Then every JPEG to each model: the
+      .pb path's answers against native's (:func:`answers_match`, bf16 at
+      ``PB_BF16_TOL``, float32 at ``PB_F32_TOL``).
+    - Per path (.pb and native, bf16): parse and convert seconds, kernels
+      per replay of the batch-8 graph (``torch.profiler``, a lower bound),
+      device ms per batch-8 and batch-32 replay, full batch-32 slabs back
+      to back (img/s, compute ms, idle share) and MFU from the cost model.
+    - Ragged rgb server: the preset on the ragged wire (the unpack kernel
+      once a batch, no preprocess launch), and ``mobilenet_v2.pb`` in bf16
+      (its 17 depthwise convs on cuDNN, no fused launch) and with
+      ``,dtype=int8``: the gate's verdict and the leaves it quantized
+      (none: the Keras-named constants match no kernel leaf name, as in the
+      reference).
+    """
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
+    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
+    from tensorflow_web_deploy_tpu_torch.server import start_server
+    from tensorflow_web_deploy_tpu_torch.serving import costmodel
+    from tensorflow_web_deploy_tpu_torch.tools import make_artifacts
+    from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, _ARTIFACTS, \
+        model_config
+
+    t_phase = time.perf_counter()
+    row = {"phase": "converter", "nvidia_smi": nvidia_smi(), "models": list(CONVERTER_MODELS),
+           "canvas_buckets": list(CONVERTER_BUCKETS), "max_batch": CONVERTER_MAX_BATCH}
+    bad: dict = {}
+
+    def counts() -> dict:
+        return {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
+                "unpack_ragged": unpack_ragged.launches}
+
+    def zero() -> None:
+        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+
+    # the artifacts, written without TensorFlow
+    t0 = time.perf_counter()
+    make_artifacts.ensure_artifacts(["inception_v3", "mobilenet_v2"], _ARTIFACTS)
+    row["artifacts"] = {"write_s": time.perf_counter() - t0}
+    for name in ("inception_v3", "mobilenet_v2"):
+        data, _ = make_artifacts.make_graph(name, seed=SEED)
+        path = _ARTIFACTS / f"{name}.pb"
+        if path.read_bytes() != data:
+            raise AssertionError(f"{path} is not the seeded graph the tool writes; move it away")
+        row["artifacts"][name] = {"bytes": len(data)}
+
+    def server(specs, **kw):
+        mcs = [model_config(s) for s in specs]
+        cfg = ServerConfig(model=mcs[0], models=tuple(mcs), default_model=mcs[0].serve_name,
+                           canvas_buckets=CONVERTER_BUCKETS, host="127.0.0.1", port=0,
+                           **{**PINNED, **kw})
+        t = time.perf_counter()
+        srv = start_server(cfg, device="cuda", seed=SEED)
+        return srv, time.perf_counter() - t
+
+    def serve_burst(srv, path: str, want: dict) -> list:
+        """The default model's burst with the counts read around it."""
+        eng = srv.engine
+        before = eng.stats()
+        zero()
+        results, timeline = burst(srv, jpegs)
+        launches = counts()
+        after = eng.stats()
+        batches = after["batches"] - before["batches"]
+        graphs = {k: after["graphs"][k] - before["graphs"][k]
+                  for k in ("replays", "eager_batches")}
+        want = {k: v * batches for k, v in want.items()}
+        got = {"requests": len(jpegs), "batches": batches, "graphs": graphs,
+               "kernel_launches": launches, "statuses": dict(Counter(r[0] for r in results)),
+               "img_per_s": len(jpegs) / timeline["wall_ms"] * 1e3,
+               "p50_ms": timeline["client_latency_ms"]["p50"],
+               "p99_ms": timeline["client_latency_ms"]["p99"]}
+        row[path] = got
+        if batches == 0 or launches != want or got["statuses"] != {200: len(jpegs)} or \
+                graphs != {"replays": batches, "eager_batches": 0}:
+            bad[path] = {**got, "want": want}
+        return [r[1].get("predictions", []) for r in results]
+
+    def answers(srv, name: str) -> list:
+        client = KeepAlive(srv.port)
+        try:
+            out = []
+            for d in jpegs:
+                status, body = client.request("POST", f"/predict?model={name}", d)
+                if status != 200:
+                    raise AssertionError(f"{name}: {status} {body}")
+                out.append(body["predictions"])
+            return out
+        finally:
+            client.close()
+
+    def compare(a: list, b: list, tol: float) -> dict:
+        m = [answers_match(x, y, tol) for x, y in zip(a, b)]
+        return {"images": len(m), "agree": sum(r["ok"] for r in m), "tol": tol,
+                "top1_equal": sum(x[0]["index"] == y[0]["index"] for x, y in zip(a, b)),
+                "max_score_diff": max(r["max_score_diff"] for r in m),
+                "defined_ranks": [r["defined_ranks"] for r in m]}
+
+    def path_numbers(eng) -> dict:
+        """Load seconds, kernels per replay, device ms per replay and
+        batch-32 throughput of one engine of the yuv420 server."""
+        shard = eng._replicas[0].shards[0]  # the card: one replica of one device
+        st = eng.stats()
+        out = {"source": eng.source, "dtype": eng.model_cfg.dtype, "load_s": st["load_s"],
+               "warmup_s": st["warmup_s"], "graphs": st["graphs"]["captured"],
+               "pool_bytes": st["graphs"]["pool_bytes"]}
+        if eng.source == "pb":
+            g = eng.model.graph
+            out.update(call_nodes=len(g.call_nodes), folded_nodes=len(g.folded_nodes),
+                       call_ops=dict(Counter(op for _, op in g.call_nodes)),
+                       buffers=len(g.buffer_origin))
+        for p in (8, CONVERTER_MAX_BATCH):
+            key = next(k for k in shard.exes if k[1] == 512 and k[2] == p)
+            exe = shard.exes[key]
+            with eng._replicas[0].lock, torch.cuda.stream(shard.compute):
+                out[f"replay_ms_{p}"] = cuda_time_ms(exe)
+                if p == 8:
+                    prof = profiled_calls(exe, calls=2)
+                    out["kernels_per_replay_8"] = prof["kernels"] / prof["calls"]
+                    out["profile_top_8"] = prof["top"][:6]
+            del exe  # its graph and output would keep the graph pool alive past close()
+        prepared = [eng.prepare_bytes(d) for d in jpegs]
+        items = [prepared[i % len(prepared)] for i in range(CONVERTER_MAX_BATCH)]
+        tp = throughput(eng, items, CONVERTER_THROUGHPUT_S, THROUGHPUT_DEPTH)
+        cost = costmodel.model_cost(eng.model_cfg)
+        peak = costmodel.backend_peak(eng.model_cfg.dtype)
+        rows = tp["batches"] * CONVERTER_MAX_BATCH
+        econ = costmodel.bucket_economics(cost, 512, CONVERTER_MAX_BATCH, rows, rows,
+                                          tp["compute_ms_sum"] / 1e3, peak, 1,
+                                          eng.model_cfg.input_size, "yuv420")
+        tp.update(mfu=econ.get("mfu"), flops_per_image=cost["flops_per_image"],
+                  model_mfu_replay=CONVERTER_MAX_BATCH * cost["flops_per_image"]
+                  / (out[f"replay_ms_{CONVERTER_MAX_BATCH}"] / 1e3) / peak["flops_per_chip"])
+        out["throughput"] = tp
+        if tp["replays"] != tp["batches"] or tp["eager_batches"] or \
+                not 0 < (tp["mfu"] or 0) <= 1:
+            bad[f"throughput_{eng.model_cfg.serve_name}"] = tp
+        return out
+
+    # the yuv420 wire, preprocess kernel: .pb and native, bf16 and float32
+    srv, boot_s = server(CONVERTER_MODELS, wire_format="yuv420", resize="kernel",
+                         max_batch=CONVERTER_MAX_BATCH, http_workers=len(jpegs))
+    row["yuv420_boot_s"] = boot_s
+    try:
+        engines = {mv.name: mv.engine for mv in srv.registry.serving_entries()}
+        urllib.request.urlopen(srv.url + "/healthz", timeout=120).read()
+        burst_pb = serve_burst(srv, "pb_yuv420_burst", {"preprocess_i420": 1, "fused_dw": 0,
+                                                        "unpack_ragged": 0})
+        served = {name: answers(srv, name) for name in engines}
+        row["bf16"] = compare(served["inception_v3"], served["native_inception_v3"],
+                              PB_BF16_TOL)
+        row["float32"] = compare(served["inception_v3_f32"],
+                                 served["native_inception_v3_f32"], PB_F32_TOL)
+        row["burst_vs_serial"] = compare(burst_pb, served["inception_v3"], PB_BF16_TOL)
+        for key in ("bf16", "float32", "burst_vs_serial"):
+            if row[key]["agree"] != len(jpegs):
+                bad[key] = row[key]
+        if not all(len(p) == 5 and all(math.isfinite(q["score"]) and 0 <= q["index"] < 1000
+                                       for q in p) for ans in served.values() for p in ans):
+            bad["answers"] = {k: v[:1] for k, v in served.items()}
+        row["paths"] = {name: path_numbers(engines[name])
+                        for name in ("inception_v3", "native_inception_v3")}
+        row["tf32"] = [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]
+    finally:
+        srv.close()
+
+    # the ragged rgb wire: the unpack kernel; MobileNetV2's graph, bf16 and int8
+    srv, boot_s = server(CONVERTER_RAGGED_MODELS, wire_format="rgb", resize="matmul",
+                         ragged=True, max_batch=8, http_workers=len(jpegs))
+    row["ragged_boot_s"] = boot_s
+    try:
+        engines = {mv.name: mv.engine for mv in srv.registry.serving_entries()}
+        urllib.request.urlopen(srv.url + "/healthz", timeout=120).read()
+        serve_burst(srv, "pb_ragged_burst", {"preprocess_i420": 0, "fused_dw": 0,
+                                             "unpack_ragged": 1})
+        zero()
+        mobilenet = {name: answers(srv, name) for name in ("mobilenet_v2", "mobilenet_v2_int8")}
+        launches = counts()
+        q = engines["mobilenet_v2_int8"]
+        row["mobilenet_v2"] = {
+            "kernel_launches": launches, "fused_dw": [engines[n].fused_dw for n in mobilenet],
+            "call_ops": dict(Counter(op for _, op in engines["mobilenet_v2"].model.graph
+                                     .call_nodes)),
+            "int8_gate": q.parity, "int8_quantized_leaves": len(q.model.graph.int8_params),
+            "int8_vs_bf16": compare(mobilenet["mobilenet_v2_int8"], mobilenet["mobilenet_v2"],
+                                    PB_BF16_TOL)}
+        if launches["fused_dw"] or launches["unpack_ragged"] == 0 or \
+                q.parity is None or not q.parity["pass"] or \
+                row["mobilenet_v2"]["int8_quantized_leaves"] != 0:
+            bad["mobilenet_v2"] = row["mobilenet_v2"]
+    finally:
+        srv.close()
+    row["kernel_launches"] = {k: sum(row[p]["kernel_launches"][k]
+                                     for p in ("pb_yuv420_burst", "pb_ragged_burst"))
+                              for k in ("preprocess_i420", "fused_dw", "unpack_ragged")}
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    if bad:
+        raise AssertionError(f"converter: {bad}")
+    return row
+
+
 def main(argv: list[str]) -> int:
     sweeps = ("--sweep-fused-dw", "--sweep-preprocess", "--sweep-overload")
     if not (argv == [] or (len(argv) == 1 and argv[0] in sweeps)
-            or argv in (["--phase", "resnet50"], ["--phase", "ssd"])):
+            or argv in (["--phase", "resnet50"], ["--phase", "ssd"],
+                        ["--phase", "converter"])):
         print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)} | --phase resnet50 | "
-              "--phase ssd], "
+              "--phase ssd | --phase converter], "
               f"not {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4521,6 +4791,9 @@ def main(argv: list[str]) -> int:
     if argv == ["--phase", "ssd"]:
         phase_ssd(make_jpegs(24, SEED))
         return 0
+    if argv == ["--phase", "converter"]:
+        phase_converter(make_jpegs(24, SEED))
+        return 0
     kern_err = phase_kernel(gen)
     dw = phase_fused_dw_kernel(gen, dw_layer_shapes())
     jpegs = make_jpegs(24, SEED)
@@ -4549,6 +4822,7 @@ def main(argv: list[str]) -> int:
     placement = phase_placement(jpegs)
     resnet = phase_resnet50(jpegs)
     ssd = phase_ssd(jpegs)
+    converter = phase_converter(jpegs)
     by_path = {p["path"]: p["kernel_launches"] for p in (inception, mobilenet, *ragged)}
     by_path["registry"] = registry["kernel_launches"]
     by_path["overload"] = overload["kernel_launches"]
@@ -4556,6 +4830,7 @@ def main(argv: list[str]) -> int:
     by_path["placement"] = placement["kernel_launches"]
     by_path["resnet50"] = resnet["kernel_launches"]
     by_path["ssd"] = ssd["kernel_launches"]
+    by_path["converter"] = converter["kernel_launches"]
     by_kernel = {name: {m: n.get(name, 0) for m, n in by_path.items()} for name in KERNELS}
     emit({"kernels": [{
         "name": "preprocess_i420",

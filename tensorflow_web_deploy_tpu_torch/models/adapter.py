@@ -16,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..graphdef import convert_graphdef, load_pb
 from ..ops.quant import QSCALE_SUFFIX, Int8Conv2d, Int8Linear, quantize_params
 from . import get
 from .common import ConvBNCell, fold_bn, set_fused_dw
@@ -204,3 +205,51 @@ def native_converted(name: str, num_classes: int | None = None, width: float = 1
         model = Classifier(module).eval()
     model.requires_grad_(False)
     return model
+
+
+class ConvertedClassifier(nn.Module):
+    """Serving wrapper of a converted frozen graph that classifies: NHWC
+    float images → the graph's first output, its own softmax
+    probabilities (the reference's serve function reads ``outs[0]``)."""
+
+    def __init__(self, graph):
+        super().__init__()
+        self.graph = graph
+        self.output_names = graph.output_names
+
+    def forward(self, x_nhwc):
+        return self.graph(x_nhwc)[0]
+
+
+class ConvertedDetector(nn.Module):
+    """Serving wrapper of a converted detector graph: NHWC float images →
+    (raw_boxes, raw_scores, anchors) looked up by ``output_names``; anchors
+    of shape [1, N, 4] are taken as [N, 4], as the reference's detect
+    branch does."""
+
+    def __init__(self, graph):
+        super().__init__()
+        self.graph = graph
+        self.output_names = graph.output_names
+
+    def forward(self, x_nhwc):
+        by_name = dict(zip(self.output_names, self.graph(x_nhwc)))
+        anchors = by_name["anchors"]
+        return by_name["raw_boxes"], by_name["raw_scores"], (
+            anchors[0] if anchors.dim() == 3 else anchors)
+
+
+def converted_graph(cfg, graph=None, dtype: torch.dtype = torch.float32,
+                    int8: bool = False) -> ConvertedClassifier | ConvertedDetector:
+    """A frozen graph ready to serve, with the interface
+    :func:`native_converted` gives the engine: ``cfg`` (a ``ModelConfig``
+    with ``source="pb"``) names the file, its inputs and outputs; ``graph``
+    is the parsed ``GraphDef`` when the caller has it. Built on the CPU in
+    ``dtype`` (``int8``: the reference's eligible kernels int8,
+    dequantized on every call); the caller moves it."""
+    graph = load_pb(cfg.pb_path) if graph is None else graph
+    model = convert_graphdef(graph, outputs=cfg.output_names,
+                             inputs=[cfg.input_name] if cfg.input_name else None,
+                             dtype=dtype, int8=int8)
+    wrap = ConvertedDetector if cfg.task == "detect" else ConvertedClassifier
+    return wrap(model).eval().requires_grad_(False)

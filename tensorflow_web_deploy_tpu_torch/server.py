@@ -1,6 +1,7 @@
 """HTTP inference server on a mesh of CUDA devices (one card by default on the H100).
 
     python -m tensorflow_web_deploy_tpu_torch.server --model native:inception_v3 \\
+        [--model inception_v3 | --model path/to/frozen.pb | --model config.json]
         [--model native:mobilenet_v2,dtype=int8,as=mobilenet_v2_int8 ...] [--default-model NAME]
         [--model native:mobilenet_v2,replicas=N | ,shard=batch] [--model native:resnet50]
         [--model native:ssd_mobilenet]    # detection: {"detections": [...], "num_detections": n}
@@ -21,7 +22,12 @@
     kill -TERM <pid>    # drains every model and exits 0
 
 Counterpart of the JAX package's root ``server.py``, with the flags this
-port reads. Every ``--model`` becomes an entry of the model registry,
+port reads. ``--model`` takes the reference's presets (frozen graphs in
+``artifacts/``: ``python -m tensorflow_web_deploy_tpu_torch.tools.
+make_artifacts`` writes Inception-v3's and MobileNetV2's without
+TensorFlow), a frozen ``.pb``, a ``.json`` config or ``native:<zoo name>``;
+the default stays ``native:inception_v3``, which needs no file. Every
+``--model`` becomes an entry of the model registry,
 built and warmed at boot (a model that cannot load fails the boot);
 ``POST /models/{load,swap,unload}`` change them at run time. The mesh is
 every visible CUDA device (``--device cuda``, the default) or the one
@@ -128,10 +134,13 @@ def start_server(cfg: ServerConfig, device=None, seed: int = 0, mesh=None) -> Se
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", action="append", default=None,
-                   help="native:<zoo name> (inception_v3, mobilenet_v2, resnet50, or the "
-                        "detector ssd_mobilenet) or a .json ModelConfig, with optional "
-                        ",replicas=N|,shard=batch (placement over the mesh), ,dtype=… and "
-                        ",as=<serve name> suffixes; repeat to serve several models "
+                   help="preset name, native:<zoo name> (TF-free zoo models), .pb path, "
+                        "or .json model config (presets: inception_v3, mobilenet_v2, "
+                        "resnet50, ssd_mobilenet — frozen graphs under artifacts/, written "
+                        "by python -m tensorflow_web_deploy_tpu_torch.tools.make_artifacts). "
+                        "Repeatable: each --model becomes a registry entry served at "
+                        "/predict?model=<name>. Optional suffixes: ,replicas=N|,shard=batch "
+                        "(placement over the mesh), ,dtype=… and ,as=<serve name> "
                         "(default: native:inception_v3)")
     p.add_argument("--default-model", default=None,
                    help="serve name that /predict without ?model= resolves to "

@@ -84,6 +84,15 @@ inside every forward, computing in bf16 (``ops/quant.py``); before it
 serves, the golden parity gate holds it against the unfused float32 model
 on the same parameters, and a failing gate raises.
 
+**Models.** A zoo model (``source="native"``) is built from ``models/``
+with its BN folded into the convs; a frozen graph (``source="pb"``, the
+reference's presets and ``.pb`` paths) is parsed once at build and
+converted (``graphdef/``) into the compute dtype, its const-only
+subgraphs folded, and served through the same batcher, executables and
+heads: a classifier's answer is the graph's own softmax output, a
+detector's the outputs named ``raw_boxes``, ``raw_scores`` and
+``anchors``. Depthwise fusion is for zoo models only.
+
 **Device economics** (:meth:`InferenceEngine.econ_stats`, read by
 ``serving/costmodel.py``): per replica, batches, rows and device seconds
 per (canvas, batch bucket), and ``busy_s`` over all. On the card a
@@ -116,7 +125,8 @@ import numpy as np
 import torch
 
 from .. import native
-from ..models.adapter import native_converted
+from ..graphdef import load_pb
+from ..models.adapter import converted_graph, native_converted
 from ..ops import _build, launches, quant
 from ..ops.detection import decode_boxes, multiclass_nms, nms_fixed
 from ..ops.fused_dw import fused_dw
@@ -554,6 +564,10 @@ class InferenceEngine:
                         "classic host-padded wire", cfg.wire_format)
         self.quantized = self.model_cfg.dtype == "int8"
         self.task = self.model_cfg.task
+        self.source = self.model_cfg.source
+        if self.model_cfg.fused_dw == "on" and self.source != "native":
+            log.warning("fused_dw='on' ignored for source='pb' (%s): fusion rebuilds the zoo "
+                        "module, which a frozen graph does not have", self.model_cfg.name)
         if self.model_cfg.dtype in ("float32", "int8"):
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -608,9 +622,22 @@ class InferenceEngine:
         self.eager_batches = 0
         self.pool_bytes = 0
         self.parity: dict | None = None
+        # seconds to parse the frozen graph and to convert it (None: a zoo model)
+        self.load_s: dict[str, float | None] = {"parse": None, "convert": None}
+        self._graph = None
         try:
             self._replicas = [_Replica(i, m) for i, m in enumerate(self.placement.meshes)]
+            if self.source == "pb":
+                t0 = time.perf_counter()
+                self._graph = load_pb(self.model_cfg.pb_path)
+                self.load_s["parse"] = time.perf_counter() - t0
             self._place_weights()
+            if self.source == "pb":
+                log.info("loaded %s (pb): %d nodes, %d per call, %d folded, outputs=%s "
+                         "(parse %.3fs, convert %.3fs)", self.model_cfg.pb_path,
+                         len(self._graph.nodes), len(self.model.graph.call_nodes),
+                         len(self.model.graph.folded_nodes), self.model.output_names,
+                         self.load_s["parse"], self.load_s["convert"])
             self._size_outputs()
             if self.quantized:
                 self.parity = self.parity_check()
@@ -640,16 +667,27 @@ class InferenceEngine:
     def _place_weights(self) -> None:
         """One model built on the host, a real copy of it per device of
         every replica, each in its device's own memory pool."""
-        base = self._build_model(self.fused_dw, self.quantized)
+        t0 = time.perf_counter()
+        base = self._build_model(self.fused_dw, self.quantized, self.dtype)
+        if self.source == "pb":
+            self.load_s["convert"] = time.perf_counter() - t0
+        # a converted graph is built in the compute dtype (its float64
+        # constants stay float64, as in the reference)
+        dtype = None if self.source == "pb" else self.dtype
         shards = self._shards()
         for i, sh in enumerate(shards):
             m = base if i == len(shards) - 1 else copy.deepcopy(base)
             with sh.own_pool():
-                sh.model = m.to(sh.device, self.dtype, memory_format=torch.channels_last)
+                sh.model = m.to(device=sh.device, dtype=dtype,
+                                memory_format=torch.channels_last)
             if sh.compute is not None:  # the weights, made on this thread's stream, first
                 sh.compute.wait_stream(torch.cuda.current_stream(sh.device))
 
-    def _build_model(self, fused_dw: bool, int8: bool):
+    def _build_model(self, fused_dw: bool, int8: bool, dtype: torch.dtype = torch.float32):
+        """The model on the CPU: a zoo model in float32 (the caller casts),
+        a frozen graph converted in ``dtype``."""
+        if self.source == "pb":
+            return converted_graph(self.model_cfg, self._graph, dtype=dtype, int8=int8)
         return native_converted(
             self.model_cfg.name,
             num_classes=self.model_cfg.zoo_classes,
@@ -668,16 +706,29 @@ class InferenceEngine:
         scores then k class indices. Detect: the reference's static NMS
         sizes (100 candidates a class, 100 detections, clamped to what the
         anchors and classes supply), a row of D boxes (4 each), D scores,
-        D classes and the count."""
-        backbone = self.model.backbone
+        D classes and the count. A converted graph's class and anchor
+        counts are its outputs' shapes (one forward at build)."""
+        if self.source == "pb":
+            h, w = self.model_cfg.input_size
+            x = torch.zeros((1, h, w, 3), dtype=self.dtype, device=self.device)
+            with torch.inference_mode():
+                out = self.model(x)
+            if self.task == "detect":
+                num_classes, anchors = out[1].shape[-1] - 1, out[2].shape[0]
+            else:
+                num_classes = out.shape[-1]
+        elif self.task == "detect":
+            num_classes = self.model.backbone.num_classes
+            anchors = self.model.anchors.shape[0]
+        else:
+            num_classes = self.model.backbone.logits.out_features
+        self.num_classes = num_classes
         if self.task == "detect":
-            self.num_classes = backbone.num_classes
             self.topk = self.model_cfg.topk
-            k = min(100, self.model.anchors.shape[0])
+            k = min(100, anchors)
             self.max_detections = min(100, self.num_classes * k)
             self.row_width = 6 * self.max_detections + 1
         else:
-            self.num_classes = backbone.logits.out_features
             self.topk = min(self.model_cfg.topk, self.num_classes)
             self.row_width = 2 * self.topk
 
@@ -1399,6 +1450,8 @@ class InferenceEngine:
                                      else None)
         return {
             "model": self.model_cfg.name,
+            "source": self.source,
+            "load_s": dict(self.load_s),
             "task": self.task,
             "outputs": list(self.model.output_names) if self.model is not None else None,
             "device": str(self.device),

@@ -891,7 +891,7 @@ class App:
             if path == "/models/load":
                 spec = d.get("model")
                 if not spec:
-                    return _error(400, "'model' (native:<zoo name> or a .json path) is required")
+                    return _error(400, "'model' (preset name, native:<zoo>, .pb/.json path) is required")
                 mv = self.registry.load(spec, name=d.get("name"),
                                         activate=bool(d.get("activate", True)),
                                         wait=wait, timeout=timeout)

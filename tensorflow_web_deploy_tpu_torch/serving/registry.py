@@ -137,6 +137,7 @@ class ModelVersion:
             "version": self.version,
             "state": self.state,
             "dtype": self.model_cfg.dtype,
+            "source": self.model_cfg.source,
             "task": self.model_cfg.task,
             "age_s": round(time.monotonic() - self.created_at, 1),
             "inflight": self.inflight,
@@ -228,9 +229,17 @@ class ModelRegistry:
         from .batcher import Batcher
 
         cfg = self.cfg
+        # the model's own pipeline_depth/max_queue override the server's (a
+        # latency-critical model can run depth 1 with a short queue beside a
+        # deep throughput model); engines without a config inherit them
+        mc = getattr(getattr(engine, "cfg", None), "model", None)
+        depth = getattr(mc, "pipeline_depth", None)
+        max_queue = getattr(mc, "max_queue", None)
         return Batcher(
-            engine, engine.max_batch, cfg.max_delay_ms, pipeline_depth=cfg.pipeline_depth,
-            adaptive_delay=cfg.adaptive_delay, max_queue=cfg.max_queue,
+            engine, engine.max_batch, cfg.max_delay_ms,
+            pipeline_depth=cfg.pipeline_depth if depth is None else depth,
+            adaptive_delay=cfg.adaptive_delay,
+            max_queue=cfg.max_queue if max_queue is None else max_queue,
             lease_timeout_s=cfg.lease_timeout_s, admission=self.admission, chaos=self.chaos,
         ).start(warmup=cfg.warmup)
 

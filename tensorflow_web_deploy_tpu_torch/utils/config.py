@@ -1,6 +1,13 @@
 """Model and server configuration (counterpart of the JAX package's
 ``utils/config.py``), reduced to the fields this port reads.
 
+A model is a zoo model (``source="native"``, the default) or a frozen
+graph (``source="pb"``, ``pb_path``); a config that gives a ``pb_path``
+and no ``source`` is a frozen graph. ``--model`` resolves the reference's
+four presets (frozen graphs under ``artifacts/``, written without
+TensorFlow by ``tools/make_artifacts.py``), ``native:<zoo name>``, a bare
+``.pb`` path or a ``.json`` config (:func:`model_config`).
+
 ``resize="kernel"`` is the port's name for the JAX ``resize="pallas"``:
 the fused I420 preprocess runs on the hand-written CUDA kernel
 (``ops/preprocess_i420.py``). The validation rules are the reference's.
@@ -36,10 +43,14 @@ def normalize_dtype(dtype: str) -> str:
 
 @dataclasses.dataclass
 class ModelConfig:
-    """One native zoo model to serve."""
+    """One model to serve: a zoo model or a frozen graph."""
 
     name: str
-    source: str = "native"
+    pb_path: str | None = None
+    # "native" serves the zoo (models/), "pb" converts the frozen GraphDef
+    # at pb_path (graphdef/); None resolves to "pb" when pb_path is given,
+    # else "native"
+    source: str | None = None
     # width multiplier + class count (tiny variants for tests; 1.0/None =
     # the real architecture)
     zoo_width: float = 1.0
@@ -48,8 +59,9 @@ class ModelConfig:
     # through static-shape NMS: boxes, scores, classes, num)
     task: str = "classify"
     labels_path: str | None = None
-    # the model's outputs by name (None: the zoo model's own; a detector
-    # gives raw_boxes, raw_scores, anchors)
+    input_name: str | None = None  # default: the graph's sole placeholder
+    # the model's outputs by name (None: the zoo model's own, or a graph's
+    # inferred sinks; a detector gives raw_boxes, raw_scores, anchors)
     output_names: list[str] | None = None
     input_size: tuple[int, int] = (299, 299)
     # normalization applied on the device: "inception" ([-1, 1]),
@@ -68,6 +80,12 @@ class ModelConfig:
     # set, via --model ...,as=<serve name>, so that two dtype variants of one
     # architecture can serve side by side
     alias: str | None = None
+    # Per-model pipeline overrides (None: the server-wide values): batches
+    # in flight per canvas bucket, and the backlog in images at which a
+    # lease fails fast with 503; the registry reads them when it builds the
+    # model's batcher
+    pipeline_depth: int | None = None
+    max_queue: int | None = None
     # Device placement (serving/placement.py): None shards each batch over
     # the whole mesh, "replicas=N" splits the mesh into N groups, each with
     # a full copy of the weights and its own dispatch streams, "shard=batch"
@@ -75,10 +93,15 @@ class ModelConfig:
     placement: str | None = None
 
     def __post_init__(self):
-        if self.source != "native":
+        if self.source is None:
+            self.source = "pb" if self.pb_path else "native"
+        if self.source not in ("native", "pb"):
             raise ValueError(
-                f"model '{self.name}': only source='native' is ported "
-                "(the frozen-graph converter waits, ROADMAP.md Queue 1)"
+                f"model '{self.name}': source must be 'native' or 'pb', got {self.source!r}")
+        if self.source == "pb" and not self.pb_path:
+            raise ValueError(
+                f"model '{self.name}': source='pb' requires pb_path "
+                "(or use source='native' for the flax zoo)"
             )
         try:
             self.dtype = normalize_dtype(self.dtype)
@@ -102,8 +125,10 @@ class ModelConfig:
 
     @property
     def fuse_depthwise(self) -> bool:
-        """The resolved ``fused_dw`` knob: "auto" fuses the int8 tier."""
-        return self.fused_dw == "on" or (self.fused_dw == "auto" and self.dtype == "int8")
+        """The resolved ``fused_dw`` knob: "auto" fuses the int8 tier of a
+        zoo model; a frozen graph has no depthwise cells to fuse."""
+        return self.source == "native" and (
+            self.fused_dw == "on" or (self.fused_dw == "auto" and self.dtype == "int8"))
 
 
 @dataclasses.dataclass
@@ -248,6 +273,30 @@ class ServerConfig:
         return self.default_model or self.model.serve_name
 
 
+def _preset(name: str, **kw) -> ModelConfig:
+    kw.setdefault("pb_path", str(_ARTIFACTS / f"{name}.pb"))
+    kw.setdefault("labels_path", str(_ARTIFACTS / "imagenet_labels.txt"))
+    return ModelConfig(name=name, source="pb", **kw)
+
+
+# The reference's presets: the tracked configs' frozen graphs.
+PRESETS: dict[str, ModelConfig] = {
+    "inception_v3": _preset("inception_v3", input_size=(299, 299), preprocess="inception"),
+    "mobilenet_v2": _preset("mobilenet_v2", input_size=(224, 224), preprocess="inception"),
+    "resnet50": _preset("resnet50", input_size=(224, 224), preprocess="caffe"),
+    "ssd_mobilenet": _preset(
+        "ssd_mobilenet",
+        task="detect",
+        input_size=(300, 300),
+        preprocess="inception",
+        labels_path=str(_ARTIFACTS / "coco_labels.txt"),
+        # freezing wraps the named outputs in anonymous Identity nodes, so
+        # the detect branch asks for them by name
+        output_names=["raw_boxes", "raw_scores", "anchors"],
+    ),
+}
+
+
 def split_model_spec(spec: str) -> tuple[str, dict[str, str]]:
     """Split ``--model``'s option suffixes off a model spec:
     ``"mobilenet_v2,replicas=8"`` → ``("mobilenet_v2", {"placement":
@@ -284,9 +333,9 @@ def split_model_spec(spec: str) -> tuple[str, dict[str, str]]:
 
 
 def model_config(name_or_path: str) -> ModelConfig:
-    """Resolve ``native:<zoo name>`` or a JSON config path, each optionally
-    carrying option suffixes (``name,replicas=N`` / ``name,dtype=int8`` /
-    ``name,as=<serve name>``)."""
+    """Resolve a preset name, ``native:<zoo name>``, a JSON config path, or a
+    bare .pb path — each optionally carrying option suffixes
+    (``name,replicas=N`` / ``name,dtype=int8`` / ``name,as=<serve name>``)."""
     name_or_path, opts = split_model_spec(name_or_path)
     if opts:
         mc = model_config(name_or_path)
@@ -306,6 +355,7 @@ def model_config(name_or_path: str) -> ModelConfig:
             ) from None
         return ModelConfig(
             name=spec.name,
+            source="native",
             task=spec.task,
             input_size=(spec.input_size, spec.input_size),
             preprocess=spec.preprocess,
@@ -313,11 +363,16 @@ def model_config(name_or_path: str) -> ModelConfig:
                 _ARTIFACTS / ("coco_labels.txt" if spec.task == "detect" else "imagenet_labels.txt")
             ),
         )
+    if name_or_path in PRESETS:
+        return dataclasses.replace(PRESETS[name_or_path])
     p = Path(name_or_path)
     if p.suffix == ".json":
         data = json.loads(p.read_text())
         data["input_size"] = tuple(data.get("input_size", (299, 299)))
         return ModelConfig(**data)
+    if p.suffix == ".pb":
+        return ModelConfig(name=p.stem, pb_path=str(p))
     raise ValueError(
-        f"unknown model '{name_or_path}' — expected native:<zoo name> or a .json config"
+        f"unknown model '{name_or_path}' — expected one of {sorted(PRESETS)}, "
+        "native:<zoo name>, a .json config, or a .pb path"
     )

@@ -112,7 +112,8 @@ def test_bn_fold_is_exact():
 
 
 def test_unported_models_name_their_roadmap_item():
-    """Every zoo model is ported; what the port still refuses is a frozen
-    graph (``source="pb"``), whose error names the converter's queue."""
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1"):
+    """Every zoo model and the frozen-graph converter are ported; what the
+    port refuses is a frozen graph (``source="pb"``) without its file, with
+    the reference's text."""
+    with pytest.raises(ValueError, match="source='pb' requires pb_path"):
         ModelConfig(name="inception_v3", source="pb")
