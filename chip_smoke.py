@@ -109,7 +109,14 @@ preprocess kernel launches on the yuv420 wire and unpack launches on the
 ragged wire, and for both paths the load seconds, kernels per replay,
 device ms per batch-8 and batch-32 replay, batch-32 img/s and MFU; then
 ``mobilenet_v2.pb`` in bf16 and int8 (the gate's verdict, no leaf
-quantized).
+quantized). ``jobs`` serves Inception-v3 bf16 on the yuv420 wire with
+``max_batch`` 256 and ``--jobs-dir``: a ``POST /jobs`` over 1,024 distinct
+JPEGs in batches of 256 (one preprocess launch and one graph replay a bulk
+batch, every image once, the first 24 against ``/predict``), the
+preprocess kernel at B = 256 against its plain version, interactive
+p50/p99 without and with a job from ``tools/loadgen.py --job``, a hot swap
+mid-job, SIGTERM mid-job and a reboot that resumes from the checkpoint,
+and a job answered wholly from the cache.
 
 The preprocess kernel is checked through both of its entries (the
 ``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
@@ -4433,7 +4440,7 @@ def phase_ssd(jpegs: list[bytes]) -> dict:
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "ssd64.json")
             with open(path, "w") as f:
-                json.dump({"name": "ssd_mobilenet", "task": "detect",
+                json.dump({"name": "ssd_mobilenet", "source": "native", "task": "detect",
                            "input_size": [SSD_INT8_SMALL, SSD_INT8_SMALL]}, f)
             spec = f"{path},dtype=int8,as=ssd_mobilenet_int8_64"
             t0 = time.perf_counter()
@@ -4733,13 +4740,521 @@ def phase_converter(jpegs: list[bytes]) -> dict:
     return row
 
 
+# --------------------------------------------------------------------------
+# Bulk jobs: POST /jobs through the batcher's bulk class (ROADMAP Queue 1
+# item 14). Inception-v3 bf16 on the yuv420 wire with the preprocess kernel,
+# canvas 512 only (every corpus image fits it), batch buckets 1–256: every
+# bulk batch is one replay of the batch-256 graph and one kernel launch.
+
+JOBS_IMAGES = 1024  # distinct seeded JPEGs, four bulk batches of 256
+JOBS_BATCH = 256
+JOBS_INFLIGHT = 2
+JOBS_BUCKETS = (512,)
+JOBS_PARITY_IMAGES = 24
+JOBS_LOAD_S = 4.0  # loadgen's interactive baseline before the job
+# the isolation job lists the corpus this many times (hard links), so that
+# the interactive p99 with the job rests on a few thousand requests
+JOBS_ISO_REPEAT = 4
+JOBS_WORKERS = 8
+# the SIGTERM job's tenant: 256 images/s with a 1 s bucket, one bulk batch a
+# second, so that the signal lands with the job part done
+JOBS_SLOW_TENANT = "slow"
+JOBS_QUOTA = f"{JOBS_SLOW_TENANT}=256"
+JOBS_TERMINAL = ("DONE", "FAILED", "CANCELLED")
+
+
+def jobs_request(port: int, method: str, path: str, doc=None, headers: dict | None = None,
+                 timeout: float = 120.0) -> tuple[int, dict | list | None, dict]:
+    """One JSON request to a local server: (status, the parsed body or None,
+    headers in lower case)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        body = json.dumps(doc).encode() if doc is not None else None
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        r = conn.getresponse()
+        data = r.read()
+        hdrs = {k.lower(): v for k, v in r.getheaders()}
+        if hdrs.get("content-type") == "application/x-ndjson":
+            return r.status, [json.loads(ln) for ln in data.splitlines() if ln], hdrs
+        return r.status, json.loads(data) if data else None, hdrs
+    finally:
+        conn.close()
+
+
+def wait_job(port: int, jid: str, until, timeout: float) -> dict:
+    """Poll ``GET /jobs/{id}`` every 10 ms until ``until(doc)``; the doc."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        status, doc, _ = jobs_request(port, "GET", f"/jobs/{jid}")
+        if status != 200:
+            raise AssertionError(f"GET /jobs/{jid}: {status} {doc}")
+        if until(doc):
+            return doc
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"job {jid} never got there in {timeout} s: {doc}")
+        time.sleep(0.01)
+
+
+def job_rows(port: int, jid: str) -> list[dict]:
+    """Every result line of a finished job, through the offset cursor."""
+    rows, offset = [], 0
+    while True:
+        status, got, hdrs = jobs_request(port, "GET",
+                                         f"/jobs/{jid}/results?offset={offset}&limit=500")
+        if status != 200:
+            raise AssertionError(f"results of {jid}: {status} {got}")
+        rows += got
+        offset = int(hdrs["x-job-next-offset"])
+        if hdrs["x-job-complete"] == "1":
+            return rows
+
+
+def once_each(rows: list[dict], n: int) -> dict:
+    """Zero lost and zero duplicated: every index 0..n-1 exactly once, in order."""
+    idx = [r["i"] for r in rows]
+    counts = Counter(idx)
+    return {"lines": len(idx), "lost": sum(1 for i in range(n) if i not in counts),
+            "duplicated": sum(c - 1 for c in counts.values() if c > 1),
+            "in_order": idx == sorted(idx), "errors": sum("error" in r for r in rows)}
+
+
+def job_server_proc(args: list[str], log) -> tuple[subprocess.Popen, int, float]:
+    """``python -m tensorflow_web_deploy_tpu_torch.server`` with ``args`` on a
+    free port, waited for until ``/healthz`` answers: (process, port, boot s)."""
+    port = free_port()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "tensorflow_web_deploy_tpu_torch.server",
+                             "--host", "127.0.0.1", "--port", str(port), *args],
+                            stdout=log, stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"the jobs server exited {proc.returncode}")
+        if time.perf_counter() - t0 > 300:
+            proc.kill()
+            raise AssertionError("the jobs server did not answer /healthz in 300 s")
+        try:
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5).read()
+            return proc, port, time.perf_counter() - t0
+        except OSError:
+            time.sleep(0.5)
+
+
+def preprocess_256(gen: torch.Generator) -> dict:
+    """``preprocess_i420`` on a wire batch of 256 at the jobs' canvas (512,
+    299 out) against its plain version, in float32 and bf16: 256 × 512² ×
+    1.5 bytes of canvases read, 68,659,968 output elements, past every
+    earlier batch."""
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import (
+        preprocess_i420_plain,
+        preprocess_i420_wire,
+        wire_canvases,
+    )
+
+    b, s = JOBS_BATCH, JOBS_BUCKETS[0]
+    rs = np.random.RandomState(SEED + 3)
+    hws_np = rs.randint(1, s + 1, (b, 2)).astype(np.int32)
+    hws_np[0], hws_np[1], hws_np[-1] = (s, s), (1, 1), (s, s)  # full, hole, full last row
+    buf = wire_batch(b, s, hws_np, gen)
+    packed, hws = wire_canvases(buf, s), torch.from_numpy(hws_np).cuda()
+    ref = preprocess_i420_plain(packed, hws, OUT, OUT)
+    got = preprocess_i420_wire(buf, s, OUT, OUT)
+    torch.cuda.synchronize()
+    row = {"batch": b, "canvas": s, "out": OUT, "tol": KERNEL_TOL["inception"],
+           "max_abs_err": float((got - ref).abs().max())}
+    row.update(bf16_vs_plain(preprocess_i420_wire(buf, s, OUT, OUT, "inception",
+                                                  torch.bfloat16), ref, "inception"))
+    bf16 = torch.bfloat16
+    row.update(
+        ms=graph_time_ms(lambda: preprocess_i420_wire(buf, s, OUT, OUT, "inception", bf16),
+                         inner=5, replays=5),
+        ms_f32=graph_time_ms(lambda: preprocess_i420_wire(buf, s, OUT, OUT), inner=5,
+                             replays=5),
+        plain_ms=cuda_time_ms(lambda: preprocess_i420_plain(packed, hws, OUT, OUT, "inception",
+                                                            bf16), repeats=3, warmup=1))
+    row["bound_ms"], row["bound_by"] = bound_ms(hws_np, s, OUT, OUT, 2, 4)
+    row["bound_ms_f32"] = bound_ms(hws_np, s, OUT, OUT, 4, 4)[0]
+    del buf, packed, ref, got
+    if not row["max_abs_err"] <= row["tol"]:
+        raise AssertionError(f"preprocess_i420 at B=256 vs plain: {row}")
+    return row
+
+
+def phase_jobs(jpegs: list[bytes]) -> dict:
+    """Bulk jobs (``POST /jobs``) at full width on the card: Inception-v3 in
+    bf16 on the yuv420 wire with the preprocess kernel, ``max_batch`` 256
+    (batch buckets 1–256, one graph each at canvas 512), ``--jobs-batch
+    256``, ``--jobs-max-inflight 2``, over ``JOBS_IMAGES`` distinct seeded
+    JPEGs in a server-side directory.
+
+    - Job 1, the cache off, in-process (``start_server``): ``DONE`` with
+      every index once; the kernels' counts set to 0 just before it and
+      read just after: one preprocess launch and one graph replay a bulk
+      batch, every batch sealed at 256; the first 24 images' answers
+      against ``POST /predict`` of the same JPEGs (``answers_match`` at the
+      bf16 gate's probability tolerance); job img/s, the batch-256 replay's
+      device ms and the bulk batches' share of the job's window, the bulk
+      gate's holds and valve dispatches.
+    - ``preprocess_i420`` at B = 256 against its plain version.
+    - Isolation: ``tools/loadgen.py --job DIR --job-server-dir`` in a
+      process of its own (8 closed-loop workers) over the corpus listed
+      ``JOBS_ISO_REPEAT`` times: interactive p50/p99 without and with the
+      job, every answer 200, and the reference's
+      bound (p99 with the job ≤ p99 without + one bulk batch's device ms)
+      reported beside the batch's ms; then the same with one bulk batch in
+      flight.
+    - A hot swap mid-job: the runner is held before its second chunk until
+      the swap's DRAINING flip has paused the job (so the swap lands
+      mid-job whatever the load takes); the job goes PAUSED → RUNNING on
+      v2, lists both versions and ends with every index once.
+    - SIGTERM mid-job on the server's entry point (``python -m``, a tenant
+      quota of one bulk batch a second for the job), exit 0 with the job's
+      checkpoint ``RUNNING``; a reboot on the same ``--jobs-dir`` resumes
+      it to ``DONE`` with every index once. On that server (cache on, the
+      CLI's default) a job over the corpus, then a second: every image of
+      the second a bulk cache hit, no bulk batch, the interactive hits
+      unmoved, no preprocess launch."""
+    import shutil
+
+    from tensorflow_web_deploy_tpu_torch.ops.detection import nms_fixed
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
+    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
+    from tensorflow_web_deploy_tpu_torch.server import start_server
+    from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
+
+    t_phase = time.perf_counter()
+    row = {"phase": "jobs", "nvidia_smi": nvidia_smi(), "images": JOBS_IMAGES,
+           "jobs_batch": JOBS_BATCH, "jobs_max_inflight": JOBS_INFLIGHT,
+           "canvas_buckets": list(JOBS_BUCKETS)}
+    bad: dict = {}
+    n_batches = JOBS_IMAGES // JOBS_BATCH
+
+    def counts() -> dict:
+        return {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
+                "unpack_ragged": unpack_ragged.launches, "nms_fixed": nms_fixed.launches}
+
+    def zero() -> None:
+        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+        nms_fixed.launches = 0
+
+    tmp = tempfile.mkdtemp(prefix="jobs-")
+    try:
+        t0 = time.perf_counter()
+        corpus = os.path.join(tmp, "corpus")
+        interactive = os.path.join(tmp, "interactive")
+        jobs_dir = os.path.join(tmp, "jobs")
+        os.makedirs(corpus)
+        os.makedirs(interactive)
+        images = make_jpegs(JOBS_IMAGES, SEED + 2)
+        for i, data in enumerate(images):
+            with open(os.path.join(corpus, f"{i:05d}.jpg"), "wb") as f:
+                f.write(data)
+        for i, data in enumerate(jpegs):
+            with open(os.path.join(interactive, f"{i:02d}.jpg"), "wb") as f:
+                f.write(data)
+        iso_corpus = os.path.join(tmp, "isolation")
+        os.makedirs(iso_corpus)
+        for r in range(JOBS_ISO_REPEAT):
+            for i in range(JOBS_IMAGES):
+                os.link(os.path.join(corpus, f"{i:05d}.jpg"),
+                        os.path.join(iso_corpus, f"{r}-{i:05d}.jpg"))
+        row["corpus"] = {"distinct": len(set(images)), "bytes": sum(map(len, images)),
+                         "make_s": time.perf_counter() - t0}
+        if len(set(images)) != JOBS_IMAGES:
+            raise AssertionError(f"jobs: the corpus is not {JOBS_IMAGES} distinct images")
+
+        cfg = ServerConfig(model=model_config("native:inception_v3"), host="127.0.0.1", port=0,
+                           wire_format="yuv420", resize="kernel", max_batch=JOBS_BATCH,
+                           canvas_buckets=JOBS_BUCKETS, jobs_dir=jobs_dir,
+                           jobs_batch=JOBS_BATCH, jobs_max_inflight=JOBS_INFLIGHT,
+                           http_workers=32, **PINNED)
+        t0 = time.perf_counter()
+        srv = start_server(cfg, device="cuda", seed=SEED)
+        row["boot_s"] = time.perf_counter() - t0
+        try:
+            eng, port = srv.engine, srv.port
+            shard = eng._replicas[0].shards[0]  # the card: one replica of one device
+            st = eng.stats()
+            row["graphs"] = {"batch_buckets": list(eng.batch_buckets),
+                             "capture_s": {f"{k[1]}x{k[2]}": exe.capture_s
+                                           for k, exe in sorted(shard.exes.items(),
+                                                                key=lambda kv: kv[0][2])},
+                             "pool_bytes": st["graphs"]["pool_bytes"],
+                             "static_bytes": st["graphs"]["static_bytes"]}
+            batcher = srv.batcher
+            if batcher.bulk_max_batch != JOBS_BATCH:
+                bad["bulk_max_batch"] = batcher.bulk_max_batch
+
+            # job 1: the cache off, the counts around it
+            b0, before = batcher.stats()["bulk"], eng.stats()
+            zero()
+            t0 = time.perf_counter()
+            status, doc, _ = jobs_request(port, "POST", "/jobs", {"dir": corpus})
+            if status != 202:
+                raise AssertionError(f"POST /jobs: {status} {doc}")
+            jid = doc["id"]
+            doc = wait_job(port, jid, lambda d: d["state"] in JOBS_TERMINAL, 300)
+            wall_s = time.perf_counter() - t0
+            launches = counts()
+            b1, after = batcher.stats()["bulk"], eng.stats()
+            rows = job_rows(port, jid)
+            batches = after["batches"] - before["batches"]
+            replays = {k: after["graphs"][k] - before["graphs"][k]
+                       for k in ("replays", "eager_batches")}
+            key = next(k for k in shard.exes if k[1] == JOBS_BUCKETS[0] and k[2] == JOBS_BATCH)
+            exe = shard.exes[key]
+            with eng._replicas[0].lock, torch.cuda.stream(shard.compute):
+                replay_ms = cuda_time_ms(exe)
+            del exe
+            run_s = doc["run_s"]
+            job1 = {
+                "state": doc["state"], "completed": doc["completed"], "errors": doc["errors"],
+                "run_s": run_s, "wall_s": wall_s, "img_per_s": JOBS_IMAGES / run_s,
+                "chunks": doc["chunks_done"], "results": once_each(rows, JOBS_IMAGES),
+                "batches": batches, "graphs": replays, "kernel_launches": launches,
+                "bulk_batches_sealed": b1["batches_sealed_total"] - b0["batches_sealed_total"],
+                "bulk_images_sealed": b1["images_sealed_total"] - b0["images_sealed_total"],
+                "gate_holds_total": b1["gate_holds_total"],
+                "starvation_dispatches_total": b1["starvation_dispatches_total"],
+                "replay_ms_256": replay_ms,
+                "bulk_device_share": batches * replay_ms / 1e3 / run_s}
+            row["job"] = job1
+            want = {"preprocess_i420": n_batches, "fused_dw": 0, "unpack_ragged": 0,
+                    "nms_fixed": 0}
+            if doc["state"] != "DONE" or doc["completed"] != JOBS_IMAGES or \
+                    job1["results"] != {"lines": JOBS_IMAGES, "lost": 0, "duplicated": 0,
+                                        "in_order": True, "errors": 0} or \
+                    batches != n_batches or launches != want or \
+                    replays != {"replays": n_batches, "eager_batches": 0} or \
+                    (job1["bulk_batches_sealed"], job1["bulk_images_sealed"]) != (
+                        n_batches, JOBS_IMAGES):
+                bad["job"] = job1
+            row["kernel_launches"] = launches
+
+            # the first 24 images' answers against the request path's
+            tol = eng.PARITY_TOL["bfloat16"]["prob"]
+            client = KeepAlive(port)
+            try:
+                served = []
+                for data in images[:JOBS_PARITY_IMAGES]:
+                    status, body = client.request("POST", "/predict", data)
+                    if status != 200:
+                        raise AssertionError(f"/predict: {status} {body}")
+                    served.append(body["predictions"])
+            finally:
+                client.close()
+            m = [answers_match(r["predictions"], s, tol)
+                 for r, s in zip(rows[:JOBS_PARITY_IMAGES], served)]
+            row["vs_predict"] = {"images": len(m), "agree": sum(r["ok"] for r in m), "tol": tol,
+                                 "top1_equal": sum(r["predictions"][0]["index"] == s[0]["index"]
+                                                   for r, s in zip(rows, served)),
+                                 "max_score_diff": max(r["max_score_diff"] for r in m)}
+            if row["vs_predict"]["agree"] != JOBS_PARITY_IMAGES:
+                bad["vs_predict"] = row["vs_predict"]
+
+            row["preprocess_256"] = preprocess_256(
+                torch.Generator(device="cuda").manual_seed(SEED + 3))
+
+            # isolation: loadgen's baseline, then the job under the same load;
+            # again with one bulk batch in flight (the batcher's cap and the
+            # runner's window set on the live server, as --jobs-max-inflight 1
+            # sets them at boot)
+            def isolation() -> dict:
+                b0 = batcher.stats()["bulk"]
+                cmd = [sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                    "tools", "loadgen.py"),
+                       "--url", f"http://127.0.0.1:{port}/predict", "--images", interactive,
+                       "--workers", str(JOBS_WORKERS), "--duration", str(JOBS_LOAD_S),
+                       "--warmup", "0", "--timeout", "60", "--job", iso_corpus,
+                       "--job-server-dir", "--job-max-wait", "240"]
+                t0 = time.perf_counter()
+                proc = subprocess.run(cmd, capture_output=True, text=True, timeout=400)
+                lines = proc.stdout.strip().splitlines()
+                summary = json.loads(lines[-1]) if lines else {}
+                base = summary.get("interactive_baseline", {})
+                during = summary.get("interactive_with_job", {})
+                p99_idle = (base.get("latency_ms") or {}).get("p99")
+                p99_job = (during.get("latency_ms") or {}).get("p99")
+                b1 = batcher.stats()["bulk"]
+                iso = {"jobs_max_inflight": batcher.bulk_inflight_cap, "rc": proc.returncode,
+                       "wall_s": time.perf_counter() - t0, "job": summary.get("job"),
+                       "baseline": base, "with_job": during,
+                       "interactive_p99_degradation": summary.get("interactive_p99_degradation"),
+                       "bulk_batch_ms": replay_ms,
+                       "bound_ms": None if p99_idle is None else p99_idle + replay_ms,
+                       "bulk": {k: b1[k] - b0[k] for k in (
+                           "batches_sealed_total", "gate_holds_total",
+                           "starvation_dispatches_total")}}
+                iso["bound_holds"] = (p99_idle is not None and p99_job is not None
+                                      and p99_job <= p99_idle + replay_ms)
+                if proc.returncode != 0 or base.get("errors") != 0 or \
+                        during.get("errors") != 0 or not base.get("requests") or \
+                        not during.get("requests") or (summary.get("job") or {}).get(
+                            "completed") != JOBS_ISO_REPEAT * JOBS_IMAGES:
+                    bad[f"isolation_{batcher.bulk_inflight_cap}"] = {
+                        **iso, "stderr": proc.stderr.splitlines()[-20:]}
+                return iso
+
+            jm = srv.app.jobs
+            row["isolation"] = isolation()
+            batcher.bulk_inflight_cap = jm.max_inflight = 1
+            try:
+                row["isolation_inflight_1"] = isolation()
+            finally:
+                batcher.bulk_inflight_cap = jm.max_inflight = JOBS_INFLIGHT
+
+            # a hot swap mid-job: the runner waits before its second chunk
+            # until the swap's DRAINING flip paused the job
+            armed = threading.Event()
+            seen: dict = {}
+            stage = jm._stage_chunk
+
+            def held_stage(job, start):
+                if start > 0 and armed.is_set():
+                    armed.clear()
+                    end = time.monotonic() + 300
+                    while job.state != "PAUSED" and time.monotonic() < end:
+                        time.sleep(0.01)
+                    seen["paused_before_chunk_2"] = job.state == "PAUSED"
+                return stage(job, start)
+
+            jm._stage_chunk = held_stage
+            swap_out: dict = {}
+            try:
+                armed.set()
+                status, doc, _ = jobs_request(port, "POST", "/jobs", {"dir": corpus})
+                if status != 202:
+                    raise AssertionError(f"POST /jobs: {status} {doc}")
+                jid = doc["id"]
+                t0 = time.perf_counter()
+
+                def swap():
+                    swap_out["status"], swap_out["doc"], _ = jobs_request(
+                        port, "POST", "/models/swap",
+                        {"name": "inception_v3", "wait": True, "timeout_s": 300}, timeout=400)
+                    swap_out["s"] = time.perf_counter() - t0
+
+                swapper = threading.Thread(target=swap, daemon=True)
+                swapper.start()
+                doc = wait_job(port, jid, lambda d: d["state"] in JOBS_TERMINAL, 400)
+                swapper.join(400)
+            finally:
+                del jm._stage_chunk  # back to the class's method
+            states = [h["state"] for h in doc["history"]]
+            paused = states.index("PAUSED") if "PAUSED" in states else None
+            hot = {"state": doc["state"], "history": states, "versions": doc["versions"],
+                   "results": once_each(job_rows(port, jid), JOBS_IMAGES),
+                   "swap_status": swap_out.get("status"), "swap_s": swap_out.get("s"), **seen}
+            row["hot_swap"] = hot
+            if doc["state"] != "DONE" or paused is None or \
+                    "RUNNING" not in states[paused:] or not seen.get("paused_before_chunk_2") or \
+                    doc["versions"] != ["inception_v3@1", "inception_v3@2"] or \
+                    hot["results"]["lost"] or hot["results"]["duplicated"] or \
+                    hot["results"]["lines"] != JOBS_IMAGES or swap_out.get("status") != 200:
+                bad["hot_swap"] = hot
+        finally:
+            srv.close()
+
+        # SIGTERM mid-job on the entry point, then a reboot on the same dir
+        args = ["--model", "native:inception_v3", "--wire-format", "yuv420", "--resize",
+                "kernel", "--max-batch", str(JOBS_BATCH), "--canvas-buckets",
+                ",".join(map(str, JOBS_BUCKETS)), "--jobs-dir", jobs_dir, "--jobs-batch",
+                str(JOBS_BATCH), "--jobs-max-inflight", str(JOBS_INFLIGHT), "--tenant-quota",
+                JOBS_QUOTA, "--pressure-rungs", NO_LADDER]
+        log = tempfile.TemporaryFile("w+")
+        procs = []
+        try:
+            proc, port, boot_s = job_server_proc(args, log)
+            procs.append(proc)
+            status, doc, _ = jobs_request(port, "POST", "/jobs", {"dir": corpus},
+                                          headers={"X-Tenant": JOBS_SLOW_TENANT})
+            if status != 202:
+                raise AssertionError(f"POST /jobs: {status} {doc}")
+            jid = doc["id"]
+            doc = wait_job(port, jid, lambda d: d["completed"] >= JOBS_BATCH
+                           or d["state"] in JOBS_TERMINAL, 300)
+            at_signal = doc["completed"]
+            t0 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            try:
+                code = proc.wait(60)
+            except subprocess.TimeoutExpired:
+                code = None
+            stop_s = time.perf_counter() - t0
+            with open(os.path.join(jobs_dir, jid, "checkpoint.json")) as f:
+                cp = json.load(f)
+            proc, port, reboot_s = job_server_proc(args, log)
+            procs.append(proc)
+            doc = wait_job(port, jid, lambda d: d["state"] in JOBS_TERMINAL, 300)
+            term = {"boot_s": boot_s, "completed_at_signal": at_signal, "exit_code": code,
+                    "stop_s": stop_s, "checkpoint": {k: cp[k] for k in
+                                                     ("state", "completed", "chunks_done")},
+                    "reboot_s": reboot_s, "state": doc["state"], "resumed": doc["resumed"],
+                    "results": once_each(job_rows(port, jid), JOBS_IMAGES)}
+            row["sigterm"] = term
+            if code != 0 or cp["state"] != "RUNNING" or \
+                    not JOBS_BATCH <= cp["completed"] < JOBS_IMAGES or \
+                    doc["state"] != "DONE" or not doc["resumed"] or \
+                    term["results"]["lost"] or term["results"]["duplicated"] or \
+                    term["results"]["lines"] != JOBS_IMAGES:
+                bad["sigterm"] = term
+
+            # the cache on: a job over the corpus fills it, a second is all hits
+            def run(tag: str) -> dict:
+                status, doc, _ = jobs_request(port, "POST", "/jobs", {"dir": corpus})
+                if status != 202:
+                    raise AssertionError(f"POST /jobs ({tag}): {status} {doc}")
+                return wait_job(port, doc["id"], lambda d: d["state"] in JOBS_TERMINAL, 300)
+
+            run("fill")
+            _, s0, _ = jobs_request(port, "GET", "/stats")
+            second = run("second")
+            _, s1, _ = jobs_request(port, "GET", "/stats")
+            c0, c1 = s0["cache"], s1["cache"]
+            cached = {
+                "state": second["state"], "cached": second["cached"],
+                "bulk_hits": c1["bulk"]["hits_total"] - c0["bulk"]["hits_total"],
+                "bulk_misses": c1["bulk"]["misses_total"] - c0["bulk"]["misses_total"],
+                "interactive_hits": c1["hits_total"] - c0["hits_total"],
+                "bulk_batches": (s1["batcher"]["bulk"]["batches_sealed_total"]
+                                 - s0["batcher"]["bulk"]["batches_sealed_total"]),
+                "preprocess_launches": (s1["engine"]["kernel_launches"]["preprocess_i420"]
+                                        - s0["engine"]["kernel_launches"]["preprocess_i420"])}
+            row["cache"] = cached
+            if cached != {"state": "DONE", "cached": JOBS_IMAGES, "bulk_hits": JOBS_IMAGES,
+                          "bulk_misses": 0, "interactive_hits": 0, "bulk_batches": 0,
+                          "preprocess_launches": 0}:
+                bad["cache"] = cached
+            proc.send_signal(signal.SIGTERM)
+            row["exit_code"] = proc.wait(60)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            log.seek(0)
+            tail = log.read().splitlines()[-8:]
+            log.close()
+        if bad:
+            row["server_log_tail"] = tail
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    if bad:
+        raise AssertionError(f"jobs: {bad}")
+    return row
+
+
 def main(argv: list[str]) -> int:
     sweeps = ("--sweep-fused-dw", "--sweep-preprocess", "--sweep-overload")
     if not (argv == [] or (len(argv) == 1 and argv[0] in sweeps)
             or argv in (["--phase", "resnet50"], ["--phase", "ssd"],
-                        ["--phase", "converter"])):
+                        ["--phase", "converter"], ["--phase", "jobs"])):
         print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)} | --phase resnet50 | "
-              "--phase ssd | --phase converter], "
+              "--phase ssd | --phase converter | --phase jobs], "
               f"not {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4794,6 +5309,9 @@ def main(argv: list[str]) -> int:
     if argv == ["--phase", "converter"]:
         phase_converter(make_jpegs(24, SEED))
         return 0
+    if argv == ["--phase", "jobs"]:
+        phase_jobs(make_jpegs(24, SEED))
+        return 0
     kern_err = phase_kernel(gen)
     dw = phase_fused_dw_kernel(gen, dw_layer_shapes())
     jpegs = make_jpegs(24, SEED)
@@ -4823,6 +5341,7 @@ def main(argv: list[str]) -> int:
     resnet = phase_resnet50(jpegs)
     ssd = phase_ssd(jpegs)
     converter = phase_converter(jpegs)
+    jobs = phase_jobs(jpegs)
     by_path = {p["path"]: p["kernel_launches"] for p in (inception, mobilenet, *ragged)}
     by_path["registry"] = registry["kernel_launches"]
     by_path["overload"] = overload["kernel_launches"]
@@ -4831,6 +5350,7 @@ def main(argv: list[str]) -> int:
     by_path["resnet50"] = resnet["kernel_launches"]
     by_path["ssd"] = ssd["kernel_launches"]
     by_path["converter"] = converter["kernel_launches"]
+    by_path["jobs"] = jobs["kernel_launches"]
     by_kernel = {name: {m: n.get(name, 0) for m, n in by_path.items()} for name in KERNELS}
     emit({"kernels": [{
         "name": "preprocess_i420",
@@ -4842,7 +5362,8 @@ def main(argv: list[str]) -> int:
         # float32 through both entries at every cell, and the main paths'
         # stages; their bf16 outputs are in the kernel and preprocess_stage
         # lines
-        "max_abs_err": max(kern_err, stage299["max_abs_err"], stage224["max_abs_err"]),
+        "max_abs_err": max(kern_err, stage299["max_abs_err"], stage224["max_abs_err"],
+                           jobs["preprocess_256"]["max_abs_err"]),
         # batch of 8 main-path images, 512 canvas, 299 out, bf16 from the
         # wire as the Inception path runs it; and at 224 out (MobileNetV2)
         "ms": stage299["ms"],
@@ -4853,6 +5374,11 @@ def main(argv: list[str]) -> int:
         "ms_224": stage224["ms"],
         "plain_ms_224": stage224["plain_ms"],
         "bound_ms_224": stage224["bound_ms"],
+        # the jobs path's bulk batch: 256 images, 512 canvas, 299 out, bf16
+        "ms_256": jobs["preprocess_256"]["ms"],
+        "plain_ms_256": jobs["preprocess_256"]["plain_ms"],
+        "bound_ms_256": jobs["preprocess_256"]["bound_ms"],
+        "max_abs_err_256": jobs["preprocess_256"]["max_abs_err"],
         "host_us": stage299["host_us"],
     }, {
         "name": "fused_dw",

@@ -14,8 +14,11 @@
         [--pressure-rungs 0.60:0.40,0.80:0.60,0.95:0.75] [--chaos SPEC]
         [--access-log PATH|-] [--flight-recorder-n 32] [--telemetry-interval 1]
         [--slo-objectives interactive=p99:1000ms:99.9]
+        [--jobs-dir DIR [--jobs-batch 256] [--jobs-max-inflight 2]]   # POST /jobs
     curl -X POST --data-binary @cat.jpg http://localhost:8500/predict?model=mobilenet_v2_int8
     curl -X POST -d '{"name": "inception_v3", "wait": true}' http://localhost:8500/models/swap
+    curl -X POST -d '{"dir": "/data/corpus"}' http://localhost:8500/jobs   # --jobs-dir set
+    curl 'http://localhost:8500/jobs/<id>/results?offset=0&wait_s=10'
     curl http://localhost:8500/metrics       # also /debug/slow, /debug/history, /debug/events
     curl http://localhost:8500/debug/trace > trace.json   # chrome://tracing or Perfetto
     curl -X POST 'http://localhost:8500/debug/trace?ms=300&dir=/tmp/prof'   # torch.profiler
@@ -231,6 +234,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="SLO objectives as burn-rate alerts, e.g. 'interactive=p99:1000ms:99.9' "
                         "- evaluated over 1m/5m fast + 30m slow windows, exposed as "
                         "tpu_serve_slo_burn_rate gauges and alert state")
+    p.add_argument("--jobs-dir", default=None, metavar="DIR",
+                   help="enable POST /jobs bulk offline inference: job manifests, spooled "
+                   "uploads, results and checkpoints persist here (jobs resume from their "
+                   "checkpoint after a restart); unset: /jobs disabled")
+    p.add_argument("--jobs-batch", type=int, default=256,
+                   help="bulk-job batch target, clamped to the top batch bucket, so the full "
+                   "256 needs --max-batch 256")
+    p.add_argument("--jobs-max-inflight", type=int, default=2,
+                   help="bulk batches in flight at once: bounds the device time a background "
+                   "job holds while interactive traffic shares the card")
     p.add_argument("--no-warmup", action="store_true",
                    help="capture no CUDA graphs: every batch runs eagerly")
     p.add_argument("--log-level", default="INFO")
@@ -269,7 +282,9 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
         slo_classes=args.slo_classes, tenant_quota=args.tenant_quota,
         tenant_burst_s=args.tenant_burst_s, pressure_rungs=args.pressure_rungs,
         chaos=args.chaos, access_log=args.access_log, flight_recorder_n=args.flight_recorder_n,
-        telemetry_interval_s=args.telemetry_interval, slo_objectives=args.slo_objectives, **kw,
+        telemetry_interval_s=args.telemetry_interval, slo_objectives=args.slo_objectives,
+        jobs_dir=args.jobs_dir, jobs_batch=args.jobs_batch,
+        jobs_max_inflight=args.jobs_max_inflight, **kw,
     )
 
 

@@ -71,8 +71,27 @@ batch records it (``_Builder.replica``, the timeline's ``replica``). N
 replicas sustain N × ``pipeline_depth`` batches in flight per bucket, and
 the launch and completion pools grow to one thread per replica (2 to 16).
 
-Left out of the reference: the bulk traffic class and its replica pick
-(ROADMAP.md Queue 1 item 14).
+**Bulk traffic class** (``serving/jobs.py``). ``lease(..., bulk=True)``,
+``lease_ragged(..., bulk=True)`` and ``submit(..., bulk=True)`` stage into
+builders of their own, keyed by (row shape, bulk), that fill up to
+``bulk_max_batch`` rows: min(``jobs_batch``, the engine's top batch
+bucket), the throughput shape the interactive path never reaches. A
+sealed bulk batch takes the device only through the gate
+(:meth:`_bulk_gate_open_locked`): bulk's own in-flight cap
+(``bulk_inflight``, ``--jobs-max-inflight``) has room, the job tenant's
+token bucket can pay for its rows (``admission.peek``; ``charge`` at
+dispatch), and no interactive batch is sealed and waiting or in flight on
+any replica's stream, so an interactive batch sealed during a bulk replay
+waits at most for that replay. A batch gated for ``bulk_starvation_s``
+goes through once (the valve), then the clock re-arms, so sustained
+interactive load slows a job down but never stops it. While the gate is
+closed a past-deadline bulk builder keeps accepting leases: bulk batches
+grow exactly while interactive load holds the device. Bulk leases block
+at their own cap and never shed: they count in neither ``max_queue``, the
+interactive slot cap nor the adaptive window. A drain lifts the gate. A
+bulk batch goes to the least loaded replica
+(:meth:`_pick_bulk_replica_locked`); the gate, not the per-bucket depth,
+bounds it.
 """
 
 from __future__ import annotations
@@ -97,6 +116,11 @@ log = logging.getLogger("tpu_serve_torch.batcher")
 # slot states: PENDING, the lessee is decoding; READY, committed; HOLE,
 # released or expired
 _PENDING, _READY, _HOLE = 0, 1, 2
+# how often a bulk batch held by its tenant's quota re-reads the gate
+_QUOTA_RECHECK_S = 0.05
+# the bulk assembly window, a backstop only: a full chunk seals at capacity
+# and the job runner seals a manifest's tail itself (flush_bulk)
+_BULK_DELAY_S = 1.0
 
 
 class ShuttingDown(RuntimeError):
@@ -159,10 +183,13 @@ class _Builder:
     its sealing deadline."""
 
     __slots__ = ("key", "slab", "capacity", "leases", "opened_at", "deadline", "accepting",
-                 "dispatched", "n_pending", "n_ready", "replica")
+                 "dispatched", "n_pending", "n_ready", "replica", "bulk", "tenant")
 
-    def __init__(self, key, slab, capacity: int, deadline: float):
+    def __init__(self, key, slab, capacity: int, deadline: float, bulk: bool = False):
         self.key = key
+        # the bulk traffic class, and the job tenant its dispatch charges
+        self.bulk = bulk
+        self.tenant: str | None = None
         self.slab = slab
         self.capacity = capacity
         self.leases: list[SlotLease] = []
@@ -177,9 +204,14 @@ class _Builder:
 
 
 class Batcher:
+    # callers may lease a slot and decode into it (jobs' staging reads this)
+    supports_lease = True
+
     def __init__(self, engine, max_batch: int | None = None, max_delay_ms: float = 2.0,
                  pipeline_depth: int = 4, adaptive_delay: bool = True, max_queue: int = 0,
-                 lease_timeout_s: float = 10.0, admission=None, chaos=None):
+                 lease_timeout_s: float = 10.0, admission=None, chaos=None,
+                 bulk_max_batch: int | None = None, bulk_inflight: int = 2,
+                 bulk_starvation_s: float = 2.0):
         self.engine = engine
         # the registry's shared tenant quotas and fault injector (None: off)
         self.admission = admission
@@ -200,11 +232,26 @@ class Batcher:
         self._max_pending = self.max_batch * max(2, self.pipeline_depth)
         if self.max_queue:  # the bound must be reachable, or BacklogFull never fires
             self._max_pending = max(self._max_pending, self.max_queue)
+        # the bulk class: its batch target is capped at the engine's top batch
+        # bucket, not the interactive max_batch
+        top = (getattr(engine, "batch_buckets", None) or (engine.max_batch,))[-1]
+        self.bulk_max_batch = max(1, min(256 if bulk_max_batch is None else bulk_max_batch,
+                                         top))
+        self.bulk_inflight_cap = max(1, int(bulk_inflight))
+        self.bulk_delay_s = _BULK_DELAY_S
+        self.bulk_starvation_s = max(0.05, float(bulk_starvation_s))
+        self._bulk_gated_since: float | None = None
+        # a quota-held bulk batch re-reads the gate at this time: nothing
+        # else need wake the sealer while the tenant's bucket refills
+        self._bulk_quota_recheck: float | None = None
+        self._bulk_pending = self._bulk_inflight = 0  # leased slots; batches in flight
+        self._bulk_sealed = self._bulk_images = 0
+        self._bulk_gate_holds = self._bulk_starvation = self._bulk_quota_holds = 0
         # replica routing: engines without the API keep one stream
         self._route = getattr(engine, "supports_replica_routing", False)
         self._n_replicas = max(1, getattr(engine, "num_replicas", 1)) if self._route else 1
         self._rr = 0  # round-robin cursor over replicas
-        # batches sealed, not yet fetched, per (canvas bucket key, replica)
+        # batches sealed, not yet fetched, per ((canvas bucket key, bulk), replica)
         self._inflight_by_key: dict[tuple, int] = {}
         self._inflight_total = self._inflight_peak = 0
         # depth is gated at the seal decision, so these never block a stop
@@ -303,9 +350,18 @@ class Batcher:
         backlog_s = self._pending_slots / rate if rate > 0 else 0.0
         return backlog_s + self._delay_s + self.rolling.device_hint()
 
-    def _admit_locked(self, t0: float, deadline: float | None, tenant: str | None) -> None:
+    def _admit_locked(self, t0: float, deadline: float | None, tenant: str | None,
+                      bulk: bool = False) -> None:
         """Shed in the order backlog → quota → deadline, then block at the
-        outstanding-slot cap."""
+        outstanding-slot cap. A bulk lease never sheds: it blocks at a
+        staged batch per allowed in-flight batch plus one assembling."""
+        if bulk:
+            cap = self.bulk_max_batch * (self.bulk_inflight_cap + 1)
+            while self._running and self._bulk_pending >= cap:
+                self._cond.wait(timeout=0.25)
+            if not self._running:
+                raise ShuttingDown("server shutting down")
+            return
         if self.max_queue and self._running and self._pending_slots >= self.max_queue:
             self._rejects += 1
             raise BacklogFull(f"batcher backlog {self._pending_slots} images ≥ max_queue "
@@ -330,10 +386,11 @@ class Batcher:
         if not self._running:
             raise ShuttingDown("server shutting down")
 
-    def _new_builder_locked(self, key, slab) -> _Builder:
-        b = _Builder(key, slab, min(self.max_batch, slab.capacity),
-                     time.monotonic() + self._update_delay())
-        self._open[key] = b
+    def _new_builder_locked(self, key, slab, bulk: bool = False) -> _Builder:
+        cap = self.bulk_max_batch if bulk else self.max_batch
+        delay = self.bulk_delay_s if bulk else self._update_delay()
+        b = _Builder(key, slab, min(cap, slab.capacity), time.monotonic() + delay, bulk)
+        self._open[(key, bulk)] = b
         return b
 
     def _add_lease_locked(self, b: _Builder, index: int, row: np.ndarray,
@@ -341,7 +398,12 @@ class Batcher:
         lease = SlotLease(self, b, index, row, deadline, tenant, span)
         b.leases.append(lease)
         b.n_pending += 1
-        self._pending_slots += 1
+        if b.bulk:
+            self._bulk_pending += 1
+            if b.tenant is None:
+                b.tenant = tenant
+        else:
+            self._pending_slots += 1
         b.slab.add_lease()
         if len(b.leases) >= b.capacity:
             self._close_builder_locked(b)
@@ -349,45 +411,47 @@ class Batcher:
         return lease
 
     def lease(self, row_shape: tuple[int, ...], deadline: float | None = None,
-              tenant: str | None = None, span=None) -> SlotLease:
+              tenant: str | None = None, span=None, bulk: bool = False) -> SlotLease:
         """A slot for one classic-wire canvas of ``row_shape`` (the engine's
         ``canvas_shape(1, s)[1:]``) in the open builder of its canvas side.
         ``deadline`` (monotonic) and ``tenant`` go through admission; the
         time to a slot is ``span``'s ``lease_wait``. Raises
         :class:`BacklogFull`, :class:`~.overload.QuotaExceeded`,
         :class:`~.overload.DeadlineExceeded` or :class:`ShuttingDown`; blocks
-        at the outstanding-slot cap."""
+        at the outstanding-slot cap. ``bulk`` stages into the bulk class:
+        its own builders, its own blocking cap, no shedding; its ``tenant``
+        is charged at the gate's dispatch."""
         key = tuple(int(d) for d in row_shape)
         t0 = time.monotonic()
         with self._cond:
-            self._admit_locked(t0, deadline, tenant)
-            b = self._open.get(key)
+            self._admit_locked(t0, deadline, tenant, bulk)
+            b = self._open.get((key, bulk))
             if b is None:
                 # the canvas side: (s, s, 3) on rgb, (3s/2, s) on yuv420
-                b = self._new_builder_locked(key, self.engine.acquire_staging(key[1]))
+                b = self._new_builder_locked(key, self.engine.acquire_staging(key[1]), bulk)
             i = len(b.leases)
             lease = self._add_lease_locked(b, i, b.slab.row(i), deadline, tenant, span)
         self._stamp_lease_wait(span, t0)
         return lease
 
     def lease_ragged(self, need_bytes: int, s: int, deadline: float | None = None,
-                     tenant: str | None = None, span=None) -> SlotLease:
+                     tenant: str | None = None, span=None, bulk: bool = False) -> SlotLease:
         """``need_bytes`` (one image's h·w·3) of the open ragged arena of
         canvas side ``s``; an arena that cannot fit them seals, and a fresh
-        one opens. Admission and ``span`` as :meth:`lease`."""
+        one opens. Admission, ``span`` and ``bulk`` as :meth:`lease`."""
         key = ("ragged", int(s))
         if need_bytes > s * s * 3:
             raise ValueError(f"ragged lease of {need_bytes} B exceeds one {s}px canvas row")
         t0 = time.monotonic()
         with self._cond:
-            self._admit_locked(t0, deadline, tenant)
-            b = self._open.get(key)
+            self._admit_locked(t0, deadline, tenant, bulk)
+            b = self._open.get((key, bulk))
             if b is None:
-                b = self._new_builder_locked(key, self.engine.acquire_ragged(s))
+                b = self._new_builder_locked(key, self.engine.acquire_ragged(s), bulk)
             got = b.slab.alloc(need_bytes)
             if got is None:  # as packed as it gets: seal, start the next arena
                 self._close_builder_locked(b)
-                b = self._new_builder_locked(key, self.engine.acquire_ragged(s))
+                b = self._new_builder_locked(key, self.engine.acquire_ragged(s), bulk)
                 got = b.slab.alloc(need_bytes)
             lease = self._add_lease_locked(b, *got, deadline, tenant, span)
         self._stamp_lease_wait(span, t0)
@@ -400,12 +464,12 @@ class Batcher:
         self.rolling.record_lease_wait(waited)
 
     def submit(self, canvas: np.ndarray, hw: tuple[int, int], deadline: float | None = None,
-               tenant: str | None = None) -> Future:
+               tenant: str | None = None, bulk: bool = False) -> Future:
         """Queue one decoded wire canvas (one copy into its slot); the
         future resolves to its row. Admission sheds raise as from
-        :meth:`lease`."""
+        :meth:`lease`; ``bulk`` rides the bulk class (blocks, never sheds)."""
         try:
-            lease = self.lease(canvas.shape, deadline, tenant)
+            lease = self.lease(canvas.shape, deadline, tenant, bulk=bulk)
         except ShuttingDown as e:
             f: Future = Future()
             f.set_exception(e)
@@ -427,9 +491,24 @@ class Batcher:
     def _close_builder_locked(self, b: _Builder) -> None:
         if b.accepting:
             b.accepting = False
-            if self._open.get(b.key) is b:
-                del self._open[b.key]
+            if self._open.get((b.key, b.bulk)) is b:
+                del self._open[(b.key, b.bulk)]
             self._closing.append(b)
+
+    def _dec_pending_locked(self, b: _Builder, n: int = 1) -> None:
+        if b.bulk:
+            self._bulk_pending -= n
+        else:
+            self._pending_slots -= n
+
+    def flush_bulk(self) -> None:
+        """Seal every open bulk builder now: the job runner calls it once a
+        chunk is staged, so the manifest's partial tail does not wait out
+        the bulk window (a full chunk sealed at capacity already)."""
+        with self._cond:
+            for b in [b for b in self._open.values() if b.bulk]:
+                self._close_builder_locked(b)
+            self._cond.notify_all()
 
     def _commit(self, lease: SlotLease, hw, canvas) -> Future:
         b = lease.builder
@@ -476,7 +555,7 @@ class Batcher:
             else:
                 return  # a hole already, or its batch left: the result is dropped
             lease.state = _HOLE
-            self._pending_slots -= 1
+            self._dec_pending_locked(b)
             self._holes += 1
             if not lease.future.done():
                 lease.future.set_exception(RuntimeError("slot lease released"))
@@ -500,7 +579,7 @@ class Batcher:
             if lease.state == _PENDING and now - lease.leased_at > timeout:
                 lease.state = _HOLE
                 b.n_pending -= 1
-                self._pending_slots -= 1
+                self._dec_pending_locked(b)
                 self._lease_timeouts += 1
                 self._holes += 1
                 expired = True
@@ -520,7 +599,7 @@ class Batcher:
             if lease.state == _READY and lease.deadline is not None and now > lease.deadline:
                 lease.state = _HOLE
                 b.n_ready -= 1
-                self._pending_slots -= 1
+                self._dec_pending_locked(b)
                 self._holes += 1
                 self._deadline_seal_sheds += 1
                 shed = True
@@ -533,22 +612,70 @@ class Batcher:
         if shed:
             self._cond.notify_all()  # freed cap slots wake lease() waiters now
 
-    def _pick_replica_locked(self, key) -> int | None:
-        """The replica of one sealed batch of ``key``: among the replicas with
-        depth left for the bucket, the least loaded by the engine's in-flight
-        count, the round-robin cursor's order breaking ties; None when every
-        replica is at depth."""
+    def _pick_replica_locked(self, mkey) -> int | None:
+        """The replica of one sealed interactive batch of ``mkey`` (canvas
+        bucket key, bulk flag): among the replicas with depth left for the
+        bucket, the least loaded by the engine's in-flight count, the
+        round-robin cursor's order breaking ties; None when every replica is
+        at depth."""
         n = self._n_replicas
         cands = [r for r in range(n)
-                 if self._inflight_by_key.get((key, r), 0) < self.pipeline_depth]
+                 if self._inflight_by_key.get((mkey, r), 0) < self.pipeline_depth]
         if n == 1 or not cands:
             return cands[0] if cands else None
         loads = self.engine.replica_loads()
         start = self._rr
         return min(cands, key=lambda r: (loads[r], (r - start) % n))
 
-    def _depth_free_locked(self, key) -> bool:
-        return any(self._inflight_by_key.get((key, r), 0) < self.pipeline_depth
+    def _pick_bulk_replica_locked(self) -> int:
+        """The replica of one bulk batch: the gate bounds bulk globally, so
+        this only spreads it to the least loaded replica (its compute
+        stream), the round-robin cursor breaking ties."""
+        n = self._n_replicas
+        if n == 1:
+            return 0
+        loads = self.engine.replica_loads()
+        start = self._rr
+        return min(range(n), key=lambda r: (loads[r], (r - start) % n))
+
+    def _bulk_gate_open_locked(self, now: float, consume: bool = True,
+                               tenant: str | None = None, rows: int = 0) -> bool:
+        """May a sealed bulk batch take the device now? In this order: bulk's
+        in-flight cap has room (else closed, no clock); the tenant's token
+        bucket can pay for ``rows`` (``admission.peek``; else closed, no
+        clock: quota is the tenant's own doing, so it never earns the
+        valve, and it re-reads the gate every ``_QUOTA_RECHECK_S``, since on
+        an idle server nothing else wakes the sealer while the bucket
+        refills); no interactive batch is sealed and waiting or in flight on
+        any replica (else closed, and the starvation clock runs: a batch
+        gated for ``bulk_starvation_s`` goes through once and the clock
+        re-arms). Every fetch notifies the condition, so a closed gate is
+        re-read the moment interactive pressure drops. ``consume=False`` is
+        the builder-close decision's peek: it does not spend the valve, so
+        the dispatch decision of the same pass does."""
+        if self._bulk_inflight >= self.bulk_inflight_cap:
+            return False
+        if self.admission is not None and not self.admission.peek(tenant, max(1, rows)):
+            if consume:
+                self._bulk_quota_holds += 1
+            self._bulk_quota_recheck = now + _QUOTA_RECHECK_S
+            return False
+        self._bulk_quota_recheck = None
+        if (any(not c.bulk for c in self._closing)
+                or self._inflight_total - self._bulk_inflight > 0):
+            if self._bulk_gated_since is None:
+                self._bulk_gated_since = now
+            elif now - self._bulk_gated_since >= self.bulk_starvation_s:
+                if consume:
+                    self._bulk_starvation += 1
+                    self._bulk_gated_since = None  # one through; re-arm
+                return True
+            return False
+        self._bulk_gated_since = None
+        return True
+
+    def _depth_free_locked(self, mkey) -> bool:
+        return any(self._inflight_by_key.get((mkey, r), 0) < self.pipeline_depth
                    for r in range(self._n_replicas))
 
     def _pick_action_locked(self, now: float):
@@ -559,32 +686,55 @@ class Batcher:
         grace = min(self.lease_timeout_s, 2.0) if draining else self.lease_timeout_s
         for b in list(self._open.values()):
             self._expire_locked(b, now, grace)
+            # a past-deadline bulk builder closes against the gate's peek:
+            # while interactive load holds the device it keeps growing
             if draining or len(b.leases) >= b.capacity or (
-                    now >= b.deadline and not b.n_pending and self._depth_free_locked(b.key)):
+                    now >= b.deadline and not b.n_pending and (
+                        self._bulk_gate_open_locked(now, consume=False, tenant=b.tenant,
+                                                    rows=b.n_ready)
+                        if b.bulk else self._depth_free_locked((b.key, False)))):
                 self._close_builder_locked(b)
         for b in self._closing:
             self._expire_locked(b, now, grace)
-        for b in self._closing:
+        # interactive builders first: bulk never jumps a sealed interactive batch
+        for b in sorted(self._closing, key=lambda x: x.bulk):
             if b.n_pending:
                 continue  # a lessee is still decoding; bounded by expiry
-            self._shed_dead_rows_locked(b, now)
+            if not b.bulk:
+                self._shed_dead_rows_locked(b, now)
             if b.n_ready == 0:
                 self._closing.remove(b)
                 b.dispatched = True
+                if b.bulk and not any(c.bulk for c in self._closing):
+                    # the last gated bulk batch turned into holes (a cancel):
+                    # stop the clock, or a later job inherits an open valve
+                    self._bulk_gated_since = None
                 return "discard", b
-            replica = self._pick_replica_locked(b.key)
-            if draining and replica is None:
-                # a drain goes on with every replica at depth: past the gate
-                replica = self._rr % self._n_replicas
+            if b.bulk:
+                if not draining and not self._bulk_gate_open_locked(
+                        now, tenant=b.tenant, rows=b.n_ready):
+                    self._bulk_gate_holds += 1
+                    continue  # a fetch or the valve's deadline re-reads it
+                replica = self._pick_bulk_replica_locked()
+            else:
+                replica = self._pick_replica_locked((b.key, False))
+                if draining and replica is None:
+                    # a drain goes on with every replica at depth: past the gate
+                    replica = self._rr % self._n_replicas
             if replica is not None:
                 self._closing.remove(b)
                 b.dispatched = True
                 b.replica = replica
                 self._rr = (replica + 1) % self._n_replicas
-                slot = (b.key, replica)
+                slot = ((b.key, b.bulk), replica)
                 self._inflight_by_key[slot] = self._inflight_by_key.get(slot, 0) + 1
                 self._inflight_total += 1
                 self._inflight_peak = max(self._inflight_peak, self._inflight_total)
+                if b.bulk:
+                    self._bulk_inflight += 1
+                    if self.admission is not None:
+                        # the gate peeked; the dispatch pays for the rows
+                        self.admission.charge(b.tenant, b.n_ready)
                 return "dispatch", b
         return None
 
@@ -593,6 +743,17 @@ class Batcher:
         grace = self.lease_timeout_s if self._running else min(self.lease_timeout_s, 2.0)
         wake += [lease.leased_at + grace for b in (*self._open.values(), *self._closing)
                  for lease in b.leases if lease.state == _PENDING]
+        # a gated bulk batch (or a past-deadline bulk builder, whose close
+        # peeks the same gate) wakes at the valve's deadline even when no
+        # fetch notifies first
+        if self._bulk_gated_since is not None and (
+                any(b.bulk for b in self._closing)
+                or any(b.bulk and b.deadline <= now for b in self._open.values())):
+            wake.append(self._bulk_gated_since + self.bulk_starvation_s)
+        if self._bulk_quota_recheck is not None and (
+                any(b.bulk for b in self._closing)
+                or any(b.bulk and b.deadline <= now for b in self._open.values())):
+            wake.append(self._bulk_quota_recheck)
         return max(0.0005, min(wake) - now) if wake else None
 
     def _seal_loop(self) -> None:
@@ -619,10 +780,13 @@ class Batcher:
         no device work, and the slot cap frees here."""
         ready = [lease for lease in b.leases if lease.state == _READY]
         with self._cond:
-            self._pending_slots -= len(ready)
+            self._dec_pending_locked(b, len(ready))
             self._sealed += 1
+            if b.bulk:
+                self._bulk_sealed += 1
+                self._bulk_images += len(ready)
             self._batch_seq += 1
-            rec = {"seq": self._batch_seq, "key": b.key, "replica": b.replica,
+            rec = {"seq": self._batch_seq, "key": b.key, "replica": b.replica, "bulk": b.bulk,
                    "rows": len(ready), "bucket": None, "t_open": b.opened_at,
                    "t_seal": time.monotonic(), "t_launch": None, "t_launched": None,
                    "t_done": None}
@@ -630,17 +794,19 @@ class Batcher:
             self._cond.notify_all()  # lease() waiters and the next seal decision
         self._launch_q.put((b, ready, rec))
 
-    def _batch_done(self, key, replica: int = 0) -> None:
+    def _batch_done(self, mkey, replica: int = 0) -> None:
         """A batch left the pipeline (fetched or failed): free its depth slot
-        on its replica."""
+        on its replica and wake the sealer, which re-reads the bulk gate."""
         with self._cond:
-            slot = (key, replica)
+            slot = (mkey, replica)
             n = self._inflight_by_key.get(slot, 0) - 1
             if n > 0:
                 self._inflight_by_key[slot] = n
             else:
                 self._inflight_by_key.pop(slot, None)
             self._inflight_total -= 1
+            if mkey[1]:
+                self._bulk_inflight -= 1
             self._cond.notify_all()
 
     # ------------------------------------------------------------- dispatch
@@ -694,7 +860,7 @@ class Batcher:
             self._fail(ready, e)
             rec["t_launched"] = rec["t_done"] = time.monotonic()
             self.engine.release_staging(b.slab)
-            self._batch_done(b.key, b.replica)
+            self._batch_done((b.key, b.bulk), b.replica)
             return
         rec["t_launched"] = time.monotonic()
         rec["bucket"] = bucket = self.engine.pick_batch_bucket(n)
@@ -743,7 +909,7 @@ class Batcher:
                 log.exception("fetch of a batch of %d failed", len(ready))
                 self._fail(ready, e)
                 rec["t_done"] = time.monotonic()
-                self._batch_done(rec["key"], rec["replica"])
+                self._batch_done((rec["key"], rec["bulk"]), rec["replica"])
                 continue
             rec["t_done"] = now = time.monotonic()
             t_launch = rec["t_launch"]
@@ -764,7 +930,7 @@ class Batcher:
             with self._cond:
                 self.batches += 1
                 self.images += len(ready)
-            self._batch_done(rec["key"], rec["replica"])
+            self._batch_done((rec["key"], rec["bulk"]), rec["replica"])
 
     def _fail(self, leases: list[SlotLease], e: Exception) -> None:
         now = time.monotonic()
@@ -846,4 +1012,18 @@ class Batcher:
                     for (s, bk), c in sorted(self._padding.items())
                 },
                 "rolling": self.rolling.snapshot(),
+                # the bulk class, beside the interactive numbers it must not touch
+                "bulk": {
+                    "max_batch": self.bulk_max_batch,
+                    "inflight_cap": self.bulk_inflight_cap,
+                    "leased_slots": self._bulk_pending,
+                    "inflight_batches": self._bulk_inflight,
+                    "batches_sealed_total": self._bulk_sealed,
+                    "images_sealed_total": self._bulk_images,
+                    "gate_holds_total": self._bulk_gate_holds,
+                    # admitted by the valve (interactive load never went idle)
+                    "starvation_dispatches_total": self._bulk_starvation,
+                    # held on the job tenant's token bucket (never the valve's)
+                    "quota_holds_total": self._bulk_quota_holds,
+                },
             }

@@ -47,6 +47,11 @@ HTTP/1.1 keep-alive front end (counterpart of the JAX package's
   ID answers in ``X-Trace-Id`` on every response, sheds and 304s included.
   The telemetry hub's sampler starts with the App and stops first in
   :func:`shutdown_gracefully`.
+- **Bulk jobs** (``serving/jobs.py``, ``--jobs-dir``). ``App.jobs`` is the
+  :class:`~.jobs.JobManager` over the same registry and cache; its runner
+  feeds the batchers' bulk class. :func:`shutdown_gracefully` stops it
+  before the batchers drain, so a running job checkpoints at its chunk
+  boundary and resumes on the next boot.
 
 Routes:
     POST /predict       image (raw body or multipart/form-data) → JSON
@@ -102,6 +107,19 @@ Routes:
     POST /debug/trace   ``?ms=N&dir=D``: a ``torch.profiler`` capture of N ms
                         (at most 60,000) written to D as a Chrome trace; 409
                         while another capture runs
+    POST /jobs          a bulk job (``--jobs-dir``): a multipart upload (the
+                        file parts are the manifest) or a JSON body
+                        ``{"dir", "glob"?, "recursive"?, "model"?, "topk"?}``
+                        naming a server-side directory; ``?model=&topk=&
+                        weight=`` and ``X-Tenant``. 202 and the job
+                        document; 404 for an unknown model, 400 for a
+                        version pin or a bad body, 503 while jobs are off
+    GET  /jobs          every job (state, progress, versions)
+    GET  /jobs/{id}     one job's document (404 if unknown)
+    GET  /jobs/{id}/results  ``?offset=N&limit=M&wait_s=S``: its result lines
+                        (application/x-ndjson) from N, with ``X-Job-State``,
+                        ``X-Job-Next-Offset`` and ``X-Job-Complete``
+    POST /jobs/{id}/cancel   stop at the next chunk boundary
     GET  /              the upload page
 
 The admin routes are as open as the rest of the surface: deploy behind
@@ -132,7 +150,7 @@ from ..utils.tracing import Span, accept_trace_id, chrome_trace, effective_windo
 from . import aotcache, costmodel
 from .batcher import BacklogFull, LeaseExpired, ShuttingDown
 from .engine import quiesced
-from .jobs import format_result_row
+from .jobs import JobManager, UnknownJob, clamp_topk, format_result_row
 from .overload import (
     DEFAULT_TENANT,
     SHED_BACKLOG,
@@ -332,6 +350,11 @@ class App:
         self.telemetry = build_hub(self, server_cfg)
         if self.telemetry is not None:
             self.telemetry.start()
+        # bulk jobs (--jobs-dir): the manager resumes the jobs it finds on
+        # disk at once, through the same registry and cache
+        self.jobs: JobManager | None = None
+        if server_cfg.jobs_dir:
+            self.jobs = JobManager(registry, self.cache, server_cfg, obs=self.obs)
 
     # The default model's serving unit, resolved on every read so that a
     # hot swap of the default model retargets /healthz and /stats.
@@ -387,6 +410,8 @@ class App:
                 res = self._profile(environ)
             elif path == "/debug/trace":
                 res = self._trace_export(environ)
+            elif path == "/jobs" or path.startswith("/jobs/"):
+                res = self._jobs_route(environ, method, path)
             elif path == "/":
                 res = "200 OK", _DEMO_PAGE.encode(), "text/html", []
             else:
@@ -438,7 +463,13 @@ class App:
                 "devices": len(getattr(engine, "mesh", ())) or None,
                 "placement": (engine.placement_summary()
                               if hasattr(engine, "placement_summary") else None)}
+        # the jobs knobs echoed, as the reference's config block does
+        snap.setdefault("config", {}).update({
+            "jobs_dir": self.cfg.jobs_dir,
+            "jobs_batch": self.jobs.bulk_batch if self.jobs is not None else None,
+            "jobs_max_inflight": self.jobs.max_inflight if self.jobs is not None else None})
         snap["models"] = self.registry.models_snapshot()
+        snap["jobs"] = self.jobs.stats() if self.jobs is not None else {"enabled": False}
         if self.http_counters is not None:
             snap["http"] = self.http_counters.snapshot()
         snap["cache"] = self.cache.stats()
@@ -674,6 +705,24 @@ class App:
                      labels=ml, help_="Coalesced (single-flight) waits for this model.")
             p.scalar("model_cache_bytes", mc["bytes"], labels=ml,
                      help_="Bytes of this model's cached responses.")
+        if self.jobs is not None:
+            js = self.jobs.stats()
+            for state in ("QUEUED", "RUNNING", "PAUSED", "DONE", "FAILED", "CANCELLED"):
+                p.scalar("jobs", js["by_state"].get(state, 0), labels={"state": state},
+                         help_="Bulk jobs by lifecycle state.")
+            p.scalar("job_images_done_total", js["images_done_total"], mtype="counter",
+                     help_="Images completed (spooled) across all jobs.")
+            p.scalar("job_images_cached_total", js["images_cached_total"], mtype="counter",
+                     help_="Job images served from (or coalesced onto) the response cache "
+                     "instead of a bulk dispatch.")
+            p.scalar("job_image_errors_total", js["image_errors_total"], mtype="counter",
+                     help_="Job images that ended as error lines (undecodable, unreadable, "
+                     "retries exhausted).")
+            p.scalar("job_chunks_total", js["chunks_total"], mtype="counter",
+                     help_="Completed-and-checkpointed job chunks.")
+            p.scalar("job_cache_hits_total", c["bulk"]["hits_total"], mtype="counter",
+                     help_="Bulk-tier response-cache hits (job lookups are counted apart "
+                     "from the interactive tier).")
         if self.telemetry is not None:
             self._telemetry_metrics(p)
         return p.render()
@@ -924,6 +973,114 @@ class App:
         code = 500 if mv.state == FAILED else 200 if wait else 202
         return _json(code, resp)
 
+    # ------------------------------------------------------------------ jobs
+
+    def _jobs_route(self, environ, method: str, path: str):
+        """``/jobs``, ``/jobs/{id}``, ``/jobs/{id}/results`` and
+        ``/jobs/{id}/cancel``; as open as the admin ``/models`` routes."""
+        if self.jobs is None:
+            return _error(503, "bulk jobs disabled; start the server with --jobs-dir")
+        parts = [p for p in path.split("/") if p]  # ["jobs", id?, verb?]
+        try:
+            if len(parts) == 1:
+                if method == "POST":
+                    return self._jobs_submit(environ)
+                if method == "GET":
+                    return _json(200, {"jobs": self.jobs.list_jobs()})
+                return _error(405, "GET or POST")
+            job_id = parts[1]
+            if len(parts) == 2 and method == "GET":
+                return _json(200, self.jobs.get_job(job_id))
+            if len(parts) == 3 and parts[2] == "results" and method == "GET":
+                return self._jobs_results(environ, job_id)
+            if len(parts) == 3 and parts[2] == "cancel" and method == "POST":
+                return _json(200, self.jobs.cancel_job(job_id))
+        except UnknownJob as e:
+            return _error(404, str(e.args[0] if e.args else e))
+        return _error(404, "not found")
+
+    def _jobs_submit(self, environ):
+        """``POST /jobs``: a multipart upload (its file parts are the
+        manifest) or a JSON body naming a server-side directory; 202 and the
+        job's document, the runner going on in the background."""
+        qs = urllib.parse.parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True)
+        model = _qs_last(qs, "model")
+        try:
+            topk_raw = _qs_last(qs, "topk")
+            topk = int(topk_raw) if topk_raw is not None else None
+        except ValueError:
+            return _error(400, "topk must be an integer")
+        # the tenant's token bucket pays for the job's batches; the weight
+        # orders the runner's queue (heavier first)
+        tenant = (environ.get("HTTP_X_TENANT") or "").strip()[:64] or DEFAULT_TENANT
+        try:
+            weight = float(_qs_last(qs, "weight") or 1.0)
+        except ValueError:
+            return _error(400, "weight must be a number")
+        body = self._read_body(environ)
+        if body is None:
+            return _error(413, f"body exceeds {self.cfg.max_body_mb} MB cap")
+        ctype_in = environ.get("CONTENT_TYPE", "")
+        try:
+            if ctype_in.startswith("multipart/form-data"):
+                files = _parse_multipart_files(body, ctype_in)
+                if not files:
+                    return _error(400, "no file parts in multipart body")
+                job = self.jobs.submit_upload(files, model, topk, tenant=tenant, weight=weight)
+            else:
+                try:
+                    d = json.loads(body or b"{}")
+                    if not isinstance(d, dict):
+                        raise ValueError("body must be a JSON object")
+                except ValueError as e:
+                    return _error(400, f"bad JSON body: {e}")
+                src = d.get("dir")
+                if not src:
+                    return _error(400, "send a multipart upload or a JSON body with 'dir' "
+                                  "(server-side path)")
+                # the same gates as the query string's: a bad value answers
+                # 400 here, never a 202 that FAILS at the first chunk
+                try:
+                    body_topk = d.get("topk", topk)
+                    body_topk = int(body_topk) if body_topk is not None else None
+                except (TypeError, ValueError):
+                    return _error(400, "topk must be an integer")
+                try:
+                    body_weight = float(d.get("weight", weight))
+                except (TypeError, ValueError):
+                    return _error(400, "weight must be a number")
+                job = self.jobs.submit_dir(
+                    str(src), d.get("model", model), body_topk, glob=str(d.get("glob", "*")),
+                    recursive=bool(d.get("recursive", False)),
+                    tenant=str(d.get("tenant", tenant))[:64] or tenant, weight=body_weight)
+        except UnknownModel as e:
+            return _error(404, str(e.args[0] if e.args else e))
+        except ValueError as e:
+            return _error(400, str(e))
+        doc = job.snapshot()
+        doc["results_url"] = f"/jobs/{job.id}/results"
+        return _json(202, doc)
+
+    def _jobs_results(self, environ, job_id: str):
+        """``GET /jobs/{id}/results``: JSON lines from ``offset``, the resume
+        cursor and the live state in headers (re-poll with
+        ``X-Job-Next-Offset`` until ``X-Job-Complete: 1``)."""
+        qs = urllib.parse.parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True)
+        try:
+            offset = int(_qs_last(qs, "offset") or 0)
+            limit = min(int(_qs_last(qs, "limit") or 10_000), 100_000)
+            wait_s = min(float(_qs_last(qs, "wait_s") or 0.0), 30.0)
+        except ValueError:
+            return _error(400, "offset/limit must be integers, wait_s a number")
+        lines, next_offset, state, total_lines = self.jobs.read_results(
+            job_id, offset=offset, limit=limit, wait_s=wait_s)
+        body = b"\n".join(lines) + (b"\n" if lines else b"")
+        done = state in ("DONE", "FAILED", "CANCELLED") and next_offset >= total_lines
+        headers = [("X-Job-State", state), ("X-Job-Next-Offset", str(next_offset)),
+                   ("X-Job-Result-Lines", str(total_lines)),
+                   ("X-Job-Complete", "1" if done else "0")]
+        return "200 OK", body, "application/x-ndjson", headers
+
     def _read_body(self, environ) -> bytes | None:
         """The request body; None when it exceeds the cap. The declared
         Content-Length gates before anything is read, and the read itself is
@@ -1041,7 +1198,7 @@ class App:
         batcher, engine = mv.batcher, mv.engine
         if batcher is None:
             return _error(503, f"{mv.ref} has no batcher")
-        topk = engine.topk if topk_req is None else min(max(topk_req, 0), engine.topk)
+        topk = clamp_topk(topk_req, engine)
         # the ladder, one observation per request on this version's queue
         level = self.pressure.observe_pressure(batcher.queue_depth / batcher.queue_cap)
         if level >= 1 and topk:
@@ -1810,10 +1967,16 @@ def make_http_server(app, host: str, port: int, pool_size: int = 16,
     return srv
 
 
-def shutdown_gracefully(srv, batcher, grace_s: float = 10.0) -> None:
-    """Ordered drain: stop accepting → stop the telemetry sampler → resolve
-    every queued and in-flight request → let the pool's workers flush their
-    answers and exit → close the listening socket.
+def shutdown_gracefully(srv, batcher, grace_s: float = 10.0, jobs=None) -> None:
+    """Ordered drain: stop accepting → stop the telemetry sampler →
+    checkpoint the running bulk job → resolve every queued and in-flight
+    request → let the pool's workers flush their answers and exit → close
+    the listening socket.
+
+    ``jobs`` is the app's :class:`~.jobs.JobManager` (``srv.app.jobs`` when
+    omitted). It stops before the batchers: its runner finishes its chunk
+    window against live batchers and writes the checkpoint the next boot
+    resumes from.
 
     ``batcher`` is anything with the drain-on-``stop()`` contract: one
     :class:`~.batcher.Batcher` or a whole :class:`~.registry.ModelRegistry`
@@ -1827,9 +1990,14 @@ def shutdown_gracefully(srv, batcher, grace_s: float = 10.0) -> None:
     srv.shutdown()  # returns at once if serve_forever has unwound already
     # the sampler only reads the registry and batchers: stopped first, no
     # tick observes a half-stopped stack
-    telemetry = getattr(getattr(srv, "app", None), "telemetry", None)
+    app = getattr(srv, "app", None)
+    telemetry = getattr(app, "telemetry", None)
     if telemetry is not None:
         telemetry.stop()
+    if jobs is None:
+        jobs = getattr(app, "jobs", None)
+    if jobs is not None:
+        jobs.stop(grace_s)
     batcher.stop()
     srv.close_pool(grace_s)
     srv.server_close()

@@ -13,7 +13,8 @@ admission, and the degradation ladder (counterpart of the JAX package's
   a request charges one token per image at lease time and sheds with 429
   when the bucket is dry. Past ``max_tenants`` tracked buckets, unknown
   tenants share the ``~other`` bucket. ``peek``/``charge`` are the bulk
-  class's side (ROADMAP Queue 1 item 14), kept because they cost nothing.
+  class's side: the batcher's bulk gate peeks the job tenant's bucket and
+  charges a batch's rows at its dispatch.
 - :class:`PressureController` — the degradation ladder on the batcher's
   queue fraction: clamp topk → smallest canvas bucket → (with four rungs)
   reroute to a loaded int8 variant → reject cache-miss work, each rung an

@@ -49,8 +49,11 @@ its engine builds a replica per device group of the registry's mesh, a
 swap that re-specs from the serving version keeps it, and ``GET /models``
 shows it per version.
 
-Left for later, each under its ROADMAP item: ``attach_pipelines`` (15) and
-the bulk knobs of the batcher (14).
+:meth:`ModelRegistry.build_batcher` passes the bulk class's knobs
+(``jobs_batch``, ``jobs_max_inflight``, ``jobs_starvation_s``) to every
+batcher; the job manager's retire listener fires inside the DRAINING flip,
+under the registry's lock, and pauses the jobs on that model. Left for
+later, under its ROADMAP item: ``attach_pipelines`` (15).
 
 The registry is engine-agnostic through its factory seams: the tests
 drive the whole lifecycle with mock engines.
@@ -241,6 +244,10 @@ class ModelRegistry:
             adaptive_delay=cfg.adaptive_delay,
             max_queue=cfg.max_queue if max_queue is None else max_queue,
             lease_timeout_s=cfg.lease_timeout_s, admission=self.admission, chaos=self.chaos,
+            # the bulk class: the throughput batch target and the in-flight
+            # cap that bounds the device time a job holds on this model
+            bulk_max_batch=cfg.jobs_batch, bulk_inflight=cfg.jobs_max_inflight,
+            bulk_starvation_s=cfg.jobs_starvation_s,
         ).start(warmup=cfg.warmup)
 
     def _resolve_spec(self, spec):

@@ -27,9 +27,14 @@ skip the device:
   DRAINING: its entries go, and its flights abort with
   :class:`CacheRetired`, so coalesced waiters retry on the new version.
 
+**Bulk tier.** A job's lookups (``begin(..., bulk=True)``) share the entry
+and flight maps with interactive traffic, so a re-run of a corpus dedups
+and a job's misses warm the interactive tier, but they count apart
+(``bulk_*`` per model, the ``bulk`` block of :meth:`ResponseCache.stats`):
+a corpus sweep never moves the interactive hit rate.
+
 One lock guards the entry map, the flight map and every counter; only
-dict operations run under it. Left out of the reference: the bulk tier's
-separate counters (ROADMAP Queue 1 item 14).
+dict operations run under it.
 """
 
 from __future__ import annotations
@@ -155,6 +160,7 @@ class ResponseCache:
         self._retired: set[tuple] = set()
         self.bytes = 0
         self._hits = self._misses = self._coalesced = 0
+        self._bulk_hits = self._bulk_misses = self._bulk_coalesced = 0
         self._evictions = self._invalidations = self._inserts = 0
         self._per_model: dict[str, dict] = {}
 
@@ -165,29 +171,43 @@ class ResponseCache:
     def _model_counters(self, model: str) -> dict:
         m = self._per_model.get(model)
         if m is None:
+            # hits/misses/coalesced: the interactive tier; bulk_*: jobs;
+            # entries and bytes are shared (one entry map serves both)
             m = self._per_model[model] = {"hits": 0, "misses": 0, "coalesced": 0,
-                                          "entries": 0, "bytes": 0}
+                                          "bulk_hits": 0, "bulk_misses": 0,
+                                          "bulk_coalesced": 0, "entries": 0, "bytes": 0}
         return m
 
-    def begin(self, key: tuple, model: str):
+    def begin(self, key: tuple, model: str, bulk: bool = False):
         """One lookup: ``("hit", entry)``; ``("wait", flight)``, to block on
         ``flight.future`` outside any lock; or ``("lead", flight)``, which the
         caller must end with :meth:`complete` or :meth:`abort` (a leaked
-        flight would hang every later waiter to its timeout)."""
+        flight would hang every later waiter to its timeout). ``bulk`` marks
+        a job's lookup: the same maps, the bulk counters."""
+        prefix = "bulk_" if bulk else ""
         with self._lock:
             entry = self._entries.get(key)
             if entry is not None:
                 self._entries.move_to_end(key)
-                self._hits += 1
-                self._model_counters(model)["hits"] += 1
+                if bulk:
+                    self._bulk_hits += 1
+                else:
+                    self._hits += 1
+                self._model_counters(model)[prefix + "hits"] += 1
                 return "hit", entry
             flight = self._inflight.get(key)
             if flight is not None:
-                self._coalesced += 1
-                self._model_counters(model)["coalesced"] += 1
+                if bulk:
+                    self._bulk_coalesced += 1
+                else:
+                    self._coalesced += 1
+                self._model_counters(model)[prefix + "coalesced"] += 1
                 return "wait", flight
-            self._misses += 1
-            self._model_counters(model)["misses"] += 1
+            if bulk:
+                self._bulk_misses += 1
+            else:
+                self._misses += 1
+            self._model_counters(model)[prefix + "misses"] += 1
             flight = self._inflight[key] = Flight(key, model)
             return "lead", flight
 
@@ -276,5 +296,11 @@ class ResponseCache:
                 "invalidations_total": self._invalidations,
                 "inserts_total": self._inserts,
                 "hit_rate": round(self._hits / lookups, 4) if lookups else None,
+                # jobs' lookups, apart from the interactive rate above
+                "bulk": {
+                    "hits_total": self._bulk_hits,
+                    "misses_total": self._bulk_misses,
+                    "coalesced_total": self._bulk_coalesced,
+                },
                 "per_model": {name: dict(c) for name, c in sorted(self._per_model.items())},
             }

@@ -3,7 +3,9 @@
 
 A model is a zoo model (``source="native"``, the default) or a frozen
 graph (``source="pb"``, ``pb_path``); a config that gives a ``pb_path``
-and no ``source`` is a frozen graph. ``--model`` resolves the reference's
+and no ``source`` is a frozen graph. A ``.json`` file without ``source``
+means ``"pb"``, as in the reference, so one without ``pb_path`` either is
+refused. ``--model`` resolves the reference's
 four presets (frozen graphs under ``artifacts/``, written without
 TensorFlow by ``tools/make_artifacts.py``), ``native:<zoo name>``, a bare
 ``.pb`` path or a ``.json`` config (:func:`model_config`).
@@ -231,6 +233,23 @@ class ServerConfig:
     # "name=pXX:THRESHOLD:TARGET_PCT,..." evaluated as multi-window burn rates
     telemetry_interval_s: float = 1.0
     slo_objectives: str = ""
+    # Bulk offline jobs (serving/jobs.py, POST /jobs): the directory where
+    # manifests, spooled uploads, results and checkpoints persist across
+    # restarts; None turns /jobs off (the CLI's --jobs-dir)
+    jobs_dir: str | None = None
+    # the bulk batch target, clamped to the engine's top batch bucket (so
+    # 256 needs max_batch 256)
+    jobs_batch: int = 256
+    # bulk batches in flight at once: how much device time a job may hold
+    # while interactive traffic shares the card (the batcher's bulk gate)
+    jobs_max_inflight: int = 2
+    # a ready bulk batch gated this long by interactive load is admitted
+    # once, then the clock re-arms: jobs slow down under load, never stop
+    jobs_starvation_s: float = 2.0
+    # the largest manifest a job may have (a larger one is refused with 400)
+    jobs_max_items: int = 100_000
+    # decode threads that stage a chunk (0: min(4, CPU count))
+    jobs_decode_threads: int = 0
 
     def __post_init__(self):
         # pick_bucket relies on ascending order
@@ -369,6 +388,9 @@ def model_config(name_or_path: str) -> ModelConfig:
     if p.suffix == ".json":
         data = json.loads(p.read_text())
         data["input_size"] = tuple(data.get("input_size", (299, 299)))
+        # a file names its source, as in the reference, where it defaults
+        # to "pb": without source or pb_path the file is refused
+        data.setdefault("source", "pb")
         return ModelConfig(**data)
     if p.suffix == ".pb":
         return ModelConfig(name=p.stem, pb_path=str(p))

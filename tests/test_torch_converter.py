@@ -460,7 +460,7 @@ def test_pb_paths_and_json_configs_resolve(tmp_path):
     got = tcfg.model_config(str(cfg))
     assert (got.source, got.pb_path, got.input_size) == ("pb", "x.pb", (96, 96))
     assert (got.pipeline_depth, got.max_queue) == (1, 7)
-    cfg.write_text(json.dumps({"name": "mobilenet_v2", "zoo_width": 0.25}))
+    cfg.write_text(json.dumps({"name": "mobilenet_v2", "source": "native", "zoo_width": 0.25}))
     assert tcfg.model_config(str(cfg)).source == "native"
     args = parse_args(["--model", str(tmp_path / "frozen_net.pb"), "--model",
                        "inception_v3,as=preset", "--device", "cpu"])

@@ -486,7 +486,8 @@ def test_server_serves_resnet50_and_refuses_its_full_width_int8(tmp_path):
     small) ends in FAILED with the gate's message, and the served version
     still answers."""
     (tmp_path / "int8.json").write_text(json.dumps(
-        {"name": "resnet50", "input_size": [64, 64], "preprocess": "caffe"}))
+        {"name": "resnet50", "source": "native", "input_size": [64, 64],
+         "preprocess": "caffe"}))
     cfg = tcfg.ServerConfig(model=tcfg.ModelConfig(**MODEL), host="127.0.0.1", port=0,
                             canvas_buckets=(CANVAS,), max_batch=4)
     buf = io.BytesIO()

@@ -632,7 +632,8 @@ def test_ragged_wire_equals_classic_wire_for_a_detector():
 def test_server_config_json_route_serves_a_detector(tmp_path):
     """A ``.json`` ModelConfig with ``task: detect`` resolves."""
     path = tmp_path / "ssd.json"
-    path.write_text(json.dumps({"name": "ssd_mobilenet", "task": "detect", "zoo_width": WIDTH,
+    path.write_text(json.dumps({"name": "ssd_mobilenet", "source": "native", "task": "detect",
+                                "zoo_width": WIDTH,
                                 "input_size": [SIZE, SIZE]}))
     mc = tcfg.model_config(f"{path},dtype=int8")
     assert (mc.task, mc.input_size, mc.dtype) == ("detect", (SIZE, SIZE), "int8")
