@@ -116,7 +116,15 @@ batch, every image once, the first 24 against ``/predict``), the
 preprocess kernel at B = 256 against its plain version, interactive
 p50/p99 without and with a job from ``tools/loadgen.py --job``, a hot swap
 mid-job, SIGTERM mid-job and a reboot that resumes from the checkpoint,
-and a job answered wholly from the cache.
+and a job answered wholly from the cache. ``dag`` serves ``--pipeline
+analyze=ssd_mobilenet>mobilenet_v2@int8`` (SSD-MobileNet bf16 at 300 px on
+the anchor scene, then MobileNetV2 int8 on 8 crops made on the card):
+``POST /pipelines/analyze`` one at a time and from 8 workers (composites
+equal, both stages graph replays, 1 ``nms_fixed`` and 17 ``fused_dw``
+launches a request), the composites against the stage-by-stage calls
+(detector ``run_batch`` → ``crop_resize_host`` → classifier ``run_batch``),
+D2H bytes against ``/predict``, e2e p50/p99 and img/s, the glue's µs, a
+classifier hot swap under traffic, and the CLI with ``--pipeline``.
 
 The preprocess kernel is checked through both of its entries (the
 ``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
@@ -143,12 +151,21 @@ runs ``overload``'s flood on fresh servers under other pipeline depths,
 assembly windows and image sizes and records the queue fraction every
 ladder observation saw (no ``ok`` line).
 
+    python3 chip_smoke.py --sweep-dag
+
+runs ``dag``'s server under closed-loop pipeline requests from 1, 2, 4
+and 8 workers and prints, per worker count, img/s, p50/p99 and the host
+ms a request spent in each executor call (no ``ok`` line).
+
     python3 chip_smoke.py --phase resnet50
     python3 chip_smoke.py --phase ssd
     python3 chip_smoke.py --phase converter
+    python3 chip_smoke.py --phase jobs
+    python3 chip_smoke.py --phase dag
 
-build the kernels and run the ``resnet50``, ``ssd`` or ``converter``
-phase alone on the 24 JPEGs (no ``kernels`` or ``ok`` line).
+build the kernels and run the ``resnet50``, ``ssd``, ``converter``,
+``jobs`` or ``dag`` phase alone on the 24 JPEGs (no ``kernels`` or ``ok``
+line).
 """
 
 from __future__ import annotations
@@ -5248,13 +5265,534 @@ def phase_jobs(jpegs: list[bytes]) -> dict:
     return row
 
 
+# --------------------------------------------------------------------------
+# dag: detect → crop → classify in one POST /pipelines/<name>
+# --------------------------------------------------------------------------
+
+DAG_MODELS = ("native:ssd_mobilenet", "native:mobilenet_v2,dtype=int8")
+DAG_PIPELINE = "analyze=ssd_mobilenet>mobilenet_v2@int8"
+DAG_PATH = "/pipelines/analyze"
+DAG_BUCKETS = (512,)
+DAG_MAX_BATCH = 32
+DAG_MAX_CROPS = 8
+DAG_WORKERS = 8
+DAG_LOAD_S = 3.0  # the timed closed loop
+DAG_SWAP_CONNS = 4
+
+
+def dets_of(body: dict) -> list:
+    """A composite's detections without their classifications."""
+    return [{k: v for k, v in d.items() if k != "classification"} for d in body["detections"]]
+
+
+def dag_config():
+    """The dag phase's ServerConfig and the detector's anchor-scene weights."""
+    from tensorflow_web_deploy_tpu_torch.models import get as zoo_get
+    from tensorflow_web_deploy_tpu_torch.models.adapter import init_variables
+    from tensorflow_web_deploy_tpu_torch.models.ssd_mobilenet import ASPECT_RATIOS
+    from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
+
+    mcs = tuple(model_config(m) for m in DAG_MODELS)
+    cfg = ServerConfig(model=mcs[0], models=mcs, default_model="ssd_mobilenet",
+                       canvas_buckets=DAG_BUCKETS, max_batch=DAG_MAX_BATCH, wire_format="rgb",
+                       resize="matmul", ragged=True, pipelines=(DAG_PIPELINE,),
+                       pipeline_max_crops=DAG_MAX_CROPS, http_workers=2 * DAG_WORKERS,
+                       host="127.0.0.1", port=0, **PINNED)
+    _, flat = init_variables(zoo_get("ssd_mobilenet"), seed=SEED)
+    return cfg, scene_params(flat, scene_biases(90, len(ASPECT_RATIOS)))
+
+
+def dag_registry(cfg, det_params: dict):
+    """The registry of the dag phase: the detector built on ``det_params``
+    (the anchor scene), the classifier on seed ``SEED``; a swap builds the
+    classifier's version v on seed ``SEED + v - 1``, so that an answer
+    names the version that computed it."""
+    from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
+    from tensorflow_web_deploy_tpu_torch.serving.registry import ModelRegistry
+
+    builds: dict = {}
+
+    def build(mc):
+        v = builds[mc.serve_name] = builds.get(mc.serve_name, 0) + 1
+        return InferenceEngine(replace(cfg, model=mc), device="cuda", seed=SEED + v - 1,
+                               params_flat=det_params if mc.task == "detect" else None)
+
+    reg = ModelRegistry(cfg, default_model="ssd_mobilenet", engine_factory=build)
+    try:
+        for mc in cfg.serve_models:
+            eng = build(mc)
+            reg.adopt(mc.serve_name, eng, reg.build_batcher(eng), mc)
+    except BaseException:
+        reg.stop()
+        reg.close_engines()
+        raise
+    return reg
+
+
+def phase_dag(jpegs: list[bytes]) -> dict:
+    """Pipeline DAGs (``POST /pipelines/<name>``) on the card:
+    ``native:ssd_mobilenet`` (bf16, full width, 300 px, 90 classes) then
+    ``native:mobilenet_v2`` in the int8 tier (full width, 224 px), as
+    ``--pipeline analyze=ssd_mobilenet>mobilenet_v2@int8`` serves them:
+    the detector's boxes stay on the card, the glue crops 8 of them out of
+    the canvas the detector was shipped (``ops/dag_glue.py``) and the
+    classifier takes that batch as it is.
+
+    - The served path, in-process: ragged rgb wire, canvas 512, batch
+      buckets 1–32, the cache off, the detector on the anchor scene (every
+      image has 100 detections). Each engine must have captured its
+      ragged graphs and its classic pipeline graph at boot. The 24 JPEGs
+      one at a time, then at once from 8 workers with the kernels' counts
+      set to 0 just before and read just after: every answer 200 with
+      ``num_detections`` ≥ 1, each concurrent composite equal to the serial
+      one for its image (a graph's static output read after another
+      request's replay would crop another image's boxes), every dispatch
+      of both stages a replay, per request 1 ``nms_fixed``, 17
+      ``fused_dw`` and 0 ``preprocess_i420`` and ``unpack_ragged``
+      launches.
+    - Stage by stage on the card, through the port's own calls: the
+      detector's ``run_batch`` (its detections equal the composite's), the
+      glue on the card against ``crop_resize_host`` (within 1 LSB), the
+      classifier's ``run_batch`` on the host crops (top-1 equal, scores
+      within ``SERVED_TOL``).
+    - D2H bytes per request (printed, not gated): the pipeline's, per
+      stage and per engine, against ``POST /predict`` of the same work (the
+      image on the detector, its 8 crops on the classifier).
+    - Timing: ``DAG_WORKERS`` closed-loop clients for ``DAG_LOAD_S``: e2e
+      p50/p99 ms and img/s; the glue's µs a request (CUDA events around
+      one call on the stream, and inside a graph).
+    - Hot swap of the classifier under traffic from ``DAG_SWAP_CONNS``
+      clients: no error, no composite other than its claimed version's
+      serial one, both versions answer, none answers v1 after its unload.
+    - The CLI: ``python -m tensorflow_web_deploy_tpu_torch.server`` with
+      the two ``--model``s and the ``--pipeline`` on seeded weights: ``GET
+      /pipelines`` shows it resolved and one ``POST`` answers 200.
+    """
+    from PIL import Image
+
+    from tensorflow_web_deploy_tpu_torch.ops import dag_glue
+    from tensorflow_web_deploy_tpu_torch.ops.detection import nms_fixed
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
+    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
+    from tensorflow_web_deploy_tpu_torch.serving.http import App, make_http_server, \
+        shutdown_gracefully
+
+    t_phase = time.perf_counter()
+    wrappers = {"preprocess_i420": preprocess_i420, "fused_dw": fused_dw,
+                "unpack_ragged": unpack_ragged, "nms_fixed": nms_fixed}
+
+    def counts() -> dict:
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def zero() -> None:
+        for w in wrappers.values():
+            w.launches = 0
+
+    cfg, det_params = dag_config()
+    row = {"phase": "dag", "nvidia_smi": nvidia_smi(), "models": list(DAG_MODELS),
+           "pipeline": DAG_PIPELINE, "wire": "rgb", "ragged": True, "resize": "matmul",
+           "canvas_buckets": list(DAG_BUCKETS), "max_batch": DAG_MAX_BATCH,
+           "max_crops": DAG_MAX_CROPS}
+    bad: dict = {}
+    t0 = time.perf_counter()
+    reg = dag_registry(cfg, det_params)
+    app = httpd = None
+    try:
+        app = App(reg, cfg)
+        httpd = make_http_server(app, cfg.host, 0, pool_size=cfg.http_workers)
+        threading.Thread(target=httpd.serve_forever, name="http", daemon=True).start()
+        port = httpd.server_address[1]
+        row["boot_s"] = time.perf_counter() - t0
+        det_mv, cls_mv = (reg.acquire(n) for n in ("ssd_mobilenet", "mobilenet_v2"))
+        reg.release(det_mv)
+        reg.release(cls_mv)
+        det, cls = det_mv.engine, cls_mv.engine
+        n_crops = cls.pick_batch_bucket(DAG_MAX_CROPS)
+        out_s = min(cls.cfg.canvas_buckets)
+        row["engines"] = {name: {"graphs": e.stats()["graphs"]["captured"],
+                                 "dag_pairs": e.dag_pairs(), "kernels": e.kernels,
+                                 "dtype": e.model_cfg.dtype}
+                          for name, e in (("ssd_mobilenet", det), ("mobilenet_v2", cls))}
+        row["crop_batch"] = {"n_crops": n_crops, "side": out_s}
+        graphs_want = len(det.batch_buckets) * len(DAG_BUCKETS) + 1
+        if (det.dag_pairs() != [(512, 1)] or cls.dag_pairs() != [(512, n_crops)]
+                or any(v["graphs"] != graphs_want for v in row["engines"].values())):
+            bad["engines"] = row["engines"]
+
+        def replays() -> dict:
+            return {n: (e.stats()["graphs"]["replays"], e.stats()["graphs"]["eager_batches"])
+                    for n, e in (("ssd_mobilenet", det), ("mobilenet_v2", cls))}
+
+        # serial, then all at once with the counts read around the burst
+        d2h0 = (det.d2h_bytes_total, cls.d2h_bytes_total)
+        busy0 = (det.stats()["busy_s"], cls.stats()["busy_s"])
+        client = KeepAlive(port)
+        r0 = replays()
+        serial, serial_ms = [], []
+        for data in jpegs:
+            t = time.perf_counter()
+            serial.append(client.request("POST", DAG_PATH, data))
+            serial_ms.append((time.perf_counter() - t) * 1e3)
+        r1 = replays()
+        # each stage's device ms a request: its replays' CUDA-event intervals
+        device_ms = {name: (e.stats()["busy_s"] - b) / len(jpegs) * 1e3
+                     for (name, e), b in zip((("ssd_mobilenet", det), ("mobilenet_v2", cls)),
+                                             busy0)}
+        d2h_dag = ((det.d2h_bytes_total - d2h0[0]) / len(jpegs),
+                   (cls.d2h_bytes_total - d2h0[1]) / len(jpegs))
+        zero()
+        t0 = time.perf_counter()
+        recs = fan_out(port, jpegs, DAG_WORKERS, DAG_PATH)
+        burst_s = time.perf_counter() - t0
+        launches = counts()
+        r2 = replays()
+        n = len(jpegs)
+        ok_serial = [s == 200 and b.get("num_detections", 0) >= 1 for s, b in serial]
+        ok_burst = [r["status"] == 200 and r["doc"].get("num_detections", 0) >= 1 for r in recs]
+        equal = [r["status"] == 200 and r["doc"]["detections"] == b["detections"]
+                 for r, (_, b) in zip(recs, serial)]
+        row["served"] = {
+            "requests": n, "serial_ok": sum(ok_serial), "burst_ok": sum(ok_burst),
+            "burst_equal_serial": sum(equal),
+            "num_detections": sorted({b.get("num_detections") for _, b in serial}),
+            "stages": serial[0][1].get("stages"),
+            "serial_ms": {"p50": statistics.median(serial_ms), "max": max(serial_ms)},
+            "device_ms_per_request": device_ms,
+            "replays_serial": {k: [r1[k][0] - r0[k][0], r1[k][1] - r0[k][1]] for k in r0},
+            "replays_burst": {k: [r2[k][0] - r1[k][0], r2[k][1] - r1[k][1]] for k in r1},
+            "launches": launches, "burst_s": burst_s,
+            "first": {"detections": serial[0][1].get("num_detections"),
+                      "first_detection": (serial[0][1].get("detections") or [None])[0]},
+        }
+        if not all(ok_serial) or not all(ok_burst) or not all(equal):
+            bad["served"] = {k: row["served"][k] for k in ("serial_ok", "burst_ok",
+                                                           "burst_equal_serial")}
+        if any(v != [n, 0] for v in (*row["served"]["replays_serial"].values(),
+                                     *row["served"]["replays_burst"].values())):
+            bad["replays"] = {k: row["served"][k] for k in ("replays_serial", "replays_burst")}
+        if launches != {"preprocess_i420": 0, "fused_dw": DW_CELLS * n, "unpack_ragged": 0,
+                        "nms_fixed": n}:
+            bad["launches"] = launches
+
+        # stage by stage through the port's own calls
+        glue_lsb, top1, score_d, det_equal = 0, 0, 0.0, 0
+        labels = det_mv.labels
+        probe_crops = []  # the first 8 images' crops, for the /predict comparison
+        for data, (_, body) in zip(jpegs, serial):
+            canvas, hw, orig = det.prepare_bytes(data)
+            boxes, scores, classes, num = (o[0] for o in det.run_batch(canvas[None],
+                                                                        np.array([hw])))
+            kept = min(int(num), DAG_MAX_CROPS)
+            h, w = orig
+            # the detector's label map: generated names, or artifacts/' file
+            # once an earlier phase has written it
+            ref = [{"box": [float(b[0]) * h, float(b[1]) * w, float(b[2]) * h,
+                            float(b[3]) * w],
+                    "class": int(c), "score": float(s),
+                    "label": labels[int(c)] if int(c) < len(labels) else f"class_{int(c)}"}
+                   for b, c, s in zip(boxes[:kept], classes[:kept], scores[:kept])]
+            det_equal += ref == dets_of(body)
+            host = dag_glue.crop_resize_host(canvas, hw, boxes, num, out_s=out_s,
+                                             n_crops=n_crops)
+            with torch.inference_mode():
+                dev = dag_glue.crop_resize(
+                    torch.from_numpy(canvas).cuda(), torch.tensor(hw, device="cuda"),
+                    torch.from_numpy(boxes).cuda(), torch.tensor(num, device="cuda"),
+                    out_s=out_s, n_crops=n_crops).cpu().numpy()
+            glue_lsb = max(glue_lsb, int(np.abs(dev.astype(np.int32) - host).max()))
+            if len(probe_crops) < 8:
+                probe_crops.append(host[:DAG_MAX_CROPS])
+            cs, ci = cls.run_batch(host, np.full((n_crops, 2), out_s, np.int32))
+            for i, d in enumerate(body["detections"]):
+                preds = d["classification"]["predictions"]
+                top1 += preds[0]["index"] == int(ci[i][0])
+                score_d = max(score_d, max(abs(p["score"] - float(s))
+                                           for p, s in zip(preds, cs[i])))
+        kept_total = sum(b["num_detections"] for _, b in serial)
+        row["stage_by_stage"] = {"images": n, "detections_equal": det_equal,
+                                 "glue_max_lsb": glue_lsb, "crops": kept_total,
+                                 "top1_equal": top1, "max_score_delta": score_d,
+                                 "tolerance": SERVED_TOL}
+        if det_equal != n or glue_lsb > 1 or top1 != kept_total or score_d > SERVED_TOL:
+            bad["stage_by_stage"] = row["stage_by_stage"]
+
+        # D2H per request: the pipeline's, against /predict on each model
+        stats = app.pipelines.pipeline_stats()["pipelines"]["analyze"]
+        d0 = (det.d2h_bytes_total, cls.d2h_bytes_total)
+        for data, crops in zip(jpegs, probe_crops):
+            client.request("POST", "/predict?model=ssd_mobilenet", data)
+            parts = []
+            for i, crop in enumerate(crops):
+                buf = io.BytesIO()
+                Image.fromarray(crop).save(buf, "JPEG", quality=90)
+                parts.append(b"--dagB\r\nContent-Disposition: form-data; name=\"f\"; "
+                             b"filename=\"%d.jpg\"\r\n\r\n" % i + buf.getvalue() + b"\r\n")
+            client.exchange("POST", "/predict?model=mobilenet_v2", b"".join(parts)
+                            + b"--dagB--\r\n",
+                            {"Content-Type": "multipart/form-data; boundary=dagB"})
+        row["d2h_bytes_per_request"] = {
+            "pipeline_stage1": stats["stages"]["ssd_mobilenet"]["d2h_bytes"] / stats[
+                "requests_total"],
+            "pipeline_stage2": stats["stages"]["mobilenet_v2"]["d2h_bytes"] / stats[
+                "requests_total"],
+            "pipeline_engines": {"ssd_mobilenet": d2h_dag[0], "mobilenet_v2": d2h_dag[1]},
+            "predict": {"ssd_mobilenet": (det.d2h_bytes_total - d0[0]) / len(probe_crops),
+                        "mobilenet_v2": (cls.d2h_bytes_total - d0[1]) / len(probe_crops)},
+        }
+
+        # timing: a closed loop of DAG_WORKERS clients
+        stop_at = time.perf_counter() + DAG_LOAD_S
+        lat: list = []
+        errors: list = []
+
+        def loop(k: int) -> None:
+            c = KeepAlive(port)
+            try:
+                i = k
+                while time.perf_counter() < stop_at:
+                    t = time.perf_counter()
+                    status, _ = c.request("POST", DAG_PATH, jpegs[i % len(jpegs)])
+                    if status == 200:
+                        lat.append((time.perf_counter() - t) * 1e3)
+                    else:
+                        errors.append(status)
+                    i += DAG_WORKERS
+            finally:
+                c.close()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=loop, args=(k,)) for k in range(DAG_WORKERS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        wall = time.perf_counter() - t0
+        lat.sort()
+        row["timing"] = {"workers": DAG_WORKERS, "seconds": wall, "completed": len(lat),
+                         "errors": errors[:5], "img_per_s": len(lat) / wall,
+                         "p50_ms": lat[len(lat) // 2] if lat else None,
+                         "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))] if lat else None,
+                         "nvidia_smi": row["nvidia_smi"]}
+        if errors or not lat:
+            bad["timing"] = row["timing"]
+
+        # hot swap of the classifier under traffic
+        truth = {(1, i): body["detections"] for i, (_, body) in enumerate(serial)}
+        stop = threading.Event()
+        seen: list = []
+        failures: list = []
+
+        def swap_client(k: int) -> None:
+            c = KeepAlive(port)
+            try:
+                i = k
+                while not stop.is_set():
+                    t = time.monotonic()
+                    status, body = c.request("POST", DAG_PATH, jpegs[i % len(jpegs)])
+                    if status != 200:
+                        failures.append((status, body))
+                    else:
+                        seen.append((t, i % len(jpegs), body["stages"][1]["version"],
+                                     body["detections"]))
+                    i += DAG_SWAP_CONNS
+            except Exception as e:  # noqa: BLE001 — counted as a failure
+                failures.append(repr(e))
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=swap_client, args=(k,))
+                   for k in range(DAG_SWAP_CONNS)]
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        try:
+            while len(seen) < 16 and time.perf_counter() - t0 < 60:
+                time.sleep(0.01)
+            v2 = reg.swap("mobilenet_v2", wait=True, timeout=300)
+            reg.wait_for(reg._models["mobilenet_v2"][1], ("UNLOADED",), timeout=120)
+            t_unloaded = time.monotonic()
+            after = len(seen)
+            while len(seen) < after + 16 and time.perf_counter() - t0 < 120:
+                time.sleep(0.01)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(60)
+        swap_s = time.perf_counter() - t0
+        for i, data in enumerate(jpegs):
+            status, body = client.request("POST", DAG_PATH, data)
+            truth[(v2.version, i)] = body["detections"] if status == 200 else None
+        stale = [(v, i) for _, i, v, d in seen if truth.get((v, i)) != d]
+        late = [v for t, _, v, _ in seen if t > t_unloaded and v != v2.version]
+        v2_differs = sum(truth[(1, i)] != truth[(v2.version, i)] for i in range(n))
+        row["hot_swap"] = {"answers": len(seen), "errors": len(failures),
+                           "failures": failures[:3], "stale": len(stale),
+                           "versions": sorted({v for _, _, v, _ in seen}),
+                           "old_after_unload": len(late), "seconds": swap_s,
+                           "images_whose_answer_changed": v2_differs}
+        if failures or stale or late or row["hot_swap"]["versions"] != [1, v2.version] \
+                or not v2_differs:
+            bad["hot_swap"] = row["hot_swap"]
+        client.close()
+
+        # the glue of one request (image 0's detections): on the stream
+        # between CUDA events, the host's enqueue, and inside a graph (last:
+        # a capture that fails leaves nothing after it on this process)
+        canvas, hw, _ = det.prepare_bytes(jpegs[0])
+        boxes, _, _, num = (torch.from_numpy(np.ascontiguousarray(o[0])).cuda()
+                            for o in det.run_batch(canvas[None], np.array([hw])))
+        args = (torch.from_numpy(canvas).cuda(), torch.tensor(hw, device="cuda"), boxes, num)
+
+        def glue():
+            return dag_glue.crop_resize(*args, out_s=out_s, n_crops=n_crops)
+
+        with torch.inference_mode():
+            glue_us = cuda_time_ms(glue) * 1e3
+            glue_host_us = host_us(glue)
+            try:
+                glue_graph_us = graph_time_ms(glue) * 1e3
+            except RuntimeError as e:  # the eager times above stand; the reason is printed
+                glue_graph_us = f"not captured: {e}"
+        row["timing"].update(glue_us=glue_us, glue_host_us=glue_host_us,
+                             glue_graph_us=glue_graph_us,
+                             glue_share_of_serial_p50=glue_us / 1e3 / row["served"]["serial_ms"][
+                                 "p50"],
+                             # the crops written once and the canvas read once
+                             # over the memory rate
+                             glue_bound_us=(n_crops * out_s * out_s * 3 + canvas.nbytes)
+                             / MEM_BYTES_PER_S * 1e6,
+                             glue_share_of_p50=(glue_us / 1e3 / row["timing"]["p50_ms"]
+                                                if row["timing"]["p50_ms"] else None))
+    finally:
+        if httpd is not None:
+            shutdown_gracefully(httpd, reg, grace_s=10.0)
+        else:
+            reg.stop()
+        reg.close_engines()
+
+    # the CLI: the two models and the pipeline on seeded weights
+    with tempfile.TemporaryFile("w+") as log:
+        proc, cli_port, boot_s = job_server_proc(
+            ["--model", DAG_MODELS[0], "--model", DAG_MODELS[1], "--pipeline", DAG_PIPELINE],
+            log)
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{cli_port}/pipelines",
+                                        timeout=60) as r:
+                pipes = json.loads(r.read())
+            status, _, data = post_full(f"http://127.0.0.1:{cli_port}{DAG_PATH}", jpegs[0])
+            body = json.loads(data) if data else {}
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        doc = pipes.get("analyze", {})
+        row["cli"] = {"boot_s": boot_s, "ok": doc.get("ok"), "ref": doc.get("ref"),
+                      "resolved": doc.get("resolved"), "status": status,
+                      "num_detections": body.get("num_detections"), "exit": rc}
+        if not doc.get("ok") or status != 200 or rc != 0:
+            log.seek(0)
+            row["cli"]["log_tail"] = log.read()[-2000:]
+            bad["cli"] = row["cli"]
+    row["kernel_launches"] = row["served"]["launches"]
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    if bad:
+        raise AssertionError(f"dag: {bad}")
+    return row
+
+
+def sweep_dag() -> None:
+    """The dag phase's server under ``DAG_LOAD_S`` of closed-loop pipeline
+    requests from 1, 2, 4 and 8 workers (then 1 again): img/s, p50/p99, and
+    the host ms a request spent in each call of the executor (the engine's
+    dispatches and device reads, the glue, ``Tensor.cpu``), each timed by a
+    wrapper on the calling thread (waits for the interpreter lock
+    included). One line per worker count; no ``ok`` line."""
+    from tensorflow_web_deploy_tpu_torch.serving import dag as dag_mod
+    from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
+    from tensorflow_web_deploy_tpu_torch.serving.http import App, make_http_server, \
+        shutdown_gracefully
+
+    spent: Counter = Counter()
+    lock = threading.Lock()
+
+    def timed_call(owner, name: str) -> None:
+        fn = getattr(owner, name)
+
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with lock:
+                    spent[name] += time.perf_counter() - t
+
+        setattr(owner, name, call)
+
+    for name in ("prepare_bytes", "dispatch_batch", "device_outputs", "device_canvases",
+                 "dispatch_device", "release_dispatch", "fetch_outputs"):
+        timed_call(InferenceEngine, name)
+    timed_call(dag_mod.dag_glue, "crop_resize")
+    timed_call(torch.Tensor, "cpu")
+    timed_call(dag_mod.PipelineCatalog, "execute")
+    cfg, det_params = dag_config()
+    reg = dag_registry(cfg, det_params)
+    httpd = make_http_server(App(reg, cfg), "127.0.0.1", 0, pool_size=cfg.http_workers)
+    threading.Thread(target=httpd.serve_forever, name="http", daemon=True).start()
+    port = httpd.server_address[1]
+    jpegs = make_jpegs(24, SEED)
+    try:
+        client = KeepAlive(port)
+        for data in jpegs:  # first use of every path
+            client.request("POST", DAG_PATH, data)
+        client.close()
+        for workers in (1, 2, 4, 8, 1):
+            with lock:
+                spent.clear()
+            lat: list = []
+            statuses: Counter = Counter()
+            stop_at = time.perf_counter() + DAG_LOAD_S
+
+            def loop(k: int, workers=workers, lat=lat, statuses=statuses) -> None:
+                c = KeepAlive(port)
+                try:
+                    i = k
+                    while time.perf_counter() < stop_at:
+                        t = time.perf_counter()
+                        status, _ = c.request("POST", DAG_PATH, jpegs[i % len(jpegs)])
+                        statuses[status] += 1
+                        lat.append((time.perf_counter() - t) * 1e3)
+                        i += workers
+                finally:
+                    c.close()
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=loop, args=(k,)) for k in range(workers)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(60)
+            wall = time.perf_counter() - t0
+            lat.sort()
+            n = len(lat)
+            with lock:
+                host_ms = {k: v / n * 1e3 for k, v in sorted(spent.items())}
+            emit({"phase": "sweep_dag", "nvidia_smi": nvidia_smi(), "workers": workers,
+                  "requests": n, "statuses": dict(statuses), "img_per_s": n / wall,
+                  "p50_ms": lat[n // 2], "p99_ms": lat[min(n - 1, int(0.99 * n))],
+                  "host_ms_per_request": host_ms})
+    finally:
+        shutdown_gracefully(httpd, reg, grace_s=10.0)
+        reg.close_engines()
+
+
 def main(argv: list[str]) -> int:
-    sweeps = ("--sweep-fused-dw", "--sweep-preprocess", "--sweep-overload")
+    sweeps = ("--sweep-fused-dw", "--sweep-preprocess", "--sweep-overload", "--sweep-dag")
     if not (argv == [] or (len(argv) == 1 and argv[0] in sweeps)
             or argv in (["--phase", "resnet50"], ["--phase", "ssd"],
-                        ["--phase", "converter"], ["--phase", "jobs"])):
+                        ["--phase", "converter"], ["--phase", "jobs"], ["--phase", "dag"])):
         print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)} | --phase resnet50 | "
-              "--phase ssd | --phase converter | --phase jobs], "
+              "--phase ssd | --phase converter | --phase jobs | --phase dag], "
               f"not {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5300,6 +5838,9 @@ def main(argv: list[str]) -> int:
     if argv == ["--sweep-overload"]:
         sweep_overload()
         return 0
+    if argv == ["--sweep-dag"]:
+        sweep_dag()
+        return 0
     if argv == ["--phase", "resnet50"]:  # the phase alone, after the build
         phase_resnet50(make_jpegs(24, SEED))
         return 0
@@ -5311,6 +5852,9 @@ def main(argv: list[str]) -> int:
         return 0
     if argv == ["--phase", "jobs"]:
         phase_jobs(make_jpegs(24, SEED))
+        return 0
+    if argv == ["--phase", "dag"]:
+        phase_dag(make_jpegs(24, SEED))
         return 0
     kern_err = phase_kernel(gen)
     dw = phase_fused_dw_kernel(gen, dw_layer_shapes())
@@ -5342,6 +5886,7 @@ def main(argv: list[str]) -> int:
     ssd = phase_ssd(jpegs)
     converter = phase_converter(jpegs)
     jobs = phase_jobs(jpegs)
+    dag = phase_dag(jpegs)
     by_path = {p["path"]: p["kernel_launches"] for p in (inception, mobilenet, *ragged)}
     by_path["registry"] = registry["kernel_launches"]
     by_path["overload"] = overload["kernel_launches"]
@@ -5351,6 +5896,7 @@ def main(argv: list[str]) -> int:
     by_path["ssd"] = ssd["kernel_launches"]
     by_path["converter"] = converter["kernel_launches"]
     by_path["jobs"] = jobs["kernel_launches"]
+    by_path["dag"] = dag["kernel_launches"]
     by_kernel = {name: {m: n.get(name, 0) for m, n in by_path.items()} for name in KERNELS}
     emit({"kernels": [{
         "name": "preprocess_i420",

@@ -15,10 +15,15 @@
         [--access-log PATH|-] [--flight-recorder-n 32] [--telemetry-interval 1]
         [--slo-objectives interactive=p99:1000ms:99.9]
         [--jobs-dir DIR [--jobs-batch 256] [--jobs-max-inflight 2]]   # POST /jobs
+        [--pipeline NAME=DETECTOR[@DTYPE]>CLASSIFIER[@DTYPE] | --pipeline FILE.json]
+        [--pipeline-max-crops 8]                 # POST /pipelines/<name>
     curl -X POST --data-binary @cat.jpg http://localhost:8500/predict?model=mobilenet_v2_int8
     curl -X POST -d '{"name": "inception_v3", "wait": true}' http://localhost:8500/models/swap
     curl -X POST -d '{"dir": "/data/corpus"}' http://localhost:8500/jobs   # --jobs-dir set
     curl 'http://localhost:8500/jobs/<id>/results?offset=0&wait_s=10'
+    python -m tensorflow_web_deploy_tpu_torch.server --model native:ssd_mobilenet \
+        --model native:mobilenet_v2,dtype=int8 --pipeline 'analyze=ssd_mobilenet>mobilenet_v2@int8'
+    curl -X POST --data-binary @street.jpg http://localhost:8500/pipelines/analyze
     curl http://localhost:8500/metrics       # also /debug/slow, /debug/history, /debug/events
     curl http://localhost:8500/debug/trace > trace.json   # chrome://tracing or Perfetto
     curl -X POST 'http://localhost:8500/debug/trace?ms=300&dir=/tmp/prof'   # torch.profiler
@@ -32,7 +37,9 @@ TensorFlow), a frozen ``.pb``, a ``.json`` config or ``native:<zoo name>``;
 the default stays ``native:inception_v3``, which needs no file. Every
 ``--model`` becomes an entry of the model registry,
 built and warmed at boot (a model that cannot load fails the boot);
-``POST /models/{load,swap,unload}`` change them at run time. The mesh is
+``POST /models/{load,swap,unload}`` change them at run time.
+``--pipeline`` serves a detect → crop → classify composition of two of
+them at ``POST /pipelines/<name>`` (``serving/dag.py``). The mesh is
 every visible CUDA device (``--device cuda``, the default) or the one
 device named; a model's ``,replicas=N`` splits it into N groups, each with
 a copy of the weights and streams of its own, and ``,shard=batch`` (the
@@ -148,6 +155,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--default-model", default=None,
                    help="serve name that /predict without ?model= resolves to "
                         "(default: the first --model)")
+    p.add_argument("--pipeline", action="append", default=None, metavar="SPEC",
+                   help="pipeline DAG served at POST /pipelines/<name> as one request whose "
+                        "intermediates stay on the device: an inline chain "
+                        "'name=det_model@int8>cls_model@f32' (@dtype pins a stage to a "
+                        "serving tier) or the path of a JSON pipeline file. Stage models "
+                        "must be among the --model entries; an invalid spec fails the boot. "
+                        "Repeatable.")
+    p.add_argument("--pipeline-max-crops", type=int, default=8,
+                   help="stage-1 detections the on-device crop glue takes per image (the "
+                        "crop batch runs at the classifier's batch bucket covering this)")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8500)
     p.add_argument("--max-batch", type=int, default=32)
@@ -284,7 +301,8 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
         chaos=args.chaos, access_log=args.access_log, flight_recorder_n=args.flight_recorder_n,
         telemetry_interval_s=args.telemetry_interval, slo_objectives=args.slo_objectives,
         jobs_dir=args.jobs_dir, jobs_batch=args.jobs_batch,
-        jobs_max_inflight=args.jobs_max_inflight, **kw,
+        jobs_max_inflight=args.jobs_max_inflight, pipelines=tuple(args.pipeline or ()),
+        pipeline_max_crops=args.pipeline_max_crops, **kw,
     )
 
 

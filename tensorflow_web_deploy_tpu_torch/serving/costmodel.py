@@ -556,3 +556,45 @@ def economics_snapshot(engine, model_cfg) -> dict | None:
         mean_rate = agg_useful_flops / agg_device_s
         out["mfu"] = round(mean_rate / (peak["flops_per_chip"] * n_chips), 5)
     return out
+
+
+def pipeline_attribution(pipeline_stats: dict, registry) -> dict:
+    """Per-stage attribution of one pipeline (an entry of
+    ``PipelineCatalog.pipeline_stats()["pipelines"]``): each stage's share
+    of the pipeline's wall seconds and D2H bytes, from its measured
+    counters, and its analytic FLOPs per image and per pipeline request
+    from :func:`model_cost` of the stage's live serving version (resolved
+    through the registry, so a swap to another dtype reprices the stage on
+    the next read). A stage between versions reports the measured half."""
+    stages = pipeline_stats.get("stages", {})
+    total_s = sum(c["seconds"] for c in stages.values()) or 0.0
+    total_d2h = sum(c["d2h_bytes"] for c in stages.values()) or 0
+    out = {}
+    for model, cell in stages.items():
+        entry = {
+            "seconds_total": round(cell["seconds"], 4),
+            "seconds_fraction": round(cell["seconds"] / total_s, 4) if total_s else None,
+            "images_total": cell["images"],
+            "cache_hits_total": cell["cache_hits"],
+            "d2h_bytes_total": cell["d2h_bytes"],
+            "d2h_fraction": round(cell["d2h_bytes"] / total_d2h, 4) if total_d2h else None,
+        }
+        try:
+            mv = registry.acquire(model)
+        except Exception:
+            out[model] = entry
+            continue
+        try:
+            cost = model_cost(mv.model_cfg)
+            if cost:
+                entry["flops_per_image"] = cost["flops_per_image"]
+                entry["dtype"] = cost["dtype"]
+                # stage 1 runs one image a request, stage 2 the crops
+                reqs = pipeline_stats.get("requests_total", 0)
+                if reqs:
+                    entry["flops_per_request"] = int(
+                        cost["flops_per_image"] * cell["images"] / reqs)
+        finally:
+            registry.release(mv)
+        out[model] = entry
+    return out

@@ -419,7 +419,10 @@ class RaggedSlab(_Leased):
 
 @dataclass
 class BatchHandle:
-    out: torch.Tensor  # float32 [bucket, row width] on the host
+    # float32 [bucket, row width] on the host; or (``on_device``) per device
+    # of the replica its rows' copy on that device, made inside the replay's
+    # window
+    out: torch.Tensor | tuple
     done: tuple  # CUDA: one event per device of the replica, after its D2H
     n: int
     # CUDA: per device of the replica, the timing events of the copy (copy
@@ -440,6 +443,27 @@ class BatchHandle:
     t_put: float = 0.0  # monotonic, the H2D enqueued
     replica: int = 0
     slab_bytes: int = 0  # the slab's bytes, in flight on its replica until the fetch
+    on_device: bool = False
+    # on_device: per device of the replica, the batch's wire buffer on it
+    # (its canvases for a pipeline's glue)
+    wire: tuple = ()
+
+
+class _DeviceBatch:
+    """The slab of a batch already on the device (a pipeline's crops): no
+    host rows to lease, copy or pool. ``finish`` and ``copied`` are the
+    slab interface :meth:`InferenceEngine._dispatch` uses."""
+
+    is_ragged = False
+
+    def __init__(self, s: int, total_bytes: int):
+        self.s = s
+        self.key = ("classic", s)
+        self.total_bytes = total_bytes
+        self.copied: tuple = ()
+
+    def finish(self) -> None:
+        pass
 
 
 @dataclass
@@ -615,6 +639,7 @@ class InferenceEngine:
         self.batches = 0
         self.images = 0
         self.h2d_bytes = 0
+        self.d2h_bytes = 0
         self.decodes = {"native": 0, "pil": 0}
         self._warmup_lock = threading.Lock()
         self._warmed = False
@@ -1068,7 +1093,7 @@ class InferenceEngine:
 
     def _ship(self, rep: _Replica, buf: torch.Tensor, slab, n: int, bucket: int,
               rows_dispatched: int, rows_tight: float,
-              meta_off: int | None = None) -> BatchHandle:
+              meta_off: int | None = None, keep_on_device: bool = False) -> BatchHandle:
         """One batch on one replica: per device of its group, its rows of
         ``buf`` (a prefix of the slab's pinned buffer; on the ragged wire
         all of it, since each device's meta rows point into the whole arena)
@@ -1079,7 +1104,15 @@ class InferenceEngine:
         fresh buffer; then its output rows' copy back. ``meta_off``: where a
         ragged wire's meta table starts; ``rows_dispatched`` and
         ``rows_tight`` go to the batch's economics cell. Returns without
-        waiting for the device."""
+        waiting for the device.
+
+        A ``buf`` already on the device (:meth:`dispatch_device`) is not
+        copied: the compute stream waits for an event on the stream that
+        made it, and ``record_stream`` keeps the allocator from reusing it
+        before the replay has read it. ``keep_on_device`` (a pipeline's
+        upstream stage) copies the output on the device instead of to the
+        host, inside the replica's enqueue window: the next replay of the
+        same executable overwrites the graph's static output."""
         d = len(rep.shards)
         per = bucket // d
         key = (slab.key[0], slab.s, per)
@@ -1094,15 +1127,22 @@ class InferenceEngine:
                     devs.append(part.to(sh.device))
                     continue
                 ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(4))
-                with torch.cuda.stream(sh.copy):
-                    ev[0].record()
-                    devs.append(part.to(sh.device, non_blocking=True))
-                    ev[1].record()
+                if part.is_cuda:  # made on the device: ordered after its producer
+                    dev = part.to(sh.device)
+                    producer = torch.cuda.current_stream(sh.device)
+                    ev[0].record(producer)
+                    ev[1].record(producer)
+                    devs.append(dev)
+                else:
+                    with torch.cuda.stream(sh.copy):
+                        ev[0].record()
+                        devs.append(part.to(sh.device, non_blocking=True))
+                        ev[1].record()
                 events.append(ev)
             slab.copied = tuple(ev[1] for ev in events)
             t_put = time.monotonic()
-            host_out = torch.empty((bucket, self.row_width), dtype=torch.float32,
-                                   pin_memory=cuda)
+            host_out = None if keep_on_device else torch.empty(
+                (bucket, self.row_width), dtype=torch.float32, pin_memory=cuda)
             outs, done = [], []
             # One enqueue at a time on the replica: its launch threads share
             # its streams, static inputs and graph pools, and an eager
@@ -1131,21 +1171,27 @@ class InferenceEngine:
                             out = self._serve_packed(sh.model, dev)
                         if cuda:
                             events[j][3].record()
-                            host_out[j * per:(j + 1) * per].copy_(out, non_blocking=True)
+                            if keep_on_device:
+                                outs.append(out.clone())
+                            else:
+                                host_out[j * per:(j + 1) * per].copy_(out, non_blocking=True)
                             done.append(torch.cuda.Event())
                             done[-1].record()
                         else:
                             outs.append(out)
                 host_compute_s = time.perf_counter() - t_compute
-        if not cuda:
+        if keep_on_device:  # per device; device_outputs() waits, then joins them
+            host_out = tuple(outs)
+        elif not cuda:
             host_out = outs[0] if d == 1 else torch.cat(outs)
         handle = BatchHandle(host_out, tuple(done), n, tuple(events), replay, (slab.s, bucket),
                              rows_dispatched, rows_tight, host_compute_s, t_put, rep.index,
-                             slab.total_bytes)
+                             slab.total_bytes, keep_on_device,
+                             tuple(devs) if keep_on_device else ())
         with self._lock:
             self.batches += 1
             self.images += n
-            self.h2d_bytes += sum(part.numel() for part in parts)
+            self.h2d_bytes += sum(part.numel() for part in parts if not part.is_cuda)
             if replay:
                 self.replays += 1
             else:
@@ -1155,12 +1201,12 @@ class InferenceEngine:
         return handle
 
     def _dispatch(self, slab, n: int, bucket: int, spans, replica: int | None, t0: float,
-                  *ship_args) -> BatchHandle:
+                  *ship_args, **ship_kw) -> BatchHandle:
         """Route, ship and account one batch; its slab goes back to the
         pool once its copy is enqueued and its lessees are done."""
         rep = self._take_replica(replica, slab)
         try:
-            handle = self._ship(rep, *ship_args)
+            handle = self._ship(rep, *ship_args, **ship_kw)
         except BaseException:
             self._drop_inflight(rep, slab.total_bytes)
             raise
@@ -1173,19 +1219,20 @@ class InferenceEngine:
         return handle
 
     def dispatch_staged(self, slab: StagingSlab, n: int, spans=(),
-                        replica: int | None = None) -> BatchHandle:
+                        replica: int | None = None, keep_on_device: bool = False) -> BatchHandle:
         """Ship the first ``n`` rows of a filled slab (holes included) at the
         batch bucket that covers them to ``replica`` (None: routed here by
         :meth:`route_replica`), and enqueue the serve function; returns
         without waiting for the device. ``spans`` get ``device_transfer``,
-        ``device_dispatch`` and the ``replica`` note."""
+        ``device_dispatch`` and the ``replica`` note. ``keep_on_device``:
+        the outputs stay on the device (:meth:`device_outputs`)."""
         t0 = time.monotonic()
         bucket = self.pick_batch_bucket(n)
         if n > bucket:
             raise ValueError(f"batch of {n} exceeds the top batch bucket {bucket}")
         slab.trailer[n:bucket] = _HOLE_TRAILER
         return self._dispatch(slab, n, bucket, spans, replica, t0, slab.buf[:bucket], slab, n,
-                              bucket, bucket, float(n))
+                              bucket, bucket, float(n), keep_on_device=keep_on_device)
 
     def dispatch_ragged(self, slab: RaggedSlab, n: int, spans=(),
                         replica: int | None = None) -> BatchHandle:
@@ -1207,17 +1254,125 @@ class InferenceEngine:
                               meta_off)
 
     def dispatch_batch(self, canvases: np.ndarray, hws: np.ndarray,
-                       replica: int | None = None) -> BatchHandle:
+                       replica: int | None = None, keep_on_device: bool = False) -> BatchHandle:
         """A stacked batch (n ≤ the top batch bucket) copied into a slab
-        and dispatched."""
+        and dispatched on the classic wire."""
         wire_side = 2 if self.cfg.wire_format == "yuv420" else 1
         slab = self.acquire_staging(canvases.shape[wire_side])
         try:
             slab.write_rows(canvases, hws)
-            return self.dispatch_staged(slab, canvases.shape[0], replica=replica)
+            return self.dispatch_staged(slab, canvases.shape[0], replica=replica,
+                                        keep_on_device=keep_on_device)
         except BaseException:
             self.release_staging(slab)
             raise
+
+    # ------------------------------------------------- pipelines (on the device)
+
+    def dispatch_device(self, canvases: torch.Tensor, hws: np.ndarray, spans=(),
+                        replica: int | None = None) -> BatchHandle:
+        """Dispatch a batch that is already on the device (a pipeline's crop
+        batch): uint8 ``[n, S, S, 3]`` rgb canvases, made on the calling
+        thread's current stream, and their valid sizes ``hws`` (host
+        ``[n, 2]``). The classic wire's rows are built on the device (each
+        canvas and its big-endian trailer, then hole rows up to the batch
+        bucket), staged into the static input and replayed like any
+        classic batch; nothing crosses from the host but the trailers. The
+        handle is a :meth:`dispatch_staged` handle."""
+        if self.cfg.wire_format != "rgb":
+            raise ValueError(f"dispatch_device takes rgb canvases; this engine serves the "
+                             f"{self.cfg.wire_format} wire")
+        t0 = time.monotonic()
+        n, s = int(canvases.shape[0]), int(canvases.shape[1])
+        bucket = self.pick_batch_bucket(n)
+        if n > bucket:
+            raise ValueError(f"batch of {n} exceeds the top batch bucket {bucket}")
+        trailers = np.empty((bucket, 4), np.uint8)
+        trailers[:] = _HOLE_TRAILER
+        trailers[:n] = np.asarray(hws).astype(">u2").view(np.uint8).reshape(n, 4)
+        nbytes = s * s * 3
+        with torch.inference_mode():
+            buf = torch.zeros((bucket, nbytes + 4), dtype=torch.uint8, device=canvases.device)
+            buf[:n, :nbytes] = canvases.reshape(n, nbytes)
+            buf[:, nbytes:] = torch.from_numpy(trailers).to(canvases.device)
+        slab = _DeviceBatch(s, buf.nbytes)
+        return self._dispatch(slab, n, bucket, spans, replica, t0, buf, slab, n, bucket,
+                              bucket, float(n))
+
+    @staticmethod
+    def _on_caller_stream(handle: BatchHandle, parts: tuple) -> torch.Tensor:
+        """Per-device tensors of an on-device handle, joined on the first
+        device; on CUDA the calling thread's current stream first waits for
+        the handle's replay and copies, and ``record_stream`` keeps the
+        allocator off them until that stream is done with them."""
+        if not parts:
+            raise ValueError("the handle keeps nothing on the device (released, or not "
+                             "dispatched with keep_on_device)")
+        dev = parts[0].device
+        if dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+            with _GATE.shared():
+                for ev in handle.done:
+                    stream.wait_event(ev)
+            for p in parts:
+                p.record_stream(stream)
+        return parts[0] if len(parts) == 1 else torch.cat([p.to(dev) for p in parts])
+
+    def device_outputs(self, handle: BatchHandle) -> tuple[torch.Tensor, ...]:
+        """The task's arrays of a batch dispatched with ``keep_on_device``,
+        as views on the device for every row of its bucket: classify
+        (scores float32 [B, k], indices int32 [B, k]), detect (boxes float32
+        [B, D, 4], scores float32 [B, D], classes int32 [B, D], num int32
+        [B]). Nothing crosses to the host; the handle still owes a
+        :meth:`release_dispatch`."""
+        rows = self._on_caller_stream(handle, handle.out or ())
+        if self.task == "detect":
+            d = self.max_detections
+            return (rows[:, :4 * d].unflatten(1, (d, 4)), rows[:, 4 * d:5 * d],
+                    rows[:, 5 * d:6 * d].to(torch.int32), rows[:, 6 * d].to(torch.int32))
+        k = self.topk
+        return rows[:, :k], rows[:, k:].to(torch.int32)
+
+    def device_canvases(self, handle: BatchHandle) -> tuple[torch.Tensor, torch.Tensor]:
+        """The canvases a classic rgb batch dispatched with
+        ``keep_on_device`` shipped, on the device: uint8 [B, S, S, 3] views
+        of its wire buffer and their int32 [B, 2] valid sizes from the
+        trailers (the glue crops from them: no second copy of the image)."""
+        if self.cfg.wire_format != "rgb":
+            raise ValueError(f"the {self.cfg.wire_format} wire ships no rgb canvases")
+        buf = self._on_caller_stream(handle, handle.wire or ())
+        s = handle.cell[0]
+        return buf[:, :-4].unflatten(1, (s, s, 3)), decode_trailer(buf)
+
+    def release_dispatch(self, handle: BatchHandle) -> None:
+        """Close a batch dispatched with ``keep_on_device`` without copying
+        its bucket to the host: the caller read the rows it needed from
+        :meth:`device_outputs` (its copies counted through
+        :meth:`note_d2h`). The replica's accounting closes as in
+        :meth:`fetch_outputs`."""
+        device_s = None
+        try:
+            with _GATE.shared():
+                for ev in handle.done:
+                    ev.synchronize()
+            if handle.events:
+                device_s = max(ev[2].elapsed_time(ev[3]) for ev in handle.events) / 1e3
+            else:
+                device_s = handle.host_compute_s
+        finally:
+            handle.out, handle.wire = None, None
+            self._account(handle, device_s)
+
+    def note_d2h(self, nbytes: int) -> None:
+        """Count device→host bytes: :meth:`fetch_outputs` counts the batch
+        bucket's rows, a pipeline counts the rows it copies itself."""
+        with self._lock:
+            self.d2h_bytes += int(nbytes)
+
+    @property
+    def d2h_bytes_total(self) -> int:
+        with self._lock:
+            return self.d2h_bytes
 
     def device_timeline(self, base: torch.cuda.Event | None = None) -> list[dict]:
         """The recent batches' copy and compute intervals on the device, per
@@ -1257,6 +1412,7 @@ class InferenceEngine:
                 device_s = handle.host_compute_s
         finally:
             self._account(handle, device_s)
+        self.note_d2h(handle.out.nbytes)
         packed = handle.out.numpy()[: handle.n]
         if self.task == "detect":
             d = self.max_detections
@@ -1385,31 +1541,67 @@ class InferenceEngine:
                 pairs = sorted(((s, b) for s in self.cfg.canvas_buckets
                                 for b in self.batch_buckets), reverse=True)
                 kind = "ragged" if self.ragged else "classic"
+                # a ragged engine's pipeline dispatches ride the classic wire
+                dag = self.dag_pairs() if self.ragged else []
                 for sh in self._shards():
-                    for s, b in pairs:
+                    for k, s, b in [(kind, s, b) for s, b in pairs] + [("classic", s, b)
+                                                                        for s, b in dag]:
                         p = b // self.batch_multiple
-                        sh.exes[(kind, s, p)] = self._capture(kind, s, p, sh)
+                        sh.exes[(k, s, p)] = self._capture(k, s, p, sh)
                 if self._pinned:
                     for dev in self.mesh:
                         torch.cuda.synchronize(dev)
                     self.pool_bytes = sum(map(self._graph_pool_bytes, self._shards()))
                 self.warmup_s["executables"] = time.perf_counter() - t0
-                log.info("warmup: executables %.2fs (%d pairs × %d devices, %s; graph pools "
-                         "%d bytes, static %d bytes)", self.warmup_s["executables"],
-                         len(pairs), len(self._shards()),
+                log.info("warmup: executables %.2fs (%d pairs + %d classic for pipelines × %d "
+                         "devices, %s; graph pools %d bytes, static %d bytes)",
+                         self.warmup_s["executables"], len(pairs), len(dag), len(self._shards()),
                          "CUDA graphs" if self._pinned else "no capture", self.pool_bytes,
                          self._static_bytes())
                 self._warmed = True
             t0 = time.perf_counter()
+            dag = self.dag_pairs() if self.ragged else []
             for rep in self._replicas:
                 for s in self.cfg.canvas_buckets:
                     for b in self.batch_buckets:
                         self._run_blank(b, s, rep.index)
+                for s, b in dag:
+                    self.run_batch(np.zeros(self.canvas_shape(b, s), np.uint8),
+                                   np.full((b, 2), s, np.int32), rep.index)
             dt = time.perf_counter() - t0
             self.warmup_s["execution"].append(dt)
             log.info("warmup: execution pass %.2fs (%d batches, thread %s)", dt,
-                     self.num_replicas * len(self.cfg.canvas_buckets) * len(self.batch_buckets),
+                     self.num_replicas * (len(self.cfg.canvas_buckets) * len(self.batch_buckets)
+                                          + len(dag)),
                      threading.current_thread().name)
+
+    def dag_pairs(self) -> list[tuple[int, int]]:
+        """The classic-wire (canvas side, batch bucket) pairs the server's
+        pipelines (``cfg.pipelines``) dispatch on this model, by its serve
+        name: as a first stage one image on each canvas bucket
+        (:meth:`dispatch_batch`), as a later stage its crop batch on the
+        smallest canvas bucket (:meth:`dispatch_device`). Warmup captures
+        them beside the ragged wire's, so that a pipeline request replays.
+        Only on the rgb wire, the one a pipeline accepts."""
+        if not self.cfg.pipelines or self.cfg.wire_format != "rgb":
+            return []
+        from .dag import PipelineSpecError, parse_pipeline_args
+
+        try:
+            specs = parse_pipeline_args(self.cfg.pipelines)
+        except PipelineSpecError:
+            return []  # the App refuses the boot with the spec's error
+        name, buckets = self.model_cfg.serve_name, self.cfg.canvas_buckets
+        pairs = set()
+        for spec in specs:
+            for i, stage in enumerate(spec.stages):
+                if stage.model != name:
+                    continue
+                if i == 0:
+                    pairs.update((s, self.pick_batch_bucket(1)) for s in buckets)
+                else:
+                    pairs.add((min(buckets), self.pick_batch_bucket(self.cfg.pipeline_max_crops)))
+        return sorted(pairs, reverse=True)
 
     def _static_bytes(self) -> int:
         """Bytes of the static inputs and the graphs' static outputs."""

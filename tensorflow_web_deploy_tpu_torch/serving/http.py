@@ -47,6 +47,11 @@ HTTP/1.1 keep-alive front end (counterpart of the JAX package's
   ID answers in ``X-Trace-Id`` on every response, sheds and 304s included.
   The telemetry hub's sampler starts with the App and stops first in
   :func:`shutdown_gracefully`.
+- **Pipeline DAGs** (``serving/dag.py``, ``--pipeline``). ``App.pipelines``
+  is the :class:`~.dag.PipelineCatalog` over the same registry and cache,
+  built (and every spec validated, a bad one failing the boot) before the
+  telemetry sampler starts; ``POST /pipelines/<name>`` runs one image
+  through detect → crop → classify with the intermediates on the device.
 - **Bulk jobs** (``serving/jobs.py``, ``--jobs-dir``). ``App.jobs`` is the
   :class:`~.jobs.JobManager` over the same registry and cache; its runner
   feeds the batchers' bulk class. :func:`shutdown_gracefully` stops it
@@ -107,6 +112,17 @@ Routes:
     POST /debug/trace   ``?ms=N&dir=D``: a ``torch.profiler`` capture of N ms
                         (at most 60,000) written to D as a Chrome trace; 409
                         while another capture runs
+    GET  /pipelines     every pipeline's spec, ref and live stage resolution
+    POST /pipelines/{name}  one image (raw body, or multipart with exactly one
+                        file part) through the pipeline: ``{"detections":
+                        [{"box", "class", "label", "score", "classification":
+                        {"predictions": [...]}}], "num_detections",
+                        "pipeline", "stages", "latency_ms", "trace_id"}``;
+                        ``?topk=N`` clamps against the last stage; ``ETag``
+                        (the last stage's cache identity) and
+                        ``If-None-Match`` (304); 404 unknown, 503 a stage
+                        not serving, 400 no or several images or an
+                        undecodable one, 413 past the body cap
     POST /jobs          a bulk job (``--jobs-dir``): a multipart upload (the
                         file parts are the manifest) or a JSON body
                         ``{"dir", "glob"?, "recursive"?, "model"?, "topk"?}``
@@ -149,6 +165,7 @@ from ..utils.metrics import Observability, PromText, make_access_logger
 from ..utils.tracing import Span, accept_trace_id, chrome_trace, effective_window
 from . import aotcache, costmodel
 from .batcher import BacklogFull, LeaseExpired, ShuttingDown
+from .dag import PipelineCatalog, PipelineUnavailable, parse_pipeline_args
 from .engine import quiesced
 from .jobs import JobManager, UnknownJob, clamp_topk, format_result_row
 from .overload import (
@@ -348,6 +365,15 @@ class App:
         # the telemetry hub (None with telemetry_interval_s 0): its sampler
         # runs from here until shutdown_gracefully stops it
         self.telemetry = build_hub(self, server_cfg)
+        # pipeline DAGs: every spec validated against the registry here, so
+        # that a bad --pipeline fails the boot (before the sampler starts);
+        # the catalog always exists, maybe empty
+        self.pipelines = PipelineCatalog(registry, cache=self.cache, hub=self.telemetry,
+                                         max_crops=server_cfg.pipeline_max_crops)
+        self.pipelines.attach_listeners()
+        for spec in parse_pipeline_args(server_cfg.pipelines):
+            self.pipelines.register(spec)
+        registry.attach_pipelines(self.pipelines)
         if self.telemetry is not None:
             self.telemetry.start()
         # bulk jobs (--jobs-dir): the manager resumes the jobs it finds on
@@ -410,6 +436,10 @@ class App:
                 res = self._profile(environ)
             elif path == "/debug/trace":
                 res = self._trace_export(environ)
+            elif path == "/pipelines" and method == "GET":
+                res = _json(200, self.pipelines.pipelines_snapshot())
+            elif path.startswith("/pipelines/") and method == "POST":
+                res = self._pipeline_predict(environ, path[len("/pipelines/"):])
             elif path == "/jobs" or path.startswith("/jobs/"):
                 res = self._jobs_route(environ, method, path)
             elif path == "/":
@@ -465,6 +495,7 @@ class App:
                               if hasattr(engine, "placement_summary") else None)}
         # the jobs knobs echoed, as the reference's config block does
         snap.setdefault("config", {}).update({
+            "pipelines": self.pipelines.names(),
             "jobs_dir": self.cfg.jobs_dir,
             "jobs_batch": self.jobs.bulk_batch if self.jobs is not None else None,
             "jobs_max_inflight": self.jobs.max_inflight if self.jobs is not None else None})
@@ -477,6 +508,15 @@ class App:
                             "pressure": self.pressure.stats()}
         if self.chaos is not None:
             snap["overload"]["chaos"] = self.chaos.stats()
+        # per pipeline: requests, errors, e2e percentiles, per-stage seconds,
+        # images, cache hits and D2H bytes, and the cost model's attribution
+        ps = self.pipelines.pipeline_stats()
+        for pstat in ps["pipelines"].values():
+            try:
+                pstat["attribution"] = costmodel.pipeline_attribution(pstat, self.registry)
+            except Exception:  # attribution must never fail /stats
+                log.exception("pipeline attribution failed")
+        snap["pipelines"] = ps
         # per-stage span aggregates, cumulative (tools/loadgen.py diffs two)
         snap["tracing"] = self.obs.stage_summary()
         snap["economics"] = self._economics()
@@ -723,9 +763,46 @@ class App:
             p.scalar("job_cache_hits_total", c["bulk"]["hits_total"], mtype="counter",
                      help_="Bulk-tier response-cache hits (job lookups are counted apart "
                      "from the interactive tier).")
+        self._pipeline_metrics(p)
         if self.telemetry is not None:
             self._telemetry_metrics(p)
         return p.render()
+
+    def _pipeline_metrics(self, p: PromText) -> None:
+        """The ``tpu_serve_pipeline_*`` families: the catalog's swap-driven
+        re-resolutions, per pipeline its requests, errors and windowed e2e
+        percentiles, per stage its seconds, images, cache hits and D2H
+        bytes (a stage's span latency is ``stage_duration_seconds{stage=
+        "pipeline.<model>"}``)."""
+        ps = self.pipelines.pipeline_stats()
+        p.scalar("pipeline_resolutions_total", ps["resolutions_total"], mtype="counter",
+                 help_="Pipeline re-resolutions triggered by stage-model serving/retire "
+                 "transitions.")
+        for name in sorted(ps["pipelines"]):
+            st = ps["pipelines"][name]
+            pl = {"pipeline": name}
+            p.scalar("pipeline_requests_total", st["requests_total"], mtype="counter",
+                     labels=pl, help_="Pipeline executions (all outcomes).")
+            p.scalar("pipeline_errors_total", st["errors_total"], mtype="counter", labels=pl,
+                     help_="Pipeline executions that raised.")
+            for q, key in (("p50", "e2e_p50_s"), ("p99", "e2e_p99_s")):
+                if st[key] is not None:
+                    p.scalar(f"pipeline_e2e_{q}_seconds", st[key], labels=pl,
+                             help_="Windowed pipeline end-to-end latency (last 512 requests).")
+            for stage in sorted(st["stages"]):
+                sl = {"pipeline": name, "stage": stage}
+                sc = st["stages"][stage]
+                p.scalar("pipeline_stage_seconds_total", sc["seconds"], mtype="counter",
+                         labels=sl, help_="Wall seconds attributed to this stage (dispatch "
+                         "through result).")
+                p.scalar("pipeline_stage_images_total", sc["images"], mtype="counter",
+                         labels=sl, help_="Images (stage 1) or crops (later stages) through "
+                         "this stage.")
+                p.scalar("pipeline_stage_cache_hits_total", sc["cache_hits"], mtype="counter",
+                         labels=sl, help_="Per-stage response-cache hits.")
+                p.scalar("pipeline_stage_d2h_bytes_total", sc["d2h_bytes"], mtype="counter",
+                         labels=sl, help_="Device-to-host bytes this stage actually converted "
+                         "(payload rows, not padded buckets).")
 
     def _telemetry_metrics(self, p: PromText) -> None:
         ts = self.telemetry.stats()
@@ -1080,6 +1157,55 @@ class App:
                    ("X-Job-Result-Lines", str(total_lines)),
                    ("X-Job-Complete", "1" if done else "0")]
         return "200 OK", body, "application/x-ndjson", headers
+
+    def _pipeline_predict(self, environ, name: str):
+        """POST /pipelines/{name}: one image through a pipeline DAG as one
+        request. The body forms of /predict, but exactly one image;
+        ``?topk=`` clamps against the last stage's model. The ETag is the
+        last stage's cache identity, so ``If-None-Match`` works across the
+        composition as it does for one model."""
+        t0 = time.monotonic()
+        span = environ.get("tpu_serve.span") or Span()
+        qs = urllib.parse.parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True)
+        try:
+            topk_raw = _qs_last(qs, "topk")
+            topk_req = int(topk_raw) if topk_raw is not None else None
+        except ValueError:
+            return _error(400, "topk must be an integer")
+        body = self._read_body(environ)
+        span.add("body_read", time.monotonic() - t0)
+        if body is None:
+            return _error(413, f"body exceeds {self.cfg.max_body_mb} MB cap")
+        ctype = environ.get("CONTENT_TYPE", "")
+        if ctype.startswith("multipart/form-data"):
+            named = _parse_multipart_files(body, ctype)
+            if len(named) != 1:
+                return _error(400, f"pipelines take exactly one image per request, got "
+                                   f"{len(named)}")
+            data = named[0][1]
+        else:
+            data = body
+        if not data:
+            return _error(400, "empty request body")
+        try:
+            payload, etag, meta = self.pipelines.execute(
+                name, data, topk_req, span, deadline_s=self.cfg.request_timeout_s)
+        except KeyError:
+            return _json(404, {"error": f"unknown pipeline '{name}'",
+                               "pipelines": self.pipelines.names()})
+        except PipelineUnavailable as e:
+            return _error(503, str(e))
+        except ValueError as e:
+            return _error(400, str(e))
+        headers = [("ETag", f'"{etag}"')]
+        if _etag_matches(environ.get("HTTP_IF_NONE_MATCH"), etag):
+            return _STATUS[304], b"", "application/json", headers
+        resp = dict(payload)
+        resp["pipeline"] = name
+        resp["stages"] = meta["stages"]
+        resp["latency_ms"] = round((time.monotonic() - t0) * 1e3, 3)
+        resp["trace_id"] = span.trace_id
+        return _json(200, resp, headers)
 
     def _read_body(self, environ) -> bytes | None:
         """The request body; None when it exceeds the cap. The declared

@@ -52,8 +52,12 @@ shows it per version.
 :meth:`ModelRegistry.build_batcher` passes the bulk class's knobs
 (``jobs_batch``, ``jobs_max_inflight``, ``jobs_starvation_s``) to every
 batcher; the job manager's retire listener fires inside the DRAINING flip,
-under the registry's lock, and pauses the jobs on that model. Left for
-later, under its ROADMAP item: ``attach_pipelines`` (15).
+under the registry's lock, and pauses the jobs on that model. The App
+attaches its pipeline catalog (``serving/dag.py``,
+:meth:`ModelRegistry.attach_pipelines`): ``GET /models`` shows each
+pipeline's spec and live stage resolution beside the models, and the
+catalog's own serving and retire listeners re-resolve a pipeline after a
+swap of one of its stage models.
 
 The registry is engine-agnostic through its factory seams: the tests
 drive the whole lifecycle with mock engines.
@@ -216,6 +220,8 @@ class ModelRegistry:
         # flip flags only; they must not block.
         self._retire_listeners: list = []
         self._serving_listeners: list = []
+        # the App's pipeline catalog (serving/dag.py), read by models_snapshot
+        self._pipelines = None
 
     # ------------------------------------------------------------- factories
 
@@ -622,7 +628,17 @@ class ModelRegistry:
                 "serving_version": cur.version if cur else None,
                 "versions": [names[name][v].snapshot() for v in sorted(names[name])],
             }
+        # read after the registry's lock is dropped: a dirty pipeline
+        # re-resolves through acquire() and release()
+        pipelines = self._pipelines
+        if pipelines is not None:
+            out["pipelines"] = pipelines.pipelines_snapshot()
         return out
+
+    def attach_pipelines(self, catalog) -> None:
+        """The pipeline catalog whose specs and resolutions ``GET /models``
+        shows (the catalog registers its own listeners)."""
+        self._pipelines = catalog
 
     def serving_entries(self) -> list[ModelVersion]:
         """Every serving version."""

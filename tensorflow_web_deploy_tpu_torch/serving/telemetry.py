@@ -20,8 +20,11 @@ no hub lock while it calls its sources (each takes its own locks), and
 request threads never wait on the sampler. Timestamps are
 ``time.monotonic()``.
 
-Sources the port leaves out until their modules are ported: pipeline
-request rates and p99 (DAG pipelines); the jobs tier has none here either.
+The pipeline DAGs feed it too: each pipeline's request rate and windowed
+e2e p99 (``pipeline.rps.<name>``, ``pipeline.e2e_p99_ms.<name>``), every
+request's e2e as a ``pipeline.e2e`` point, and a ``pipeline_reresolved``
+event when a swap of a stage model marks a pipeline for re-resolution. The
+jobs tier has no source here, as in the reference.
 """
 
 from __future__ import annotations
@@ -445,7 +448,8 @@ def default_sources(app, hub: TelemetryHub):
     the SLO counters the burn evaluator reads back, the default model's
     latency percentiles, throughput and occupancy, per-model queue depth,
     parity-gate events, the default engine's per-replica in-flight batches
-    and busy share, cache hit rate and bytes, build-cache seconds, the
+    and busy share, cache hit rate and bytes, each pipeline's request rate
+    and e2e p99, build-cache seconds, the
     default model's econ gauges, the ladder's rung and its transitions,
     tenant admit and shed rates, chaos injections as events. Rates come
     from counter deltas between ticks; the closure keeps the last tick's."""
@@ -510,6 +514,21 @@ def default_sources(app, hub: TelemetryHub):
         if c.get("hit_rate") is not None:
             out["cache.hit_rate"] = c["hit_rate"]
         out["cache.bytes"] = float(c.get("bytes", 0))
+
+        # per pipeline: its request rate and windowed e2e p99 (each request's
+        # e2e is also a "pipeline.e2e" point, written by the executor); the
+        # App builds its catalog after the hub
+        catalog = getattr(app, "pipelines", None)
+        if catalog is not None:
+            for pname, pstat in catalog.pipeline_stats()["pipelines"].items():
+                key = f"pipeline.requests.{pname}"
+                p_req = prev.get(key)
+                if dt and dt > 0 and p_req is not None:
+                    out[f"pipeline.rps.{pname}"] = max(
+                        0.0, (pstat["requests_total"] - p_req) / dt)
+                prev[key] = pstat["requests_total"]
+                if pstat["e2e_p99_s"] is not None:
+                    out[f"pipeline.e2e_p99_ms.{pname}"] = pstat["e2e_p99_s"] * 1e3
 
         # kernel build cache: per-tick nvcc and load seconds, so that a hot
         # swap's rewarm shows beside its swap event

@@ -233,6 +233,15 @@ class ServerConfig:
     # "name=pXX:THRESHOLD:TARGET_PCT,..." evaluated as multi-window burn rates
     telemetry_interval_s: float = 1.0
     slo_objectives: str = ""
+    # Pipeline DAGs (serving/dag.py, POST /pipelines/<name>): each an inline
+    # chain "name=detector@int8>classifier" or the path of a JSON pipeline
+    # file; a spec that cannot run (grammar, cycle, arity, a stage model or
+    # dtype that does not resolve) fails the boot
+    pipelines: tuple[str, ...] = ()
+    # stage-1 detections a request's crop batch takes (the batch runs at the
+    # classifier's batch bucket covering it); also the stage-1 cache key's
+    # top-k slot
+    pipeline_max_crops: int = 8
     # Bulk offline jobs (serving/jobs.py, POST /jobs): the directory where
     # manifests, spooled uploads, results and checkpoints persist across
     # restarts; None turns /jobs off (the CLI's --jobs-dir)
@@ -255,6 +264,7 @@ class ServerConfig:
         # pick_bucket relies on ascending order
         self.canvas_buckets = tuple(sorted(set(self.canvas_buckets)))
         self.models = tuple(self.models)
+        self.pipelines = tuple(self.pipelines)
         names = [m.serve_name for m in self.serve_models]
         dup = sorted({n for n in names if names.count(n) > 1})
         if dup:
