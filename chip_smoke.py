@@ -100,8 +100,9 @@ served batch's candidates and on adversarial rows, an anchor scene whose
 detections must equal the host's expectation exactly, its raw outputs
 against float32 and the CPU, the fused depthwise and preprocess kernels
 at its own shapes, and its int8 tier, refused at 300 px and served at 64.
-``converter`` writes full-width ``inception_v3.pb`` and ``mobilenet_v2.pb``
-into ``artifacts/`` with the port's TF-free tool (the zoo's seeded
+``converter`` writes full-width ``inception_v3.pb``, ``mobilenet_v2.pb``,
+``resnet50.pb`` and ``ssd_mobilenet.pb`` into ``artifacts/`` with the
+port's TF-free tool (the zoo's seeded
 weights) and serves the preset ``inception_v3`` through the frozen-graph
 converter as CUDA graph replays, beside ``native:inception_v3`` on the same
 weights, in bf16 and float32: the .pb path's answers against native's, its
@@ -109,7 +110,12 @@ preprocess kernel launches on the yuv420 wire and unpack launches on the
 ragged wire, and for both paths the load seconds, kernels per replay,
 device ms per batch-8 and batch-32 replay, batch-32 img/s and MFU; then
 ``mobilenet_v2.pb`` in bf16 and int8 (the gate's verdict, no leaf
-quantized). ``jobs`` serves Inception-v3 bf16 on the yuv420 wire with
+quantized); then ``resnet50.pb`` (224 px, on the ragged wire: one unpack
+launch a batch) and ``ssd_mobilenet.pb`` (300 px, the anchor scene's
+weights, on the yuv420 wire: one preprocess and one ``nms_fixed`` launch a
+batch) the same way beside ``native:resnet50`` and
+``native:ssd_mobilenet``, their logits and raw outputs against native
+float32's, and the CLI serving ``--model ssd_mobilenet``. ``jobs`` serves Inception-v3 bf16 on the yuv420 wire with
 ``max_batch`` 256 and ``--jobs-dir``: a ``POST /jobs`` over 1,024 distinct
 JPEGs in batches of 256 (one preprocess launch and one graph replay a bulk
 batch, every image once, the first 24 against ``/predict``), the
@@ -3952,18 +3958,22 @@ SSD_BF16_RTOL = 3e-2
 BOX_TOL = 1e-2
 
 
-def ssd_answers_agree(a: dict, b: dict) -> bool:
-    """Two answers for one image: the same count and classes in order,
-    scores within ``SERVED_TOL`` and boxes within ``BOX_TOL`` of the image's
-    side (another batch bucket may take another cuDNN algorithm, so bf16
-    raw outputs may move by rounding)."""
+def ssd_answers_agree(a: dict, b: dict, score_tol: float = SERVED_TOL,
+                      box_tol: float = BOX_TOL) -> dict:
+    """Two answers for one image: the same count, and the same classes and
+    labels in order; scores within ``score_tol`` and each box coordinate
+    within ``box_tol`` of the image's side (the largest coordinate of
+    ``a``'s boxes; by default the served tolerances: another batch bucket
+    may take another cuDNN algorithm, so bf16 raw outputs may move by
+    rounding). Returns the verdict and the largest differences."""
     da, db = a["detections"], b["detections"]
-    if a["num_detections"] != b["num_detections"] or len(da) != len(db):
-        return False
-    side = max(max(abs(v) for d in da for v in d["box"]) if da else 1.0, 1.0)
-    return all(x["class"] == y["class"] and abs(x["score"] - y["score"]) <= SERVED_TOL
-               and all(abs(u - v) <= BOX_TOL * side for u, v in zip(x["box"], y["box"]))
-               for x, y in zip(da, db))
+    side = max([abs(v) for d in da for v in d["box"]] + [1.0])
+    same = (a["num_detections"] == b["num_detections"] and len(da) == len(db)
+            and [(d["class"], d["label"]) for d in da] == [(d["class"], d["label"]) for d in db])
+    score = max([abs(x["score"] - y["score"]) for x, y in zip(da, db)] + [0.0])
+    box = max([abs(u - v) for x, y in zip(da, db) for u, v in zip(x["box"], y["box"])] + [0.0])
+    return {"ok": same and score <= score_tol and box <= box_tol * side,
+            "max_score_diff": score, "max_box_diff_over_side": box / side}
 
 
 def ssd_answer_ok(body: dict, classes: int) -> bool:
@@ -4242,7 +4252,7 @@ def phase_ssd(jpegs: list[bytes]) -> dict:
             bad["serve"] = {**row["serve"], "launches": launches, "want": want}
         bodies = [r[1] for r in results]
         serial_bodies = [r[1] for r in serial]
-        agree = [ssd_answers_agree(a, b) for a, b in zip(bodies, serial_bodies)]
+        agree = [ssd_answers_agree(a, b)["ok"] for a, b in zip(bodies, serial_bodies)]
         row["serial_vs_burst"] = {
             "images": len(jpegs), "agree": sum(agree),
             "identical": sum(a["detections"] == b["detections"]
@@ -4515,6 +4525,23 @@ CONVERTER_MODELS = ("inception_v3", "native:inception_v3,as=native_inception_v3"
 # (depthwise on cuDNN) and in the int8 tier
 CONVERTER_RAGGED_MODELS = ("inception_v3", "mobilenet_v2",
                            "mobilenet_v2,dtype=int8,as=mobilenet_v2_int8")
+# the ResNet-50 server (caffe: the ragged rgb wire, which the preprocess
+# kernel refuses): the preset in bf16 and float32 beside the zoo model on
+# the same weights (seed 0) in both dtypes
+CONVERTER_RESNET_MODELS = ("resnet50", "native:resnet50,as=native_resnet50",
+                           "resnet50,dtype=f32,as=resnet50_f32",
+                           "native:resnet50,dtype=f32,as=native_resnet50_f32")
+# the SSD-MobileNet server (yuv420, the preprocess kernel): the same on the
+# anchor scene's weights, which the preset's graph is written with
+CONVERTER_SSD_MODELS = ("ssd_mobilenet", "native:ssd_mobilenet,as=native_ssd_mobilenet",
+                        "ssd_mobilenet,dtype=f32,as=ssd_mobilenet_f32",
+                        "native:ssd_mobilenet,dtype=f32,as=native_ssd_mobilenet_f32")
+# the graph's logits (ResNet-50) and raw outputs (SSD) in bf16 may lie at
+# most this many times as far from native float32's as native bf16's do:
+# the Keras pattern rounds each conv's output to bf16 three times (the
+# conv, the BN's Mul and AddV2; ResNet-50's zero BiasAdd is exact) where
+# native rounds it once (1.24–1.34 × on the CPU: SSD, width 0.35, 96 px)
+PB_BF16_DEVIATION_RATIO = 2.0
 # Scores of the .pb path against native on the same weights and images.
 # float32 computes the same function in another order (each BN after its
 # conv, where native folds it into the conv's weight and bias; cuDNN with
@@ -4542,14 +4569,57 @@ def answers_match(a: list[dict], b: list[dict], tol: float) -> dict:
     return {"ok": ok, "max_score_diff": diff, "defined_ranks": len(defined) + 1}
 
 
+def converter_server(cfg, det_params: dict):
+    """``start_server``'s stack (registry, App, HTTP pool) with each native
+    detector built on ``det_params`` (``start_server`` builds every engine
+    on seed ``SEED``): the handles ``burst`` reads, and ``close``."""
+    from types import SimpleNamespace
+
+    from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
+    from tensorflow_web_deploy_tpu_torch.serving.http import App, make_http_server, \
+        shutdown_gracefully
+    from tensorflow_web_deploy_tpu_torch.serving.registry import ModelRegistry
+
+    def build(mc):
+        return InferenceEngine(replace(cfg, model=mc), device="cuda", seed=SEED,
+                               params_flat=det_params if mc.source == "native" else None)
+
+    reg = ModelRegistry(cfg, default_model=cfg.default_name, engine_factory=build)
+    try:
+        for mc in cfg.serve_models:
+            eng = build(mc)
+            reg.adopt(mc.serve_name, eng, reg.build_batcher(eng), mc)
+        app = App(reg, cfg)
+        httpd = make_http_server(app, cfg.host, 0, pool_size=cfg.http_workers)
+    except BaseException:
+        reg.stop()
+        reg.close_engines()
+        raise
+    thread = threading.Thread(target=httpd.serve_forever, name="http", daemon=True)
+    thread.start()
+
+    def close():
+        shutdown_gracefully(httpd, reg, 10.0)
+        thread.join(10.0)
+        reg.close_engines()
+
+    port = httpd.server_address[1]
+    return SimpleNamespace(registry=reg, app=app, httpd=httpd, engine=app.engine,
+                           batcher=app.batcher, port=port, url=f"http://127.0.0.1:{port}",
+                           close=close)
+
+
 def phase_converter(jpegs: list[bytes]) -> dict:
-    """Frozen graphs served through the converter (ROADMAP Queue 1 item 13).
+    """Frozen graphs served through the converter (ROADMAP Queue 1 items 13
+    and 17).
 
     - Artifacts: ``tools/make_artifacts.py`` writes full-width
-      ``inception_v3.pb`` (299 px, 1000 classes) and ``mobilenet_v2.pb``
-      (224 px) into the checkout's ``artifacts/`` without TensorFlow, with
-      the zoo's seeded weights (seed 0): the presets then name them. A file
-      already there must be those bytes.
+      ``inception_v3.pb`` (299 px, 1000 classes), ``mobilenet_v2.pb`` and
+      ``resnet50.pb`` (224 px) into the checkout's ``artifacts/`` without
+      TensorFlow, with the zoo's seeded weights (seed 0), and
+      ``ssd_mobilenet.pb`` (300 px, 90 classes) with the anchor scene's
+      (``scene_params``: every image has detections): the presets then
+      name them. A file already there must be those bytes.
     - yuv420 server (preprocess kernel, canvas 512, batch buckets 1–32):
       the preset ``inception_v3`` in bf16 (the default model) and float32
       beside ``native:inception_v3`` in both, on the same weights. A burst
@@ -4568,7 +4638,31 @@ def phase_converter(jpegs: list[bytes]) -> dict:
       ``,dtype=int8``: the gate's verdict and the leaves it quantized
       (none: the Keras-named constants match no kernel leaf name, as in the
       reference).
+    - ResNet-50 (BASELINE config 3): the preset ``resnet50`` in bf16 and
+      float32 beside ``native:resnet50`` on the ragged rgb wire (caffe: the
+      preprocess kernel refuses it), the same burst (one unpack launch a
+      batch, no preprocess launch), answers and path numbers; its logits
+      against native float32's on 8 preprocessed images (another
+      conversion with the logits as output): float32 within
+      ``F32_LOGIT_RTOL``, bf16 at most ``PB_BF16_DEVIATION_RATIO`` × as far
+      as native bf16's (the seeded softmax is one-hot: a top-1 check).
+    - SSD-MobileNet (BASELINE config 4): the preset ``ssd_mobilenet`` in
+      bf16 and float32 beside ``native:ssd_mobilenet`` on the anchor
+      scene's weights on the yuv420 wire: the burst (one preprocess and one
+      ``nms_fixed`` launch a batch), every answer a 200 with detections,
+      the .pb path's detections against native's (:func:`ssd_answers_agree`,
+      float32 at ``PB_F32_TOL``, bf16 at ``SSD_BF16_RTOL``) and the path
+      numbers; then the raw outputs of the seeded graph (lively heads)
+      against native float32's, as ResNet-50's logits.
+    - The CLI: ``python -m tensorflow_web_deploy_tpu_torch.server --model
+      ssd_mobilenet``: ``GET /models`` shows it SERVING, one ``POST
+      /predict`` answers 200 with detections.
     """
+    from tensorflow_web_deploy_tpu_torch.graphdef import convert_graphdef, load_pb, parse_graphdef
+    from tensorflow_web_deploy_tpu_torch.models import get as zoo_get
+    from tensorflow_web_deploy_tpu_torch.models.adapter import init_variables, native_converted
+    from tensorflow_web_deploy_tpu_torch.models.ssd_mobilenet import ASPECT_RATIOS
+    from tensorflow_web_deploy_tpu_torch.ops.detection import nms_fixed
     from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
     from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
     from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
@@ -4579,39 +4673,58 @@ def phase_converter(jpegs: list[bytes]) -> dict:
         model_config
 
     t_phase = time.perf_counter()
-    row = {"phase": "converter", "nvidia_smi": nvidia_smi(), "models": list(CONVERTER_MODELS),
+    row = {"phase": "converter", "nvidia_smi": nvidia_smi(),
+           "models": [*CONVERTER_MODELS, *CONVERTER_RAGGED_MODELS, *CONVERTER_RESNET_MODELS,
+                      *CONVERTER_SSD_MODELS],
            "canvas_buckets": list(CONVERTER_BUCKETS), "max_batch": CONVERTER_MAX_BATCH}
     bad: dict = {}
+    wrappers = {"preprocess_i420": preprocess_i420, "fused_dw": fused_dw,
+                "unpack_ragged": unpack_ragged, "nms_fixed": nms_fixed}
 
     def counts() -> dict:
-        return {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
-                "unpack_ragged": unpack_ragged.launches}
+        return {name: w.launches for name, w in wrappers.items()}
 
     def zero() -> None:
-        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+        for w in wrappers.values():
+            w.launches = 0
 
     # the artifacts, written without TensorFlow
     t0 = time.perf_counter()
-    make_artifacts.ensure_artifacts(["inception_v3", "mobilenet_v2"], _ARTIFACTS)
-    row["artifacts"] = {"write_s": time.perf_counter() - t0}
-    for name in ("inception_v3", "mobilenet_v2"):
-        data, _ = make_artifacts.make_graph(name, seed=SEED)
+    seeded = ["inception_v3", "mobilenet_v2", "resnet50"]
+    make_artifacts.ensure_artifacts(seeded, _ARTIFACTS)
+    _, ssd_flat = init_variables(zoo_get("ssd_mobilenet"), seed=SEED)
+    scene = scene_params(ssd_flat, scene_biases(90, len(ASPECT_RATIOS)))
+    row["artifacts"] = {}
+    for name in [*seeded, "ssd_mobilenet"]:
+        data, flat = make_artifacts.make_graph(
+            name, seed=SEED, params=scene if name == "ssd_mobilenet" else None)
         path = _ARTIFACTS / f"{name}.pb"
+        if not path.exists():
+            tmp = path.with_suffix(".pb.tmp")
+            tmp.write_bytes(data)
+            tmp.replace(path)
         if path.read_bytes() != data:
             raise AssertionError(f"{path} is not the seeded graph the tool writes; move it away")
         row["artifacts"][name] = {"bytes": len(data)}
+        if name == "resnet50":
+            resnet_flat = flat
+    row["artifacts"]["write_s"] = time.perf_counter() - t0
 
-    def server(specs, **kw):
+    def server(specs, det_params=None, **kw):
         mcs = [model_config(s) for s in specs]
         cfg = ServerConfig(model=mcs[0], models=tuple(mcs), default_model=mcs[0].serve_name,
                            canvas_buckets=CONVERTER_BUCKETS, host="127.0.0.1", port=0,
-                           **{**PINNED, **kw})
+                           http_workers=len(jpegs), **{**PINNED, **kw})
         t = time.perf_counter()
-        srv = start_server(cfg, device="cuda", seed=SEED)
-        return srv, time.perf_counter() - t
+        srv = (start_server(cfg, device="cuda", seed=SEED) if det_params is None
+               else converter_server(cfg, det_params))
+        engines = {mv.name: mv.engine for mv in srv.registry.serving_entries()}
+        urllib.request.urlopen(srv.url + "/healthz", timeout=120).read()
+        return srv, engines, time.perf_counter() - t
 
     def serve_burst(srv, path: str, want: dict) -> list:
-        """The default model's burst with the counts read around it."""
+        """The default model's burst with the counts read around it; the
+        answers' bodies."""
         eng = srv.engine
         before = eng.stats()
         zero()
@@ -4621,7 +4734,7 @@ def phase_converter(jpegs: list[bytes]) -> dict:
         batches = after["batches"] - before["batches"]
         graphs = {k: after["graphs"][k] - before["graphs"][k]
                   for k in ("replays", "eager_batches")}
-        want = {k: v * batches for k, v in want.items()}
+        want = {k: want.get(k, 0) * batches for k in wrappers}
         got = {"requests": len(jpegs), "batches": batches, "graphs": graphs,
                "kernel_launches": launches, "statuses": dict(Counter(r[0] for r in results)),
                "img_per_s": len(jpegs) / timeline["wall_ms"] * 1e3,
@@ -4631,7 +4744,7 @@ def phase_converter(jpegs: list[bytes]) -> dict:
         if batches == 0 or launches != want or got["statuses"] != {200: len(jpegs)} or \
                 graphs != {"replays": batches, "eager_batches": 0}:
             bad[path] = {**got, "want": want}
-        return [r[1].get("predictions", []) for r in results]
+        return [r[1] for r in results]
 
     def answers(srv, name: str) -> list:
         client = KeepAlive(srv.port)
@@ -4641,21 +4754,29 @@ def phase_converter(jpegs: list[bytes]) -> dict:
                 status, body = client.request("POST", f"/predict?model={name}", d)
                 if status != 200:
                     raise AssertionError(f"{name}: {status} {body}")
-                out.append(body["predictions"])
+                out.append(body)
             return out
         finally:
             client.close()
 
     def compare(a: list, b: list, tol: float) -> dict:
+        a, b = [x["predictions"] for x in a], [x["predictions"] for x in b]
         m = [answers_match(x, y, tol) for x, y in zip(a, b)]
         return {"images": len(m), "agree": sum(r["ok"] for r in m), "tol": tol,
                 "top1_equal": sum(x[0]["index"] == y[0]["index"] for x, y in zip(a, b)),
                 "max_score_diff": max(r["max_score_diff"] for r in m),
                 "defined_ranks": [r["defined_ranks"] for r in m]}
 
+    def compare_detections(a: list, b: list, tol: float) -> dict:
+        m = [ssd_answers_agree(x, y, tol, tol) for x, y in zip(a, b)]
+        return {"images": len(m), "agree": sum(r["ok"] for r in m), "tol": tol,
+                "num_detections": sorted({x["num_detections"] for x in a}),
+                "max_score_diff": max(r["max_score_diff"] for r in m),
+                "max_box_diff_over_side": max(r["max_box_diff_over_side"] for r in m)}
+
     def path_numbers(eng) -> dict:
         """Load seconds, kernels per replay, device ms per replay and
-        batch-32 throughput of one engine of the yuv420 server."""
+        batch-32 throughput of one engine."""
         shard = eng._replicas[0].shards[0]  # the card: one replica of one device
         st = eng.stats()
         out = {"source": eng.source, "dtype": eng.model_cfg.dtype, "load_s": st["load_s"],
@@ -4676,15 +4797,18 @@ def phase_converter(jpegs: list[bytes]) -> dict:
                     out["kernels_per_replay_8"] = prof["kernels"] / prof["calls"]
                     out["profile_top_8"] = prof["top"][:6]
             del exe  # its graph and output would keep the graph pool alive past close()
-        prepared = [eng.prepare_bytes(d) for d in jpegs]
+        prepared = [(eng.prepare_ragged if eng.ragged else eng.prepare_bytes)(d) for d in jpegs]
         items = [prepared[i % len(prepared)] for i in range(CONVERTER_MAX_BATCH)]
         tp = throughput(eng, items, CONVERTER_THROUGHPUT_S, THROUGHPUT_DEPTH)
         cost = costmodel.model_cost(eng.model_cfg)
         peak = costmodel.backend_peak(eng.model_cfg.dtype)
         rows = tp["batches"] * CONVERTER_MAX_BATCH
+        tight = (sum(t.nbytes for t, *_ in items) / (512 * 512 * 3) * tp["batches"]
+                 if eng.ragged else 0.0)
         econ = costmodel.bucket_economics(cost, 512, CONVERTER_MAX_BATCH, rows, rows,
                                           tp["compute_ms_sum"] / 1e3, peak, 1,
-                                          eng.model_cfg.input_size, "yuv420")
+                                          eng.model_cfg.input_size,
+                                          "ragged" if eng.ragged else "yuv420", rows_tight=tight)
         tp.update(mfu=econ.get("mfu"), flops_per_image=cost["flops_per_image"],
                   model_mfu_replay=CONVERTER_MAX_BATCH * cost["flops_per_image"]
                   / (out[f"replay_ms_{CONVERTER_MAX_BATCH}"] / 1e3) / peak["flops_per_chip"])
@@ -4694,15 +4818,36 @@ def phase_converter(jpegs: list[bytes]) -> dict:
             bad[f"throughput_{eng.model_cfg.serve_name}"] = tp
         return out
 
+    def outputs_vs_native(name: str, graph, outputs: list[str], flat, native_out) -> dict:
+        """The graph's ``outputs`` (converted anew) against the zoo model's
+        (``native_out`` picks them) on the same 8 images, in [-1, 1] as the
+        preprocess gives them: max |Δ| over max |native float32| of each,
+        float32 and bf16, beside native bf16's."""
+        size = zoo_get(name).input_size
+        x = (torch.rand(8, size, size, 3, generator=torch.Generator().manual_seed(SEED))
+             * 2 - 1).cuda()
+        runs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            pb = convert_graphdef(graph, outputs=outputs, dtype=dtype).cuda()
+            native = native_converted(name, params_flat=flat, input_size=size).to("cuda", dtype)
+            with torch.inference_mode():
+                runs[("pb", dtype)] = [o.float() for o in pb(x.to(dtype))]
+                runs[("native", dtype)] = [o.float() for o in native_out(native, x.to(dtype))]
+            del pb, native
+        ref = runs[("native", torch.float32)]
+        rel = {f"{src}_{str(dt).split('.')[1]}": [logit_rel(a, b) for a, b in zip(out, ref)]
+               for (src, dt), out in runs.items() if (src, dt) != ("native", torch.float32)}
+        ok = all(r <= F32_LOGIT_RTOL for r in rel["pb_float32"]) and all(
+            0 < p <= PB_BF16_DEVIATION_RATIO * n for p, n in zip(rel["pb_bfloat16"],
+                                                                  rel["native_bfloat16"]))
+        return {"outputs": outputs, "rel": rel, "f32_rtol": F32_LOGIT_RTOL,
+                "bf16_ratio": PB_BF16_DEVIATION_RATIO, "ok": ok}
+
     # the yuv420 wire, preprocess kernel: .pb and native, bf16 and float32
-    srv, boot_s = server(CONVERTER_MODELS, wire_format="yuv420", resize="kernel",
-                         max_batch=CONVERTER_MAX_BATCH, http_workers=len(jpegs))
-    row["yuv420_boot_s"] = boot_s
+    srv, engines, row["yuv420_boot_s"] = server(CONVERTER_MODELS, wire_format="yuv420",
+                                                resize="kernel", max_batch=CONVERTER_MAX_BATCH)
     try:
-        engines = {mv.name: mv.engine for mv in srv.registry.serving_entries()}
-        urllib.request.urlopen(srv.url + "/healthz", timeout=120).read()
-        burst_pb = serve_burst(srv, "pb_yuv420_burst", {"preprocess_i420": 1, "fused_dw": 0,
-                                                        "unpack_ragged": 0})
+        burst_pb = serve_burst(srv, "pb_yuv420_burst", {"preprocess_i420": 1})
         served = {name: answers(srv, name) for name in engines}
         row["bf16"] = compare(served["inception_v3"], served["native_inception_v3"],
                               PB_BF16_TOL)
@@ -4713,7 +4858,8 @@ def phase_converter(jpegs: list[bytes]) -> dict:
             if row[key]["agree"] != len(jpegs):
                 bad[key] = row[key]
         if not all(len(p) == 5 and all(math.isfinite(q["score"]) and 0 <= q["index"] < 1000
-                                       for q in p) for ans in served.values() for p in ans):
+                                       for q in p) for ans in served.values()
+                   for p in (b["predictions"] for b in ans)):
             bad["answers"] = {k: v[:1] for k, v in served.items()}
         row["paths"] = {name: path_numbers(engines[name])
                         for name in ("inception_v3", "native_inception_v3")}
@@ -4722,14 +4868,10 @@ def phase_converter(jpegs: list[bytes]) -> dict:
         srv.close()
 
     # the ragged rgb wire: the unpack kernel; MobileNetV2's graph, bf16 and int8
-    srv, boot_s = server(CONVERTER_RAGGED_MODELS, wire_format="rgb", resize="matmul",
-                         ragged=True, max_batch=8, http_workers=len(jpegs))
-    row["ragged_boot_s"] = boot_s
+    srv, engines, row["ragged_boot_s"] = server(CONVERTER_RAGGED_MODELS, wire_format="rgb",
+                                                resize="matmul", ragged=True, max_batch=8)
     try:
-        engines = {mv.name: mv.engine for mv in srv.registry.serving_entries()}
-        urllib.request.urlopen(srv.url + "/healthz", timeout=120).read()
-        serve_burst(srv, "pb_ragged_burst", {"preprocess_i420": 0, "fused_dw": 0,
-                                             "unpack_ragged": 1})
+        serve_burst(srv, "pb_ragged_burst", {"unpack_ragged": 1})
         zero()
         mobilenet = {name: answers(srv, name) for name in ("mobilenet_v2", "mobilenet_v2_int8")}
         launches = counts()
@@ -4747,9 +4889,94 @@ def phase_converter(jpegs: list[bytes]) -> dict:
             bad["mobilenet_v2"] = row["mobilenet_v2"]
     finally:
         srv.close()
-    row["kernel_launches"] = {k: sum(row[p]["kernel_launches"][k]
-                                     for p in ("pb_yuv420_burst", "pb_ragged_burst"))
-                              for k in ("preprocess_i420", "fused_dw", "unpack_ragged")}
+
+    # ResNet-50: the ragged rgb wire (caffe), .pb beside native, bf16 and float32
+    srv, engines, boot_s = server(CONVERTER_RESNET_MODELS, wire_format="rgb", resize="matmul",
+                                  ragged=True, max_batch=CONVERTER_MAX_BATCH)
+    res = row["resnet50"] = {"boot_s": boot_s}
+    try:
+        burst_pb = serve_burst(srv, "resnet50_burst", {"unpack_ragged": 1})
+        served = {name: answers(srv, name) for name in engines}
+        res["bf16"] = compare(served["resnet50"], served["native_resnet50"], PB_BF16_TOL)
+        res["float32"] = compare(served["resnet50_f32"], served["native_resnet50_f32"],
+                                 PB_F32_TOL)
+        res["burst_vs_serial"] = compare(burst_pb, served["resnet50"], PB_BF16_TOL)
+        for key in ("bf16", "float32", "burst_vs_serial"):
+            if res[key]["agree"] != len(jpegs):
+                bad[f"resnet50_{key}"] = res[key]
+        res["paths"] = {name: path_numbers(engines[name])
+                        for name in ("resnet50", "native_resnet50")}
+    finally:
+        srv.close()
+    res["logits"] = outputs_vs_native(
+        "resnet50", load_pb(str(_ARTIFACTS / "resnet50.pb")), ["resnet50/predictions/BiasAdd"],
+        resnet_flat, lambda m, x: [m.backbone(x.permute(0, 3, 1, 2))])
+    if not res["logits"]["ok"]:
+        bad["resnet50_logits"] = res["logits"]
+
+    # SSD-MobileNet: the yuv420 wire, the preprocess kernel and the NMS
+    # kernel; .pb beside native on the anchor scene, bf16 and float32
+    srv, engines, boot_s = server(CONVERTER_SSD_MODELS, det_params=scene, wire_format="yuv420",
+                                  resize="kernel", max_batch=CONVERTER_MAX_BATCH)
+    ssd = row["ssd_mobilenet"] = {"boot_s": boot_s}
+    try:
+        burst_pb = serve_burst(srv, "ssd_burst", {"preprocess_i420": 1, "nms_fixed": 1})
+        served = {name: answers(srv, name) for name in engines}
+        ssd["bf16"] = compare_detections(served["ssd_mobilenet"],
+                                         served["native_ssd_mobilenet"], SSD_BF16_RTOL)
+        ssd["float32"] = compare_detections(served["ssd_mobilenet_f32"],
+                                            served["native_ssd_mobilenet_f32"], PB_F32_TOL)
+        ssd["burst_vs_serial"] = compare_detections(burst_pb, served["ssd_mobilenet"],
+                                                    PB_F32_TOL)
+        for key in ("bf16", "float32", "burst_vs_serial"):
+            if ssd[key]["agree"] != len(jpegs):
+                bad[f"ssd_{key}"] = ssd[key]
+        if not all(b["num_detections"] >= 1 and all(
+                math.isfinite(v) for d in b["detections"] for v in (*d["box"], d["score"]))
+                for ans in (burst_pb, *served.values()) for b in ans):
+            bad["ssd_answers"] = {k: v[:1] for k, v in served.items()}
+        ssd["paths"] = {name: path_numbers(engines[name])
+                        for name in ("ssd_mobilenet", "native_ssd_mobilenet")}
+        # the graph's constant output, a buffer: float32 [N, 4] in float32
+        # serving, bf16 in bf16 serving (the reference's cast of every
+        # float32 constant); the decode reads it in float32
+        ssd["anchors"] = {}
+        for name in ("ssd_mobilenet", "ssd_mobilenet_f32"):
+            g = engines[name].model.graph
+            kind, key = g._outputs[g.output_names.index("anchors")]
+            ssd["anchors"][name] = {"kind": kind, "shape": list(getattr(g, key).shape),
+                                    "dtype": str(getattr(g, key).dtype)}
+    finally:
+        srv.close()
+    # the seeded graph (lively heads, where the scene's are zero)
+    data, _ = make_artifacts.make_graph("ssd_mobilenet", seed=SEED)
+    ssd["raw"] = outputs_vs_native(
+        "ssd_mobilenet", parse_graphdef(data), ["raw_boxes", "raw_scores"], ssd_flat,
+        lambda m, x: list(m(x)[:2]))
+    if not ssd["raw"]["ok"]:
+        bad["ssd_raw"] = ssd["raw"]
+
+    # the CLI: the preset, as a user serves it
+    with tempfile.TemporaryFile("w+") as log:
+        proc, port, boot_s = job_server_proc(["--model", "ssd_mobilenet"], log)
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/models", timeout=60) as r:
+                doc = json.loads(r.read())["models"].get("ssd_mobilenet", {})
+            status, body, _ = post(f"http://127.0.0.1:{port}/predict", jpegs[0])
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        states = [v["state"] for v in doc.get("versions", [])]
+        row["cli"] = {"boot_s": boot_s, "states": states, "status": status,
+                      "num_detections": body.get("num_detections"), "exit": rc}
+        if states != ["SERVING"] or status != 200 or not body.get("num_detections") or rc != 0:
+            log.seek(0)
+            row["cli"]["log_tail"] = log.read()[-2000:]
+            bad["cli"] = row["cli"]
+
+    bursts = ("pb_yuv420_burst", "pb_ragged_burst", "resnet50_burst", "ssd_burst")
+    row["kernel_launches"] = {k: sum(row[p]["kernel_launches"][k] for p in bursts)
+                              for k in wrappers}
     row["seconds"] = time.perf_counter() - t_phase
     emit(row)
     if bad:

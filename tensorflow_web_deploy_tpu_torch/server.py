@@ -32,8 +32,7 @@
 Counterpart of the JAX package's root ``server.py``, with the flags this
 port reads. ``--model`` takes the reference's presets (frozen graphs in
 ``artifacts/``: ``python -m tensorflow_web_deploy_tpu_torch.tools.
-make_artifacts`` writes Inception-v3's and MobileNetV2's without
-TensorFlow), a frozen ``.pb``, a ``.json`` config or ``native:<zoo name>``;
+make_artifacts`` writes all four without TensorFlow), a frozen ``.pb``, a ``.json`` config or ``native:<zoo name>``;
 the default stays ``native:inception_v3``, which needs no file. Every
 ``--model`` becomes an entry of the model registry,
 built and warmed at boot (a model that cannot load fails the boot);

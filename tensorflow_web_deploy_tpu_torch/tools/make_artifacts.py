@@ -6,20 +6,32 @@ which freezes ``tf.keras.applications`` models).
 The card's machine has no TensorFlow and the repo holds no ``.pb``, so this
 tool serializes the frozen ``GraphDef`` itself: a small protobuf writer
 (varints, length-delimited fields, ``TensorProto`` with ``tensor_content``,
-``AttrValue``) and an emitter for the zoo's Inception-v3 and MobileNetV2 at
-any width and input size. The graphs carry the op pattern that freezing a
-Keras model gives (TF 2.21, Keras 3):
+``AttrValue``) and an emitter for the zoo's Inception-v3, MobileNetV2,
+ResNet-50 and SSD-MobileNet at any width and input size. The graphs carry
+the op pattern that freezing a Keras model gives (TF 2.21, Keras 3):
 
-- convs without a bias, their kernels behind ``ReadVariableOp`` identities
-  of consts named ``…/ReadVariableOp/resource``;
+- conv kernels behind ``ReadVariableOp`` identities of consts named
+  ``…/ReadVariableOp/resource``; a conv with a bias (ResNet-50's, as
+  Keras's ``ResNet50`` has them, and SSD's heads) adds it as ``Reshape`` to
+  ``[1, 1, 1, C]``, ``Squeeze`` and ``BiasAdd``. The zoo's ResNet-50 convs
+  have no bias, so theirs are zeros: the graph keeps Keras's op set, and
+  the card runs the add a user's Keras graph costs;
 - each BN as ``AddV2(var, eps) → Rsqrt → Mul(·, gamma)``, then ``Mul`` of
-  the data, ``Mul`` of the mean, ``Sub`` from beta and ``AddV2`` (Inception
-  reshapes the statistics to ``[1, 1, 1, C]`` first, as Keras does there);
-- ``Relu``/``Relu6``; MobileNetV2's stride-2 depthwise convs as ``Pad``
-  followed by a VALID conv; ``ConcatV2``, the pools, ``Mean``, ``MatMul``,
-  ``BiasAdd`` and ``Softmax``;
-- a dynamic batch dimension, the ``input`` placeholder, a trailing
-  ``Identity`` and the ``NoOp`` of the variable reads.
+  the data, ``Mul`` of the mean, ``Sub`` from beta and ``AddV2``, with the
+  cell's own ε (Inception and ResNet-50 reshape the statistics to ``[1, 1,
+  1, C]`` first, as Keras does there);
+- ``Relu``/``Relu6``; ``Pad`` followed by a VALID op where Keras writes a
+  ``ZeroPadding2D`` (MobileNetV2's stride-2 depthwise convs, ResNet-50's
+  stem and max pool), with the zoo's pads (lax's "SAME"), not Keras's;
+  ``ConcatV2``, the pools, ``Mean``, ``MatMul``, ``BiasAdd`` and
+  ``Softmax``; a residual ``AddV2`` (ResNet-50's then a ``Relu``);
+- SSD's head outputs reshaped to ``[-1, A, k]`` as Keras's ``Reshape`` of a
+  dynamic batch does (``Shape → StridedSlice → Pack → Reshape``),
+  concatenated on axis 1 into ``raw_boxes`` and ``raw_scores``, and the
+  ``anchors`` const, each an ``Identity`` of that name;
+- a dynamic batch dimension, the ``input`` placeholder, the ``NoOp`` of the
+  variable reads and a trailing ``Identity`` per output (``Identity``,
+  ``Identity_1``, … in the order of the output names).
 
 The weights are the zoo's seeded init (``models/adapter.py::
 init_variables``) unless given, and :func:`make_graph` returns them in the
@@ -30,8 +42,8 @@ divides by the valid taps, so each is followed by a ``Mul`` with the
 constant map count/9 — the same function.
 
 Usage: python -m tensorflow_web_deploy_tpu_torch.tools.make_artifacts
-           [--models inception_v3,mobilenet_v2] [--out artifacts]
-           [--width 1.0] [--size N]
+           [--models inception_v3,mobilenet_v2,resnet50,ssd_mobilenet]
+           [--out artifacts] [--width 1.0] [--size N]
 """
 
 from __future__ import annotations
@@ -94,9 +106,11 @@ def shape_proto(dims) -> bytes:
 
 
 def tensor_proto(a: np.ndarray) -> bytes:
-    """``TensorProto`` with the raw little-endian bytes in ``tensor_content``."""
-    a = np.ascontiguousarray(a)
-    return (_int(1, _DTYPES[a.dtype]) + _len(2, shape_proto(a.shape))
+    """``TensorProto`` with the raw little-endian bytes in ``tensor_content``
+    (a scalar keeps its empty shape)."""
+    shape = np.shape(a)
+    a = np.ascontiguousarray(a)  # at least 1-d
+    return (_int(1, _DTYPES[a.dtype]) + _len(2, shape_proto(shape))
             + _len(4, a.astype(a.dtype.newbyteorder("<")).tobytes()))
 
 
@@ -169,22 +183,22 @@ class _Emitter:
         self.reshape_bn = reshape_bn
         self.scope = scope
 
-    def conv_bn(self, x: str, hw: tuple[int, int], path: str, cell):
+    def conv_bn(self, x: str, hw: tuple[int, int], path: str, cell, pad_first: bool = False,
+                bias: bool = False):
         """One conv cell (``ConvBN`` or ``DepthwiseConvBN``) at input size
-        ``hw``; returns (output node, output size)."""
+        ``hw``; returns (output node, output size). A "SAME" cell is written
+        as ``Pad`` then a VALID conv where Keras writes a ``ZeroPadding2D``:
+        with ``pad_first``, and at every stride-2 depthwise conv. ``bias``
+        adds the zero bias of a Keras conv that has one."""
         g, name = self.g, f"{self.scope}/{path}"
         depthwise = isinstance(cell, DepthwiseConvBN)
         attr = "dwconv" if depthwise else "conv"
         k = self.p[f"params/{path}/{attr}/kernel"]
         (kh, kw), s = cell.kernel, cell.stride
         pad = cell.padding
-        if depthwise and s == 2 and pad == "SAME":
-            # Keras's ZeroPadding2D before a VALID stride-2 depthwise conv
+        if pad == "SAME" and (pad_first or (depthwise and s == 2)):
             pads = [same_pads(n, kk, s) for n, kk in zip(hw, (kh, kw))]
-            x = g.node(f"{name}/pad/Pad", "Pad", [x, g.const(
-                f"{name}/pad/Const", np.array([[0, 0], *pads, [0, 0]], np.int32))],
-                T=_T, Tpaddings=("type", DT_INT32))
-            hw = (hw[0] + sum(pads[0]), hw[1] + sum(pads[1]))
+            x, hw = self.pad(x, f"{name}/pad", pads, hw)
             pad = "VALID"
         if depthwise:
             w = g.variable(f"{name}/depthwise/ReadVariableOp", k.reshape(kh, kw, -1, 1))
@@ -192,22 +206,45 @@ class _Emitter:
                        strides=("ints", [1, s, s, 1]), padding=("s", pad.encode()),
                        data_format=("s", b"NHWC"), dilations=("ints", [1, 1, 1, 1]))
         else:
-            w = g.variable(f"{name}/convolution/ReadVariableOp", k)
-            y = g.node(f"{name}/convolution", "Conv2D", [x, w], T=_T,
-                       strides=("ints", [1, s, s, 1]), padding=("s", pad.encode()),
-                       data_format=("s", b"NHWC"), dilations=("ints", [1, 1, 1, 1]),
-                       use_cudnn_on_gpu=("b", True), explicit_paddings=("ints", []))
+            y = self.conv(x, f"{name}/convolution", k, s, pad)
         if pad == "SAME":
             hw = tuple(-(-n // s) for n in hw)
         else:
             hw = ((hw[0] - kh) // s + 1, (hw[1] - kw) // s + 1)
-        y = self.batch_norm(y, f"{path}/bn", f"{name}_bn")
+        if bias:
+            y = self.bias_add(y, name, np.zeros(k.shape[-1], np.float32))
+        y = self.batch_norm(y, f"{path}/bn", f"{name}_bn", cell.bn.eps)
         if cell.act is not None:
             op = {"relu": "Relu", "relu6": "Relu6"}[cell.act]
             y = g.node(f"{name}_act/{op}", op, [y], T=_T)
         return y, hw
 
-    def batch_norm(self, x: str, path: str, name: str) -> str:
+    def conv(self, x: str, name: str, kernel: np.ndarray, s: int, pad: str) -> str:
+        w = self.g.variable(f"{name}/ReadVariableOp", kernel)
+        return self.g.node(name, "Conv2D", [x, w], T=_T, strides=("ints", [1, s, s, 1]),
+                           padding=("s", pad.encode()), data_format=("s", b"NHWC"),
+                           dilations=("ints", [1, 1, 1, 1]), use_cudnn_on_gpu=("b", True),
+                           explicit_paddings=("ints", []))
+
+    def bias_add(self, y: str, name: str, b: np.ndarray) -> str:
+        """A Keras conv's bias: the variable reshaped to ``[1, 1, 1, C]``,
+        squeezed back, then ``BiasAdd``."""
+        g = self.g
+        v = g.variable(f"{name}/Reshape/ReadVariableOp", b)
+        shape = g.const(f"{name}/Reshape/shape", np.array([1, 1, 1, b.shape[0]], np.int32))
+        r = g.node(f"{name}/Reshape", "Reshape", [v, shape], T=_T, Tshape=("type", DT_INT32))
+        sq = g.node(f"{name}/Squeeze", "Squeeze", [r], T=_T, squeeze_dims=("ints", []))
+        return g.node(f"{name}/BiasAdd", "BiasAdd", [y, sq], T=_T, data_format=("s", b"NHWC"))
+
+    def pad(self, x: str, name: str, pads, hw: tuple[int, int]):
+        """Keras's ``ZeroPadding2D``: ``Pad`` with (lo, hi) per spatial
+        axis; returns (output node, padded size)."""
+        x = self.g.node(f"{name}/Pad", "Pad", [x, self.g.const(
+            f"{name}/Const", np.array([[0, 0], *pads, [0, 0]], np.int32))],
+            T=_T, Tpaddings=("type", DT_INT32))
+        return x, (hw[0] + sum(pads[0]), hw[1] + sum(pads[1]))
+
+    def batch_norm(self, x: str, path: str, name: str, eps: float) -> str:
         g = self.g
         stats = {
             "Cast": self.p[f"batch_stats/{path}/mean"],
@@ -223,7 +260,7 @@ class _Emitter:
                 shape = g.const(f"{name}/Reshape_{i}/shape", np.array([1, 1, 1, c], np.int32))
                 v[cast] = g.node(f"{name}/Reshape_{i}", "Reshape", [v[cast], shape], T=_T,
                                  Tshape=("type", DT_INT32))
-        eps = g.const(f"{name}/batchnorm/add/y", np.array(1e-3, np.float32))
+        eps = g.const(f"{name}/batchnorm/add/y", np.array(eps, np.float32))
         add = g.node(f"{name}/batchnorm/add", "AddV2", [v["Cast_1"], eps], T=_T)
         rsqrt = g.node(f"{name}/batchnorm/Rsqrt", "Rsqrt", [add], T=_T)
         mul = g.node(f"{name}/batchnorm/mul", "Mul", [rsqrt, v["Cast_2"]], T=_T)
@@ -264,8 +301,15 @@ class _Emitter:
         x = g.node(f"{name}/predictions/BiasAdd", "BiasAdd", [x, b], T=_T,
                    data_format=("s", b"NHWC"))
         x = g.node(f"{name}/predictions/Softmax", "Softmax", [x], T=_T)
+        self.finish([x])
+
+    def finish(self, outputs: list[str]) -> None:
+        """The ``NoOp`` of the variable reads and a trailing ``Identity``
+        per output, as a freeze writes them."""
+        g = self.g
         g.node("NoOp", "NoOp", [f"^{r}" for r in g.reads])
-        return g.node("Identity", "Identity", [x, "^NoOp"], T=_T)
+        for i, x in enumerate(outputs):
+            g.node("Identity" + (f"_{i}" if i else ""), "Identity", [x, "^NoOp"], T=_T)
 
     def placeholder(self, hw: tuple[int, int]) -> str:
         return self.g.node("input", "Placeholder", dtype=_T, shape=("shape", [-1, *hw, 3]))
@@ -319,26 +363,105 @@ def _emit_inception(e: _Emitter, model, hw) -> None:
     e.head(x)
 
 
+def _inverted_residual(e: _Emitter, x: str, hw, name: str, block):
+    h, hw2 = x, hw
+    if block.expand is not None:
+        h, hw2 = e.conv_bn(h, hw2, f"{name}/expand", block.expand)
+    h, hw2 = e.conv_bn(h, hw2, f"{name}/dw", block.dw)
+    h, hw2 = e.conv_bn(h, hw2, f"{name}/project", block.project)
+    if block.residual:
+        h = e.g.node(f"{e.scope}/{name}/add/add", "AddV2", [h, x], T=_T)
+    return h, hw2
+
+
 def _emit_mobilenet(e: _Emitter, model, hw) -> None:
     x = e.placeholder(hw)
     x, hw = e.conv_bn(x, hw, "stem", model.stem)
     for name in model.block_names:
-        block = getattr(model, name)
-        h, hw2 = x, hw
-        if block.expand is not None:
-            h, hw2 = e.conv_bn(h, hw2, f"{name}/expand", block.expand)
-        h, hw2 = e.conv_bn(h, hw2, f"{name}/dw", block.dw)
-        h, hw2 = e.conv_bn(h, hw2, f"{name}/project", block.project)
-        if block.residual:
-            h = e.g.node(f"{e.scope}/{name}/add/add", "AddV2", [h, x], T=_T)
-        x, hw = h, hw2
+        x, hw = _inverted_residual(e, x, hw, name, getattr(model, name))
     x, hw = e.conv_bn(x, hw, "head", model.head)
     e.head(x)
+
+
+def _emit_resnet(e: _Emitter, model, hw) -> None:
+    """ResNet-50 v1.5 in Keras's ``ResNet50`` op pattern: every conv with
+    its (zero) bias, the residual ``AddV2`` then ``Relu``."""
+    x = e.placeholder(hw)
+    x, hw = e.conv_bn(x, hw, "stem", model.stem, pad_first=True, bias=True)
+    # The zoo's max pool pads with −inf; a zero Pad gives the same maximum
+    # because the stem ends in a ReLU (every input ≥ 0) and each window
+    # holds at least one real element.
+    x, hw = e.pad(x, f"{e.scope}/pool/pad", [same_pads(n, 3, 2) for n in hw], hw)
+    x = e.pool(x, f"{e.scope}/pool/MaxPool2d", "MaxPool", 3, 2, "VALID")
+    hw = ((hw[0] - 3) // 2 + 1, (hw[1] - 3) // 2 + 1)
+    for name in model.block_names:
+        block = getattr(model, name)
+        shortcut = x
+        if block.downsample is not None:
+            shortcut, _ = e.conv_bn(x, hw, f"{name}/downsample", block.downsample, bias=True)
+        h, hw2 = x, hw
+        for conv in ("conv1", "conv2", "conv3"):
+            h, hw2 = e.conv_bn(h, hw2, f"{name}/{conv}", getattr(block, conv), bias=True)
+        h = e.g.node(f"{e.scope}/{name}/add/Add", "AddV2", [shortcut, h], T=_T)
+        x, hw = e.g.node(f"{e.scope}/{name}/out/Relu", "Relu", [h], T=_T), hw2
+    e.head(x)
+
+
+def _emit_ssd(e: _Emitter, model, hw) -> None:
+    """SSD-MobileNet as the reference tool freezes its detector: the
+    backbone's cells as MobileNetV2's, each head a SAME ``Conv2D`` with
+    its bias, reshaped to ``[-1, A, k]`` in NHWC order (position, anchor,
+    coordinate or class: the zoo's ``permute(0, 2, 3, 1).reshape``), the
+    heads concatenated on axis 1; outputs ``raw_boxes``, ``raw_scores``
+    and the constant ``anchors``."""
+    g, size = e.g, hw[0]
+    x = e.placeholder(hw)
+    x, hw = e.conv_bn(x, hw, "stem", model.stem)
+    feats = []
+    for name in [n for n, _ in model.named_children() if n.startswith(("block", "feat"))]:
+        x, hw = _inverted_residual(e, x, hw, name, getattr(model, name))
+        if name.startswith("feat"):
+            feats.append((x, hw))
+    parts: dict[str, list[str]] = {"loc": [], "cls": []}
+    for i, (f, (fh, fw)) in enumerate(feats, start=1):
+        for part, k in (("loc", 4), ("cls", model.num_classes + 1)):
+            path, name = f"head{i}_{part}", f"{e.scope}/head{i}_{part}"
+            y = e.conv(f, f"{name}/convolution", e.p[f"params/{path}/kernel"], 1, "SAME")
+            y = e.bias_add(y, name, e.p[f"params/{path}/bias"])
+            parts[part].append(_keras_reshape(g, y, f"{name}_r", [fh * fw * model.n_anchor, k]))
+    outs = {}
+    for out, part in (("raw_boxes", "loc"), ("raw_scores", "cls")):
+        axis = g.const(f"{e.scope}/{out}/concat/axis", np.array(1, np.int32))
+        cat = g.node(f"{e.scope}/{out}/concat", "ConcatV2", [*parts[part], axis], T=_T,
+                     N=("i", len(parts[part])), Tidx=("type", DT_INT32))
+        outs[out] = g.node(out, "Identity", [cat], T=_T)
+    anchors = g.node("anchors", "Identity", [g.const("Const", model.anchors_for(size))],
+                     T=_T)
+    # a freeze's trailing identities follow the sorted output names
+    e.finish([anchors, outs["raw_boxes"], outs["raw_scores"]])
+
+
+def _keras_reshape(g: GraphWriter, x: str, name: str, dims: list[int]) -> str:
+    """Keras's ``Reshape`` of a dynamic batch: the batch read with
+    ``Shape → StridedSlice``, ``Pack``ed with the static dims."""
+    shape = g.node(f"{name}/Shape", "Shape", [x], T=_T, out_type=("type", DT_INT32))
+    ss = [g.const(f"{name}/strided_slice/stack{sfx}", np.array([v], np.int32))
+          for sfx, v in (("", 0), ("_1", 1), ("_2", 1))]
+    batch = g.node(f"{name}/strided_slice", "StridedSlice", [shape, *ss], T=("type", DT_INT32),
+                   Index=("type", DT_INT32), begin_mask=("i", 0), end_mask=("i", 0),
+                   ellipsis_mask=("i", 0), new_axis_mask=("i", 0), shrink_axis_mask=("i", 1))
+    rest = [g.const(f"{name}/Reshape/shape/{j}", np.array(d, np.int32))
+            for j, d in enumerate(dims, start=1)]
+    packed = g.node(f"{name}/Reshape/shape", "Pack", [batch, *rest], T=("type", DT_INT32),
+                    N=("i", len(dims) + 1), axis=("i", 0))
+    return g.node(f"{name}/Reshape", "Reshape", [x, packed], T=_T, Tshape=("type", DT_INT32))
 
 
 _FAMILIES = {
     "inception_v3": (_emit_inception, True),
     "mobilenet_v2": (_emit_mobilenet, False),
+    "resnet50": (_emit_resnet, True),
+    "ssd_mobilenet": (_emit_ssd, False),
 }
 
 

@@ -16,10 +16,14 @@
 - ``model_config``: presets, ``.pb``, ``.json`` with ``pb_path`` and no
   ``source``, the per-model ``pipeline_depth``/``max_queue`` reaching the
   batcher, the reference's error texts; the cost model by name.
-- The port's TF-free tool: its bytes parse with TF and with the
-  reference's parser, the reference's converter on them equals the port's
-  native zoo forward on the same params, and its op types are those of
-  Keras's frozen graph of the same family.
+- The port's TF-free tool, for all four families: its bytes parse with
+  TF and with the reference's parser, the reference's converter on them
+  equals the port's native zoo forward on the same params (the detector's
+  three outputs), its op types are those of Keras's frozen graph of the
+  same family (the detector's: the reference tool's, plus the ``Pad`` of
+  its stride-2 depthwise convs), ResNet-50's stem and pool pads are the
+  zoo's, the reference's weights carry across onto its ResNet-50, and
+  ``/predict`` detects on its SSD as the JAX App does.
 """
 
 from __future__ import annotations
@@ -53,7 +57,10 @@ from tensorflow_web_deploy_tpu_torch.graphdef import (
 )
 from tensorflow_web_deploy_tpu_torch.graphdef.converter import to_port_layout
 from tensorflow_web_deploy_tpu_torch.models.adapter import native_converted
+from tensorflow_web_deploy_tpu_torch.models.common import max_pool_same
+from tensorflow_web_deploy_tpu_torch.models.ssd_mobilenet import SSDMobileNet
 from tensorflow_web_deploy_tpu_torch.ops import quant
+from tensorflow_web_deploy_tpu_torch.ops.tf_ops import same_pads
 from tensorflow_web_deploy_tpu_torch.server import config_from_args, parse_args
 from tensorflow_web_deploy_tpu_torch.serving import costmodel
 from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
@@ -248,19 +255,17 @@ def test_detector_graph_gives_the_reference_outputs(small_ssd_pb):
     assert ("anchors", "Identity") not in model.call_nodes  # a constant output: a buffer
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_weights_carry_across_from_the_reference_params(cls_graph, dtype):
+def _carry_across(graph, rgraph, dtype, outputs, kernels: int, layouts: set) -> None:
     """The port's ConvertedModel built from the reference's params (numpy,
-    by node name): every buffer that holds a parameter is that array in
-    the port's layout (a conv kernel OIHW, a depthwise kernel [C·M, 1, H,
-    W]) after the cast; perturbed params give the reference's outputs on
-    the same perturbed params."""
-    _, graph, rgraph = cls_graph
-    ref = ref_convert(rgraph)
+    by node name), perturbed: every buffer that holds a parameter is that
+    array in the port's layout after the cast; in float32 the outputs are
+    the reference's on the same perturbed params (the first within
+    ``F32_TOL``, any other within ``F32_TOL`` of its scale)."""
+    ref = ref_convert(rgraph, outputs=outputs)
     rs = np.random.RandomState(5)
     params = {k: (v + rs.normal(0, 0.01, v.shape)).astype(np.float32)
               for k, v in ref.params.items()}
-    model = convert_graphdef(graph, dtype=dtype, params=params)
+    model = convert_graphdef(graph, outputs=outputs, dtype=dtype, params=params)
     assert set(model.params) == set(ref.params)
     carried = 0
     for key, (origin, layout) in model.buffer_origin.items():
@@ -269,13 +274,32 @@ def test_weights_carry_across_from_the_reference_params(cls_graph, dtype):
         want = to_port_layout(layout, torch.from_numpy(params[origin]).to(dtype))
         assert torch.equal(getattr(model, key), want), key
         carried += 1
-    assert carried >= 52  # every conv kernel, at least
-    assert {layout for _, layout in model.buffer_origin.values()} >= {"oihw", "grouped"}
+    assert carried >= kernels  # every conv kernel, at least
+    assert {layout for _, layout in model.buffer_origin.values()} >= layouts
     if dtype == torch.float32:
         ref.params.update(params)
-        x = _images(2, seed=3)
-        np.testing.assert_allclose(_port_run(model, x)[0], _ref_run(ref, x)[0],
-                                   rtol=F32_TOL, atol=F32_TOL)
+        x = _images(2, size=model.input_specs[0].shape[1], seed=3)
+        got, want = _port_run(model, x), _ref_run(ref, x)
+        np.testing.assert_allclose(got[0], want[0], rtol=F32_TOL, atol=F32_TOL)
+        for g, w in zip(got[1:], want[1:]):
+            assert np.abs(g - w).max() <= F32_TOL * np.abs(w).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weights_carry_across_from_the_reference_params(cls_graph, dtype):
+    """A conv kernel OIHW, a depthwise kernel [C·M, 1, H, W]."""
+    _, graph, rgraph = cls_graph
+    _carry_across(graph, rgraph, dtype, None, 52, {"oihw", "grouped"})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weights_carry_across_onto_the_tools_resnet50(dtype):
+    """The port tool's ResNet-50 graph: 53 conv kernels (and their zero
+    biases) OIHW; float32 probabilities and logits (in the thousands: the
+    seeded network's) the reference's."""
+    data, _ = make_artifacts.make_graph("resnet50", size=64, width=0.25, num_classes=10)
+    _carry_across(parse_graphdef(data), ref_parse(data), dtype,
+                  ["Identity", "resnet50/predictions/BiasAdd"], 53, {"oihw"})
 
 
 # ------------------------------------------------------------------- /predict
@@ -361,6 +385,31 @@ def test_predict_detects_as_the_jax_app(small_ssd_pb):
         assert (teng.num_classes, teng.kernels) == (10, ["unpack_ragged", "nms_fixed"])
         for seed, (h, w) in enumerate([(200, 120), (90, 96)]):
             (js, jbody), (ts, tbody) = (_post(p, _jpeg(seed + 7, h, w)) for p in ports)
+            assert js == ts == 200, (jbody, tbody)
+            assert set(tbody) == set(jbody) >= {"detections", "num_detections"}
+            assert tbody["num_detections"] == jbody["num_detections"] > 0
+            for t, j in zip(tbody["detections"], jbody["detections"]):
+                assert (t["class"], t["label"]) == (j["class"], j["label"])
+                assert abs(t["score"] - j["score"]) <= 1e-5
+                np.testing.assert_allclose(t["box"], j["box"], atol=1e-3 * max(h, w))
+    finally:
+        close()
+
+
+def test_predict_detects_on_the_tools_ssd_as_the_jax_app(tmp_path):
+    """The port tool's SSD-MobileNet graph (width 0.35, 10 classes, 96 px)
+    behind both Apps: the same answers."""
+    data, _ = make_artifacts.make_graph("ssd_mobilenet", size=SIZE, width=0.35,
+                                        num_classes=10)
+    path = tmp_path / "ssd_mobilenet.pb"
+    path.write_bytes(data)
+    ports, teng, close = _both_apps(dict(
+        name="tool_ssd", pb_path=str(path), task="detect", input_size=(SIZE, SIZE),
+        dtype="float32", output_names=["raw_boxes", "raw_scores", "anchors"]))
+    try:
+        assert (teng.num_classes, teng.kernels) == (10, ["unpack_ragged", "nms_fixed"])
+        for seed, (h, w) in enumerate([(200, 120), (90, 96)]):
+            (js, jbody), (ts, tbody) = (_post(p, _jpeg(seed + 11, h, w)) for p in ports)
             assert js == ts == 200, (jbody, tbody)
             assert set(tbody) == set(jbody) >= {"detections", "num_detections"}
             assert tbody["num_detections"] == jbody["num_detections"] > 0
@@ -534,19 +583,35 @@ def _perturbed(flat: dict, seed: int) -> dict:
     return out
 
 
-TOOL_CASES = [("inception_v3", 75, 0.25), ("mobilenet_v2", 96, 0.35), ("mobilenet_v2", 65, 0.35)]
+# ResNet-50 at 64 px pads its stem (2, 3) and its max pool (0, 1); at 65,
+# (3, 3) and (1, 1). The SSD at 96 px meets odd inputs from block1 on (25
+# px: (1, 1) before its stride-2 depthwise conv).
+TOOL_CASES = [("inception_v3", 75, 0.25), ("mobilenet_v2", 96, 0.35), ("mobilenet_v2", 65, 0.35),
+              ("resnet50", 64, 0.25), ("resnet50", 65, 0.25), ("ssd_mobilenet", 96, 0.35)]
+DETECT_OUTPUTS = ["raw_boxes", "raw_scores", "anchors"]
+
+
+def _tool_params(name: str, flat: dict) -> dict:
+    """Perturbed BN; ResNet-50's dense kernel scaled by 1e-3: its seeded
+    logits are in the thousands, and a one-hot softmax compares nothing."""
+    out = _perturbed(flat, 3)
+    if name == "resnet50":
+        out["params/logits/kernel"] = out["params/logits/kernel"] * np.float32(1e-3)
+    return out
 
 
 @pytest.mark.parametrize("name,size,width", TOOL_CASES)
 def test_tool_graph_equals_the_zoo_forward(name, size, width):
     """The tool's bytes parse with TF's GraphDef and with the reference's
     parser; the reference's converter on them equals the port's native zoo
-    forward on the same params (perturbed BN), float32 within 1e-4; the
+    forward on the same params (perturbed BN), float32 within 1e-4 (a
+    classifier's probabilities and its logits, relative to their scale;
+    the detector's three outputs, ``anchors`` equal to the zoo's); the
     port's converter agrees."""
     import tensorflow as tf
 
     _, flat = make_artifacts.make_graph(name, size=size, width=width, num_classes=10)
-    flat = _perturbed(flat, 3)
+    flat = _tool_params(name, flat)
     data, got_flat = make_artifacts.make_graph(name, size=size, width=width, num_classes=10,
                                                params=flat)
     assert all(np.array_equal(got_flat[k], flat[k]) for k in flat)
@@ -556,42 +621,110 @@ def test_tool_graph_equals_the_zoo_forward(name, size, width):
     assert [n.name for n in gd.node] == [n.name for n in rgraph.nodes]
     assert [n.op for n in gd.node] == [n.op for n in rgraph.nodes]
     x = _images(2, size=size, seed=4)
-    want = _ref_run(ref_convert(rgraph), x)[0]
+    detect = name == "ssd_mobilenet"
+    outputs = DETECT_OUTPUTS if detect else ["Identity", f"{name}/predictions/BiasAdd"]
+    want = _ref_run(ref_convert(rgraph, outputs=outputs), x)
+    port = _port_run(convert_graphdef(parse_graphdef(data), outputs=outputs), x)
     with torch.inference_mode():
-        native = native_converted(name, num_classes=10, width=width, params_flat=flat)
-        zoo = native(torch.from_numpy(x)).numpy()
-    np.testing.assert_allclose(want, zoo, rtol=TOOL_TOL, atol=TOOL_TOL)
-    np.testing.assert_allclose(_port_run(convert_graphdef(parse_graphdef(data)), x)[0], zoo,
-                               rtol=TOOL_TOL, atol=TOOL_TOL)
-    assert zoo.max() > 0.2  # not a flat softmax
+        native = native_converted(name, num_classes=10, width=width, params_flat=flat,
+                                  input_size=size)
+        if detect:
+            zoo = [o.numpy() for o in native(torch.from_numpy(x))]
+        else:
+            logits = native.backbone(torch.from_numpy(x).permute(0, 3, 1, 2))
+            zoo = [torch.softmax(logits, -1).numpy(), logits.numpy()]
+    assert [w.shape for w in want] == [z.shape for z in zoo] == [p.shape for p in port]
+    for got in (want, port):
+        if detect:
+            for g, z in zip(got, zoo):
+                np.testing.assert_allclose(g, z, rtol=TOOL_TOL, atol=TOOL_TOL)
+        else:
+            np.testing.assert_allclose(got[0], zoo[0], rtol=TOOL_TOL, atol=TOOL_TOL)
+            assert np.abs(got[1] - zoo[1]).max() <= TOOL_TOL * np.abs(zoo[1]).max()
+    if detect:
+        assert np.array_equal(want[2], SSDMobileNet.anchors_for(size))
+        assert np.abs(zoo[1]).max() > 1.0  # lively raw scores
+    else:
+        assert 0.2 < zoo[0].max() < 0.999  # not a flat softmax, not a one-hot one
+
+
+@pytest.mark.parametrize("size,stem,pool", [(64, (2, 3), (0, 1)), (65, (3, 3), (1, 1))])
+def test_tool_resnet50_pads_are_the_zoos(size, stem, pool):
+    """ResNet-50's stem and max pool are ``Pad`` then a VALID op, as Keras
+    writes them, with lax's "SAME" pads (not Keras's (3, 3) and (1, 1)).
+    The pool's zero pad equals the zoo's −inf one only because its input
+    is the stem's ReLU: on inputs below zero the two differ."""
+    data, _ = make_artifacts.make_graph("resnet50", size=size, width=0.25, num_classes=10)
+    graph = parse_graphdef(data)
+    pads = {n.name: n for n in graph.nodes if n.op == "Pad"}
+    assert sorted(pads) == ["resnet50/pool/pad/Pad", "resnet50/stem/pad/Pad"]
+
+    def const(ref):
+        return graph.node_map[ref].attr("value").tolist()
+
+    for name, want in (("stem", stem), ("pool", pool)):
+        assert const(pads[f"resnet50/{name}/pad/Pad"].inputs[1]) == [[0, 0], list(want),
+                                                                    list(want), [0, 0]]
+    assert graph.node_map[pads["resnet50/pool/pad/Pad"].inputs[0]].op == "Relu"
+    assert same_pads(size, 7, 2) == stem
+    side = -(-size // 2)
+    assert same_pads(side, 3, 2) == pool
+    x = torch.from_numpy(np.random.RandomState(size).randn(2, 4, side, side).astype(np.float32))
+
+    def zero_pad_pool(t):
+        return torch.nn.functional.max_pool2d(torch.nn.functional.pad(t, (*pool, *pool)), 3, 2)
+
+    assert torch.equal(zero_pad_pool(torch.relu(x)), max_pool_same(torch.relu(x)))
+    assert not torch.equal(zero_pad_pool(x - 4), max_pool_same(x - 4))
 
 
 @pytest.fixture(scope="module")
 def keras_inception_ops():
     """The op types of Keras's frozen InceptionV3 (75 px, weights=None)."""
+    return _keras_ops("InceptionV3", 75)
+
+
+@pytest.fixture(scope="module")
+def keras_resnet_ops():
+    """The op types of Keras's frozen ResNet50 (64 px, weights=None)."""
+    return _keras_ops("ResNet50", 64)
+
+
+def _keras_ops(family: str, size: int) -> set:
     import tensorflow as tf
     from tensorflow.python.framework.convert_to_constants import (
         convert_variables_to_constants_v2,
     )
 
-    m = tf.keras.applications.InceptionV3(input_shape=(75, 75, 3), weights=None)
+    m = getattr(tf.keras.applications, family)(input_shape=(size, size, 3), weights=None)
     cf = tf.function(lambda x: m(x)).get_concrete_function(
-        tf.TensorSpec([None, 75, 75, 3], tf.float32))
+        tf.TensorSpec([None, size, size, 3], tf.float32))
     gd = convert_variables_to_constants_v2(cf).graph.as_graph_def()
     return {n.op for n in gd.node}
 
 
-def test_tool_op_types_equal_kerass_frozen_graphs(small_cls_pb, keras_inception_ops):
+def test_tool_op_types_equal_kerass_frozen_graphs(small_cls_pb, small_ssd_pb,
+                                                  keras_inception_ops, keras_resnet_ops):
+    """Each family's op types are Keras's frozen graph's. The detector's
+    are the reference tool's frozen SSD's plus ``Pad``: the zoo's stride-2
+    depthwise convs (Keras's ``ZeroPadding2D`` then VALID, as MobileNetV2's),
+    where the reference tool's detector has only stride-1 depthwise convs."""
     keras_mobilenet = {n.op for n in load_pb(small_cls_pb).nodes}
+    ref_ssd = {n.op for n in load_pb(small_ssd_pb).nodes}
     for name, size, keras_ops in (("mobilenet_v2", SIZE, keras_mobilenet),
-                                  ("inception_v3", 75, keras_inception_ops)):
+                                  ("inception_v3", 75, keras_inception_ops),
+                                  ("resnet50", 64, keras_resnet_ops),
+                                  ("ssd_mobilenet", SIZE, ref_ssd | {"Pad"})):
         data, _ = make_artifacts.make_graph(name, size=size, width=0.25, num_classes=10)
         graph = parse_graphdef(data)
         assert {n.op for n in graph.nodes} == keras_ops, name
         assert graph.nodes[0].attr("shape") == [-1, size, size, 3]  # a dynamic batch
-        assert graph.nodes[-1].name == "Identity"
+        tail = ["Identity", "Identity_1", "Identity_2"] if name == "ssd_mobilenet" else \
+            ["Identity"]
+        assert [n.name for n in graph.nodes[-len(tail):]] == tail
         # the int8 tier finds no kernel leaf here either
         assert not [k for k in convert_graphdef(graph).params if quant.quantizable(k, 0)]
+    assert "Pad" not in ref_ssd
 
 
 def test_ensure_artifacts_writes_what_is_missing(tmp_path):
@@ -603,8 +736,8 @@ def test_ensure_artifacts_writes_what_is_missing(tmp_path):
     before = pb.stat().st_mtime_ns
     make_artifacts.ensure_artifacts(["mobilenet_v2"], out, width=0.25, size=64)
     assert pb.stat().st_mtime_ns == before  # present: not written again
-    with pytest.raises(ValueError, match="no frozen-graph emitter for 'resnet50'"):
-        make_artifacts.make_graph("resnet50")
+    with pytest.raises(ValueError, match="no frozen-graph emitter for 'vgg16'"):
+        make_artifacts.make_graph("vgg16")
     # the command line
     out2 = tmp_path / "cli"
     assert make_artifacts.main(["--models", "inception_v3", "--out", str(out2), "--width",
