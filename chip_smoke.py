@@ -131,6 +131,19 @@ launches a request), the composites against the stage-by-stage calls
 (detector ``run_batch`` → ``crop_resize_host`` → classifier ``run_batch``),
 D2H bytes against ``/predict``, e2e p50/p99 and img/s, the glue's µs, a
 classifier hot swap under traffic, and the CLI with ``--pipeline``.
+``train`` trains MobileNetV2 at full width (224 px, batch 32, 10
+synthetic classes, float32) through ``tools/train.py`` for 20 steps and
+resumes the same command to 40 (its loss must fall under 0.8× the first
+logged), times a step (CUDA events, img/s, peak memory, kernels a step from
+the profiler, the depthwise kernel gradient's share), trains ResNet-50 and
+Inception-v3 3 steps each, holds one float64 SGD step on the card against
+the CPU, and serves the export with ``--ckpt`` (bf16, fused depthwise
+cells, yuv420 + the preprocess kernel) to the photographs, and in float32
+to them and to JPEGs of the tool's blobs: every top-k entry labelled from
+the export and scored within the tier's tolerance (``SERVED_TOL`` in
+float32, the engine's bf16 gate in bf16) of the float32 model built from
+the export, top-1 equal to it past that margin, the preprocess and fused
+depthwise kernels launched on every batch's replay and no other kernel.
 
 The preprocess kernel is checked through both of its entries (the
 ``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
@@ -168,10 +181,11 @@ ms a request spent in each executor call (no ``ok`` line).
     python3 chip_smoke.py --phase converter
     python3 chip_smoke.py --phase jobs
     python3 chip_smoke.py --phase dag
+    python3 chip_smoke.py --phase train
 
 build the kernels and run the ``resnet50``, ``ssd``, ``converter``,
-``jobs`` or ``dag`` phase alone on the 24 JPEGs (no ``kernels`` or ``ok``
-line).
+``jobs``, ``dag`` or ``train`` phase alone on the 24 JPEGs (no ``kernels``
+or ``ok`` line).
 """
 
 from __future__ import annotations
@@ -766,11 +780,18 @@ def sweep_preprocess(gen: torch.Generator) -> None:
             del buf
 
 
+def jpeg_bytes(img: np.ndarray) -> bytes:
+    """An HWC uint8 image as JPEG bytes, quality 90."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=90)
+    return buf.getvalue()
+
+
 def make_jpegs(n: int, seed: int) -> list[bytes]:
     """Seeded JPEGs of mixed sizes: smooth colour gradients plus noise,
     sized so that both canvas buckets (256, 512) receive images."""
-    from PIL import Image
-
     rs = np.random.RandomState(seed)
     sizes = [(200, 150), (256, 256), (480, 360), (512, 300), (120, 400), (300, 300),
              (240, 180), (400, 512)]
@@ -782,10 +803,8 @@ def make_jpegs(n: int, seed: int) -> list[bytes]:
         img = np.stack([127 + 120 * np.sin(f[0] * yy / h * math.pi + i),
                         127 + 120 * np.cos(f[1] * xx / w * math.pi),
                         127 + 120 * np.sin(f[2] * (xx + yy) / (h + w) * math.pi)], -1)
-        img = np.clip(img + rs.normal(0, 12, img.shape), 0, 255).astype(np.uint8)
-        buf = io.BytesIO()
-        Image.fromarray(img).save(buf, "JPEG", quality=90)
-        out.append(buf.getvalue())
+        out.append(jpeg_bytes(np.clip(img + rs.normal(0, 12, img.shape), 0, 255)
+                              .astype(np.uint8)))
     return out
 
 
@@ -6013,13 +6032,375 @@ def sweep_dag() -> None:
         reg.close_engines()
 
 
+TRAIN_CLASSES = 10
+TRAIN_BATCH = 32
+TRAIN_SIZE = 224
+TRAIN_STEPS = (20, 40)  # the tool's first run, then the same command resumed to 40
+TRAIN_SAVE_EVERY = 10
+TRAIN_LOG_EVERY = 1  # the reference test compares the first step's loss with the last
+TRAIN_LR = 1e-3  # the tool's default
+TRAIN_LOSS_DROP = 0.8  # the reference's test_loss_decreases_single_device
+TRAIN_TIMED_STEPS = 10
+TRAIN_BLOBS = 8  # JPEGs of the tool's synthetic blobs posted to the float32 --ckpt server
+# the other classifiers: (name, px), batch 32, a few steps each
+TRAIN_OTHERS = (("resnet50", 224), ("inception_v3", 299))
+TRAIN_OTHER_STEPS = 3
+# the card against the CPU in float64: one SGD step, then eval logits on
+# held-out inputs, at the reference's test_sharded_and_single_device_agree
+# tolerances
+F64_BATCH = 4
+F64_LR = 3e-3
+F64_LOSS_RTOL = 1e-9
+F64_LOGIT_RTOL, F64_LOGIT_ATOL = 1e-4, 1e-6
+TRAIN_LINE = r"step (\d+)/(\d+) loss=([0-9.]+) acc=([0-9.]+) \(([0-9.]+) img/s\)"
+
+
+def run_tool(argv: list[str]) -> tuple[str, list[dict]]:
+    """``tools/train.py``'s ``main`` in this process: its printed lines and
+    the logged steps."""
+    import contextlib
+    import re
+
+    from tensorflow_web_deploy_tpu_torch.tools import train as train_tool
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train_tool.main(argv)
+    text = out.getvalue()
+    if rc != 0:
+        raise AssertionError(f"tools/train.py {argv} returned {rc}: {text}")
+    logged = [{"step": int(a), "of": int(b), "loss": float(c), "acc": float(d),
+               "img_per_s": float(e)} for a, b, c, d, e in re.findall(TRAIN_LINE, text)]
+    return text, logged
+
+
+def train_steps(name: str, size: int, steps: int, seed: int = SEED) -> tuple[dict, tuple]:
+    """A fresh full-width zoo classifier trained ``steps`` steps on the card
+    (float32, TF32 off, AdamW at the tool's rate) on the tool's synthetic
+    batches, already on the device: each step's ms (CUDA events), its loss,
+    and the peak ``memory_allocated`` over the steps; and (step function,
+    state, first batch) to run more."""
+    from tensorflow_web_deploy_tpu_torch.models import get as zoo_get
+    from tensorflow_web_deploy_tpu_torch.models.adapter import init_variables
+    from tensorflow_web_deploy_tpu_torch.tools.train import SyntheticData
+    from tensorflow_web_deploy_tpu_torch.train import adamw, create_train_state, make_train_step
+
+    module, _ = init_variables(zoo_get(name), num_classes=TRAIN_CLASSES, seed=seed)
+    state = create_train_state(module, None, adamw(TRAIN_LR), device="cuda")
+    step = make_train_step(module)
+    data = SyntheticData(TRAIN_CLASSES, size, TRAIN_BATCH, seed)
+    batches = [tuple(torch.as_tensor(a, device="cuda") for a in data.batch_at(i))
+               for i in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for x, y in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, x, y)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    row = {"model": name, "size": size, "batch": TRAIN_BATCH, "steps": steps, "step_ms": ms,
+           "losses": losses, "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "params": sum(p.numel() for p in module.parameters())}
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: loss not finite: {losses}")
+    return row, (step, state, batches[0])
+
+
+def dk_share(step_ms: float) -> dict:
+    """The depthwise kernel gradient's 9-tap reduction
+    (``depthwise_kernel_grad``) at the 17 MobileNetV2 layer shapes at batch
+    32, float32, each timed alone (CUDA events): its summed ms against one
+    train step's, and each layer's ms beside its bound (the padded input
+    and the output gradient read once, 9·C floats written, or 2·9
+    operations an output element at the float32 rate)."""
+    from tensorflow_web_deploy_tpu_torch.ops.depthwise import depthwise_kernel_grad
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    layers, total, bound = [], 0.0, 0.0
+    for layer in dw_layer_shapes():
+        (pt, pb), (pl, pr) = layer["pads"]
+        s = layer["stride"]
+        c, hp, wp = layer["c"], layer["h"] + pt + pb, layer["w"] + pl + pr
+        oh, ow = (hp - 3) // s + 1, (wp - 3) // s + 1
+        xp = torch.randn((TRAIN_BATCH, c, hp, wp), generator=gen, device="cuda")
+        g = torch.randn((TRAIN_BATCH, c, oh, ow), generator=gen, device="cuda")
+        ms = cuda_time_ms(lambda xp=xp, g=g, s=s: depthwise_kernel_grad(xp, g, (3, 3), (s, s)))
+        t_bytes = (xp.numel() + g.numel() + 9 * c) * 4 / MEM_BYTES_PER_S * 1e3
+        t_ops = 2 * 9 * g.numel() / F32_FLOPS_PER_S * 1e3
+        layers.append({"block": layer["block"], "c": c, "h": layer["h"], "stride": s, "ms": ms,
+                       "bound_ms": max(t_bytes, t_ops)})
+        total += ms
+        bound += max(t_bytes, t_ops)
+    return {"dk_ms": total, "dk_bound_ms": bound, "step_ms": step_ms,
+            "share_of_step": total / step_ms, "layers": layers}
+
+
+def serve_export(export: str, dtype: str, posted: list[bytes], labels: list[str],
+                 trained, seeded, counts, zero) -> dict:
+    """The CLI's config with ``--ckpt export`` in ``dtype`` (``--fused-dw
+    on``, yuv420 + kernel) answering ``posted`` at once, held against the
+    float32 eval-mode model built from the export (``trained``) on the same
+    resized planes: every answer 200; every top-k entry labelled from the
+    export's ``labels.txt`` and scored within the tolerance of that model's
+    probability; the top-1 equal to its top-1 on every image whose float32
+    margin exceeds the tolerance; the scores away from the seeded init's;
+    1 ``preprocess_i420`` and 17 ``fused_dw`` launches a batch, every batch
+    a replay, and no other kernel (the four counts zeroed just before the
+    burst and read just after). The tolerance is ``SERVED_TOL`` in float32
+    and the engine's bf16 gate against float32 (``PARITY_TOL``, the
+    reference's) in bf16: a logit of the trained export is ~10, where one
+    bf16 step moves a mid-range probability by 0.02-0.04. The row's
+    ``failed`` names the checks that did not hold."""
+    from tensorflow_web_deploy_tpu_torch.ops.image import NORMALIZERS, resize_yuv_planes
+    from tensorflow_web_deploy_tpu_torch.server import config_from_args, parse_args, start_server
+    from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
+
+    argv = ["--model", "native:mobilenet_v2", "--ckpt", export, "--zoo-classes",
+            str(TRAIN_CLASSES), "--dtype", dtype, "--fused-dw", "on", "--wire-format",
+            "yuv420", "--resize", "kernel", "--canvas-buckets", ",".join(map(str, BUCKETS)),
+            "--max-batch", "8", "--host", "127.0.0.1", "--port", "0", *PINNED_ARGS]
+    cfg = config_from_args(parse_args(argv))
+    tol = SERVED_TOL if dtype == "f32" else InferenceEngine.PARITY_TOL["bfloat16"]["prob"]
+    t0 = time.perf_counter()
+    srv = start_server(cfg, device="cuda", seed=SEED)
+    boot_s = time.perf_counter() - t0
+    try:
+        eng = srv.engine
+        urllib.request.urlopen(srv.url + "/healthz", timeout=120).read()
+        before = eng.stats()
+        zero()
+        results, timeline = burst(srv, posted)
+        launches = counts()
+        after = eng.stats()
+        out_px = eng.model_cfg.input_size[0]
+        probs, probs_seed = [], []
+        with torch.inference_mode():
+            for model, out in ((trained, probs), (seeded, probs_seed)):
+                for data in posted:
+                    canvas, hw, _ = eng.prepare_bytes(data)
+                    packed = torch.from_numpy(canvas[None]).cuda()
+                    hws = torch.tensor([hw], dtype=torch.int32, device="cuda")
+                    xr = NORMALIZERS["inception"](resize_yuv_planes(packed, hws, out_px, out_px))
+                    out.append(torch.softmax(model(xr.permute(0, 3, 1, 2)), -1)
+                               .cpu().numpy()[0])
+    finally:
+        srv.close()
+    pf, ps = np.stack(probs), np.stack(probs_seed)
+    batches = after["batches"] - before["batches"]
+    replays = after["graphs"]["replays"] - before["graphs"]["replays"]
+    # every entry of every answer's top-k: (image, index, score, label)
+    entries = [(i, p["index"], p["score"], p["label"])
+               for i, (_, body, _) in enumerate(results) for p in body["predictions"]]
+    top1 = [body["predictions"][0]["index"] for _, body, _ in results]
+    top2 = np.sort(pf, 1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > tol
+    top1_equal = [idx == int(pf[i].argmax()) for i, idx in enumerate(top1)]
+    score_gap = max(abs(sc - pf[i, idx]) for i, idx, sc, _ in entries)
+    seed_gap = max(abs(results[i][1]["predictions"][0]["score"] - ps[i, idx])
+                   for i, idx in enumerate(top1))
+    want = {"preprocess_i420": batches, "fused_dw": DW_CELLS * batches,
+            "unpack_ragged": 0, "nms_fixed": 0}
+    checks = {
+        "status": all(status == 200 for status, _, _ in results),
+        "labels": all(lab == labels[idx] for _, idx, _, lab in entries),
+        "top1": bool(clear.any()) and all(t for t, c in zip(top1_equal, clear) if c),
+        "scores": score_gap <= tol,
+        "not_seeded": seed_gap > SERVED_TOL,
+        "launches": batches > 0 and launches == want and replays == batches,
+    }
+    return {"phase": "train_serve", "nvidia_smi": nvidia_smi(), "model": "native:mobilenet_v2",
+            "ckpt": after["ckpt"], "dtype": eng.model_cfg.dtype, "fused_dw": eng.fused_dw,
+            "wire": cfg.wire_format, "resize": cfg.resize, "boot_s": boot_s,
+            "requests": len(posted), "statuses": dict(Counter(r[0] for r in results)),
+            "batches": batches, "replays": replays, "kernel_launches": launches, "want": want,
+            "top1": top1, "top1_labels": sorted({labels[i] for i in top1}),
+            "labels_checked": len({lab for _, _, _, lab in entries}),
+            "entries_checked": len(entries), "clear_margin_images": int(clear.sum()),
+            "top1_equal_clear": int(sum(t for t, c in zip(top1_equal, clear) if c)),
+            "top1_equal_all": int(sum(top1_equal)),
+            "max_score_gap_to_float32": float(score_gap), "tolerance": tol,
+            "max_score_gap_to_seeded": float(seed_gap),
+            "img_per_s": len(posted) / timeline["wall_ms"] * 1e3,
+            "p50_ms": timeline["client_latency_ms"]["p50"],
+            "p99_ms": timeline["client_latency_ms"]["p99"],
+            "failed": [name for name, ok in checks.items() if not ok]}
+
+
+def phase_train(jpegs: list[bytes]) -> dict:
+    """Training on the card, then serving what it trained.
+
+    MobileNetV2 at full width, 224 px, batch 32, 10 synthetic classes,
+    float32 with TF32 off, through ``tools/train.py``'s ``main``: 20 steps
+    saving every 10, then the same command to 40, which must resume from
+    step 20; the last logged loss must be under 0.8× the first. Beside the
+    tool: a fresh MobileNetV2's step ms (CUDA events), img/s, peak
+    ``memory_allocated`` and kernels a step (``torch.profiler``), and the
+    depthwise kernel gradient's share of the step (``dk_share``); ResNet-50
+    (224) and Inception-v3 (299) 3 steps each at batch 32 (finite losses,
+    step ms, peak memory); one float64 SGD step of MobileNetV2 at 224 px,
+    batch 4, on the card and on the CPU (loss and held-out eval logits at
+    the reference's sharded-vs-single tolerances). Last, the export served
+    by the CLI's config with ``--ckpt`` (``serve_export``): in bf16 to the
+    24 JPEGs, and in float32 to them and to 8 JPEGs of the tool's blobs,
+    whose top-1 classes the row keeps. The kernels' launches are the two
+    servers' counted bursts together."""
+    import shutil
+
+    from tensorflow_web_deploy_tpu_torch.models import get as zoo_get
+    from tensorflow_web_deploy_tpu_torch.models.adapter import from_jax_params, \
+        init_variables, read_serving_export
+    from tensorflow_web_deploy_tpu_torch.ops.detection import nms_fixed
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
+    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
+    from tensorflow_web_deploy_tpu_torch.tools.train import SyntheticData
+    from tensorflow_web_deploy_tpu_torch.train import create_train_state, make_train_step, sgd
+    from tensorflow_web_deploy_tpu_torch.train.checkpoint import Checkpointer
+
+    wrappers = {"preprocess_i420": preprocess_i420, "fused_dw": fused_dw,
+                "unpack_ragged": unpack_ragged, "nms_fixed": nms_fixed}
+
+    def counts() -> dict:
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def zero() -> None:
+        for w in wrappers.values():
+            w.launches = 0
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    run = tempfile.mkdtemp(prefix="train_")
+    try:
+        # 1. the tool: 20 steps, then resumed to 40
+        tool = ["--model", "mobilenet_v2", "--width", "1.0", "--classes", str(TRAIN_CLASSES),
+                "--input-size", str(TRAIN_SIZE), "--batch", str(TRAIN_BATCH),
+                "--lr", str(TRAIN_LR), "--ckpt-dir", run, "--save-every", str(TRAIN_SAVE_EVERY),
+                "--log-every", str(TRAIN_LOG_EVERY), "--device", "cuda"]
+        runs = []
+        for steps in TRAIN_STEPS:
+            t0 = time.perf_counter()
+            text, logged = run_tool(tool + ["--steps", str(steps)])
+            runs.append({"steps": steps, "seconds": time.perf_counter() - t0,
+                         "resumed": "resumed from step" in text, "logged": logged,
+                         "lines": text.splitlines()})
+        if runs[0]["resumed"] or f"resumed from step {TRAIN_STEPS[0]}" not in runs[1]["lines"]:
+            raise AssertionError(f"the second run did not resume from step {TRAIN_STEPS[0]}: "
+                                 f"{runs[1]['lines']}")
+        losses = [r["loss"] for run_ in runs for r in run_["logged"]]
+        if len(losses) != TRAIN_STEPS[1] // TRAIN_LOG_EVERY or \
+                not losses[-1] < TRAIN_LOSS_DROP * losses[0]:
+            raise AssertionError(f"MobileNetV2's loss did not fall under {TRAIN_LOSS_DROP}× its "
+                                 f"first: {losses}")
+        # the tool's batch alone on the host: the reference's synthetic blobs
+        data = SyntheticData(TRAIN_CLASSES, TRAIN_SIZE, TRAIN_BATCH, SEED)
+        host_batch_ms = statistics.median(timed(lambda i=i: data.batch_at(i)) for i in range(3))
+        kept = Checkpointer(run, create=False).steps()
+        export = os.path.join(run, "export")
+        labels = open(os.path.join(export, "labels.txt")).read().split()
+        if kept != [20, 30, 40] or labels != [f"class_{i}" for i in range(TRAIN_CLASSES)]:
+            raise AssertionError(f"checkpoints {kept}, export labels {labels}")
+        emit({"phase": "train_tool", "nvidia_smi": smi, "model": "mobilenet_v2", "width": 1.0,
+              "size": TRAIN_SIZE, "batch": TRAIN_BATCH, "classes": TRAIN_CLASSES,
+              "dtype": "float32", "tf32": [torch.backends.cudnn.allow_tf32,
+                                           torch.backends.cuda.matmul.allow_tf32],
+              "runs": [{k: v for k, v in r.items() if k != "lines"} for r in runs],
+              "checkpoints": kept, "first_loss": losses[0], "last_loss": losses[-1],
+              "host_batch_ms": host_batch_ms,
+              "log": runs[1]["lines"]})
+
+        # 2. a fresh MobileNetV2's step on the card: ms, img/s, memory, kernels
+        mnet, (step, state, (x0, y0)) = train_steps("mobilenet_v2", TRAIN_SIZE,
+                                                     TRAIN_TIMED_STEPS)
+        prof = profiled_calls(lambda: step(state, x0, y0), calls=1)
+        step_ms = statistics.median(mnet["step_ms"][2:])  # past cuDNN's first calls
+        dk = dk_share(step_ms)
+        emit({"phase": "train_step", "nvidia_smi": smi, "model": "mobilenet_v2",
+              "size": TRAIN_SIZE, "batch": TRAIN_BATCH, "dtype": "float32",
+              "step_ms": mnet["step_ms"], "step_ms_median": step_ms,
+              "img_per_s": TRAIN_BATCH / step_ms * 1e3,
+              "peak_allocated_bytes": mnet["peak_allocated_bytes"],
+              "kernels_per_step": prof["kernels"], "profile_device_us": prof["device_us"],
+              "profile_top": prof["top"], "dk": dk})
+        del step, state, x0, y0
+
+        # 3. ResNet-50 and Inception-v3, a few steps each
+        others = []
+        for name, size in TRAIN_OTHERS:
+            others.append(train_steps(name, size, TRAIN_OTHER_STEPS)[0])
+            torch.cuda.empty_cache()
+        emit({"phase": "train_others", "nvidia_smi": smi, "dtype": "float32", "rows": others})
+
+        # 4. the card against the CPU in float64
+        spec = zoo_get("mobilenet_v2")
+        _, flat = init_variables(spec, num_classes=TRAIN_CLASSES, seed=SEED)
+        rs = np.random.RandomState(SEED)
+        x = rs.rand(F64_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3)
+        y = rs.randint(0, TRAIN_CLASSES, F64_BATCH)
+        x_eval = rs.rand(F64_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3)
+        f64 = {}
+        for dev in ("cuda", "cpu"):
+            module = spec.build(num_classes=TRAIN_CLASSES).double()
+            state = create_train_state(module, flat, sgd(F64_LR), device=dev)
+            t0 = time.perf_counter()
+            state, m = make_train_step(module)(state, x, y)
+            loss = float(m["loss"])
+            seconds = time.perf_counter() - t0
+            with torch.no_grad():
+                logits = module.eval()(torch.as_tensor(x_eval, device=dev).permute(0, 3, 1, 2))
+            f64[dev] = (loss, logits.cpu().numpy(), seconds)
+        (lc, gc, sc), (lh, gh, sh) = f64["cuda"], f64["cpu"]
+        loss_rel = abs(lc - lh) / abs(lh)
+        logit_excess = float(np.max(np.abs(gc - gh) - (F64_LOGIT_ATOL + F64_LOGIT_RTOL
+                                                        * np.abs(gh))))
+        row64 = {"phase": "train_f64", "nvidia_smi": smi, "model": "mobilenet_v2",
+                 "size": TRAIN_SIZE, "batch": F64_BATCH, "optimizer": f"sgd {F64_LR}",
+                 "loss_cuda": lc, "loss_cpu": lh, "loss_rel": loss_rel,
+                 "logits_max_abs": float(np.abs(gc - gh).max()),
+                 "logits_max_rel": float((np.abs(gc - gh) / np.abs(gh)).max()),
+                 "step_s_cuda": sc, "step_s_cpu": sh}
+        emit(row64)
+        if not loss_rel <= F64_LOSS_RTOL or logit_excess > 0:
+            raise AssertionError(f"float64 step: the card and the CPU disagree: {row64}")
+
+        # 5. serve the export with --ckpt: bf16 on the photographs (float32
+        # margins near 1), float32 on them and on JPEGs of the tool's blobs
+        # from a batch past the 40 trained, of several classes
+        blobs = SyntheticData(TRAIN_CLASSES, TRAIN_SIZE, TRAIN_BLOBS, SEED)
+        xb, yb = blobs.batch_at(TRAIN_STEPS[1])
+        blob_jpegs = [jpeg_bytes(np.clip((b + 1.0) * 127.5, 0, 255).astype(np.uint8))
+                      for b in xb]
+        trained = spec.build(num_classes=TRAIN_CLASSES).cuda()
+        trained.load_state_dict(from_jax_params(read_serving_export(export)))
+        seeded = init_variables(spec, num_classes=TRAIN_CLASSES, seed=SEED)[0].cuda()
+        launches = dict.fromkeys(wrappers, 0)
+        for dtype, posted in (("bf16", jpegs), ("f32", jpegs + blob_jpegs)):
+            row = serve_export(export, dtype, posted, labels, trained, seeded, counts, zero)
+            if dtype == "f32":
+                row["blob_classes"] = [int(c) for c in yb]
+                row["blob_top1"] = row["top1"][len(jpegs):]
+            emit(row)
+            launches = {k: v + row["kernel_launches"][k] for k, v in launches.items()}
+            if row["failed"]:
+                raise AssertionError(f"--ckpt server ({dtype}): {row['failed']}: {row}")
+    finally:
+        shutil.rmtree(run, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "train", "nvidia_smi": smi, "seconds": phase_s})
+    return {"kernel_launches": launches, "seconds": phase_s}
+
+
 def main(argv: list[str]) -> int:
     sweeps = ("--sweep-fused-dw", "--sweep-preprocess", "--sweep-overload", "--sweep-dag")
     if not (argv == [] or (len(argv) == 1 and argv[0] in sweeps)
             or argv in (["--phase", "resnet50"], ["--phase", "ssd"],
-                        ["--phase", "converter"], ["--phase", "jobs"], ["--phase", "dag"])):
+                        ["--phase", "converter"], ["--phase", "jobs"], ["--phase", "dag"],
+                        ["--phase", "train"])):
         print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)} | --phase resnet50 | "
-              "--phase ssd | --phase converter | --phase jobs | --phase dag], "
+              "--phase ssd | --phase converter | --phase jobs | --phase dag | --phase train], "
               f"not {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -6083,6 +6464,9 @@ def main(argv: list[str]) -> int:
     if argv == ["--phase", "dag"]:
         phase_dag(make_jpegs(24, SEED))
         return 0
+    if argv == ["--phase", "train"]:
+        phase_train(make_jpegs(24, SEED))
+        return 0
     kern_err = phase_kernel(gen)
     dw = phase_fused_dw_kernel(gen, dw_layer_shapes())
     jpegs = make_jpegs(24, SEED)
@@ -6114,6 +6498,7 @@ def main(argv: list[str]) -> int:
     converter = phase_converter(jpegs)
     jobs = phase_jobs(jpegs)
     dag = phase_dag(jpegs)
+    train = phase_train(jpegs)
     by_path = {p["path"]: p["kernel_launches"] for p in (inception, mobilenet, *ragged)}
     by_path["registry"] = registry["kernel_launches"]
     by_path["overload"] = overload["kernel_launches"]
@@ -6124,6 +6509,7 @@ def main(argv: list[str]) -> int:
     by_path["converter"] = converter["kernel_launches"]
     by_path["jobs"] = jobs["kernel_launches"]
     by_path["dag"] = dag["kernel_launches"]
+    by_path["train"] = train["kernel_launches"]
     by_kernel = {name: {m: n.get(name, 0) for m, n in by_path.items()} for name in KERNELS}
     emit({"kernels": [{
         "name": "preprocess_i420",

@@ -7,10 +7,16 @@ kernel"`` (HWIO), ``"params/<block>/bn/{scale,bias}"``,
 (kernel [in, out]). :func:`from_jax_params` maps such a dict onto this
 port's state dict by name; :func:`init_variables` draws the seeded init
 with the reference's rule, so ``native:<name>`` with one seed is the same
-network in both packages.
+network in both packages. A serving export of ``tools/train.py`` holds
+such a dict too: :func:`write_serving_export` writes it as one
+``np.savez`` file with ``labels.txt`` beside it, and
+:func:`restore_serving_export` reads it back for a model.
 """
 
 from __future__ import annotations
+
+import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -20,6 +26,8 @@ from ..graphdef import convert_graphdef, load_pb
 from ..ops.quant import QSCALE_SUFFIX, Int8Conv2d, Int8Linear, quantize_params
 from . import get
 from .common import ConvBNCell, fold_bn, set_fused_dw
+
+EXPORT_FILE = "variables.npz"  # a serving export's params, beside its labels.txt
 
 
 def _flax_key(torch_key: str) -> str:
@@ -74,8 +82,8 @@ def to_jax_params(module: nn.Module) -> dict[str, np.ndarray]:
 
 def init_variables(spec, num_classes: int | None = None, width: float = 1.0,
                    seed: int = 0) -> tuple[nn.Module, dict[str, np.ndarray]]:
-    """Build a zoo model with its seeded init; returns (module, flat params
-    in the JAX layout).
+    """Build a zoo model with its seeded init; returns (module in eval mode,
+    flat params in the JAX layout).
 
     The reference's rule: over the flattened keys in sorted order, one
     ``np.random.RandomState(seed)`` draws He-normal ``randn·sqrt(2/fan_in)``
@@ -97,7 +105,53 @@ def init_variables(spec, num_classes: int | None = None, width: float = 1.0,
             value = np.zeros(shape, np.float32)
         flat[_flax_key(key)] = value
     module.load_state_dict(from_jax_params(flat))
-    return module, flat
+    return module.eval(), flat
+
+
+def write_serving_export(export_dir: str, params_flat: dict[str, np.ndarray],
+                         labels: list[str]) -> None:
+    """Write ``params_flat`` (params and batch stats in the flat layout) to
+    ``<export_dir>/variables.npz`` through a temporary file renamed into
+    place, and the class names to ``labels.txt``."""
+    out = Path(export_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    tmp = out / f".{EXPORT_FILE}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **params_flat)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, out / EXPORT_FILE)
+    (out / "labels.txt").write_text("\n".join(labels) + "\n")
+
+
+def read_serving_export(export_dir: str) -> dict[str, np.ndarray]:
+    """The flat params of a serving export, as :func:`write_serving_export`
+    wrote them."""
+    path = Path(export_dir)
+    if not path.is_dir():
+        raise FileNotFoundError(f"no checkpoint directory at {export_dir}")
+    if not (path / EXPORT_FILE).is_file():
+        raise FileNotFoundError(f"no serving export found in {export_dir}")
+    with np.load(path / EXPORT_FILE) as z:
+        return {k: z[k] for k in z.files}
+
+
+def restore_serving_export(params_flat: dict[str, np.ndarray],
+                           export_dir: str) -> dict[str, np.ndarray]:
+    """The params and batch stats of a serving export
+    (:func:`write_serving_export`), in place of ``params_flat``, whose keys
+    and shapes they must have: an export of another width or class count
+    is refused here, not at load."""
+    export = read_serving_export(export_dir)
+    missing, extra = sorted(set(params_flat) - set(export)), sorted(set(export) - set(params_flat))
+    if missing or extra:
+        raise ValueError(f"serving export {export_dir} does not fit the model: "
+                         f"missing {missing[:3]}, unexpected {extra[:3]}")
+    for k, v in params_flat.items():
+        if export[k].shape != np.shape(v):
+            raise ValueError(f"serving export {export_dir}: {k} has shape {export[k].shape}, "
+                             f"the model {np.shape(v)}")
+    return export
 
 
 class Classifier(nn.Module):
@@ -176,9 +230,11 @@ def quantize_int8(module: nn.Module, params_flat: dict[str, np.ndarray]) -> nn.M
 def native_converted(name: str, num_classes: int | None = None, width: float = 1.0,
                      seed: int = 0, params_flat: dict[str, np.ndarray] | None = None,
                      fused_dw: bool = False, int8: bool = False,
-                     input_size: int | None = None) -> Classifier | Detector:
+                     input_size: int | None = None,
+                     ckpt_path: str | None = None) -> Classifier | Detector:
     """A zoo model ready to serve: seeded init (or ``params_flat`` in the
-    JAX layout), BN folded into the convs, eval mode, no gradients. A
+    JAX layout, or the serving export at ``ckpt_path``), BN folded into the
+    convs, eval mode, no gradients. A
     classifier becomes a :class:`Classifier`, the detector a
     :class:`Detector` whose anchors are those of ``input_size`` (the
     spec's unless given: it must be the size the serving preprocess
@@ -191,6 +247,10 @@ def native_converted(name: str, num_classes: int | None = None, width: float = 1
     int8); the caller moves and casts it."""
     spec = get(name)
     module, flat = init_variables(spec, num_classes=num_classes, width=width, seed=seed)
+    if ckpt_path is not None:
+        if params_flat is not None:
+            raise ValueError("give params_flat or ckpt_path, not both")
+        params_flat = restore_serving_export(flat, ckpt_path)
     if params_flat is not None:
         module.load_state_dict(from_jax_params(params_flat))
         flat = params_flat

@@ -43,8 +43,20 @@ def scale_ch(c: int, width: float, divisor: int = 8) -> int:
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm with the flax variable names: parameters
-    ``scale``/``bias``, buffers ``mean``/``var``."""
+    """flax's ``nn.BatchNorm`` with its variable names: parameters
+    ``scale``/``bias``, buffers ``mean``/``var`` (the running statistics).
+
+    Born in eval mode, as the reference's modules default to
+    ``train=False``: a freshly built zoo model serves with its running
+    statistics, and ``.train()`` on an enclosing module turns batch
+    statistics on. In training (flax's ``_compute_stats``): the mean and
+    the biased variance E[x²] − E[x]², clipped at 0, over N, H, W in
+    ``promote(x.dtype, float32)``; the batch is normalized with them, and
+    the running statistics move to ``momentum·ra + (1 − momentum)·batch``
+    with the same biased variance, outside autograd. (``F.batch_norm``
+    would update ``var`` with the unbiased variance.)"""
+
+    momentum = 0.99
 
     def __init__(self, features: int, eps: float = 1e-3):
         super().__init__()
@@ -53,6 +65,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.train(False)
 
     def affine(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(s, t) with bn(x) = x·s + t per channel."""
@@ -60,8 +73,18 @@ class BatchNorm(nn.Module):
         return s, self.bias - self.mean * s
 
     def forward(self, x):
-        s, t = self.affine()
-        return x * s[:, None, None] + t[:, None, None]
+        if not self.training:
+            s, t = self.affine()
+            return x * s[:, None, None] + t[:, None, None]
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xs.mean(dim=(0, 2, 3))
+        var = torch.clamp((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
 class ConvBNCell(nn.Module):
@@ -137,7 +160,9 @@ class DepthwiseConvBN(ConvBNCell):
     with relu6 or no activation serves the cell through
     ``ops/depthwise.py::fused_depthwise`` — BN folded into the taps and
     bias, one op, on the fused depthwise kernel at stride 1 and 2 alike;
-    the parameters are the same either way. The fold keeps
+    the parameters are the same either way. As in the reference, the fused
+    form serves only: the cell is born in eval mode, and in training it
+    runs unfused with batch statistics. The fold keeps
     the fused form's float32 operands once: ``taps`` [kh·kw, C] (an int8
     cell instead dequantizes into that layout on every call) and
     ``tap_bias`` [1, C].
@@ -156,6 +181,7 @@ class DepthwiseConvBN(ConvBNCell):
         self.fused = fused
         self.register_buffer("taps", None)
         self.register_buffer("tap_bias", None)
+        self.train(False)
 
     @torch.no_grad()
     def fold(self, quant: tuple[torch.Tensor, torch.Tensor] | None = None) -> None:
@@ -177,7 +203,7 @@ class DepthwiseConvBN(ConvBNCell):
 
     def forward(self, x):
         strides = (self.stride, self.stride)
-        if self.fused and self.act in ("relu6", None):
+        if self.fused and not self.training and self.act in ("relu6", None):
             relu6 = self.act == "relu6"
             if not self.folded:
                 s, t = self.bn.affine()

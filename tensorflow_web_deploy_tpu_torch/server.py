@@ -7,6 +7,7 @@
         [--model native:ssd_mobilenet]    # detection: {"detections": [...], "num_detections": n}
         [--no-ragged] [--resize matmul|gather] [--wire-format yuv420 --resize kernel]
         [--dtype bf16|f32|int8] [--fused-dw auto|on|off] [--device cuda|cpu]
+        [--ckpt EXPORT]    # with one native:<name>: weights from tools/train.py
         [--pipeline-depth 4] [--max-queue 0] [--no-adaptive-delay] [--lease-timeout-s 10]
         [--http-workers 16] [--keepalive-timeout-s 15] [--aot-cache-dir DIR]
         [--cache-bytes 268435456] [--slo-classes interactive=1000,batch=10000]
@@ -206,9 +207,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="cuda (default: a mesh of every visible card), cuda:N, or cpu")
     p.add_argument("--seed", type=int, default=0, help="seed of the weights")
-    p.add_argument("--labels", default=None, help="label file, one label per line")
-    p.add_argument("--zoo-width", type=float, default=None)
-    p.add_argument("--zoo-classes", type=int, default=None)
+    p.add_argument("--ckpt", default=None,
+                   help="serving export from tools/train.py; serves fine-tuned weights with "
+                        "--model native:<name>")
+    p.add_argument("--labels", default=None,
+                   help="label file, one label per line; with --ckpt, <export>/labels.txt is "
+                        "picked up unless this is given")
+    p.add_argument("--zoo-width", type=float, default=None,
+                   help="native zoo width multiplier (must match the ckpt)")
+    p.add_argument("--zoo-classes", type=int, default=None,
+                   help="native zoo class count (must match the ckpt)")
     p.add_argument("--topk", type=int, default=None)
     p.add_argument("--aot-cache-dir", default=None, metavar="DIR",
                    help="kernel build cache: warmup loads the verified kernel libraries "
@@ -268,20 +276,31 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def config_from_args(args: argparse.Namespace) -> ServerConfig:
     """The ServerConfig of the CLI: one ModelConfig per ``--model`` (the
-    default one as ``model``). ``--labels``/``--zoo-width``/``--zoo-classes``
-    apply to exactly one model; with several, a .json config per model
-    carries them."""
+    default one as ``model``). ``--ckpt``/``--labels``/``--zoo-width``/
+    ``--zoo-classes`` apply to exactly one model; with several, a .json
+    config per model carries them. ``--ckpt`` and the zoo knobs need a
+    ``native:`` model, and ``--ckpt`` brings ``<export>/labels.txt`` along
+    unless ``--labels`` is given (the reference's rules)."""
     specs = args.model or ["native:inception_v3"]
-    single = {"labels_path": args.labels, "zoo_width": args.zoo_width,
+    single = {"ckpt_path": args.ckpt, "labels_path": args.labels, "zoo_width": args.zoo_width,
               "zoo_classes": args.zoo_classes}
     if len(specs) > 1 and any(v is not None for v in single.values()):
-        raise ValueError("--labels/--zoo-width/--zoo-classes apply to exactly one model; with "
-                         "repeated --model flags use .json model configs to carry per-model "
-                         "settings")
+        raise ValueError("--ckpt/--labels/--zoo-width/--zoo-classes apply to exactly one "
+                         "model; with repeated --model flags use .json model configs to carry "
+                         "per-model settings")
+    if args.ckpt and args.labels is None:
+        exported_labels = os.path.join(args.ckpt, "labels.txt")
+        if os.path.exists(exported_labels):
+            # the export's class names, not ImageNet's
+            single["labels_path"] = exported_labels
     every = {"topk": args.topk, "fused_dw": args.fused_dw,
              "dtype": normalize_dtype(args.dtype) if args.dtype else None}
     overrides = {k: v for k, v in {**single, **every}.items() if v is not None}
     mcs = [dataclasses.replace(model_config(spec), **overrides) for spec in specs]
+    zoo_knobs = (args.ckpt, args.zoo_width, args.zoo_classes)
+    if any(v is not None for v in zoo_knobs) and mcs[0].source != "native":
+        raise ValueError("--ckpt/--zoo-width/--zoo-classes require a native zoo model "
+                         f"(--model native:<name>); got --model {specs[0]!r}")
     default = args.default_model or mcs[0].serve_name
     kw = {}
     if args.canvas_buckets:
@@ -309,7 +328,10 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=args.log_level,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    cfg = config_from_args(args)
+    try:
+        cfg = config_from_args(args)
+    except ValueError as e:  # a refused flag combination: its text, no traceback
+        sys.exit(str(e))
     srv = start_server(cfg, device=args.device, seed=args.seed)
     eng = srv.engine
     for mv in srv.registry.serving_entries():

@@ -719,6 +719,7 @@ class InferenceEngine:
             width=self.model_cfg.zoo_width,
             seed=self._seed,
             params_flat=self._params_flat,
+            ckpt_path=self.model_cfg.ckpt_path,
             fused_dw=fused_dw,
             int8=int8,
             # the serving preprocess resizes to input_size, so the
@@ -1643,6 +1644,7 @@ class InferenceEngine:
         return {
             "model": self.model_cfg.name,
             "source": self.source,
+            "ckpt": self.model_cfg.ckpt_path,
             "load_s": dict(self.load_s),
             "task": self.task,
             "outputs": list(self.model.output_names) if self.model is not None else None,

@@ -57,6 +57,10 @@ class ModelConfig:
     # the real architecture)
     zoo_width: float = 1.0
     zoo_classes: int | None = None
+    # serving export from tools/train.py (a directory holding the params
+    # and batch stats, train/checkpoint.py) — serve fine-tuned weights
+    # instead of the seeded init
+    ckpt_path: str | None = None
     # "classify" (softmax top-k per image) or "detect" (decoded boxes
     # through static-shape NMS: boxes, scores, classes, num)
     task: str = "classify"
