@@ -24,18 +24,24 @@ kernel:
   images.
 
 And two on the ragged rgb wire, the server's defaults: each batch ships
-its images tight in one pinned arena and the device rebuilds the canvases:
+its images tight in one pinned arena:
 
-- Inception-v3 in bf16 with the matmul resize (the server with no flags);
-- MobileNetV2 in the int8 tier with the gather resize, the fused
-  depthwise kernel in all 17 cells.
+- Inception-v3 in bf16 with the matmul resize (the server with no flags):
+  the whole preprocess stage is one launch of the ragged preprocess
+  kernel, which reads the arena and stores bf16;
+- MobileNetV2 in the int8 tier with the gather resize: the unpack kernel
+  rebuilds the canvases, and the fused depthwise kernel runs in all 17
+  cells.
 
 Before them, ``native_decode`` requires the decoder built, holds its RGB
 against PIL's decode of the same bytes (byte for byte at full size) and
 times it against the PIL chain it replaced, on one thread and on 8, and
 ``ragged_unpack`` holds the unpack kernel bit for bit against the host's
-padded canvases and its plain version (holes included) and times it, and
-``graphs`` holds each main path's graph replays bit for bit against its
+padded canvases and its plain version (holes included) and times it,
+``ragged_preprocess`` holds the ragged preprocess kernel against its plain
+version (float32 within 1e-4, bf16 within 1 ulp; every slot filled and two
+holes; batch 8 and 32 at Inception-v3's, ResNet-50's and SSD's sizes and
+modes) and times it against the stage it replaced, and ``graphs`` holds each main path's graph replays bit for bit against its
 eager runs (a full batch, then a shorter one with holes) and times a
 dispatch both ways. Each main path reports its decodes, host copies per
 image, its graph replays and a ``pipeline`` block (batches in flight,
@@ -89,14 +95,16 @@ range ``registry`` measured before (``UNLOAD_MARGIN_MB``). ``resnet50``
 serves ResNet-50 in bf16 at full width with batch buckets up to 32 on the
 ragged rgb wire: a burst and the same JPEGs one at a time, batch-32 slabs
 back to back on the captured graph (img/s, ms per replay, MFU), the
-unpack kernel against its plain version on those slabs, a 96-image HTTP
+unpack and ragged preprocess kernels against their plain versions on
+those slabs, a 96-image HTTP
 burst, its logits against a float32 engine's and the float32 engine's
 against the CPU's, and its int8 tier's load, whose verdict it reports.
 ``ssd`` serves the detector SSD-MobileNet in bf16 at full width and 300
 px the same way: the 24 JPEGs one at a time and at once (every answer
 the reference's ``detections``/``num_detections``), batch-32 slabs back
 to back, the NMS kernel against its plain fixpoint bit for bit on a
-served batch's candidates and on adversarial rows, an anchor scene whose
+served batch's candidates (at K = 33, 65, 99, 100 and 256 too, each
+timed) and on adversarial rows, an anchor scene whose
 detections must equal the host's expectation exactly, its raw outputs
 against float32 and the CPU, the fused depthwise and preprocess kernels
 at its own shapes, and its int8 tier, refused at 300 px and served at 64.
@@ -106,12 +114,12 @@ port's TF-free tool (the zoo's seeded
 weights) and serves the preset ``inception_v3`` through the frozen-graph
 converter as CUDA graph replays, beside ``native:inception_v3`` on the same
 weights, in bf16 and float32: the .pb path's answers against native's, its
-preprocess kernel launches on the yuv420 wire and unpack launches on the
-ragged wire, and for both paths the load seconds, kernels per replay,
+preprocess kernel launches on the yuv420 wire and ragged preprocess
+launches on the ragged wire, and for both paths the load seconds, kernels per replay,
 device ms per batch-8 and batch-32 replay, batch-32 img/s and MFU; then
 ``mobilenet_v2.pb`` in bf16 and int8 (the gate's verdict, no leaf
-quantized); then ``resnet50.pb`` (224 px, on the ragged wire: one unpack
-launch a batch) and ``ssd_mobilenet.pb`` (300 px, the anchor scene's
+quantized); then ``resnet50.pb`` (224 px, on the ragged wire: one ragged
+preprocess launch a batch) and ``ssd_mobilenet.pb`` (300 px, the anchor scene's
 weights, on the yuv420 wire: one preprocess and one ``nms_fixed`` launch a
 batch) the same way beside ``native:resnet50`` and
 ``native:ssd_mobilenet``, their logits and raw outputs against native
@@ -176,6 +184,15 @@ runs ``dag``'s server under closed-loop pipeline requests from 1, 2, 4
 and 8 workers and prints, per worker count, img/s, p50/p99 and the host
 ms a request spent in each executor call (no ``ok`` line).
 
+    python3 chip_smoke.py --sweep-nms OTHER.cu
+
+builds ``OTHER.cu``, another version of ``csrc/nms_fixed.cu`` with the
+same C entry (an earlier commit's: ``git show <commit>:<path>``), and on
+the ``ssd`` phase's candidates at every ``NMS_CASES`` shape holds both
+kernels' keep masks to the plain fixpoint and times them in the order
+other, this, this, other (no ``ok`` line).
+
+    python3 chip_smoke.py --phase ragged_preprocess
     python3 chip_smoke.py --phase resnet50
     python3 chip_smoke.py --phase ssd
     python3 chip_smoke.py --phase converter
@@ -183,9 +200,9 @@ ms a request spent in each executor call (no ``ok`` line).
     python3 chip_smoke.py --phase dag
     python3 chip_smoke.py --phase train
 
-build the kernels and run the ``resnet50``, ``ssd``, ``converter``,
-``jobs``, ``dag`` or ``train`` phase alone on the 24 JPEGs (no ``kernels``
-or ``ok`` line).
+build the kernels and run the ``ragged_preprocess``, ``resnet50``,
+``ssd``, ``converter``, ``jobs``, ``dag`` or ``train`` phase alone on the
+24 JPEGs (no ``kernels`` or ``ok`` line).
 """
 
 from __future__ import annotations
@@ -216,7 +233,7 @@ MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 OUT = 299  # Inception-v3 input side
 SEED = 0
-KERNELS = ("preprocess_i420", "fused_dw", "unpack_ragged", "nms_fixed")
+KERNELS = ("preprocess_i420", "fused_dw", "unpack_ragged", "preprocess_ragged", "nms_fixed")
 # served top-1 vs the same bf16 computation outside the server
 SERVED_TOL = 1e-2
 # kernel vs plain float32: same taps and order; the plain version's matmul
@@ -324,6 +341,36 @@ def host_us(fn, calls: int = 200) -> float:
     spent = time.perf_counter() - t0
     torch.cuda.synchronize()
     return spent / calls * 1e6
+
+
+def kernel_wrappers() -> dict:
+    """Every hand-written kernel's wrapper, by name (``KERNELS``' order)."""
+    from tensorflow_web_deploy_tpu_torch.ops.detection import nms_fixed
+    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
+    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_ragged import preprocess_ragged
+
+    return {"preprocess_i420": preprocess_i420, "fused_dw": fused_dw,
+            "unpack_ragged": unpack_ragged, "preprocess_ragged": preprocess_ragged,
+            "nms_fixed": nms_fixed}
+
+
+def zero_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count, by name."""
+    return {name: w.launches for name, w in kernel_wrappers().items()}
+
+
+def launches_want(**counts: int) -> dict:
+    """The launch counts a run must read: ``counts`` by kernel, 0 for the
+    other kernels."""
+    return {name: counts.get(name, 0) for name in KERNELS}
 
 
 def bound_ms(hws: np.ndarray, s: int, out_h: int, out_w: int, elt: int,
@@ -722,15 +769,17 @@ def sweep_fused_dw(gen: torch.Generator, shapes: list[dict]) -> None:
 
 
 def ptxas_report(name: str) -> str:
-    """nvcc -Xptxas -v on csrc/<name>.cu: registers, shared memory and
-    spills of each kernel instantiation."""
+    """nvcc -Xptxas -v on csrc/<name>.cu (or on the source file ``name``
+    where it ends in .cu): registers, shared memory and spills of each
+    kernel instantiation."""
     import tempfile
 
     from tensorflow_web_deploy_tpu_torch.ops import _build
 
     with tempfile.TemporaryDirectory() as tmp:
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-                               os.path.join(tmp, "lib.so"), str(_build.CSRC / f"{name}.cu")],
+                               os.path.join(tmp, "lib.so"),
+                               name if name.endswith(".cu") else str(_build.CSRC / f"{name}.cu")],
                               capture_output=True, text=True, timeout=300)
     return proc.stdout + proc.stderr
 
@@ -976,15 +1025,14 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
     ``ragged``). The served model must hold ``fused_cells`` fused
     depthwise cells (of either stride), each launching the fused kernel
     once per batch; the preprocess kernel launches once per batch with
-    ``resize="kernel"`` and never otherwise, the unpack kernel once per
-    batch on the ragged wire and never otherwise. Every batch of the burst
+    ``resize="kernel"`` and never otherwise, on the ragged wire the ragged
+    preprocess kernel once per batch with the matmul resize and the unpack
+    kernel once per batch with the gather resize, and never otherwise.
+    Every batch of the burst
     must be a replay of a CUDA graph captured at boot (``graphs.replays``
     equal to the batches, no eager batch); a replay counts the launches its
     capture recorded."""
     from tensorflow_web_deploy_tpu_torch.models.common import DepthwiseConvBN
-    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
-    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
-    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
     from tensorflow_web_deploy_tpu_torch.server import start_server
 
     cfg = _config(name, dtype, host="127.0.0.1", port=0, **wire)
@@ -1007,10 +1055,9 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
         # one-time client cost out of the burst
         urllib.request.urlopen(srv.url + "/healthz", timeout=120).read()
         before, copies = eng.stats(), srv.batcher.stats()["host_copies"]
-        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+        zero_launches()
         results, timeline = burst(srv, jpegs)
-        launches = {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
-                    "unpack_ragged": unpack_ragged.launches}
+        launches = read_launches()
         after = eng.stats()
         copies = (srv.batcher.stats()["host_copies"] - copies) / len(jpegs)
         batches = after["batches"] - before["batches"]
@@ -1022,9 +1069,11 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
                 raise AssertionError(f"bad answer: {status} {body}")
             if not all(math.isfinite(p["score"]) and 0 <= p["index"] < 1000 for p in preds):
                 raise AssertionError(f"bad predictions: {preds}")
-        want = {"preprocess_i420": batches if cfg.resize == "kernel" else 0,
-                "fused_dw": fused_cells * batches,
-                "unpack_ragged": batches if eng.ragged else 0}
+        want = launches_want(
+            preprocess_i420=batches if cfg.resize == "kernel" else 0,
+            fused_dw=fused_cells * batches,
+            unpack_ragged=batches if eng.ragged and cfg.resize == "gather" else 0,
+            preprocess_ragged=batches if eng.ragged and cfg.resize == "matmul" else 0)
         if batches == 0 or launches != want:
             raise AssertionError(f"{name}: kernel launches {launches} for {batches} batches "
                                  f"({fused_cells} fused depthwise cells): want {want}")
@@ -1574,6 +1623,120 @@ def phase_ragged_unpack(jpegs: list[bytes]) -> dict:
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     emit(row)
     return row
+
+
+# the ragged preprocess kernel's cases: (out side, normalize mode) of
+# Inception-v3, ResNet-50 and SSD-MobileNet, at the main paths' batch of 8
+# and the batch-32 throughput mode
+RAGGED_PP_CASES = ((299, "inception"), (224, "caffe"), (300, "inception"))
+RAGGED_PP_BATCHES = (8, 32)
+# the kernel against its plain version: float32 within 1e-4 after the
+# normalize, bf16 within 1 bf16 ulp at every element
+RAGGED_PP_TOL = 1e-4
+RAGGED_PP_ULPS = 1
+
+
+def ragged_pp_bound_ms(meta: np.ndarray, s: int, out: int, elt: int) -> float:
+    """Least time for one ragged preprocess call on this batch: the valid
+    bytes of each image's distinct tap rows and the meta table read once,
+    the output written once at ``elt`` bytes an element, over the memory
+    rate (a hole reads nothing)."""
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import axis_taps
+
+    read = 16 * len(meta)
+    for _, h, w, valid in np.asarray(meta).tolist():
+        if valid > 0:
+            lo, hi, _ = axis_taps(out, h, s)
+            read += np.unique(np.concatenate([lo, hi])).size * w * 3
+    return (read + len(meta) * out * out * 3 * elt) / MEM_BYTES_PER_S * 1e3
+
+
+def phase_ragged_preprocess(jpegs: list[bytes]) -> dict:
+    """The ragged rgb preprocess kernel (``csrc/preprocess_ragged.cu``) on
+    the main-path images of the 512 canvas, decoded tight into a pinned
+    arena and shipped with the meta table in one copy, at batch 8 and 32
+    (the images cycled), with every slot filled and with two holes: at 299
+    out inception, 224 caffe and 300 inception, in float32 (within
+    ``RAGGED_PP_TOL`` of ``preprocess_ragged_plain`` on the card) and bf16
+    (within ``RAGGED_PP_ULPS`` bf16 ulps). On the full batch in bf16: its
+    device time in a CUDA graph against its bound; the stage it replaces
+    (``unpack_ragged``, then the matmul resize, normalize and cast, as the
+    engine ran it) in a CUDA graph and its kernels (profiler); the plain
+    version (events: it reads the table on the host); the wrapper's host
+    time; its kernels (profiler) and launches (its counter) a call."""
+    from tensorflow_web_deploy_tpu_torch.ops.image import make_preprocess_fn, unpack_ragged
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_ragged import (
+        preprocess_ragged,
+        preprocess_ragged_plain,
+    )
+
+    s, bf16 = 512, torch.bfloat16
+    big = [d for d in jpegs if decode_tight(d)[2] == s]
+    if len(big) < 8:
+        raise AssertionError(f"only {len(big)} images in the {s} canvas")
+    result = {"phase": "ragged_preprocess", "nvidia_smi": nvidia_smi(), "canvas": s,
+              "images": len(big), "tol": RAGGED_PP_TOL, "ulps": RAGGED_PP_ULPS, "cases": []}
+    for k in RAGGED_PP_BATCHES:
+        imgs = [big[i % len(big)] for i in range(k)]
+        shipped = {}
+        for label, holes in (("full", ()), ("holes", (2, 5))):
+            slab, _, _ = ragged_slab(imgs, s, holes)
+            nbytes, meta_off = slab.stage(k)
+            dev = slab.buf[:nbytes].to("cuda")
+            shipped[label] = (dev[:meta_off], dev[meta_off:].view(torch.int32).view(k, 4))
+        for out, mode in RAGGED_PP_CASES:
+            row = {"phase": "ragged_preprocess", "batch": k, "canvas": s, "out": out,
+                   "mode": mode}
+            for label, (arena, meta) in shipped.items():
+                for dtype in (torch.float32, bf16):
+                    got = preprocess_ragged(arena, meta, s, out, out, mode, dtype)
+                    ref = preprocess_ragged_plain(arena, meta, s, out, out, mode, dtype)
+                    torch.cuda.synchronize()
+                    if got.dtype != dtype or got.shape != (k, out, out, 3):
+                        raise AssertionError(f"ragged preprocess gave {got.dtype} {got.shape}")
+                    if dtype == bf16:
+                        ulps = int(bf16_ulps(got, ref).max())
+                        row[f"bf16_max_ulps_{label}"] = ulps
+                        ok = ulps <= RAGGED_PP_ULPS
+                    else:
+                        err = float((got - ref).abs().max())
+                        row[f"max_abs_err_{label}"] = err
+                        ok = err <= RAGGED_PP_TOL
+                    row[f"bit_identical_{label}_{str(dtype)[6:]}"] = bool(torch.equal(got, ref))
+                    if not ok:
+                        raise AssertionError(f"ragged preprocess kernel vs plain at B={k} "
+                                             f"{out} {mode} {dtype} ({label}): {row}")
+            arena, meta = shipped["full"]
+            kernel = lambda: preprocess_ragged(arena, meta, s, out, out, mode, bf16)  # noqa: E731
+            stage_fn = make_preprocess_fn(out, out, mode, out_dtype=bf16)
+            stage = lambda: stage_fn(*unpack_ragged(arena, meta, s))  # noqa: E731
+            launches = preprocess_ragged.launches
+            prof = profiled_calls(kernel)
+            launches_per_call = (preprocess_ragged.launches - launches) / prof["fn_calls"]
+            before = profiled_calls(stage)
+            if launches_per_call != 1 or len(prof["top"]) != 1 or \
+                    "preprocess_ragged" not in prof["top"][0]["name"]:
+                raise AssertionError(f"the ragged preprocess launched {launches_per_call} "
+                                     f"kernels a call: {prof}")
+            row.update(
+                ms=graph_time_ms(kernel), stage_ms=graph_time_ms(stage),
+                plain_ms=cuda_time_ms(lambda: preprocess_ragged_plain(
+                    arena, meta, s, out, out, mode, bf16), repeats=5),
+                host_us=host_us(kernel), stage_host_us=host_us(stage),
+                launches_per_call=launches_per_call,
+                kernels_per_call=prof["kernels"] / prof["calls"],
+                stage_kernels_per_call=before["kernels"] / before["calls"],
+                stage_top=before["top"][:4],
+                bound_ms=ragged_pp_bound_ms(meta.cpu().numpy(), s, out, 2), bound_by="bytes",
+                library_ms=None)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            emit(row)
+            result["cases"].append(row)
+    result["max_abs_err"] = max(r[f"max_abs_err_{lb}"] for r in result["cases"]
+                                for lb in ("full", "holes"))
+    result["bf16_max_ulps"] = max(r[f"bf16_max_ulps_{lb}"] for r in result["cases"]
+                                  for lb in ("full", "holes"))
+    return result
 
 
 def fill_slab(eng, prepared: list, holes: tuple[int, ...] = ()):
@@ -2195,8 +2358,9 @@ def phase_registry(jpegs: list[bytes]) -> dict:
     - Steady load: a closed loop of 8 keep-alive connections over both
       models with the kernels' counts set to 0 just before it and read just
       after; with both models taking traffic, each count is attributed to
-      the engines by their batches: one unpack per batch of either, 17
-      fused depthwise launches per MobileNetV2 batch, no preprocess kernel.
+      the engines by their batches: one ragged preprocess per batch of
+      either, 17 fused depthwise launches per MobileNetV2 batch, no other
+      kernel.
       Every batch a graph replay.
     - Three hot swaps of Inception-v3 under the same load (``POST
       /models/swap`` with ``wait``): every answer 200, each answer from a
@@ -2219,9 +2383,6 @@ def phase_registry(jpegs: list[bytes]) -> dict:
       free within the pool between replays, so ``memory_allocated`` does not
       count them; ``memory_reserved`` does.)
     """
-    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
-    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
-    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
     from tensorflow_web_deploy_tpu_torch.server import start_server
     from tensorflow_web_deploy_tpu_torch.serving import aotcache
     from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
@@ -2248,19 +2409,18 @@ def phase_registry(jpegs: list[bytes]) -> dict:
 
         # steady load, with the launch counts attributed by batches
         before = {n: serving[n].engine.stats() for n in names}
-        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+        zero_launches()
         steady = ClosedLoop(srv.port, LOAD_CONNS, targets, per_conn=len(targets) // 4)
         t0 = time.perf_counter()
         steady_recs = steady.start().finish()
         steady_wall = time.perf_counter() - t0
-        launches = {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
-                    "unpack_ragged": unpack_ragged.launches}
+        launches = read_launches()
         after = {n: serving[n].engine.stats() for n in names}
         batches = {n: after[n]["batches"] - before[n]["batches"] for n in names}
         replays = {n: after[n]["graphs"]["replays"] - before[n]["graphs"]["replays"]
                    for n in names}
-        want = {"preprocess_i420": 0, "fused_dw": DW_CELLS * batches[INT8_MODEL],
-                "unpack_ragged": sum(batches.values())}
+        want = launches_want(fused_dw=DW_CELLS * batches[INT8_MODEL],
+                             preprocess_ragged=sum(batches.values()))
         if launches != want or replays != batches or 0 in batches.values():
             bad["launches"] = {"got": launches, "want": want, "batches": batches,
                                "replays": replays}
@@ -2573,9 +2733,6 @@ def phase_overload(jpegs: list[bytes]) -> dict:
       500, the 400s the injected decode failures, the 500s the injected
       dispatch failures, ``/healthz`` answers after, and each 200's top-k is
       the first server's for the same image (one at a time there too)."""
-    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
-    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
-    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
     from tensorflow_web_deploy_tpu_torch.server import start_server
     from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
 
@@ -2601,11 +2758,10 @@ def phase_overload(jpegs: list[bytes]) -> dict:
             return {mv.name: mv for mv in reg.serving_entries()}
 
         def counts():
-            return {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
-                    "unpack_ragged": unpack_ragged.launches}
+            return read_launches()
 
         def reset():
-            preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+            zero_launches()
 
         # cache: a pass of misses, then one of hits that runs nothing
         first = fan_out(port, jpegs, CACHE_CONNS, predict)
@@ -2795,8 +2951,8 @@ def phase_overload(jpegs: list[bytes]) -> dict:
         e1 = {n: mv.engine.stats() for n, mv in mvs.items()}
         batches = {n: e1[n]["batches"] - e0[n]["batches"] for n in mvs}
         replays = {n: e1[n]["graphs"]["replays"] - e0[n]["graphs"]["replays"] for n in mvs}
-        want = {"preprocess_i420": 0, "fused_dw": DW_CELLS * batches[INT8_MODEL],
-                "unpack_ragged": sum(batches.values())}
+        want = launches_want(fused_dw=DW_CELLS * batches[INT8_MODEL],
+                             unpack_ragged=sum(batches.values()))
         probes = walk_down(app, client, predict, jpegs)
         row["reroute"] = {
             "held_slots": HELD_SLOTS, "probes": PROBES,
@@ -2871,7 +3027,8 @@ OBS_SLO = "interactive=p99:1000ms:99"
 PROFILE_MS = 300
 KERNEL_SYMBOLS = {"preprocess_i420": ("preprocess_i420_kernel",),
                   "fused_dw": ("fused_dw_kernel",),
-                  "unpack_ragged": ("unpack_words", "unpack_bytes")}
+                  "unpack_ragged": ("unpack_words", "unpack_bytes"),
+                  "preprocess_ragged": ("preprocess_ragged_kernel",)}
 # every stage a /predict on this path stamps (the cache's two are off here)
 PATH_STAGES = ("http_read", "body_read", "lease_wait", "image_decode", "staging_write",
                "queue_wait", "device_transfer", "device_dispatch", "device_execute",
@@ -3002,9 +3159,6 @@ def phase_observability(jpegs: list[bytes], graphs: list[dict]) -> dict:
       again, on the same server."""
     import shutil
 
-    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
-    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
-    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
     from tensorflow_web_deploy_tpu_torch.server import start_server
     from tensorflow_web_deploy_tpu_torch.serving import http as thttp
     from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
@@ -3046,14 +3200,13 @@ def phase_observability(jpegs: list[bytes], graphs: list[dict]) -> dict:
         # load from a process of its own, the kernels' counts over it
         busy0, batches0 = counters()
         base = device_marker()
-        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+        zero_launches()
         lg = run_loadgen(srv.port, img_dir, names)
-        launches = {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
-                    "unpack_ragged": unpack_ragged.launches}
+        launches = read_launches()
         busy1, batches1 = counters()
         nb = {n: batches1[n] - batches0[n] for n in names}
-        want = {"preprocess_i420": 0, "fused_dw": DW_CELLS * nb[INT8_MODEL],
-                "unpack_ragged": sum(nb.values())}
+        want = launches_want(fused_dw=DW_CELLS * nb[INT8_MODEL],
+                             preprocess_ragged=sum(nb.values()))
         if launches != want or 0 in nb.values():
             bad["launches"] = {"got": launches, "want": want, "batches": nb}
         sm = lg["summary"]
@@ -3291,7 +3444,7 @@ def phase_placement(jpegs: list[bytes]) -> dict:
     - Over the load: img/s, p50, p99; the union busy share and the idle
       share, the summed busy share and the share of the window in which both
       engines' compute overlaps (CUDA events, one base); ``fused_dw`` = 17 ×
-      int8 batches and ``unpack_ragged`` = batches.
+      int8 batches and ``preprocess_ragged`` = batches.
     - Unload MobileNetV2 int8 under the running server: ``memory_allocated``
       and ``memory_reserved`` before and after, with every stream's cached
       free blocks released first. The segments freed must be all of its
@@ -3303,9 +3456,6 @@ def phase_placement(jpegs: list[bytes]) -> dict:
     """
     import shutil
 
-    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
-    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
-    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
     from tensorflow_web_deploy_tpu_torch.parallel.mesh import build_mesh
     from tensorflow_web_deploy_tpu_torch.server import config_from_args, parse_args, start_server
     from tensorflow_web_deploy_tpu_torch.serving.placement import parse_placement
@@ -3369,13 +3519,12 @@ def phase_placement(jpegs: list[bytes]) -> dict:
 
         batches0 = {nm: e.stats()["batches"] for nm, e in engines.items()}
         base = device_marker()
-        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+        zero_launches()
         lg = run_loadgen(srv.port, img_dir, names)
-        launches = {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
-                    "unpack_ragged": unpack_ragged.launches}
+        launches = read_launches()
         nb = {nm: e.stats()["batches"] - batches0[nm] for nm, e in engines.items()}
-        want_launches = {"preprocess_i420": 0, "fused_dw": DW_CELLS * nb[INT8_MODEL],
-                         "unpack_ragged": sum(nb.values())}
+        want_launches = launches_want(fused_dw=DW_CELLS * nb[INT8_MODEL],
+                                      preprocess_ragged=sum(nb.values()))
         row["kernel_launches"] = launches
         row["batches"] = nb
         if launches != want_launches or 0 in nb.values():
@@ -3531,16 +3680,22 @@ def throughput(eng, items: list, seconds: float, depth: int) -> dict:
 
 
 def slab_unpack_check(eng, items: list, n: int, holes: tuple[int, ...] = ()) -> dict:
-    """The unpack kernel on a slab of ``eng``'s pool holding the first ``n``
-    of ``items`` (``prepare_ragged`` results; slots in ``holes`` left
+    """The ragged kernels on a slab of ``eng``'s pool holding the first
+    ``n`` of ``items`` (``prepare_ragged`` results; slots in ``holes`` left
     uncommitted), shipped as ``dispatch_ragged`` ships it at its batch
-    bucket: the canvases and valid sizes must equal its plain version and
-    the host's ``pad_to_canvas`` bit for bit (a hole, or a slot past ``n``:
-    a zero canvas, hw (1, 1))."""
+    bucket: the unpack kernel's canvases and valid sizes must equal its
+    plain version and the host's ``pad_to_canvas`` bit for bit (a hole, or
+    a slot past ``n``: a zero canvas, hw (1, 1)), and the ragged preprocess
+    kernel's output at the engine's size, mode and dtype must equal its
+    plain version bit for bit."""
     from tensorflow_web_deploy_tpu_torch.ops.image import (
         pad_to_canvas,
         unpack_ragged,
         unpack_ragged_plain,
+    )
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_ragged import (
+        preprocess_ragged,
+        preprocess_ragged_plain,
     )
 
     s, bucket = 512, eng.pick_batch_bucket(n)
@@ -3559,10 +3714,14 @@ def slab_unpack_check(eng, items: list, n: int, holes: tuple[int, ...] = ()) -> 
     meta = dev[meta_off:].view(torch.int32).view(bucket, 4)
     got, got_hw = unpack_ragged(dev[:meta_off], meta, s)
     plain, plain_hw = unpack_ragged_plain(dev[:meta_off], meta, s)
+    args = (dev[:meta_off], meta, s, *eng.model_cfg.input_size, eng.model_cfg.preprocess,
+            eng.dtype)
     return {"rows": n, "bucket": bucket, "holes": list(holes),
             "kernel_is_plain": bool(torch.equal(got, plain) and torch.equal(got_hw, plain_hw)),
             "kernel_is_host": bool(np.array_equal(got.cpu().numpy(), want)
-                                   and np.array_equal(got_hw.cpu().numpy(), want_hw))}
+                                   and np.array_equal(got_hw.cpu().numpy(), want_hw)),
+            "preprocess_is_plain": bool(torch.equal(preprocess_ragged(*args),
+                                                    preprocess_ragged_plain(*args)))}
 
 
 def logit_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3578,8 +3737,8 @@ def phase_resnet50(jpegs: list[bytes]) -> dict:
       caffe), canvas 512, ``max_batch`` 32: 6 graphs captured at boot
       (batch 1, 2, 4, 8, 16, 32), each graph pool's bytes printed. A burst
       of the 24 JPEGs with the kernels' counts set to 0 just before it and
-      read just after: every batch a replay, ``unpack_ragged`` once per
-      batch, ``preprocess_i420`` and ``fused_dw`` never. The same JPEGs
+      read just after: every batch a replay, ``preprocess_ragged`` once per
+      batch, no other kernel. The same JPEGs
       one at a time must answer as the burst did (:func:`answers_agree`).
     - Throughput: full batch-32 slabs of the 24 JPEGs (cycled) dispatched
       back to back on the captured graph (:func:`throughput`): img/s,
@@ -3605,9 +3764,7 @@ def phase_resnet50(jpegs: list[bytes]) -> dict:
     import re
 
     from tensorflow_web_deploy_tpu_torch.models.adapter import native_converted
-    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
-    from tensorflow_web_deploy_tpu_torch.ops.image import pad_to_canvas, unpack_ragged
-    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
+    from tensorflow_web_deploy_tpu_torch.ops.image import pad_to_canvas
     from tensorflow_web_deploy_tpu_torch.server import start_server
     from tensorflow_web_deploy_tpu_torch.serving import costmodel
     from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
@@ -3623,8 +3780,7 @@ def phase_resnet50(jpegs: list[bytes]) -> dict:
     bad: dict = {}
 
     def counts() -> dict:
-        return {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
-                "unpack_ragged": unpack_ragged.launches}
+        return read_launches()
 
     t0 = time.perf_counter()
     srv = start_server(cfg, device="cuda", seed=SEED)
@@ -3650,7 +3806,7 @@ def phase_resnet50(jpegs: list[bytes]) -> dict:
 
         # the main path: a burst of the 24 JPEGs
         before = eng.stats()
-        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+        zero_launches()
         results, timeline = burst(srv, jpegs)
         launches = counts()
         after = eng.stats()
@@ -3665,7 +3821,7 @@ def phase_resnet50(jpegs: list[bytes]) -> dict:
                         "p99_ms": timeline["client_latency_ms"]["p99"],
                         "decodes": {d: after["decodes"][d] - before["decodes"][d]
                                     for d in after["decodes"]}}
-        want = {"preprocess_i420": 0, "fused_dw": 0, "unpack_ragged": batches}
+        want = launches_want(preprocess_ragged=batches)
         if launches != want or batches == 0 or \
                 graphs != {"replays": batches, "eager_batches": 0} or \
                 row["serve"]["statuses"] != {200: len(jpegs)}:
@@ -3720,18 +3876,19 @@ def phase_resnet50(jpegs: list[bytes]) -> dict:
                 not 0 < (tp["mfu"] or 0) <= 1:
             bad["throughput"] = tp
 
-        # the unpack kernel at this path's shapes: batch-32 slabs of the
-        # 512 canvas, full, with a hole, and 31 rows in the 32 bucket (the
-        # HTTP burst's batches)
+        # the unpack and ragged preprocess kernels at this path's shapes:
+        # batch-32 slabs of the 512 canvas, full, with a hole, and 31 rows in
+        # the 32 bucket (the HTTP burst's batches)
         row["unpack_32"] = [slab_unpack_check(eng, items, n, holes)
                             for n, holes in ((32, ()), (32, (7,)), (31, ()))]
-        if not all(c["kernel_is_plain"] and c["kernel_is_host"] for c in row["unpack_32"]):
+        if not all(c["kernel_is_plain"] and c["kernel_is_host"] and c["preprocess_is_plain"]
+                   for c in row["unpack_32"]):
             bad["unpack_32"] = row["unpack_32"]
 
         # HTTP: 96 images at once
         big = [jpegs[i % len(jpegs)] for i in range(RESNET_BURST)]
         b0 = eng.stats()
-        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
+        zero_launches()
         res96, tl96 = burst(srv, big)
         l96 = counts()
         b1 = eng.stats()
@@ -3746,7 +3903,7 @@ def phase_resnet50(jpegs: list[bytes]) -> dict:
             "p50_ms": tl96["client_latency_ms"]["p50"], "p99_ms": tl96["client_latency_ms"]["p99"],
             "batches_ms": tl96["batches_ms"]}
         if row["http_burst"]["statuses"] != {200: RESNET_BURST} or \
-                l96 != {"preprocess_i420": 0, "fused_dw": 0, "unpack_ragged": n96} or \
+                l96 != launches_want(preprocess_ragged=n96) or \
                 row["http_burst"]["replays"] != n96:
             bad["http_burst"] = row["http_burst"]
 
@@ -3859,6 +4016,73 @@ def make_photos(n: int, seed: int, side: int = 1024) -> list[bytes]:
         return list(pool.map(one, range(n)))
 
 
+def sweep_nms(other: str) -> None:
+    """``csrc/nms_fixed.cu`` against another version of that source with
+    the same C entry (``other``: an earlier commit's, say), on the ``ssd``
+    phase's candidates (SSD-MobileNet bf16, seed 0, the 24 JPEGs cycled to
+    a batch of 32, 90 classes) at every ``NMS_CASES`` shape: both keep
+    masks against the plain fixpoint bit for bit, and each kernel's µs in a
+    CUDA graph, timed in the order other, this, this, other. Prints
+    nvcc's register report for both sources first."""
+    import ctypes
+
+    from tensorflow_web_deploy_tpu_torch.ops import _build
+    from tensorflow_web_deploy_tpu_torch.ops.detection import nms_fixed_plain
+    from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
+
+    emit({"phase": "ptxas", "nms_fixed": ptxas_report("nms_fixed").splitlines(),
+          "other": ptxas_report(other).splitlines()})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "libother.so")
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", path, other],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {other}:\n{proc.stdout}{proc.stderr}")
+        libs = {"this": _build.load("nms_fixed"), "other": ctypes.CDLL(path)}
+
+    def entry(lib):
+        fn = lib.twd_nms_fixed
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                               ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def run(cb: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
+            keep = torch.empty(cs.shape, dtype=torch.uint8, device=cs.device)
+            err = fn(cb.data_ptr(), cs.data_ptr(), keep.data_ptr(), cb.shape[0], cb.shape[1],
+                     NMS_IOU, NMS_SCORE, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"nms_fixed launch failed: CUDA error {err}")
+            return keep.view(torch.bool)
+        return run
+
+    runs = {name: entry(lib) for name, lib in libs.items()}
+    cfg = _config("ssd_mobilenet", "bfloat16", warmup=False, wire="rgb", resize="matmul",
+                  ragged=True, canvas_buckets=SSD_BUCKETS, max_batch=SSD_MAX_BATCH)
+    eng = InferenceEngine(cfg, device="cuda", seed=SEED)
+    try:
+        prepared = [eng.prepare_ragged(data) for data in make_jpegs(24, SEED)]
+        items = [prepared[i % len(prepared)] for i in range(SSD_MAX_BATCH)]
+        *_, boxes, scores = ssd_candidates(eng, items)
+        smi = nvidia_smi()
+        for images, k in NMS_CASES:
+            cb, cs = nms_rows(boxes[:images], scores[:images], k)
+            with torch.inference_mode():
+                plain = nms_fixed_plain(cb, cs, NMS_IOU, NMS_SCORE)
+                equal = {name: bool(torch.equal(run(cb, cs), plain))
+                         for name, run in runs.items()}
+            us: dict = {"other": [], "this": []}
+            for name in ("other", "this", "this", "other"):
+                us[name].append(graph_time_ms(lambda: runs[name](cb, cs)) * 1e3)
+            row = {"phase": "sweep_nms", "nvidia_smi": smi, "other": other, "images": images,
+                   "k": k, "rows": cb.shape[0], "kept": int(plain.sum()),
+                   "candidates": int((cs > NMS_SCORE).sum()), "equal": equal, "us": us}
+            emit(row)
+            if not all(equal.values()):
+                raise AssertionError(f"a keep mask differs from the plain fixpoint: {row}")
+    finally:
+        eng.close()
+
+
 def sweep_overload() -> None:
     """The flood of ``overload`` (256 distinct JPEGs, 32 connections,
     ``X-Deadline-Ms: 100``) on a fresh overload server per (pipeline depth,
@@ -3961,6 +4185,14 @@ NMS_IOU, NMS_SCORE, NMS_K = 0.6, 1e-8, 100
 # subtractions, 2 clamps, the intersection's product, the union's add and
 # subtraction, the threshold's product, the comparison)
 NMS_PAIR_OPS = 13
+# the NMS kernel on the served candidates at other shapes, (images,
+# candidates a row), each bit for bit against the plain fixpoint: the batch
+# of 32 either side of a 32-candidate word and at the kernel's largest, and
+# one image's 90 rows of 100 (the `dag` path's batch-1 launch)
+NMS_CASES = ((32, 33), (32, 65), (32, 99), (32, 100), (32, 256), (1, 100))
+# the previous kernel's µs a served batch of 32 (PERF.md: the runs of PRs
+# 14-19 on an NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
+NMS_BEFORE_US = (58.43, 61.47)
 # SSD-MobileNet's six depthwise cells at 300 px: (channels, input side,
 # stride); block1 and feat1 take odd inputs (75, 19), which pad (1, 1)
 SSD_DW = [(96, 150, 2), (144, 75, 2), (192, 38, 2), (384, 19, 1), (384, 19, 2), (768, 10, 2)]
@@ -4134,6 +4366,34 @@ def ssd_raw(eng, canvases: torch.Tensor, hws: torch.Tensor) -> tuple:
         return eng.model(eng._preprocess(canvases, hws))
 
 
+def ssd_candidates(eng, items: list) -> tuple:
+    """A batch of prepared images through the engine's preprocess and model:
+    (canvases, hws) on the card, the raw outputs (:func:`ssd_raw`), and the
+    detector's decoded boxes [B, A, 4] and class scores [B, A, 90] in
+    float32, what the served NMS selects its candidates from."""
+    from tensorflow_web_deploy_tpu_torch.ops.detection import decode_boxes
+    from tensorflow_web_deploy_tpu_torch.ops.image import pad_to_canvas
+
+    canvases = torch.from_numpy(np.stack([pad_to_canvas(t, SSD_BUCKETS)[0]
+                                          for t, *_ in items])).cuda()
+    hws = torch.tensor([hw for _, hw, *_ in items], dtype=torch.int32).cuda()
+    raw = ssd_raw(eng, canvases, hws)
+    with torch.inference_mode():
+        boxes = decode_boxes(raw[0].float(), raw[2].float())
+        scores = torch.sigmoid(raw[1].float())[..., 1:]
+    return canvases, hws, raw, boxes, scores
+
+
+def nms_rows(boxes: torch.Tensor, scores: torch.Tensor, k: int) -> tuple:
+    """The served selection's NMS input: every (image, class)'s top ``k``
+    candidates as contiguous rows, boxes [rows, k, 4] and scores [rows, k]."""
+    from tensorflow_web_deploy_tpu_torch.ops.detection import select_candidates
+
+    with torch.inference_mode():
+        cand, cand_s = select_candidates(boxes, scores, k)
+        return cand.reshape(-1, k, 4).contiguous(), cand_s.reshape(-1, k).contiguous()
+
+
 def ssd_rel(got: tuple, ref: tuple) -> dict:
     """max |Δ| over max |reference| of the raw box codes and the raw
     scores, each against its reference."""
@@ -4148,13 +4408,13 @@ def phase_ssd(jpegs: list[bytes]) -> dict:
       ragged rgb wire, the matmul resize, canvas 512, batch buckets 1–32 (6
       graphs captured at boot). The 24 JPEGs one at a time, then at once
       with the kernels' counts set to 0 just before the burst and read just
-      after: every batch a replay, ``unpack_ragged`` and ``nms_fixed`` once
-      a batch, ``preprocess_i420`` and ``fused_dw`` never. Every answer 200
+      after: every batch a replay, ``preprocess_ragged`` and ``nms_fixed``
+      once a batch, no other kernel. Every answer 200
       with the reference's keys; the burst's detections agree with the
       serial ones for the same image (:func:`ssd_answers_agree`).
     - Throughput: full batch-32 slabs back to back on the captured graph
-      (img/s, compute ms, one replay's device time, MFU), the unpack kernel
-      against its plain version on those slabs.
+      (img/s, compute ms, one replay's device time, MFU), the unpack and
+      ragged preprocess kernels against their plain versions on those slabs.
     - NMS: the kernel's keep mask against ``nms_fixed_plain`` bit for bit
       on a served batch's candidates (32 images × 90 classes × 100) and on
       adversarial rows (:func:`nms_adversarial_rows`); ``multiclass_nms``
@@ -4187,17 +4447,12 @@ def phase_ssd(jpegs: list[bytes]) -> dict:
     from tensorflow_web_deploy_tpu_torch.models.adapter import init_variables, native_converted
     from tensorflow_web_deploy_tpu_torch.models.ssd_mobilenet import ASPECT_RATIOS, SSDMobileNet
     from tensorflow_web_deploy_tpu_torch.ops.detection import (
-        decode_boxes,
         multiclass_nms,
         nms_fixed,
         nms_fixed_plain,
-        select_candidates,
     )
-    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
-    from tensorflow_web_deploy_tpu_torch.ops.image import pad_to_canvas, unpack_ragged
     from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import (
         decode_trailer,
-        preprocess_i420,
         preprocess_i420_plain,
         preprocess_i420_wire,
         wire_canvases,
@@ -4207,8 +4462,7 @@ def phase_ssd(jpegs: list[bytes]) -> dict:
     from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine, quiesced
 
     t_phase = time.perf_counter()
-    wrappers = {"preprocess_i420": preprocess_i420, "fused_dw": fused_dw,
-                "unpack_ragged": unpack_ragged, "nms_fixed": nms_fixed}
+    wrappers = kernel_wrappers()
 
     def counts() -> dict:
         return {name: w.launches for name, w in wrappers.items()}
@@ -4241,7 +4495,7 @@ def phase_ssd(jpegs: list[bytes]) -> dict:
                    outputs=st["outputs"], row_width=eng.row_width,
                    anchors=int(eng.model.anchors.shape[0]))
         if (eng.batch_buckets != (1, 2, 4, 8, 16, 32) or st["graphs"]["captured"] != 6
-                or eng.kernels != ["unpack_ragged", "nms_fixed"] or st["task"] != "detect"
+                or eng.kernels != ["preprocess_ragged", "nms_fixed"] or st["task"] != "detect"
                 or (classes, d, eng.row_width, row["anchors"]) != (90, 100, 601, 375)):
             bad["engine"] = {k: row[k] for k in ("batch_buckets", "graphs", "kernels_built",
                                                   "task", "row_width", "anchors")}
@@ -4263,8 +4517,7 @@ def phase_ssd(jpegs: list[bytes]) -> dict:
                         "p50_ms": timeline["client_latency_ms"]["p50"],
                         "p99_ms": timeline["client_latency_ms"]["p99"],
                         "serial_p50_ms": float(np.percentile([r[2] for r in serial], 50)) * 1e3}
-        want = {"preprocess_i420": 0, "fused_dw": 0, "unpack_ragged": batches,
-                "nms_fixed": batches}
+        want = launches_want(preprocess_ragged=batches, nms_fixed=batches)
         if launches != want or batches == 0 or \
                 graphs != {"replays": batches, "eager_batches": 0} or \
                 row["serve"]["statuses"] != {200: len(jpegs)}:
@@ -4320,20 +4573,14 @@ def phase_ssd(jpegs: list[bytes]) -> dict:
                 not 0 < (tp["mfu"] or 0) <= 1:
             bad["throughput"] = tp
         row["unpack_32"] = [slab_unpack_check(eng, items, 32), slab_unpack_check(eng, items, 24)]
-        if not all(c["kernel_is_plain"] and c["kernel_is_host"] for c in row["unpack_32"]):
+        if not all(c["kernel_is_plain"] and c["kernel_is_host"] and c["preprocess_is_plain"]
+                   for c in row["unpack_32"]):
             bad["unpack_32"] = row["unpack_32"]
 
         # the NMS kernel on a served batch's candidates and on adversarial rows
-        canvases = torch.from_numpy(np.stack([pad_to_canvas(t, SSD_BUCKETS)[0]
-                                              for t, *_ in items])).cuda()
-        hws = torch.tensor([hw for _, hw, *_ in items], dtype=torch.int32).cuda()
-        raw16 = ssd_raw(eng, canvases, hws)
+        canvases, hws, raw16, boxes, scores = ssd_candidates(eng, items)
+        cb, cs = nms_rows(boxes, scores, NMS_K)
         with torch.inference_mode():
-            boxes = decode_boxes(raw16[0].float(), raw16[2].float())
-            scores = torch.sigmoid(raw16[1].float())[..., 1:]
-            cand, cand_s = select_candidates(boxes, scores, NMS_K)
-            cb = cand.reshape(-1, NMS_K, 4).contiguous()
-            cs = cand_s.reshape(-1, NMS_K).contiguous()
             keep = nms_fixed(cb, cs, NMS_IOU, NMS_SCORE)
             keep_plain = nms_fixed_plain(cb, cs, NMS_IOU, NMS_SCORE)
             adv = [(nms_fixed(b, s, 0.5, 0.05), nms_fixed_plain(b, s, 0.5, 0.05), s > 0.05)
@@ -4363,9 +4610,22 @@ def phase_ssd(jpegs: list[bytes]) -> dict:
         nms["bound_ms"], nms["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else \
             (t_ops, "operations")
         nms["share_of_bound"] = nms["bound_ms"] / nms["ms"]
+        nms["us"], nms["before_us"] = nms["ms"] * 1e3, NMS_BEFORE_US
+        # the served candidates again at other shapes
+        nms["by_k"] = []
+        for images, kk in NMS_CASES:
+            cbk, csk = nms_rows(boxes[:images], scores[:images], kk)
+            with torch.inference_mode():
+                keep_k = nms_fixed(cbk, csk, NMS_IOU, NMS_SCORE)
+                plain_k = nms_fixed_plain(cbk, csk, NMS_IOU, NMS_SCORE)
+            nms["by_k"].append({
+                "images": images, "k": kk, "rows": cbk.shape[0], "kept": int(keep_k.sum()),
+                "candidates": int((csk > NMS_SCORE).sum()),
+                "equal": bool(torch.equal(keep_k, plain_k)),
+                "us": graph_time_ms(lambda: nms_fixed(cbk, csk, NMS_IOU, NMS_SCORE)) * 1e3})
         row["nms"] = nms
         if not (nms["served_equal"] and nms["adversarial_equal"] and nms["multiclass_equal"]
-                and nms["candidates"] > 0):
+                and nms["candidates"] > 0 and all(r["equal"] for r in nms["by_k"])):
             bad["nms"] = nms
 
         # the forward at a stated tolerance: float32 against the CPU, bf16
@@ -4436,7 +4696,7 @@ def phase_ssd(jpegs: list[bytes]) -> dict:
             "batch": len(jpegs), "launches": ylaunch, "max_abs_err": float((x32 - ref).abs().max()),
             **bf16_vs_plain(x16, ref, "inception"),
             "num_detections": [int(v) for v in yout[3][:4]]}
-        if (ylaunch != {"preprocess_i420": 1, "fused_dw": 0, "unpack_ragged": 0, "nms_fixed": 1}
+        if (ylaunch != launches_want(preprocess_i420=1, nms_fixed=1)
                 or row["preprocess_300"]["max_abs_err"] > KERNEL_TOL["inception"]
                 or not all(np.isfinite(o).all() for o in yout)):
             bad["preprocess_300"] = row["preprocess_300"]
@@ -4651,16 +4911,16 @@ def phase_converter(jpegs: list[bytes]) -> dict:
       per replay of the batch-8 graph (``torch.profiler``, a lower bound),
       device ms per batch-8 and batch-32 replay, full batch-32 slabs back
       to back (img/s, compute ms, idle share) and MFU from the cost model.
-    - Ragged rgb server: the preset on the ragged wire (the unpack kernel
-      once a batch, no preprocess launch), and ``mobilenet_v2.pb`` in bf16
+    - Ragged rgb server: the preset on the ragged wire (the ragged
+      preprocess kernel once a batch, no other launch), and ``mobilenet_v2.pb`` in bf16
       (its 17 depthwise convs on cuDNN, no fused launch) and with
       ``,dtype=int8``: the gate's verdict and the leaves it quantized
       (none: the Keras-named constants match no kernel leaf name, as in the
       reference).
     - ResNet-50 (BASELINE config 3): the preset ``resnet50`` in bf16 and
       float32 beside ``native:resnet50`` on the ragged rgb wire (caffe: the
-      preprocess kernel refuses it), the same burst (one unpack launch a
-      batch, no preprocess launch), answers and path numbers; its logits
+      preprocess kernel refuses it), the same burst (one ragged preprocess
+      launch a batch, no other launch), answers and path numbers; its logits
       against native float32's on 8 preprocessed images (another
       conversion with the logits as output): float32 within
       ``F32_LOGIT_RTOL``, bf16 at most ``PB_BF16_DEVIATION_RATIO`` × as far
@@ -4681,10 +4941,6 @@ def phase_converter(jpegs: list[bytes]) -> dict:
     from tensorflow_web_deploy_tpu_torch.models import get as zoo_get
     from tensorflow_web_deploy_tpu_torch.models.adapter import init_variables, native_converted
     from tensorflow_web_deploy_tpu_torch.models.ssd_mobilenet import ASPECT_RATIOS
-    from tensorflow_web_deploy_tpu_torch.ops.detection import nms_fixed
-    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
-    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
-    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
     from tensorflow_web_deploy_tpu_torch.server import start_server
     from tensorflow_web_deploy_tpu_torch.serving import costmodel
     from tensorflow_web_deploy_tpu_torch.tools import make_artifacts
@@ -4697,8 +4953,7 @@ def phase_converter(jpegs: list[bytes]) -> dict:
                       *CONVERTER_SSD_MODELS],
            "canvas_buckets": list(CONVERTER_BUCKETS), "max_batch": CONVERTER_MAX_BATCH}
     bad: dict = {}
-    wrappers = {"preprocess_i420": preprocess_i420, "fused_dw": fused_dw,
-                "unpack_ragged": unpack_ragged, "nms_fixed": nms_fixed}
+    wrappers = kernel_wrappers()
 
     def counts() -> dict:
         return {name: w.launches for name, w in wrappers.items()}
@@ -4890,7 +5145,7 @@ def phase_converter(jpegs: list[bytes]) -> dict:
     srv, engines, row["ragged_boot_s"] = server(CONVERTER_RAGGED_MODELS, wire_format="rgb",
                                                 resize="matmul", ragged=True, max_batch=8)
     try:
-        serve_burst(srv, "pb_ragged_burst", {"unpack_ragged": 1})
+        serve_burst(srv, "pb_ragged_burst", {"preprocess_ragged": 1})
         zero()
         mobilenet = {name: answers(srv, name) for name in ("mobilenet_v2", "mobilenet_v2_int8")}
         launches = counts()
@@ -4902,7 +5157,7 @@ def phase_converter(jpegs: list[bytes]) -> dict:
             "int8_gate": q.parity, "int8_quantized_leaves": len(q.model.graph.int8_params),
             "int8_vs_bf16": compare(mobilenet["mobilenet_v2_int8"], mobilenet["mobilenet_v2"],
                                     PB_BF16_TOL)}
-        if launches["fused_dw"] or launches["unpack_ragged"] == 0 or \
+        if launches["fused_dw"] or launches["preprocess_ragged"] == 0 or \
                 q.parity is None or not q.parity["pass"] or \
                 row["mobilenet_v2"]["int8_quantized_leaves"] != 0:
             bad["mobilenet_v2"] = row["mobilenet_v2"]
@@ -4914,7 +5169,7 @@ def phase_converter(jpegs: list[bytes]) -> dict:
                                   ragged=True, max_batch=CONVERTER_MAX_BATCH)
     res = row["resnet50"] = {"boot_s": boot_s}
     try:
-        burst_pb = serve_burst(srv, "resnet50_burst", {"unpack_ragged": 1})
+        burst_pb = serve_burst(srv, "resnet50_burst", {"preprocess_ragged": 1})
         served = {name: answers(srv, name) for name in engines}
         res["bf16"] = compare(served["resnet50"], served["native_resnet50"], PB_BF16_TOL)
         res["float32"] = compare(served["resnet50_f32"], served["native_resnet50_f32"],
@@ -5180,10 +5435,6 @@ def phase_jobs(jpegs: list[bytes]) -> dict:
       unmoved, no preprocess launch."""
     import shutil
 
-    from tensorflow_web_deploy_tpu_torch.ops.detection import nms_fixed
-    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
-    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
-    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
     from tensorflow_web_deploy_tpu_torch.server import start_server
     from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
 
@@ -5195,12 +5446,10 @@ def phase_jobs(jpegs: list[bytes]) -> dict:
     n_batches = JOBS_IMAGES // JOBS_BATCH
 
     def counts() -> dict:
-        return {"preprocess_i420": preprocess_i420.launches, "fused_dw": fused_dw.launches,
-                "unpack_ragged": unpack_ragged.launches, "nms_fixed": nms_fixed.launches}
+        return read_launches()
 
     def zero() -> None:
-        preprocess_i420.launches = fused_dw.launches = unpack_ragged.launches = 0
-        nms_fixed.launches = 0
+        zero_launches()
 
     tmp = tempfile.mkdtemp(prefix="jobs-")
     try:
@@ -5284,8 +5533,7 @@ def phase_jobs(jpegs: list[bytes]) -> dict:
                 "replay_ms_256": replay_ms,
                 "bulk_device_share": batches * replay_ms / 1e3 / run_s}
             row["job"] = job1
-            want = {"preprocess_i420": n_batches, "fused_dw": 0, "unpack_ragged": 0,
-                    "nms_fixed": 0}
+            want = launches_want(preprocess_i420=n_batches)
             if doc["state"] != "DONE" or doc["completed"] != JOBS_IMAGES or \
                     job1["results"] != {"lines": JOBS_IMAGES, "lost": 0, "duplicated": 0,
                                         "in_order": True, "errors": 0} or \
@@ -5617,16 +5865,11 @@ def phase_dag(jpegs: list[bytes]) -> dict:
     from PIL import Image
 
     from tensorflow_web_deploy_tpu_torch.ops import dag_glue
-    from tensorflow_web_deploy_tpu_torch.ops.detection import nms_fixed
-    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
-    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
-    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
     from tensorflow_web_deploy_tpu_torch.serving.http import App, make_http_server, \
         shutdown_gracefully
 
     t_phase = time.perf_counter()
-    wrappers = {"preprocess_i420": preprocess_i420, "fused_dw": fused_dw,
-                "unpack_ragged": unpack_ragged, "nms_fixed": nms_fixed}
+    wrappers = kernel_wrappers()
 
     def counts() -> dict:
         return {name: w.launches for name, w in wrappers.items()}
@@ -5717,8 +5960,7 @@ def phase_dag(jpegs: list[bytes]) -> dict:
         if any(v != [n, 0] for v in (*row["served"]["replays_serial"].values(),
                                      *row["served"]["replays_burst"].values())):
             bad["replays"] = {k: row["served"][k] for k in ("replays_serial", "replays_burst")}
-        if launches != {"preprocess_i420": 0, "fused_dw": DW_CELLS * n, "unpack_ragged": 0,
-                        "nms_fixed": n}:
+        if launches != launches_want(fused_dw=DW_CELLS * n, nms_fixed=n):
             bad["launches"] = launches
 
         # stage by stage through the port's own calls
@@ -6202,8 +6444,7 @@ def serve_export(export: str, dtype: str, posted: list[bytes], labels: list[str]
     score_gap = max(abs(sc - pf[i, idx]) for i, idx, sc, _ in entries)
     seed_gap = max(abs(results[i][1]["predictions"][0]["score"] - ps[i, idx])
                    for i, idx in enumerate(top1))
-    want = {"preprocess_i420": batches, "fused_dw": DW_CELLS * batches,
-            "unpack_ragged": 0, "nms_fixed": 0}
+    want = launches_want(preprocess_i420=batches, fused_dw=DW_CELLS * batches)
     checks = {
         "status": all(status == 200 for status, _, _ in results),
         "labels": all(lab == labels[idx] for _, idx, _, lab in entries),
@@ -6253,16 +6494,11 @@ def phase_train(jpegs: list[bytes]) -> dict:
     from tensorflow_web_deploy_tpu_torch.models import get as zoo_get
     from tensorflow_web_deploy_tpu_torch.models.adapter import from_jax_params, \
         init_variables, read_serving_export
-    from tensorflow_web_deploy_tpu_torch.ops.detection import nms_fixed
-    from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
-    from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
-    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
     from tensorflow_web_deploy_tpu_torch.tools.train import SyntheticData
     from tensorflow_web_deploy_tpu_torch.train import create_train_state, make_train_step, sgd
     from tensorflow_web_deploy_tpu_torch.train.checkpoint import Checkpointer
 
-    wrappers = {"preprocess_i420": preprocess_i420, "fused_dw": fused_dw,
-                "unpack_ragged": unpack_ragged, "nms_fixed": nms_fixed}
+    wrappers = kernel_wrappers()
 
     def counts() -> dict:
         return {name: w.launches for name, w in wrappers.items()}
@@ -6396,10 +6632,13 @@ def phase_train(jpegs: list[bytes]) -> dict:
 def main(argv: list[str]) -> int:
     sweeps = ("--sweep-fused-dw", "--sweep-preprocess", "--sweep-overload", "--sweep-dag")
     if not (argv == [] or (len(argv) == 1 and argv[0] in sweeps)
-            or argv in (["--phase", "resnet50"], ["--phase", "ssd"],
+            or (len(argv) == 2 and argv[0] == "--sweep-nms" and argv[1].endswith(".cu"))
+            or argv in (["--phase", "ragged_preprocess"], ["--phase", "resnet50"],
+                        ["--phase", "ssd"],
                         ["--phase", "converter"], ["--phase", "jobs"], ["--phase", "dag"],
                         ["--phase", "train"])):
-        print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)} | --phase resnet50 | "
+        print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)} | --sweep-nms OTHER.cu | "
+              "--phase ragged_preprocess | --phase resnet50 | "
               "--phase ssd | --phase converter | --phase jobs | --phase dag | --phase train], "
               f"not {argv}", file=sys.stderr)
         return 2
@@ -6449,7 +6688,13 @@ def main(argv: list[str]) -> int:
     if argv == ["--sweep-dag"]:
         sweep_dag()
         return 0
-    if argv == ["--phase", "resnet50"]:  # the phase alone, after the build
+    if argv[:1] == ["--sweep-nms"]:
+        sweep_nms(argv[1])
+        return 0
+    if argv == ["--phase", "ragged_preprocess"]:  # the phase alone, after the build
+        phase_ragged_preprocess(make_jpegs(24, SEED))
+        return 0
+    if argv == ["--phase", "resnet50"]:
         phase_resnet50(make_jpegs(24, SEED))
         return 0
     if argv == ["--phase", "ssd"]:
@@ -6472,6 +6717,7 @@ def main(argv: list[str]) -> int:
     jpegs = make_jpegs(24, SEED)
     phase_native_decode(jpegs)
     unpack = phase_ragged_unpack(jpegs)
+    ragged_pp = phase_ragged_preprocess(jpegs)
     graphs = phase_graphs(jpegs)
     inception = phase_main_path(jpegs, "inception_v3", "bfloat16", fused_cells=0,
                                 second_burst=True)
@@ -6511,6 +6757,7 @@ def main(argv: list[str]) -> int:
     by_path["dag"] = dag["kernel_launches"]
     by_path["train"] = train["kernel_launches"]
     by_kernel = {name: {m: n.get(name, 0) for m, n in by_path.items()} for name in KERNELS}
+    pp8 = next(r for r in ragged_pp["cases"] if (r["batch"], r["out"]) == (8, OUT))
     emit({"kernels": [{
         "name": "preprocess_i420",
         "route": "cuda",
@@ -6574,6 +6821,34 @@ def main(argv: list[str]) -> int:
         "library_ms": None,
         "host_us": unpack["host_us"],
     }, {
+        "name": "preprocess_ragged",
+        "route": "cuda",
+        "source": "tensorflow_web_deploy_tpu_torch/csrc/preprocess_ragged.cu",
+        "replaces": "tensorflow_web_deploy_tpu/ops/image.py:107 unpack_ragged, :251 "
+                    "_bilinear_matrix, :267 resize_from_valid_mm and :446 make_preprocess_fn's "
+                    "normalize (XLA work; not Pallas kernels)",
+        "launches": sum(by_kernel["preprocess_ragged"].values()),
+        "launches_by_path": by_kernel["preprocess_ragged"],
+        # float32 against its plain version, every case, holes included;
+        # bf16 within this many bf16 ulps
+        "max_abs_err": ragged_pp["max_abs_err"],
+        "bf16_max_ulps": ragged_pp["bf16_max_ulps"],
+        # batch of 8 main-path images, 512 canvas, 299 out, bf16 (Inception-v3)
+        "ms": pp8["ms"],
+        "plain_ms": pp8["plain_ms"],
+        "bound_ms": pp8["bound_ms"],
+        "bound_by": pp8["bound_by"],
+        # no one PyTorch call resizes from a ragged arena
+        "library_ms": None,
+        "host_us": pp8["host_us"],
+        # the stage it replaced (unpack, matmul resize, normalize, cast)
+        "stage_ms": pp8["stage_ms"],
+        "stage_kernels": pp8["stage_kernels_per_call"],
+        # batch 32: SSD's 300 inception and ResNet-50's 224 caffe
+        "cases": [{k: r[k] for k in ("batch", "out", "mode", "ms", "stage_ms",
+                                     "stage_kernels_per_call", "bound_ms", "plain_ms")}
+                  for r in ragged_pp["cases"]],
+    }, {
         "name": "nms_fixed",
         "route": "cuda",
         "source": "tensorflow_web_deploy_tpu_torch/csrc/nms_fixed.cu",
@@ -6591,6 +6866,8 @@ def main(argv: list[str]) -> int:
         # no one PyTorch call computes a batched greedy NMS
         "library_ms": None,
         "host_us": ssd["nms"]["host_us"],
+        # this run's µs at the other shapes: rows × candidates a row
+        "us_by_rows_k": {f"{r['rows']}x{r['k']}": r["us"] for r in ssd["nms"]["by_k"]},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,7 @@ batch has the same shapes and one CUDA graph serves it.
 
 The per-(image, class) NMS is :func:`nms_fixed`. On a CUDA tensor it is one
 launch of the hand-written kernel ``csrc/nms_fixed.cu`` for all of a
-batch's (image, class) rows; on a CPU tensor it is
+batch's (image, class) rows, one warp a row; on a CPU tensor it is
 :func:`nms_fixed_plain`, the reference's parallel fixpoint (``keep ← cand
 ∧ ¬∃ higher-priority kept overlapper``, iterated until it stops changing).
 The fixpoint's test reads a device bool on the host, which a CUDA graph
@@ -133,7 +133,7 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     float32 [N, K, 4], scores float32 [N, K] → keep mask bool [N, K].
 
     On CUDA tensors, one launch of the hand-written kernel in
-    ``csrc/nms_fixed.cu`` (one block per row, K ≤ ``MAX_CANDIDATES``); it
+    ``csrc/nms_fixed.cu`` (one warp per row, K ≤ ``MAX_CANDIDATES``); it
     reads nothing on the host, so a CUDA graph captures it. On CPU tensors,
     :func:`nms_fixed_plain`, which gives the same mask for rows in priority
     order. ``nms_fixed.launches`` counts kernel launches."""

@@ -17,9 +17,12 @@ rows carry hw = 1×1 and are sliced off on the host.
 
 On the ragged wire (rgb only) a batch is one pinned :class:`RaggedSlab`
 instead: each image's tight rows back to back, then the int32 meta table,
-shipped in one non-blocking copy; the device rebuilds the canvases
-(``ops/image.py::unpack_ragged``, one kernel that reads the table on the
-device) and the same serve path follows.
+shipped in one non-blocking copy. With the matmul resize (the default) the
+whole preprocess stage is one kernel that reads the arena and the table on
+the device and stores the serving dtype
+(``ops/preprocess_ragged.py::preprocess_ragged``); with the gather resize
+the device rebuilds the canvases first (``ops/image.py::unpack_ragged``,
+one kernel) and the gather resize follows. The same head follows either.
 
 **Placement** (``serving/placement.py``, the reference's ``_Replica``).
 The engine builds one :class:`_Replica` per device group of its
@@ -140,6 +143,7 @@ from ..ops.image import (
     unpack_ragged,
 )
 from ..ops.preprocess_i420 import decode_trailer, preprocess_i420, preprocess_i420_wire
+from ..ops.preprocess_ragged import preprocess_ragged
 from ..parallel.mesh import build_mesh, mesh_for
 from ..utils.config import ServerConfig
 from . import aotcache
@@ -601,6 +605,9 @@ class InferenceEngine:
         # yuv420 + kernel: the kernel takes the wire buffer itself
         # (preprocess_packed); the other paths decode the trailers first
         self._wire_kernel = cfg.wire_format == "yuv420" and cfg.resize == "kernel"
+        # ragged + matmul: one kernel from the arena to the serving dtype
+        # (preprocess_ragged); ragged + gather: unpack, then the gather resize
+        self._ragged_kernel = self.ragged and cfg.resize == "matmul"
         self._pinned = self.device.type == "cuda"
         # Warmup's first phase, the one-time costs, runs here: the int8
         # parity gate below already launches the kernels. The kernel
@@ -608,7 +615,9 @@ class InferenceEngine:
         # build cache, and the native decoder is built (a build fault raises
         # here, not per request).
         self.aot_cache = aotcache.AotCache.from_config(cfg)
-        self.kernels = [name for name, used in (("unpack_ragged", self.ragged),
+        self.kernels = [name for name, used in (("preprocess_ragged", self._ragged_kernel),
+                                                ("unpack_ragged",
+                                                 self.ragged and not self._ragged_kernel),
                                                 ("preprocess_i420", self._wire_kernel),
                                                 ("fused_dw", self.fused_dw),
                                                 ("nms_fixed", self.task == "detect")) if used]
@@ -878,9 +887,15 @@ class InferenceEngine:
     def _serve_ragged(self, model, arena: torch.Tensor, meta: torch.Tensor,
                       s: int) -> torch.Tensor:
         """Device side of one ragged batch: the arena and the int32 [rows,
-        4] meta table → unpack → preprocess → :meth:`_head`."""
-        canvases, hws = unpack_ragged(arena, meta, s)
-        return self._head(model, self._preprocess(canvases, hws))
+        4] meta table → preprocess → :meth:`_head`. The matmul resize's
+        stage is one ``preprocess_ragged`` call (its plain composition on the
+        CPU); the gather resize's unpacks the canvases first."""
+        if self._ragged_kernel:
+            h, w = self.model_cfg.input_size
+            x = preprocess_ragged(arena, meta, s, h, w, self.model_cfg.preprocess, self.dtype)
+        else:
+            x = self._preprocess(*unpack_ragged(arena, meta, s))
+        return self._head(model, x)
 
     # ----------------------------------------------------------- executables
 
@@ -1238,11 +1253,11 @@ class InferenceEngine:
     def dispatch_ragged(self, slab: RaggedSlab, n: int, spans=(),
                         replica: int | None = None) -> BatchHandle:
         """Ship a filled ragged slab's first ``n`` slots (holes included;
-        slots past ``n`` are dropped) and enqueue unpack → serve, as
+        slots past ``n`` are dropped) and enqueue preprocess → serve, as
         :meth:`dispatch_staged`. The arena's used prefix and the meta table
         go in one non-blocking copy. A committed row that does not fit the
         canvas or the shipped arena raises ValueError here, on the host: the
-        device unpack reads the table without checking it."""
+        device reads the table without checking it."""
         t0 = time.monotonic()
         bucket = self.pick_batch_bucket(n)
         if n > bucket:
@@ -1667,6 +1682,7 @@ class InferenceEngine:
             "kernel_launches": {"preprocess_i420": preprocess_i420.launches,
                                 "fused_dw": fused_dw.launches,
                                 "unpack_ragged": unpack_ragged.launches,
+                                "preprocess_ragged": preprocess_ragged.launches,
                                 "nms_fixed": nms_fixed.launches},
             "graphs": graphs,
             "aot_cache": {**aotcache.stats(self.aot_cache), "libraries": self.kernels},

@@ -358,7 +358,7 @@ def test_predict_classifies_as_the_jax_app(lively_cls_pb):
     ports, teng, close = _both_apps(dict(name="small_cls", pb_path=lively_cls_pb,
                                          input_size=(SIZE, SIZE), dtype="float32", topk=5))
     try:
-        assert (teng.source, teng.num_classes, teng.kernels) == ("pb", 1000, ["unpack_ragged"])
+        assert (teng.source, teng.num_classes, teng.kernels) == ("pb", 1000, ["preprocess_ragged"])
         for seed, (h, w) in enumerate([(200, 120), (77, 51), (128, 128)]):
             (js, jbody), (ts, tbody) = (_post(p, _jpeg(seed, h, w)) for p in ports)
             assert js == ts == 200, (jbody, tbody)
@@ -382,7 +382,7 @@ def test_predict_detects_as_the_jax_app(small_ssd_pb):
         name="small_ssd", pb_path=small_ssd_pb, task="detect", input_size=(SIZE, SIZE),
         dtype="float32", output_names=["raw_boxes", "raw_scores", "anchors"]))
     try:
-        assert (teng.num_classes, teng.kernels) == (10, ["unpack_ragged", "nms_fixed"])
+        assert (teng.num_classes, teng.kernels) == (10, ["preprocess_ragged", "nms_fixed"])
         for seed, (h, w) in enumerate([(200, 120), (90, 96)]):
             (js, jbody), (ts, tbody) = (_post(p, _jpeg(seed + 7, h, w)) for p in ports)
             assert js == ts == 200, (jbody, tbody)
@@ -407,7 +407,7 @@ def test_predict_detects_on_the_tools_ssd_as_the_jax_app(tmp_path):
         name="tool_ssd", pb_path=str(path), task="detect", input_size=(SIZE, SIZE),
         dtype="float32", output_names=["raw_boxes", "raw_scores", "anchors"]))
     try:
-        assert (teng.num_classes, teng.kernels) == (10, ["unpack_ragged", "nms_fixed"])
+        assert (teng.num_classes, teng.kernels) == (10, ["preprocess_ragged", "nms_fixed"])
         for seed, (h, w) in enumerate([(200, 120), (90, 96)]):
             (js, jbody), (ts, tbody) = (_post(p, _jpeg(seed + 11, h, w)) for p in ports)
             assert js == ts == 200, (jbody, tbody)

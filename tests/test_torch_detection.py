@@ -169,6 +169,23 @@ def test_nms_fixed_on_cpu_runs_the_plain_version_and_checks_devices():
         nms_fixed(_t(boxes)[None].to("meta"), _t(scores)[None].to("meta"), 0.5, 0.05)
 
 
+@pytest.mark.parametrize("k", [33, 65, 99, 100, 256])
+def test_nms_fixed_equals_jax_either_side_of_a_candidate_word(k):
+    """At candidate counts either side of a 32-candidate word (the kernel
+    has one instance per word count) and at its largest, ``nms_fixed`` on
+    sorted rows equals the reference's fixpoint row by row."""
+    rs = np.random.RandomState(200 + k)
+    rows = [adversarial(rs, trial, kmax=k) for trial in range(4)]
+    boxes = np.stack([b for b, _ in rows])
+    scores = np.stack([s for _, s in rows])
+    order = np.argsort(-scores, axis=1, kind="stable")
+    boxes = np.take_along_axis(boxes, order[..., None], 1)
+    scores = np.take_along_axis(scores, order, 1)
+    got = nms_fixed(_t(boxes), _t(scores), 0.5, 0.05).numpy()
+    for i, (b, s) in enumerate(zip(boxes, scores)):
+        np.testing.assert_array_equal(got[i], np.asarray(jdet.nms_fixed(b, s, 0.5, 0.05)))
+
+
 def _tied_inputs(rs, b: int, a: int, c: int):
     """Boxes, and scores quantized to eighths (with some exact zeros):
     equal scores across anchors of one class and across classes."""

@@ -163,7 +163,7 @@ def test_engine_stats_carry_the_cache_and_graph_blocks():
     # the process's device memory: none on the CPU
     assert st["graphs"]["memory_allocated"] is st["graphs"]["memory_reserved"] is None
     assert st["kernel_launches"].keys() == {"preprocess_i420", "fused_dw", "unpack_ragged",
-                                            "nms_fixed"}
+                                            "preprocess_ragged", "nms_fixed"}
     eng.close()
 
 
@@ -226,8 +226,9 @@ def test_replay_equals_eager_on_card(model, wire):
     from tensorflow_web_deploy_tpu_torch.ops.fused_dw import fused_dw
     from tensorflow_web_deploy_tpu_torch.ops.image import unpack_ragged
     from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import preprocess_i420
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_ragged import preprocess_ragged
 
-    counters = (preprocess_i420, fused_dw, unpack_ragged)
+    counters = (preprocess_i420, fused_dw, unpack_ragged, preprocess_ragged)
     eng = _engine(wire, CARD_MODELS[model], device="cuda")
     before = [c.launches for c in counters]
     eager = [_dispatch(eng, images, holes) for images, holes in SEQUENCE]

@@ -342,5 +342,6 @@ def test_post_through_the_ragged_server():
     assert eng["decodes"] == {"native": 3, "pil": 1}  # the PNG
     assert eng["decoder"]["available"] and eng["h2d_bytes"] > 0
     assert eng["kernel_launches"] == {"preprocess_i420": 0, "fused_dw": 0,
-                                         "unpack_ragged": 0, "nms_fixed": 0}  # CPU: plain
+                                         "unpack_ragged": 0, "preprocess_ragged": 0,
+                                         "nms_fixed": 0}  # CPU: plain
     assert [p["index"] for p in answers[1][1]["predictions"]] == idx_classic.tolist()

@@ -353,7 +353,7 @@ def test_engine_equals_jax_on_the_anchor_scene(wire):
     params = scene_params(_flat(num_classes=CLASSES, width=WIDTH, seed=0), biases)
     jeng, teng = _engines(wire, params)
     try:
-        want = ["unpack_ragged", "nms_fixed"] if wire == "ragged" else ["nms_fixed"]
+        want = ["preprocess_ragged", "nms_fixed"] if wire == "ragged" else ["nms_fixed"]
         assert teng.kernels == want
         got, want = _run_both(jeng, teng, wire, _images(3))
     finally:
