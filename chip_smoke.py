@@ -98,7 +98,8 @@ back to back on the captured graph (img/s, ms per replay, MFU), the
 unpack and ragged preprocess kernels against their plain versions on
 those slabs, a 96-image HTTP
 burst, its logits against a float32 engine's and the float32 engine's
-against the CPU's, and its int8 tier's load, whose verdict it reports.
+against the CPU's, and its int8 tier's load, which the gate refuses as
+the reference's does.
 ``ssd`` serves the detector SSD-MobileNet in bf16 at full width and 300
 px the same way: the 24 JPEGs one at a time and at once (every answer
 the reference's ``detections``/``num_detections``), batch-32 slabs back
@@ -157,7 +158,14 @@ The preprocess kernel is checked through both of its entries (the
 ``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
 float32 and bf16, and both main paths feed their models its bf16 output
 directly: one launch for the whole preprocess stage, which the
-``preprocess_stage`` lines show with the profiler.
+``preprocess_stage`` lines show with the profiler. On the yuv420 wire that
+output is the stem's space-to-depth cells (the handshake, ``/stats →
+engine.s2d``): ``s2d_stem`` holds the kernel's cell store bit for bit
+against ``pack_s2d`` of its NHWC store and against its plain version
+within the NHWC store's tolerances (batch 8 and 32, 299/224/300 out), and
+times the four presets' stems three ways (the plain stride-2 conv, fold +
+stride-1 conv, the stride-1 conv on cells) beside their bounds, after
+holding both rewrites to the plain conv in float32.
 
 Each phase prints one JSON line; the line before the last holds the card's
 name and power limit, and the last line is ``{"ok": true, "device":
@@ -193,6 +201,7 @@ kernels' keep masks to the plain fixpoint and times them in the order
 other, this, this, other (no ``ok`` line).
 
     python3 chip_smoke.py --phase ragged_preprocess
+    python3 chip_smoke.py --phase s2d_stem
     python3 chip_smoke.py --phase resnet50
     python3 chip_smoke.py --phase ssd
     python3 chip_smoke.py --phase converter
@@ -200,9 +209,18 @@ other, this, this, other (no ``ok`` line).
     python3 chip_smoke.py --phase dag
     python3 chip_smoke.py --phase train
 
-build the kernels and run the ``ragged_preprocess``, ``resnet50``,
-``ssd``, ``converter``, ``jobs``, ``dag`` or ``train`` phase alone on the
-24 JPEGs (no ``kernels`` or ``ok`` line).
+build the kernels and run the ``ragged_preprocess``, ``s2d_stem``,
+``resnet50``, ``ssd``, ``converter``, ``jobs``, ``dag`` or ``train`` phase
+alone on the 24 JPEGs (no ``kernels`` or ``ok`` line).
+
+    python3 chip_smoke.py --phase replays
+
+times the replay and counts the kernels of four main-path graphs
+(Inception-v3 bf16 and MobileNetV2 int8 at batch 8 on the yuv420 wire,
+ResNet-50 and SSD-MobileNet bf16 at batch 32 on the ragged wire) through
+engine calls that earlier commits have too: copied into a ``git archive``
+of another commit, the script times that commit's package, so two trees
+compare in one call (no ``ok`` line).
 """
 
 from __future__ import annotations
@@ -374,13 +392,14 @@ def launches_want(**counts: int) -> dict:
 
 
 def bound_ms(hws: np.ndarray, s: int, out_h: int, out_w: int, elt: int,
-             meta_bytes: int) -> tuple[float, str]:
+             meta_bytes: int, s2d: bool = False) -> tuple[float, str]:
     """Least time for one preprocess call on this batch: the canvas bytes
     its taps need (tap rows × tap columns of Y, and of U and V at half
     resolution), ``meta_bytes`` per image for the valid size (8 from a
-    table, 4 from a trailer) and the output at ``elt`` bytes an element,
-    over the memory rate; or ~55 float32 operations per output pixel over
-    the float32 rate, whichever is larger."""
+    table, 4 from a trailer) and the output at ``elt`` bytes an element
+    (``s2d``: the cells, an odd extent's zero phases included), over the
+    memory rate; or ~55 float32 operations per output pixel over the
+    float32 rate, whichever is larger."""
     from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import axis_taps
 
     read = len(hws) * meta_bytes
@@ -388,7 +407,8 @@ def bound_ms(hws: np.ndarray, s: int, out_h: int, out_w: int, elt: int,
         (rlo, rhi, _), (clo, chi, _) = axis_taps(out_h, h, s), axis_taps(out_w, w, s)
         rows, cols = np.unique(np.concatenate([rlo, rhi])), np.unique(np.concatenate([clo, chi]))
         read += rows.size * cols.size + 2 * np.unique(rows // 2).size * np.unique(cols // 2).size
-    written = len(hws) * out_h * out_w * 3 * elt
+    out_elems = ((out_h + 1) // 2 * ((out_w + 1) // 2) * 12 if s2d else out_h * out_w * 3)
+    written = len(hws) * out_elems * elt
     t_bytes = (read + written) / MEM_BYTES_PER_S * 1e3
     t_ops = len(hws) * out_h * out_w * 55 / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -533,6 +553,268 @@ def phase_kernel(gen: torch.Generator) -> float:
         raise AssertionError(f"out-of-range trailers: wire vs table vs clamped plain, err {err}")
     emit({"phase": "kernel_clamp", "trailers": odd.tolist(), "max_abs_err": err})
     return worst
+
+
+# The zoo's four stems: (preset, input side, kernel, padding, output channels)
+STEMS = (("inception_v3", 299, 3, "VALID", 32), ("mobilenet_v2", 224, 3, "SAME", 32),
+         ("ssd_mobilenet", 300, 3, "SAME", 16), ("resnet50", 224, 7, "SAME", 64))
+STEM_BATCHES = (8, 32)
+# the stem's two routes in float32 (TF32 off), max |Δ| over max |plain|:
+# the reference's tests/test_stem.py holds its rewrite to lax's conv at 1e-5
+STEM_F32_RTOL = 1e-5
+CELL_CASES = ((299, "inception"), (224, "inception"), (300, "inception"), (299, "zero_one"),
+              (224, "raw"))
+
+
+def stem_bound_ms(b: int, in_elems: int, out_elems: int, flops: int, peak: dict
+                  ) -> tuple[float, str]:
+    """Least time for one stem conv in bf16: its input and output bytes (2
+    an element) over the memory rate, or the logical conv's FLOPs over the
+    card's bf16 peak (``costmodel.cuda_peak``), whichever is larger."""
+    t_bytes = b * (in_elems + out_elems) * 2 / MEM_BYTES_PER_S * 1e3
+    t_ops = b * flops / peak["flops_per_chip"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_s2d_stem(gen: torch.Generator) -> dict:
+    """The space-to-depth stem (ops/stem.py) and its handshake with the
+    yuv420 preprocess, on the card.
+
+    - The cell store: ``preprocess_i420`` with ``s2d`` at batch 8 and 32,
+      canvas 512 (full rows, holes, random sizes) and the ``CELL_CASES``
+      (out, mode), in float32 and bf16, through both entries: equal bit for
+      bit to ``pack_s2d`` of the NHWC store and the entries to each other;
+      against its plain version (``pack_s2d`` of ``preprocess_i420_plain``)
+      within the NHWC store's tolerances. bf16 at inception mode timed as
+      cells and as NHWC, each beside its bound.
+    - The stems: per preset (``STEMS``) and batch, bf16, channels_last, the
+      device µs of the plain stride-2 conv (F.pad + stride 2; the tests'
+      plain version), the rgb wires' route (fold + stride-1 conv on the
+      rearranged kernel) and the handshake's (the stride-1 conv on cells
+      alone), each beside its bound; in float32 (TF32 off) the routes
+      against the plain conv within ``STEM_F32_RTOL``; in bf16 each
+      image's result from the two rewrites at batch 1 equal to the
+      batch's call, bit for bit (the plain conv's reported)."""
+    import torch.nn.functional as F
+
+    from tensorflow_web_deploy_tpu_torch.ops import stem
+    from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import (
+        preprocess_i420,
+        preprocess_i420_plain,
+        preprocess_i420_wire,
+        wire_canvases,
+    )
+    from tensorflow_web_deploy_tpu_torch.serving import costmodel
+
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(SEED + 21)
+    s, bf16 = 512, torch.bfloat16
+    cell_rows = []
+    for b in STEM_BATCHES:
+        hws_np = rs.randint(1, s + 1, (b, 2)).astype(np.int32)
+        hws_np[0], hws_np[1] = (s, s), (1, 1)  # a full row and a hole
+        buf = wire_batch(b, s, hws_np, gen)
+        packed, hws = wire_canvases(buf, s), torch.from_numpy(hws_np).cuda()
+        for out, mode in CELL_CASES:
+            row = {"batch": b, "out": out, "mode": mode}
+            ref = preprocess_i420_plain(packed, hws, out, out, mode, s2d=True)
+            for dtype in (torch.float32, bf16):
+                got = preprocess_i420(packed, hws, out, out, mode, dtype, s2d=True)
+                wire = preprocess_i420_wire(buf, s, out, out, mode, dtype, s2d=True)
+                nhwc = preprocess_i420_wire(buf, s, out, out, mode, dtype)
+                torch.cuda.synchronize()
+                tag = "f32" if dtype == torch.float32 else "bf16"
+                row[f"{tag}_equals_packed_nhwc"] = bool(torch.equal(wire, stem.pack_s2d(nhwc)))
+                row[f"{tag}_entries_equal"] = bool(torch.equal(got, wire))
+                row[f"{tag}_equals_plain"] = bool(torch.equal(got.float(), ref if dtype ==
+                                                              torch.float32 else ref.to(dtype)
+                                                              .float()))
+                if dtype == torch.float32:
+                    row["max_abs_err"] = float((got - ref).abs().max())
+                    if not row["max_abs_err"] <= KERNEL_TOL[mode]:
+                        raise AssertionError(f"cell store vs plain: {row}")
+                else:
+                    row.update(bf16_vs_plain(got, ref, mode))
+                if not (row[f"{tag}_equals_packed_nhwc"] and row[f"{tag}_entries_equal"]):
+                    raise AssertionError(f"cell store is not pack_s2d of the NHWC store: {row}")
+            if mode == "inception":
+                row.update(
+                    us=1e3 * graph_time_ms(lambda: preprocess_i420_wire(
+                        buf, s, out, out, mode, bf16, True)),
+                    nhwc_us=1e3 * graph_time_ms(lambda: preprocess_i420_wire(
+                        buf, s, out, out, mode, bf16)),
+                    bound_us=1e3 * bound_ms(hws_np, s, out, out, 2, 4, True)[0],
+                    nhwc_bound_us=1e3 * bound_ms(hws_np, s, out, out, 2, 4)[0])
+            cell_rows.append(row)
+            emit({"phase": "s2d_cell_store", **row})
+        del buf, packed, ref
+    peak = costmodel.cuda_peak(torch.cuda.get_device_name(0), "bfloat16")
+    stems = []
+    for name, size, k, padding, cout in STEMS:
+        w32 = torch.randn((cout, 3, k, k), generator=gen, device="cuda") * 0.1
+        pads = stem.stride2_pads((size, size), (k, k), padding)
+        oh = (size + sum(pads[0]) - k) // 2 + 1
+        ch = (size + 1) // 2
+        flops = 2 * oh * oh * cout * 3 * k * k
+        for b in STEM_BATCHES:
+            x32 = torch.rand((b, 3, size, size), generator=gen, device="cuda").to(
+                memory_format=torch.channels_last) * 2 - 1
+            row = {"model": name, "batch": b, "size": size, "kernel": k, "padding": padding,
+                   "cout": cout, "out": oh, "cells": ch, "flops": b * flops}
+            # float32: the two routes against the plain stride-2 conv
+            plain32 = stem.conv2d_padded(x32, w32, (2, 2), pads)
+            cells32 = stem.pack_s2d(x32.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            for label, y in (("fold", stem.conv2d_stride2_s2d(x32, w32, padding)),
+                             ("cells", stem.conv2d_s2d_input(cells32, w32, padding))):
+                row[f"f32_{label}_rel"] = float((y - plain32).abs().max()
+                                                / plain32.abs().max())
+            if max(row["f32_fold_rel"], row["f32_cells_rel"]) > STEM_F32_RTOL:
+                raise AssertionError(f"stem routes disagree in float32: {row}")
+            x, w = x32.to(bf16), w32.to(bf16)
+            cells = stem.pack_s2d(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            k_fold, k_cells = stem.s2d_kernel(w), stem.s2d_input_kernel(w, padding)
+            with torch.inference_mode():
+                # an image's result must not depend on its batch: each route
+                # per image at batch 1 against the batch's call, bit for bit
+                routes = {"plain": lambda t: stem.conv2d_padded(t, w, (2, 2), pads),
+                          "fold": lambda t: stem.conv2d_stride2_s2d(t, w, padding,
+                                                                    rearranged=k_fold),
+                          "cells": lambda t: stem.conv2d_s2d_input(
+                              stem.pack_s2d(t.permute(0, 2, 3, 1)).permute(0, 3, 1, 2), w,
+                              padding, rearranged=k_cells)}
+                for label, fn in routes.items():
+                    row[f"{label}_batch_invariant"] = bool(torch.equal(
+                        fn(x), torch.cat([fn(x[i:i + 1]) for i in range(b)])))
+                if not (row["fold_batch_invariant"] and row["cells_batch_invariant"]):
+                    raise AssertionError(f"stem routes depend on the batch: {row}")
+                row.update(
+                    plain_us=1e3 * graph_time_ms(lambda: stem.conv2d_padded(x, w, (2, 2), pads)),
+                    fold_us=1e3 * graph_time_ms(lambda: stem.conv2d_stride2_s2d(
+                        x, w, padding, rearranged=k_fold)),
+                    fold_only_us=1e3 * graph_time_ms(
+                        lambda: stem.pack_s2d(x.permute(0, 2, 3, 1))),
+                    cells_us=1e3 * graph_time_ms(lambda: stem.conv2d_s2d_input(
+                        cells, w, padding, rearranged=k_cells)),
+                    # a yardstick only: cuDNN's stride-2 conv with its own
+                    # symmetric padding, no F.pad (not lax's pads at SAME)
+                    library_us=1e3 * graph_time_ms(lambda: F.conv2d(
+                        x, w, None, 2, 0 if padding == "VALID" else k // 2)))
+            out_elems = cout * oh * oh
+            t, row["bound_by"] = stem_bound_ms(b, 3 * size * size, out_elems, flops, peak)
+            row["bound_us"] = 1e3 * t  # plain and fold: the image in, the output out
+            row["cells_bound_us"] = 1e3 * stem_bound_ms(b, 12 * ch * ch, out_elems, flops,
+                                                        peak)[0]
+            stems.append(row)
+            emit({"phase": "s2d_stem_conv", **row})
+            del x32, x, cells, cells32, plain32
+    result = {"phase": "s2d_stem", "nvidia_smi": nvidia_smi(),
+              "cell_store_bit_identical_to_packed_nhwc": all(
+                  r["f32_equals_packed_nhwc"] and r["bf16_equals_packed_nhwc"] for r in cell_rows),
+              "cell_store_equals_plain": {f"{r['batch']}x{r['out']}x{r['mode']}":
+                                          [r["f32_equals_plain"], r["bf16_equals_plain"]]
+                                          for r in cell_rows},
+              "cell_store_max_abs_err": max(r["max_abs_err"] for r in cell_rows),
+              "seconds": time.perf_counter() - t0}
+    emit(result)
+    return {**result, "cells": cell_rows, "stems": stems}
+
+
+REPLAY_PATHS = (("inception_v3", "bfloat16", "yuv420", 8), ("mobilenet_v2", "int8", "yuv420", 8),
+                ("resnet50", "bfloat16", "ragged", 32), ("ssd_mobilenet", "bfloat16", "ragged", 32))
+
+
+def replay_answers(eng, jpegs: list[bytes]) -> list[dict]:
+    """Each image's answer from ``eng`` (one engine batch call): a
+    classifier's top-2 (index, score), a detector's detection count and
+    first (class, score)."""
+    if eng.ragged:
+        prep = [eng.prepare_ragged(d) for d in jpegs]
+        out = eng.run_ragged([t for t, *_ in prep], np.array([p[1] for p in prep], np.int32),
+                             512)
+    else:
+        prep = [eng.prepare_bytes(d) for d in jpegs]
+        out = eng.run_batch(np.stack([c for c, *_ in prep]),
+                            np.array([p[1] for p in prep], np.int32))
+    if eng.task == "detect":
+        return [{"num": int(n), "class": int(c[0]), "score": float(sc[0])}
+                for _, sc, c, n in zip(*out)]
+    return [{"index": [int(i) for i in idx[:2]], "score": [float(v) for v in sc[:2]]}
+            for sc, idx in zip(*out)]
+
+
+def answers_against(got: list[dict], ref: list[dict]) -> dict:
+    """The margin-aware top-1 agreement of ``got`` with ``ref`` (a run of
+    the same engine on another tree): an image agrees when its top-1 is
+    ref's, or when ref's top-2 margin lies within bf16's rounding of its
+    top-1 (2^-7 relative, both serving dtypes compute in bf16); those are
+    listed, not counted as misses. A detector agrees on its count and
+    first class where ref's first score stands 2^-7 clear."""
+    rows, ties, miss = len(ref), [], []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if "index" in r:
+            same = g["index"][0] == r["index"][0]
+            tie = r["score"][0] - r["score"][1] <= 2 ** -7 * r["score"][0]
+        else:
+            same = (g["num"], g["class"]) == (r["num"], r["class"])
+            tie = abs(g["score"] - r["score"]) <= 2 ** -7 * r["score"]
+        if not same:
+            (ties if tie else miss).append({"image": i, "got": g, "ref": r})
+    return {"images": rows, "agree": rows - len(ties) - len(miss), "within_rounding": ties,
+            "misses": miss}
+
+
+def phase_replays(save: str | None = None, against: str | None = None) -> list[dict]:
+    """Replay ms and kernels per replay of four main-path graphs, each from
+    an engine's own warmup capture (canvas 512): Inception-v3 bf16 and
+    MobileNetV2 int8 at batch 8 on the yuv420 wire (preprocess kernel),
+    ResNet-50 and SSD-MobileNet bf16 at batch 32 on the ragged rgb wire
+    (matmul resize); then each engine's answers to the 24 JPEGs, written to
+    ``save`` and held to those in ``against`` (:func:`answers_against`:
+    a miss fails the phase). Uses only the engine's API that earlier
+    commits have too, so that this script, copied into a checkout of
+    another commit, times that commit's package: ``python3 <that
+    checkout>/chip_smoke_ab.py --phase replays`` (``package`` names the one
+    measured)."""
+    import tensorflow_web_deploy_tpu_torch as pkg
+    from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
+
+    jpegs = make_jpegs(24, SEED)
+    ref = json.load(open(against)) if against else None
+    rows, answers = [], {}
+    for name, dtype, wire, batch in REPLAY_PATHS:
+        kw = (dict(wire="rgb", resize="matmul", ragged=True) if wire == "ragged"
+              else dict(wire="yuv420", resize="kernel"))
+        eng = InferenceEngine(_config(name, dtype, canvas_buckets=(512,), max_batch=batch,
+                                      **kw), device="cuda", seed=SEED)
+        try:
+            eng.warmup()
+            shard = eng._replicas[0].shards[0]
+            key = next(k for k in shard.exes if k[1] == 512 and k[2] == batch)
+            exe = shard.exes[key]
+            with eng._replicas[0].lock, torch.cuda.stream(shard.compute):
+                ms = [cuda_time_ms(exe) for _ in range(3)]
+                prof = profiled_calls(exe, calls=2)
+            del exe
+            path = f"{name}:{dtype}:{wire}"
+            answers[path] = replay_answers(eng, jpegs)
+            row = {"phase": "replays", "package": os.path.dirname(pkg.__file__), "model": name,
+                   "dtype": dtype, "wire": wire, "batch": batch,
+                   "s2d": eng.stats().get("s2d"), "replay_ms": ms,
+                   "kernels_per_replay": prof["kernels"] / prof["calls"],
+                   "profile_top": prof["top"][:5]}
+            if ref is not None:
+                row["answers_against"] = answers_against(answers[path], ref[path])
+            rows.append(row)
+            emit(row)
+        finally:
+            eng.close()
+    if save:
+        with open(save, "w") as f:
+            json.dump(answers, f)
+    bad = [r for r in rows if r.get("answers_against", {}).get("misses")]
+    if bad:
+        raise AssertionError(f"answers differ from {against}: {bad}")
+    return rows
 
 
 def dw_bound_ms(b: int, c: int, h: int, w: int, oh: int, ow: int, elt: int, kk: int,
@@ -803,7 +1085,7 @@ def sweep_preprocess(gen: torch.Generator) -> None:
                     return pp._launch(buf, buf.stride(0), None, b, s, out, out, mode, bf16,
                                       shape)
 
-                rule = pp._rule(b, s, out, out, 2, 0)
+                rule = pp._rule(b, s, out, out, 2, 0, False)
                 want = launch(rule)
                 results = []
                 for rows in (1, 2, 4, 8, 16, 32):
@@ -1045,6 +1327,9 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
             raise AssertionError(f"parity gate failed: {eng.parity}")
         if eng.ragged != cfg.ragged:
             raise AssertionError(f"{name}: engine ragged={eng.ragged}, asked {cfg.ragged}")
+        # the stem handshake: every zoo main path on the yuv420 wire takes cells
+        if eng.stats()["s2d"] is not (cfg.wire_format == "yuv420"):
+            raise AssertionError(f"{name}: /stats s2d {eng.stats()['s2d']} on {cfg.wire_format}")
         served_cells = sum(1 for m in eng.model.modules()
                            if isinstance(m, DepthwiseConvBN) and m.fused)
         if served_cells != fused_cells:
@@ -1097,6 +1382,7 @@ def phase_main_path(jpegs: list[bytes], name: str, dtype: str, fused_cells: int,
         row = {"phase": "main_path", "model": f"native:{name}", "path": path, "width": 1.0,
                "dtype": cfg.model.dtype, "fused_dw": eng.fused_dw, "parity": eng.parity,
                "wire": cfg.wire_format, "ragged": eng.ragged, "resize": cfg.resize,
+               "s2d": after["s2d"],
                "decoder": "native" if after["decoder"]["available"] else "PIL",
                "decoder_reason": after["decoder"]["reason"], "decodes": decodes,
                "requests": len(jpegs), "batches": batches, "kernel_launches": launches,
@@ -1150,7 +1436,7 @@ def phase_parity(jpegs: list[bytes], served: list[tuple[int, float]], name: str,
             canvas, hw, _ = eng.prepare_bytes(data)
             packed = torch.from_numpy(canvas[None]).cuda()
             hws = torch.tensor([hw], dtype=torch.int32, device="cuda")
-            x = preprocess_i420(packed, hws, out, out, "inception", eng.dtype)
+            x = preprocess_i420(packed, hws, out, out, "inception", eng.dtype, eng.s2d)
             p = eng.model(x).float()
             xr = NORMALIZERS["inception"](resize_yuv_planes(packed, hws, out, out))
             probs.append(p.cpu().numpy()[0])
@@ -1201,44 +1487,52 @@ def batch_of_8(eng, jpegs: list[bytes]) -> tuple[torch.Tensor, np.ndarray, float
 
 def preprocess_stage(eng, buf: torch.Tensor, out: int) -> dict:
     """The engine's preprocess stage on one wire buffer in the 512 canvas:
-    its bf16 output against the plain version, the kernel's device time
-    (bf16 from the wire; float32 from the table), the stage as it ran
-    before (trailer decode + float32 kernel + cast) and its two removed
-    parts alone, the plain version, the wrapper's host time, the bound, and
-    the kernels each form of the stage launches: the engine's must launch
-    the preprocess kernel once a call (its counter) and nothing else (the
-    profiler)."""
+    its bf16 output (the stem's cells on a handshake engine, ``s2d``)
+    against the plain version, the kernel's device time (bf16 from the
+    wire, in the engine's layout and, beside it, the NHWC store; float32
+    from the table), the stage as it ran before (trailer decode + float32
+    NHWC kernel + cast) and its two removed parts alone, the plain
+    version, the wrapper's host time, the bound, and the kernels each form
+    of the stage launches: the engine's must launch the preprocess kernel
+    once a call (its counter) and nothing else (the profiler)."""
     from tensorflow_web_deploy_tpu_torch.ops.preprocess_i420 import (
         decode_trailer,
+        out_shape,
         preprocess_i420,
         preprocess_i420_plain,
         preprocess_i420_wire,
         wire_canvases,
     )
 
-    s, bf16 = 512, torch.bfloat16
+    s, bf16, cells = 512, torch.bfloat16, eng.s2d
     packed, hws = wire_canvases(buf, s), decode_trailer(buf)
     x = eng.preprocess_packed(buf)
-    if x.dtype != eng.dtype or tuple(x.shape) != (buf.shape[0], out, out, 3):
+    if x.dtype != eng.dtype or tuple(x.shape) != out_shape(buf.shape[0], out, out, cells):
         raise AssertionError(f"preprocess stage gave {x.dtype} {tuple(x.shape)}")
-    ref = preprocess_i420_plain(packed, hws, out, out)
-    x32 = preprocess_i420(packed, hws, out, out)
+    ref = preprocess_i420_plain(packed, hws, out, out, s2d=cells)
+    x32 = preprocess_i420(packed, hws, out, out, s2d=cells)
     row = {"phase": "preprocess_stage", "batch": buf.shape[0], "canvas": s, "out": out,
+           "s2d": cells,
            "max_abs_err": float((x32 - ref).abs().max()), **bf16_vs_plain(x, ref, "inception"),
-           "ms": graph_time_ms(lambda: preprocess_i420_wire(buf, s, out, out, "inception", bf16)),
-           "ms_f32": graph_time_ms(lambda: preprocess_i420(packed, hws, out, out)),
+           "ms": graph_time_ms(lambda: preprocess_i420_wire(buf, s, out, out, "inception", bf16,
+                                                            cells)),
+           "ms_nhwc": graph_time_ms(lambda: preprocess_i420_wire(buf, s, out, out, "inception",
+                                                                 bf16)),
+           "ms_f32": graph_time_ms(lambda: preprocess_i420(packed, hws, out, out, s2d=cells)),
            "before_ms": graph_time_ms(lambda: preprocess_before(buf, s, out)),
            "decode_ms": graph_time_ms(lambda: decode_trailer(buf)),
            "cast_ms": graph_time_ms(lambda: x32.to(bf16)),
            "plain_ms": graph_time_ms(lambda: preprocess_i420_plain(
-               packed, decode_trailer(buf), out, out, "inception", bf16)),
+               packed, decode_trailer(buf), out, out, "inception", bf16, cells)),
            "call_ms": cuda_time_ms(lambda: eng.preprocess_packed(buf)),
-           "host_us": host_us(lambda: preprocess_i420_wire(buf, s, out, out, "inception", bf16)),
+           "host_us": host_us(lambda: preprocess_i420_wire(buf, s, out, out, "inception", bf16,
+                                                           cells)),
            "engine_host_us": host_us(lambda: eng.preprocess_packed(buf)),
            "before_host_us": host_us(lambda: preprocess_before(buf, s, out))}
     hws_np = hws.cpu().numpy()
-    row["bound_ms"], row["bound_by"] = bound_ms(hws_np, s, out, out, 2, 4)
-    row["bound_ms_f32"] = bound_ms(hws_np, s, out, out, 4, 8)[0]
+    row["bound_ms"], row["bound_by"] = bound_ms(hws_np, s, out, out, 2, 4, cells)
+    row["bound_ms_nhwc"] = bound_ms(hws_np, s, out, out, 2, 4)[0]
+    row["bound_ms_f32"] = bound_ms(hws_np, s, out, out, 4, 8, cells)[0]
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     # one stage call = one launch of the kernel (its counter) and no other
     # kernel (every kernel the profiler recorded in the stage's windows)
@@ -1409,7 +1703,8 @@ def phase_mobilenet_forward(jpegs: list[bytes]) -> dict:
         xb = eng.preprocess_packed(buf)
         for label, fused, int8 in (("bf16_unfused", False, False), ("bf16_fused", True, False),
                                    ("int8_fused", True, True)):
-            model = native_converted("mobilenet_v2", seed=SEED, fused_dw=fused, int8=int8).to(
+            model = native_converted("mobilenet_v2", seed=SEED, fused_dw=fused, int8=int8,
+                                     input_format="s2d" if eng.s2d else "nhwc").to(
                 "cuda", torch.bfloat16, memory_format=torch.channels_last)
             if int8:  # the fused cells' one-op dequant rounds as dequantize does
                 row["dequantize_taps_max_abs_err"] = max(
@@ -3755,10 +4050,12 @@ def phase_resnet50(jpegs: list[bytes]) -> dict:
       its, top-1 agreement 1.0; the max probability delta.
     - int8: ``POST /models/load`` of ``native:resnet50,dtype=int8,as=
       resnet50_int8`` into the server: the gate's verdict on the card and
-      its numbers, a passed version answering 200, and the bf16 version
-      still answering 200. At 64 px both packages refuse it on the CPU; at
-      the served 224 px the reference refuses it and the port's gate
-      passes it (ROADMAP Queue 3, fault 7), so either verdict is reported.
+      its numbers, and the bf16 version still answering 200. At 64 px both
+      packages refuse it on the CPU. At the served 224 px the reference
+      refuses it (max_prob_delta 0.5: two classes of one probe image round
+      to one bf16 logit), and since the port computes the stem as the
+      reference does (space-to-depth), the card's gate refuses it too:
+      the phase requires that refusal (ROADMAP Queue 3, fault 7).
     """
     import ast
     import re
@@ -3967,14 +4264,7 @@ def phase_resnet50(jpegs: list[bytes]) -> dict:
                        "error": err[:160], "bf16_after": again,
                        "bf16_after_matches": again == 200 and answers_agree(
                            body["predictions"], serial_preds[0])}
-        if verdict == "passed":
-            # a version the gate passed serves (ROADMAP Queue 3, fault 7:
-            # the reference refuses it at this size)
-            q_status, q_body = admin.request("POST", "/predict?model=resnet50_int8", jpegs[0])
-            row["int8"]["int8_answer"] = q_status
-            if q_status != 200 or len(q_body.get("predictions", [])) != eng.topk:
-                bad["int8_answer"] = (q_status, q_body)
-        if verdict == "other" or gate is None or gate.get("pass") != (verdict == "passed") or \
+        if verdict != "refused" or gate is None or gate.get("pass") is not False or \
                 not row["int8"]["bf16_after_matches"]:
             bad["int8"] = row["int8"]
     finally:
@@ -5121,6 +5411,11 @@ def phase_converter(jpegs: list[bytes]) -> dict:
     srv, engines, row["yuv420_boot_s"] = server(CONVERTER_MODELS, wire_format="yuv420",
                                                 resize="kernel", max_batch=CONVERTER_MAX_BATCH)
     try:
+        # every engine on the yuv420 wire takes the stem handshake: the .pb
+        # through its S2DStem variant, native through input_format="s2d"
+        row["s2d"] = {name: e.stats()["s2d"] for name, e in engines.items()}
+        if not all(row["s2d"].values()):
+            bad["s2d"] = row["s2d"]
         burst_pb = serve_burst(srv, "pb_yuv420_burst", {"preprocess_i420": 1})
         served = {name: answers(srv, name) for name in engines}
         row["bf16"] = compare(served["inception_v3"], served["native_inception_v3"],
@@ -5194,6 +5489,9 @@ def phase_converter(jpegs: list[bytes]) -> dict:
                                   resize="kernel", max_batch=CONVERTER_MAX_BATCH)
     ssd = row["ssd_mobilenet"] = {"boot_s": boot_s}
     try:
+        ssd["s2d"] = {name: e.stats()["s2d"] for name, e in engines.items()}
+        if not all(ssd["s2d"].values()):
+            bad["ssd_s2d"] = ssd["s2d"]
         burst_pb = serve_burst(srv, "ssd_burst", {"preprocess_i420": 1, "nms_fixed": 1})
         served = {name: answers(srv, name) for name in engines}
         ssd["bf16"] = compare_detections(served["ssd_mobilenet"],
@@ -6631,14 +6929,19 @@ def phase_train(jpegs: list[bytes]) -> dict:
 
 def main(argv: list[str]) -> int:
     sweeps = ("--sweep-fused-dw", "--sweep-preprocess", "--sweep-overload", "--sweep-dag")
+    replay_opts = dict(zip(argv[2::2], argv[3::2])) if argv[:2] == ["--phase", "replays"] else {}
+    if replay_opts and (len(argv) % 2 or not set(replay_opts) <= {"--save", "--against"}):
+        replay_opts = {"bad": None}
     if not (argv == [] or (len(argv) == 1 and argv[0] in sweeps)
+            or (replay_opts and "bad" not in replay_opts)
             or (len(argv) == 2 and argv[0] == "--sweep-nms" and argv[1].endswith(".cu"))
             or argv in (["--phase", "ragged_preprocess"], ["--phase", "resnet50"],
-                        ["--phase", "ssd"],
+                        ["--phase", "ssd"], ["--phase", "s2d_stem"], ["--phase", "replays"],
                         ["--phase", "converter"], ["--phase", "jobs"], ["--phase", "dag"],
                         ["--phase", "train"])):
         print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)} | --sweep-nms OTHER.cu | "
-              "--phase ragged_preprocess | --phase resnet50 | "
+              "--phase ragged_preprocess | --phase resnet50 | --phase s2d_stem | "
+              "--phase replays [--save FILE] [--against FILE] | "
               "--phase ssd | --phase converter | --phase jobs | --phase dag | --phase train], "
               f"not {argv}", file=sys.stderr)
         return 2
@@ -6697,6 +7000,12 @@ def main(argv: list[str]) -> int:
     if argv == ["--phase", "resnet50"]:
         phase_resnet50(make_jpegs(24, SEED))
         return 0
+    if argv == ["--phase", "s2d_stem"]:
+        phase_s2d_stem(gen)
+        return 0
+    if argv[:2] == ["--phase", "replays"]:
+        phase_replays(replay_opts.get("--save"), replay_opts.get("--against"))
+        return 0
     if argv == ["--phase", "ssd"]:
         phase_ssd(make_jpegs(24, SEED))
         return 0
@@ -6713,6 +7022,7 @@ def main(argv: list[str]) -> int:
         phase_train(make_jpegs(24, SEED))
         return 0
     kern_err = phase_kernel(gen)
+    s2d = phase_s2d_stem(gen)
     dw = phase_fused_dw_kernel(gen, dw_layer_shapes())
     jpegs = make_jpegs(24, SEED)
     phase_native_decode(jpegs)
@@ -6769,7 +7079,7 @@ def main(argv: list[str]) -> int:
         # stages; their bf16 outputs are in the kernel and preprocess_stage
         # lines
         "max_abs_err": max(kern_err, stage299["max_abs_err"], stage224["max_abs_err"],
-                           jobs["preprocess_256"]["max_abs_err"]),
+                           jobs["preprocess_256"]["max_abs_err"], s2d["cell_store_max_abs_err"]),
         # batch of 8 main-path images, 512 canvas, 299 out, bf16 from the
         # wire as the Inception path runs it; and at 224 out (MobileNetV2)
         "ms": stage299["ms"],
@@ -6777,6 +7087,14 @@ def main(argv: list[str]) -> int:
         "bound_ms": stage299["bound_ms"],
         "bound_by": stage299["bound_by"],
         "library_ms": None,
+        # the main paths' stage stores the stem's cells (the handshake);
+        # the NHWC store on the same batch, and the cell store bit for bit
+        # against pack_s2d of it
+        "s2d": stage299["s2d"],
+        "ms_nhwc": stage299["ms_nhwc"],
+        "bound_ms_nhwc": stage299["bound_ms_nhwc"],
+        "cell_store_bit_identical_to_packed_nhwc": s2d["cell_store_bit_identical_to_packed_nhwc"],
+        "cell_store_max_abs_err": s2d["cell_store_max_abs_err"],
         "ms_224": stage224["ms"],
         "plain_ms_224": stage224["plain_ms"],
         "bound_ms_224": stage224["bound_ms"],

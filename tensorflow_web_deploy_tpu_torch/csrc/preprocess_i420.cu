@@ -42,6 +42,17 @@
 //     channels go out as one paired store;
 //   - the band, rows·out_w·3 contiguous NHWC elements, goes out with
 //     16-byte stores; its unaligned head and tail 2 bytes at a time.
+//
+// The cell store (entry twd_preprocess_i420_s2d, kCells): the same values
+// in the space-to-depth layout the stem consumes (ops/stem.py::pack_s2d,
+// what the JAX engine folds the Pallas kernel's output into,
+// serving/engine.py:656–672): output pixel (y, x, c) goes to cell (y/2, x/2),
+// channel ((y%2)·2 + x%2)·3 + c, of [B, ⌈out_h/2⌉, ⌈out_w/2⌉, 12]. Bands are
+// an even number of rows starting on an even row, so a band is again one
+// contiguous span (of cell rows); only the staging index changes, and the
+// phase row or column an odd extent lacks is staged as zeros. The store
+// loop is the same. Bound: the same bytes, the output's zero phases
+// included.
 // Resize planes first, then convert and clip (the reference's order:
 // clipping does not commute with the resize on out-of-gamut chroma).
 //
@@ -69,19 +80,25 @@ constexpr int kMaxDynamicSmem = 224 * 1024;
 
 __host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
 
+// Elements of a band of `rows` output rows: rows·out_w·3 in NHWC; in cells
+// (rows even) rows/2 cell rows of ⌈out_w/2⌉ cells of 12.
+__host__ __device__ constexpr int band_elems(int out_w, int rows, bool cells) {
+  return cells ? rows * ((out_w + 1) / 2) * 6 : rows * out_w * 3;
+}
+
 // A block's dynamic shared memory, in bytes from its start. The wrapper's
 // LaunchShape.smem (ops/preprocess_i420.py) computes the same sum.
 struct Layout {
   int y, u, v, band, total;  // region offsets; the column taps at 0
   int y_pitch, c_pitch;      // bytes per staged Y / chroma row
-  __host__ __device__ Layout(int s, int out_w, int rows, int elt) {
+  __host__ __device__ Layout(int s, int out_w, int rows, int elt, bool cells) {
     y_pitch = align16(s + 15);  // a row's valid bytes and up to 15 before it
     c_pitch = align16(s / 2 + 15);
     y = align16(8 * out_w);
     u = y + 2 * rows * y_pitch;  // a band of r rows has at most 2r distinct taps
     v = u + 2 * rows * c_pitch;
     band = v + 2 * rows * c_pitch;
-    total = band + align16(rows * out_w * 3 * elt + 16);
+    total = band + align16(band_elems(out_w, rows, cells) * elt + 16);
   }
 };
 
@@ -195,7 +212,7 @@ __device__ __forceinline__ void store3(__nv_bfloat16* o, const float v[3], bool 
   }
 }
 
-template <typename OutT>
+template <typename OutT, bool kCells>
 __global__ void __launch_bounds__(kMaxThreads)
     preprocess_i420_kernel(const uint8_t* __restrict__ packed, long long image_stride,
                            const int32_t* __restrict__ hws, OutT* __restrict__ out, int s,
@@ -208,7 +225,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   __shared__ int s_off[6][kMaxRows];
   __shared__ float s_w[4][kMaxRows];
 
-  const Layout L(s, out_w, band_rows, (int)sizeof(OutT));
+  const Layout L(s, out_w, band_rows, (int)sizeof(OutT), kCells);
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int b = blockIdx.y;
   const int i0 = blockIdx.x * band_rows;
@@ -296,18 +313,36 @@ __global__ void __launch_bounds__(kMaxThreads)
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  OutT* g = out + ((long long)b * out_h + i0) * out_w * 3;
+  // cells: ⌈out_w/2⌉ a cell row, ⌈rows/2⌉ cell rows in this band (i0 even)
+  const int cw = (out_w + 1) >> 1, crows = (rows + 1) >> 1;
+  OutT* g = kCells ? out + ((long long)b * ((out_h + 1) >> 1) + (i0 >> 1)) * cw * 12
+                   : out + ((long long)b * out_h + i0) * out_w * 3;
   const int lead = (int)(reinterpret_cast<uintptr_t>(g) & 15);
   unsigned char* band = smem + L.band + lead;  // the band's bytes, at g's address mod 16
   OutT* ob = reinterpret_cast<OutT*>(band);
   const int npix = rows * out_w;
+  // element of the band where pixel (r, j)'s three channels start
+  auto elem = [&](int r, int j) {
+    return kCells ? ((r >> 1) * cw + (j >> 1)) * 12 + ((r & 1) * 2 + (j & 1)) * 3
+                  : (r * out_w + j) * 3;
+  };
   // pixel p = r * out_w + j; (r, j) step by carries, with no division
   const int dr = nthreads / out_w, dj = nthreads - dr * out_w;
   int r = tid / out_w, j = tid - r * out_w, row = -1;
   int oy0 = 0, oy1 = 0, ou0 = 0, ou1 = 0, ov0 = 0, ov1 = 0;
   float ah = 0.0f, bh = 0.0f, ca = 0.0f, cb = 0.0f;
-  // element 3p is aligned for a paired store when (lead / elt + 3p) is even
+  // element e is aligned for a paired store when (lead / elt + e) is even
   const int pair_phase = (lead / (int)sizeof(OutT)) & 1;
+  if (kCells) {
+    // the phase column of an odd out_w (every row of the band's cells) and
+    // the phase row of an odd band (its last cell row) are zeros
+    const int zc = (out_w & 1) ? 2 * crows : 0, zr = (rows & 1) ? out_w : 0;
+    const float zero[3] = {0.0f, 0.0f, 0.0f};
+    for (int k = tid; k < zc + zr; k += nthreads) {
+      const int e = k < zc ? elem(k, out_w) : elem(rows, k - zc);
+      store3(ob + e, zero, ((e & 1) ^ pair_phase) == 0);
+    }
+  }
   for (int p = tid; p < npix; p += nthreads) {
     if (r != row) {  // this thread's band row changed: its taps into registers
       row = r;
@@ -348,7 +383,8 @@ __global__ void __launch_bounds__(kMaxThreads)
       }                                           // mode 2: raw
       rgb[c] = v;
     }
-    store3(ob + 3 * p, rgb, ((p & 1) ^ pair_phase) == 0);
+    const int e = kCells ? elem(r, j) : 3 * p;
+    store3(ob + e, rgb, ((e & 1) ^ pair_phase) == 0);
     j += dj;
     r += dr;
     if (j >= out_w) {
@@ -358,10 +394,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   __syncthreads();
 
-  // The band is one contiguous span of NHWC: 16-byte stores from the first
-  // 16-byte boundary in it, the bytes before that boundary and after the
-  // last one 2 at a time (a whole number of elements each).
-  const int nbytes = npix * 3 * (int)sizeof(OutT);
+  // The band is one contiguous span of NHWC (of cells): 16-byte stores from
+  // the first 16-byte boundary in it, the bytes before that boundary and
+  // after the last one 2 at a time (a whole number of elements each).
+  const int nbytes = (kCells ? crows * cw * 12 : npix * 3) * (int)sizeof(OutT);
   const int head = min((16 - lead) & 15, nbytes);
   const int body = (nbytes - head) >> 4;
   const int tail_at = head + 16 * body;
@@ -375,22 +411,38 @@ __global__ void __launch_bounds__(kMaxThreads)
         reinterpret_cast<const uint16_t*>(band + tail_at)[tid - 32];
 }
 
-template <typename OutT>
+template <typename OutT, bool kCells>
 int launch(const uint8_t* packed, long long image_stride, const int32_t* hws, void* out,
            int batch, int s, int out_h, int out_w, int mode, int rows, int threads,
            cudaStream_t stream) {
   // above 48 KB a block's shared memory must be asked for; once, up to the most
   static const cudaError_t attr = cudaFuncSetAttribute(
-      preprocess_i420_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      preprocess_i420_kernel<OutT, kCells>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxDynamicSmem);
   if (attr != cudaSuccess) return (int)attr;
-  const Layout layout(s, out_w, rows, (int)sizeof(OutT));
+  const Layout layout(s, out_w, rows, (int)sizeof(OutT), kCells);
   if (layout.total > kMaxDynamicSmem) return (int)cudaErrorInvalidConfiguration;
   const int bands = (out_h + rows - 1) / rows;
   if (batch == 0 || bands == 0 || out_w == 0) return 0;
-  preprocess_i420_kernel<OutT><<<dim3(bands, batch), threads, layout.total, stream>>>(
+  preprocess_i420_kernel<OutT, kCells><<<dim3(bands, batch), threads, layout.total, stream>>>(
       packed, image_stride, hws, static_cast<OutT*>(out), s, out_h, out_w, mode, rows);
   return (int)cudaGetLastError();
+}
+
+template <bool kCells>
+int checked_launch(const uint8_t* packed, long long image_stride, const int32_t* hws,
+                   void* out, int out_dtype, int batch, int s, int out_h, int out_w, int mode,
+                   int rows, int threads, cudaStream_t stream) {
+  if ((out_dtype != 0 && out_dtype != 1) || s < 4 || s % 4 || s > kMaxSide || batch < 0 ||
+      batch > 65535 || out_h < 0 || out_w < 0 || mode < 0 || mode > 2 || rows < 1 ||
+      rows > kMaxRows || threads < 64 || threads > kMaxThreads || threads % 32 ||
+      (kCells && rows % 2))
+    return (int)cudaErrorInvalidValue;
+  if (out_dtype == 0)
+    return launch<float, kCells>(packed, image_stride, hws, out, batch, s, out_h, out_w, mode,
+                                 rows, threads, stream);
+  return launch<__nv_bfloat16, kCells>(packed, image_stride, hws, out, batch, s, out_h, out_w,
+                                       mode, rows, threads, stream);
 }
 
 }  // namespace
@@ -407,13 +459,17 @@ extern "C" int twd_preprocess_i420(const uint8_t* packed, long long image_stride
                                    const int32_t* hws, void* out, int out_dtype, int batch,
                                    int s, int out_h, int out_w, int mode, int rows,
                                    int threads, cudaStream_t stream) {
-  if ((out_dtype != 0 && out_dtype != 1) || s < 4 || s % 4 || s > kMaxSide || batch < 0 ||
-      batch > 65535 || out_h < 0 || out_w < 0 || mode < 0 || mode > 2 || rows < 1 ||
-      rows > kMaxRows || threads < 64 || threads > kMaxThreads || threads % 32)
-    return (int)cudaErrorInvalidValue;
-  if (out_dtype == 0)
-    return launch<float>(packed, image_stride, hws, out, batch, s, out_h, out_w, mode, rows,
-                         threads, stream);
-  return launch<__nv_bfloat16>(packed, image_stride, hws, out, batch, s, out_h, out_w, mode,
-                               rows, threads, stream);
+  return checked_launch<false>(packed, image_stride, hws, out, out_dtype, batch, s, out_h,
+                               out_w, mode, rows, threads, stream);
+}
+
+// The same, stored as cells: out is [batch, ⌈out_h/2⌉, ⌈out_w/2⌉, 12] (channel
+// ((y%2)·2 + x%2)·3 + c; an odd extent's missing phase is zeros), and `rows`
+// must be even.
+extern "C" int twd_preprocess_i420_s2d(const uint8_t* packed, long long image_stride,
+                                       const int32_t* hws, void* out, int out_dtype, int batch,
+                                       int s, int out_h, int out_w, int mode, int rows,
+                                       int threads, cudaStream_t stream) {
+  return checked_launch<true>(packed, image_stride, hws, out, out_dtype, batch, s, out_h,
+                              out_w, mode, rows, threads, stream);
 }

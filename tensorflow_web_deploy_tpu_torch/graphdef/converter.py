@@ -33,13 +33,24 @@ What the port adds, all at build:
   and reads nothing back, so a CUDA graph captures it.
 
 Handlers are resolved eagerly, so an unsupported op fails at conversion,
-as in the reference. The reference's space-to-depth stem rewrite is not
-ported: cuDNN takes the plain stride-2 stem.
+as in the reference.
+
+**The stem's input-format rewrite** (the reference's ``S2DStem``). Where
+the graph's image input feeds, through at most one static zero ``Pad``, a
+stride-2 few-channel ``Conv2D`` (each link with a single consumer), the
+converter records an :class:`S2DStem`: ``build(h, w)`` gives a variant of
+the module whose first input is the preprocess's ``pack_s2d`` cells, the
+absorbed ``Pad`` skipped and the stem conv computed by
+``ops/stem.py::conv2d_s2d_input`` on a kernel rearranged once at build.
+Every other stride-2 few-channel ``Conv2D`` takes the space-to-depth
+rewrite on its own input (``ops/tf_ops.py``).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import functools
 import re
 from typing import Any, Sequence
 
@@ -47,7 +58,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops import quant, tf_ops
+from ..ops import quant, stem, tf_ops
+from ..ops.depthwise import resolve_pads
 from .proto import DT_FLOAT, GraphDef, NodeDef, load_pb, np_dtype
 
 # Float consts at least this many elements become params; smaller consts
@@ -133,6 +145,124 @@ def to_port_layout(layout: str, w: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class S2DStem:
+    """Input-format rewrite handle: the graph's image input feeds (through
+    at most one static zero ``Pad``) a stride-2 few-channel ``Conv2D``.
+    ``build(h, w)`` returns a copy of the converted module that takes the
+    preprocess's ``pack_s2d`` cells [B, ⌈h/2⌉, ⌈w/2⌉, 4·cin] in place of
+    NHWC images.
+
+    ``base_pads`` come from the absorbed ``Pad``; the conv's own SAME/VALID
+    padding is resolved against the serving (h, w), and the sum goes to
+    ``ops.stem.conv2d_s2d_input`` as explicit pads (odd leading pads by a
+    kernel shift there). ``cin`` is the conv's input channels: the port's
+    engine hands cells only to a stem of the 3 channels its preprocess
+    makes (the reference's detector takes any ``cin`` ≤ 4)."""
+
+    conv_name: str
+    skip_names: frozenset[str]
+    base_pads: tuple[tuple[int, int], tuple[int, int]]
+    conv_padding: str  # "SAME" / "VALID"
+    kernel_hw: tuple[int, int]
+    cin: int
+    _builder: Any  # (explicit pads, (h, w)) -> the cells-consuming module
+
+    def resolve_pads(self, h: int, w: int) -> tuple[tuple[int, int], tuple[int, int]]:
+        (bt, bb), (bl, br) = self.base_pads
+        if self.conv_padding == "VALID":
+            (ct, cb), (cl, cr) = (0, 0), (0, 0)
+        else:  # TF SAME on the padded extent: lax's rule
+            (ct, cb), (cl, cr) = resolve_pads("SAME", (h + bt + bb, w + bl + br),
+                                              self.kernel_hw, (2, 2))
+        return (bt + ct, bb + cb), (bl + cl, br + cr)
+
+    def supports(self, h: int, w: int) -> bool:
+        """Is the even-extent cell convention exact at serving size (h, w)?
+        Per axis: an even extent always; an odd extent needs an even total
+        pad (then the implied extra zero row changes no output)."""
+        (pt, pb), (pl, pr) = self.resolve_pads(h, w)
+        return (h % 2 == 0 or (pt + pb) % 2 == 0) and (w % 2 == 0 or (pl + pr) % 2 == 0)
+
+    def build(self, h: int, w: int) -> "ConvertedModel":
+        if not self.supports(h, w):
+            raise ValueError(f"s2d stem not exact at {(h, w)}")
+        return self._builder(self.resolve_pads(h, w), (h, w))
+
+
+def _detect_s2d_stem(compute_nodes, input_names, params, statics, builder) -> S2DStem | None:
+    """Match [Placeholder] → (optional static zero Pad) → stride-2 small-C
+    Conv2D (NHWC, undilated, odd kernel), each link single-consumer: the
+    Keras/TF-Slim frozen-graph stem (Inception: a VALID conv on the input;
+    MobileNet: ZeroPadding2D then a VALID conv). The reference's rule."""
+    if len(input_names) != 1:
+        return None
+
+    def consumers_of(name):
+        return [n for n in compute_nodes if n.op != "NoOp"
+                and any(_ref_name(r) == (name, 0) for r in n.inputs if not r.startswith("^"))]
+
+    cons = consumers_of(input_names[0])
+    if len(cons) != 1:
+        return None
+    node = cons[0]
+    base_pads = ((0, 0), (0, 0))
+    skip: frozenset[str] = frozenset()
+    if node.op == "Pad":
+        pads_v = statics.get(_ref_name(node.inputs[1])[0])
+        if not isinstance(pads_v, np.ndarray) or pads_v.shape != (4, 2):
+            return None
+        p = pads_v.astype(np.int64)
+        if (p < 0).any() or p[0].any() or p[3].any():
+            return None  # batch/channel padding: not a spatial stem pad
+        base_pads = ((int(p[1, 0]), int(p[1, 1])), (int(p[2, 0]), int(p[2, 1])))
+        nxt = consumers_of(node.name)
+        if len(nxt) != 1:
+            return None
+        skip = frozenset({node.name})
+        node = nxt[0]
+    if node.op != "Conv2D":
+        return None
+    df = tf_ops._decode(node.attr("data_format"), "NHWC")
+    if df != "NHWC":
+        return None
+    strides = tf_ops._hw(node.attr("strides"), df)
+    dil = tf_ops._hw(node.attr("dilations", [1, 1, 1, 1]), df)
+    padding = tf_ops._decode(node.attr("padding"), "VALID")
+    if padding not in ("SAME", "VALID") or (padding == "SAME" and skip):
+        return None  # Pad-then-SAME never occurs in the genre
+    # the kernel may sit behind pass-through nodes (frozen Keras graphs wire
+    # consts through ReadVariableOp/Identity)
+    node_by_name = {n.name: n for n in compute_nodes}
+    kname = _ref_name(node.inputs[1])[0]
+    for _ in range(8):
+        if kname in params or kname in statics:
+            break
+        nd = node_by_name.get(kname)
+        if nd is None or nd.op not in ("Identity", "ReadVariableOp"):
+            break
+        kname = _ref_name(nd.inputs[0])[0]
+    kernel = params.get(kname)
+    if kernel is None:
+        kernel = statics.get(kname)
+    if not isinstance(kernel, np.ndarray) or kernel.ndim != 4:
+        return None
+    if not stem.worthwhile(kernel.shape[2], strides, kernel.shape[:2], dil):
+        return None
+    return S2DStem(conv_name=node.name, skip_names=skip, base_pads=base_pads,
+                   conv_padding=padding, kernel_hw=(int(kernel.shape[0]), int(kernel.shape[1])),
+                   cin=int(kernel.shape[2]), _builder=builder)
+
+
+def _conv_cells(node, inputs, xp, pads):
+    """The stem conv of a cells-consuming module: cells NHWC [B, ch, cw,
+    4·cin], the OIHW kernel, and the rearranged kernel when it was made at
+    build (a per-call kernel, the int8 tier's, is rearranged per call)."""
+    x, w, *k = inputs
+    y = stem.conv2d_s2d_input(x.permute(0, 3, 1, 2), w, pads, rearranged=k[0] if k else None)
+    return y.permute(0, 2, 3, 1)
+
+
+@dataclasses.dataclass
 class _Step:
     """One per-call node: its handler and where each input comes from —
     ("val", (name, i)) a value of this call, ("buf", key) a module buffer,
@@ -162,11 +292,16 @@ class ConvertedModel(nn.Module):
         folded_nodes: names of the const-only nodes evaluated at build.
         buffer_origin: buffer key → (node name, layout) of the value.
         int8_params: names of the int8-quantized parameters.
+        s2d_stem: the stem's input-format rewrite handle (:class:`S2DStem`)
+            when the graph's stem matches the pattern, else None.
+        cells_input: with ``s2d_input=(h, w)`` the module takes the
+            preprocess's cells at that serving size: True.
     """
 
     def __init__(self, graph: GraphDef, outputs: Sequence[str] | None = None,
                  inputs: Sequence[str] | None = None, dtype: torch.dtype = torch.float32,
-                 int8: bool = False, params: dict[str, np.ndarray] | None = None):
+                 int8: bool = False, params: dict[str, np.ndarray] | None = None,
+                 s2d_input: tuple[int, int] | None = None):
         super().__init__()
         self.dtype = dtype
         self.output_names = list(outputs or _infer_outputs(graph))
@@ -205,6 +340,9 @@ class ConvertedModel(nn.Module):
         # Resolve handlers eagerly so unsupported ops fail at convert time,
         # not on the first request.
         handlers = {n.name: tf_ops.get_handler(n.op) for n in compute_nodes if n.op != "NoOp"}
+        self.s2d_stem = _detect_s2d_stem(compute_nodes, self.input_names, self.params, statics,
+                                         self._cells_variant)
+        self.cells_input = False
 
         # the compute-dtype cast: the reference casts float32 params (int8:
         # the quantized tree) and, under a non-float32 policy, float statics
@@ -318,9 +456,20 @@ class ConvertedModel(nn.Module):
                 self._outputs.append(("buf", buffer_for(v, "", name)))
             else:
                 self._outputs.append(("val", (name, idx)))
+        self._plan_releases()
+        if s2d_input is not None:
+            if self.s2d_stem is None or not self.s2d_stem.supports(*s2d_input):
+                raise ValueError(f"the graph's stem cannot take cells at {tuple(s2d_input)}: "
+                                 f"{self.s2d_stem}")
+            self._read_cells(self.s2d_stem.resolve_pads(*s2d_input), s2d_input)
+
+    def _plan_releases(self) -> None:
+        """The per-call node list, and each value's last reader (which drops
+        it after reading)."""
         self.call_nodes = [(s.node.name, s.node.op) for s in self._steps]
         last: dict[tuple[str, int], int] = {}
         for i, step in enumerate(self._steps):
+            step.release = []
             for kind, ref in step.plan:
                 if kind == "val":
                     last[ref] = i
@@ -329,6 +478,39 @@ class ConvertedModel(nn.Module):
             if ref not in kept:
                 self._steps[i].release.append(ref)
         self._needed = frozenset(last) | kept
+
+    def _read_cells(self, pads, hw: tuple[int, int]) -> None:
+        """Turn this module into the cells-consuming variant at serving size
+        ``hw``: the first input becomes cells, the absorbed ``Pad`` is
+        skipped, and the stem conv reads the cells through
+        ``conv2d_s2d_input`` with explicit ``pads``. A kernel made once (a
+        buffer) is rearranged once, here."""
+        st = self.s2d_stem
+        cells = (self.input_names[0], 0)
+        self._steps = [s for s in self._steps if s.node.name not in st.skip_names]
+        for step in self._steps:
+            if step.node.name != st.conv_name:
+                continue
+            kind, ref = step.plan[1]
+            step.plan = [("val", cells), (kind, ref)]
+            if kind == "buf":
+                key = ref + "__s2d"
+                self.register_buffer(key, stem.s2d_input_kernel(self._buffers[ref], pads)
+                                     .contiguous())
+                self.buffer_origin[key] = (self.buffer_origin[ref][0], "s2d")
+                step.plan.append(("buf", key))
+            step.handler = tf_ops.OpHandler(functools.partial(_conv_cells, pads=pads))
+        self._plan_releases()
+        h, w = hw
+        self.input_specs[0] = dataclasses.replace(
+            self.input_specs[0], shape=[None, (h + 1) // 2, (w + 1) // 2, 4 * st.cin])
+        self.cells_input = True
+
+    def _cells_variant(self, pads, hw: tuple[int, int]) -> "ConvertedModel":
+        """:meth:`S2DStem.build`: a copy of this module reading cells."""
+        model = copy.deepcopy(self)
+        model._read_cells(pads, hw)
+        return model
 
     def forward(self, *args):
         if len(args) != len(self.input_names):
@@ -364,8 +546,8 @@ class ConvertedModel(nn.Module):
 
 def convert_graphdef(graph: GraphDef, outputs: Sequence[str] | None = None,
                      inputs: Sequence[str] | None = None, dtype: torch.dtype = torch.float32,
-                     int8: bool = False,
-                     params: dict[str, np.ndarray] | None = None) -> ConvertedModel:
+                     int8: bool = False, params: dict[str, np.ndarray] | None = None,
+                     s2d_input: tuple[int, int] | None = None) -> ConvertedModel:
     """Convert a parsed ``GraphDef`` into a :class:`ConvertedModel` on the
     CPU in ``dtype`` (the caller moves it).
 
@@ -377,9 +559,12 @@ def convert_graphdef(graph: GraphDef, outputs: Sequence[str] | None = None,
         dtype: the compute dtype (float params and statics cast to it).
         int8: quantize the reference's eligible kernels (``ops/quant.py``).
         params: weights by node name to use instead of the graph's own.
+        s2d_input: the serving (h, w) at which the module takes the
+            preprocess's cells (:class:`S2DStem`); a graph whose stem
+            cannot is refused.
     """
     return ConvertedModel(graph, outputs=outputs, inputs=inputs, dtype=dtype, int8=int8,
-                          params=params).eval().requires_grad_(False)
+                          params=params, s2d_input=s2d_input).eval().requires_grad_(False)
 
 
 def convert_pb(path: str, outputs: Sequence[str] | None = None,

@@ -24,12 +24,20 @@ class ModelSpec:
     preprocess: str
     task: str = "classify"
     num_classes: int = 1000
+    # Stem conv padding: it decides when the serving preprocess may hand the
+    # model pack_s2d cells (input_format="s2d"). The even-extent cell
+    # convention is exact for a VALID stem at any size, and for a SAME stem
+    # only at even sizes (an odd extent would shift the implicit padding).
+    stem_padding: str = "SAME"
+
+    def s2d_ok(self, h: int, w: int) -> bool:
+        return self.stem_padding == "VALID" or (h % 2 == 0 and w % 2 == 0)
 
 
 _ZOO: dict[str, ModelSpec] = {
     s.name: s
     for s in [
-        ModelSpec("inception_v3", InceptionV3, 299, "inception"),
+        ModelSpec("inception_v3", InceptionV3, 299, "inception", stem_padding="VALID"),
         ModelSpec("mobilenet_v2", MobileNetV2, 224, "inception"),
         ModelSpec("resnet50", ResNet50, 224, "caffe"),
         ModelSpec("ssd_mobilenet", SSDMobileNet, 300, "inception", task="detect",

@@ -81,16 +81,19 @@ def to_jax_params(module: nn.Module) -> dict[str, np.ndarray]:
 
 
 def init_variables(spec, num_classes: int | None = None, width: float = 1.0,
-                   seed: int = 0) -> tuple[nn.Module, dict[str, np.ndarray]]:
+                   seed: int = 0, input_format: str = "nhwc"
+                   ) -> tuple[nn.Module, dict[str, np.ndarray]]:
     """Build a zoo model with its seeded init; returns (module in eval mode,
-    flat params in the JAX layout).
+    flat params in the JAX layout). ``input_format`` ("nhwc" or "s2d") is
+    the module's; the params are the same for both.
 
     The reference's rule: over the flattened keys in sorted order, one
     ``np.random.RandomState(seed)`` draws He-normal ``randn·sqrt(2/fan_in)``
     for every ``kernel`` (fan_in = product of all but the last HWIO/[in,
     out] dim); ``scale`` and ``var`` are ones, everything else zeros.
     """
-    module = spec.build(num_classes=num_classes or spec.num_classes, width=width)
+    module = spec.build(num_classes=num_classes or spec.num_classes, width=width,
+                        input_format=input_format)
     shapes = {k: _to_flax_layout(v).shape for k, v in module.state_dict().items()}
     rs = np.random.RandomState(seed)
     flat = {}
@@ -156,7 +159,9 @@ def restore_serving_export(params_flat: dict[str, np.ndarray],
 
 class Classifier(nn.Module):
     """Serving wrapper: NHWC float images → softmax probabilities, as the
-    reference's ``fn`` (softmax runs in the model's dtype)."""
+    reference's ``fn`` (softmax runs in the model's dtype). A backbone
+    built with ``input_format="s2d"`` takes the images' ``pack_s2d``
+    cells [B, ⌈H/2⌉, ⌈W/2⌉, 12] in their place."""
 
     output_names = ["probs"]
 
@@ -171,8 +176,9 @@ class Classifier(nn.Module):
 
 
 class Detector(nn.Module):
-    """Serving wrapper of a detector: NHWC float images → (raw_boxes [B, A,
-    4], raw_scores [B, A, C+1], anchors [A, 4]), as the reference's ``fn``.
+    """Serving wrapper of a detector: NHWC float images (or cells, as
+    :class:`Classifier`) → (raw_boxes [B, A, 4], raw_scores [B, A, C+1],
+    anchors [A, 4]), as the reference's ``fn``.
     The anchors are a float32 buffer computed at the configured input
     size; a cast of the module moves them and keeps them float32 (the
     reference closes over them as a float32 constant, so box coordinates
@@ -230,8 +236,8 @@ def quantize_int8(module: nn.Module, params_flat: dict[str, np.ndarray]) -> nn.M
 def native_converted(name: str, num_classes: int | None = None, width: float = 1.0,
                      seed: int = 0, params_flat: dict[str, np.ndarray] | None = None,
                      fused_dw: bool = False, int8: bool = False,
-                     input_size: int | None = None,
-                     ckpt_path: str | None = None) -> Classifier | Detector:
+                     input_size: int | None = None, ckpt_path: str | None = None,
+                     input_format: str = "nhwc") -> Classifier | Detector:
     """A zoo model ready to serve: seeded init (or ``params_flat`` in the
     JAX layout, or the serving export at ``ckpt_path``), BN folded into the
     convs, eval mode, no gradients. A
@@ -244,9 +250,19 @@ def native_converted(name: str, num_classes: int | None = None, width: float = 1
     kernel on the card); the parameters are the same, and a model without
     depthwise cells ignores it. ``int8=True`` stores the kernels int8
     (:func:`quantize_int8`). Stays on the CPU in float32 (int8 kernels
-    int8); the caller moves and casts it."""
+    int8); the caller moves and casts it.
+
+    ``input_format="s2d"``: the model takes the preprocess's ``pack_s2d``
+    cells [B, ⌈H/2⌉, ⌈W/2⌉, 12] instead of NHWC images (the yuv420
+    stem handshake). The parameters are the same; only valid where
+    ``spec.s2d_ok(input_size, input_size)``, as in the reference."""
     spec = get(name)
-    module, flat = init_variables(spec, num_classes=num_classes, width=width, seed=seed)
+    size = input_size or spec.input_size
+    if input_format == "s2d" and not spec.s2d_ok(size, size):
+        raise ValueError(f"{name}: s2d input_format needs an even input size with a SAME "
+                         f"stem (got {size})")
+    module, flat = init_variables(spec, num_classes=num_classes, width=width, seed=seed,
+                                  input_format=input_format)
     if ckpt_path is not None:
         if params_flat is not None:
             raise ValueError("give params_flat or ckpt_path, not both")
@@ -260,7 +276,7 @@ def native_converted(name: str, num_classes: int | None = None, width: float = 1
         fold_bn(module)
     set_fused_dw(module, fused_dw)
     if spec.task == "detect":
-        model = Detector(module, module.anchors_for(input_size or spec.input_size)).eval()
+        model = Detector(module, module.anchors_for(size)).eval()
     else:
         model = Classifier(module).eval()
     model.requires_grad_(False)
@@ -300,16 +316,22 @@ class ConvertedDetector(nn.Module):
 
 
 def converted_graph(cfg, graph=None, dtype: torch.dtype = torch.float32,
-                    int8: bool = False) -> ConvertedClassifier | ConvertedDetector:
+                    int8: bool = False,
+                    input_format: str = "nhwc") -> ConvertedClassifier | ConvertedDetector:
     """A frozen graph ready to serve, with the interface
     :func:`native_converted` gives the engine: ``cfg`` (a ``ModelConfig``
     with ``source="pb"``) names the file, its inputs and outputs; ``graph``
     is the parsed ``GraphDef`` when the caller has it. Built on the CPU in
     ``dtype`` (``int8``: the reference's eligible kernels int8,
-    dequantized on every call); the caller moves it."""
+    dequantized on every call); the caller moves it. ``input_format="s2d"``
+    builds the variant that takes the preprocess's cells at
+    ``cfg.input_size`` (``graphdef/converter.py::S2DStem``)."""
+    if input_format not in ("nhwc", "s2d"):
+        raise ValueError(f"input_format must be 'nhwc' or 's2d', got {input_format!r}")
     graph = load_pb(cfg.pb_path) if graph is None else graph
     model = convert_graphdef(graph, outputs=cfg.output_names,
                              inputs=[cfg.input_name] if cfg.input_name else None,
-                             dtype=dtype, int8=int8)
+                             dtype=dtype, int8=int8,
+                             s2d_input=tuple(cfg.input_size) if input_format == "s2d" else None)
     wrap = ConvertedDetector if cfg.task == "detect" else ConvertedClassifier
     return wrap(model).eval().requires_grad_(False)

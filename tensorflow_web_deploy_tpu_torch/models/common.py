@@ -6,9 +6,11 @@ Module and parameter names follow the flax tree — ``<block>/conv/kernel``,
 ``models/adapter.py`` maps the JAX package's flat params onto these
 modules by name alone.
 
-The JAX package routes stride-2 stems through an exact space-to-depth
-rewrite for the TPU's matrix unit; that is an identity of the math, so
-here the stem is a plain stride-2 convolution. "SAME" padding is
+A stride-2 conv over few channels (every zoo stem) runs through the
+reference's exact space-to-depth rewrite (``ops/stem.py``), as the JAX
+package computes it: the same parameter, the same math, another order of
+its sums. With ``s2d_input`` the stem consumes the preprocess's cells
+instead (the yuv420 handshake). "SAME" padding is
 ``lax.padtype_to_pads``'s (``ops/depthwise.py::same_pads``): at stride 2
 it is computed from each input's size and applied with ``F.pad``, because
 its odd pad goes at the end.
@@ -28,9 +30,18 @@ from ..ops.depthwise import (
     pad_nchw,
     resolve_pads,
 )
-from ..ops.quant import Int8Conv2d, dequantize_taps
+from ..ops import stem
+from ..ops.quant import Int8Conv2d, dequantize, dequantize_taps
 
 ACTIVATIONS = {"relu": F.relu, "relu6": F.relu6, None: lambda x: x}
+
+
+def takes_cells(input_format: str) -> bool:
+    """A zoo model's ``input_format``: "nhwc" (images) or "s2d" (the
+    preprocess's ``pack_s2d`` cells, which its stem consumes)."""
+    if input_format not in ("nhwc", "s2d"):
+        raise ValueError(f"input_format must be 'nhwc' or 's2d', got {input_format!r}")
+    return input_format == "s2d"
 
 
 def scale_ch(c: int, width: float, divisor: int = 8) -> int:
@@ -137,18 +148,56 @@ class ConvBNCell(nn.Module):
 class ConvBN(ConvBNCell):
     """Conv (no bias) → BatchNorm (ε ``bn_eps``, the reference's 1e-3 by
     default; ResNet-50 passes 1e-5) → activation ("relu", "relu6" or None).
-    ``padding`` is "SAME" (the reference's pads) or "VALID"."""
+    ``padding`` is "SAME" (the reference's pads) or "VALID".
+
+    Where ``stem.worthwhile`` holds (stride 2, odd kernel, at most 4 input
+    channels) the conv runs through ``stem.conv2d_stride2_s2d``; with
+    ``s2d_input`` (a stride-2 stem only) it consumes ``pack_s2d`` cells
+    [B, 4·cin, ⌈H/2⌉, ⌈W/2⌉] through ``stem.conv2d_s2d_input``. Either way
+    the parameter is the logical ``conv.weight`` [cout, cin, kh, kw]. The
+    serving fold (or the int8 quantization) builds the rearranged kernel
+    once into ``stem_kernel`` (float, or int8 ``q`` dequantized per call
+    with the conv's scale), so a replay rearranges nothing; unfolded, the
+    kernel is rearranged from the parameter on every call and autograd
+    flows through it."""
 
     def __init__(self, cin: int, cout: int, kernel=(3, 3), stride: int = 1,
-                 padding: str = "SAME", act: str | None = "relu", bn_eps: float = 1e-3):
+                 padding: str = "SAME", act: str | None = "relu", bn_eps: float = 1e-3,
+                 s2d_input: bool = False):
         super().__init__()
         pad = self._init_cell(kernel, stride, padding, act)
+        if s2d_input and stride != 2:
+            raise ValueError("s2d_input requires a stride-2 stem")
+        # "input": cells in; "fold": the image folded here; None: stock conv
+        self.s2d = ("input" if s2d_input
+                    else "fold" if stem.worthwhile(cin, (stride, stride), self.kernel) else None)
+        if self.s2d:
+            self.dynamic_pad, pad = False, 0  # the stem functions pad
         self.conv = nn.Conv2d(cin, cout, tuple(kernel), stride=stride, padding=pad, bias=False)
         self.bn = BatchNorm(cout, eps=bn_eps)
         self.folded = False
+        self.register_buffer("stem_kernel", None, persistent=False)
+
+    @torch.no_grad()
+    def fold(self, quant: tuple[torch.Tensor, torch.Tensor] | None = None) -> None:
+        super().fold(quant)
+        if self.s2d:
+            w = self.conv.q if quant is not None else self.conv.weight
+            self.stem_kernel = (stem.s2d_input_kernel(w, self.padding) if self.s2d == "input"
+                                else stem.s2d_kernel(w)).contiguous()
+
+    def _stem(self, x):
+        conv, k = self.conv, self.stem_kernel
+        # an int8 cell's logical q gives the shape without a dequantize
+        w = conv.q if isinstance(conv, Int8Conv2d) else conv.weight
+        if k is not None and k.dtype == torch.int8:
+            k = dequantize(k, conv.scale)
+        fn = stem.conv2d_s2d_input if self.s2d == "input" else stem.conv2d_stride2_s2d
+        return fn(x, w, self.padding, bias=conv.bias, rearranged=k)
 
     def forward(self, x):
-        return ACTIVATIONS[self.act](self.bn(self.conv(self._pad(x))))
+        y = self._stem(x) if self.s2d else self.conv(self._pad(x))
+        return ACTIVATIONS[self.act](self.bn(y))
 
 
 class DepthwiseConvBN(ConvBNCell):

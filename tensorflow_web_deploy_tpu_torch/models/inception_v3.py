@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ConvBN, classifier_head, global_avg_pool, scale_ch
+from .common import ConvBN, classifier_head, global_avg_pool, scale_ch, takes_cells
 
 
 def _avg_pool_same(x):
@@ -147,13 +147,15 @@ class InceptionC(nn.Module):
 
 
 class InceptionV3(nn.Module):
-    """NCHW float images → logits [B, num_classes]."""
+    """NCHW float images → logits [B, num_classes]. With ``input_format="s2d"``
+    the input is the images' ``pack_s2d`` cells [B, 12, ⌈H/2⌉, ⌈W/2⌉]."""
 
-    def __init__(self, num_classes: int = 1000, width: float = 1.0):
+    def __init__(self, num_classes: int = 1000, width: float = 1.0, input_format: str = "nhwc"):
         super().__init__()
         w = lambda c: scale_ch(c, width)
         # Stem: 299 → 35 spatial.
-        self.stem1 = ConvBN(3, w(32), (3, 3), stride=2, padding="VALID")
+        self.stem1 = ConvBN(3, w(32), (3, 3), stride=2, padding="VALID",
+                            s2d_input=takes_cells(input_format))
         self.stem2 = ConvBN(w(32), w(32), (3, 3), padding="VALID")
         self.stem3 = ConvBN(w(32), w(64), (3, 3))
         self.stem4 = ConvBN(w(64), w(80), (1, 1), padding="VALID")

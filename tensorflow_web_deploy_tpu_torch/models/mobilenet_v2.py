@@ -11,7 +11,8 @@ from __future__ import annotations
 
 from torch import nn
 
-from .common import ConvBN, DepthwiseConvBN, classifier_head, global_avg_pool, scale_ch
+from .common import (ConvBN, DepthwiseConvBN, classifier_head, global_avg_pool, scale_ch,
+                     takes_cells)
 
 # (expansion t, output channels c, repeats n, first stride s) — Table 2.
 _BLOCKS = [
@@ -41,12 +42,14 @@ class InvertedResidual(nn.Module):
 
 
 class MobileNetV2(nn.Module):
-    """NCHW float images → logits [B, num_classes]."""
+    """NCHW float images → logits [B, num_classes]. With ``input_format="s2d"``
+    the input is the images' ``pack_s2d`` cells [B, 12, ⌈H/2⌉, ⌈W/2⌉]."""
 
-    def __init__(self, num_classes: int = 1000, width: float = 1.0):
+    def __init__(self, num_classes: int = 1000, width: float = 1.0, input_format: str = "nhwc"):
         super().__init__()
         w = lambda c: scale_ch(c, width)  # noqa: E731
-        self.stem = ConvBN(3, w(32), (3, 3), stride=2, act="relu6")
+        self.stem = ConvBN(3, w(32), (3, 3), stride=2, act="relu6",
+                           s2d_input=takes_cells(input_format))
         c = w(32)
         self.block_names = []
         for i, (t, ch, n, s) in enumerate(_BLOCKS):

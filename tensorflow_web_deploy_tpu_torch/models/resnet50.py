@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ConvBN, classifier_head, global_avg_pool, max_pool_same, scale_ch
+from .common import (ConvBN, classifier_head, global_avg_pool, max_pool_same, scale_ch,
+                     takes_cells)
 
 # (inner width, blocks, first stride) per stage; a block's output is 4× its width
 _STAGES = [(64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2)]
@@ -42,12 +43,14 @@ class Bottleneck(nn.Module):
 
 
 class ResNet50(nn.Module):
-    """NCHW float images → logits [B, num_classes]."""
+    """NCHW float images → logits [B, num_classes]. With ``input_format="s2d"``
+    the input is the images' ``pack_s2d`` cells [B, 12, ⌈H/2⌉, ⌈W/2⌉]."""
 
-    def __init__(self, num_classes: int = 1000, width: float = 1.0):
+    def __init__(self, num_classes: int = 1000, width: float = 1.0, input_format: str = "nhwc"):
         super().__init__()
         w = lambda c: scale_ch(c, width)  # noqa: E731
-        self.stem = ConvBN(3, w(64), (7, 7), stride=2, bn_eps=_BN_EPS)
+        self.stem = ConvBN(3, w(64), (7, 7), stride=2, bn_eps=_BN_EPS,
+                           s2d_input=takes_cells(input_format))
         c = w(64)
         self.block_names = []
         for i, (ch, n, s) in enumerate(_STAGES):

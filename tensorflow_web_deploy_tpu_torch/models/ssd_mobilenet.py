@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .common import ConvBN, scale_ch
+from .common import ConvBN, scale_ch, takes_cells
 from .mobilenet_v2 import InvertedResidual
 
 ASPECT_RATIOS = (1.0, 2.0, 0.5)
@@ -52,18 +52,20 @@ def grid_anchors(feature_shapes, scales, aspect_ratios=ASPECT_RATIOS) -> np.ndar
 
 
 class SSDMobileNet(nn.Module):
-    """NCHW float images → (raw_boxes [B, A, 4], raw_scores [B, A, C+1]).
+    """NCHW float images (``input_format="s2d"``: their ``pack_s2d`` cells)
+    → (raw_boxes [B, A, 4], raw_scores [B, A, C+1]).
 
     The head outputs are reshaped from NHWC order (position, then anchor,
     then coordinate or class), as the flax ``reshape`` of an NHWC conv
     output is."""
 
-    def __init__(self, num_classes: int = 90, width: float = 1.0):
+    def __init__(self, num_classes: int = 90, width: float = 1.0, input_format: str = "nhwc"):
         super().__init__()
         w = lambda c: scale_ch(c, width)  # noqa: E731
         self.num_classes = num_classes
         self.n_anchor = len(ASPECT_RATIOS)
-        self.stem = ConvBN(3, w(16), (3, 3), stride=2, act="relu6")
+        self.stem = ConvBN(3, w(16), (3, 3), stride=2, act="relu6",
+                           s2d_input=takes_cells(input_format))
         c = w(16)
         for i, (ch, s) in enumerate(_BLOCKS):
             setattr(self, f"block{i}", InvertedResidual(c, w(ch), stride=s))

@@ -16,7 +16,10 @@ The rest of the device half is plain torch, as XLA ran it for the JAX package:
 ``make_preprocess_fn`` with ``resize="matmul"`` is the separable bilinear
 resize as ``torch.matmul``, with ``resize="gather"`` the same taps read by
 index (``resize_from_valid``). The fused I420 path with
-``resize="kernel"`` lives in ``ops/preprocess_i420.py``.
+``resize="kernel"`` lives in ``ops/preprocess_i420.py``. With ``s2d`` the
+preprocess emits the stem's space-to-depth cells (``ops/stem.py``): the
+yuv420 matmul resize writes them from its plane-wise matmuls
+(``resize_yuv_planes_s2d``), the other resizes fold their output.
 """
 
 from __future__ import annotations
@@ -340,6 +343,33 @@ def _combine_rgb(y, u, v):
     return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 255.0)
 
 
+def _fold_chroma(a: torch.Tensor) -> torch.Tensor:
+    """[..., out, S] sampling matrices → [..., out, S/2] acting on the
+    half-resolution plane: ``A @ R`` with R the ×2 nearest upsample, exact
+    (each pair of columns summed)."""
+    return a.unflatten(-1, (a.shape[-1] // 2, 2)).sum(-1)
+
+
+def _bilinear_matrix_chroma_packed(out_size: int, in_size: torch.Tensor, total: int
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chroma matrices split onto the wire's packed chroma rows. The
+    canvas stores an (S/2, S/2) chroma plane as (S/4, S) rows: packed row k
+    holds plane rows 2k (columns [0, S/2)) and 2k + 1 ([S/2, S)). Returns
+    ``(even, odd)``, each [B, out_size, S/4], with ``A_c @ plane == even @
+    rows[:, :S/2] + odd @ rows[:, S/2:]`` exactly (the same two taps a row,
+    zeros elsewhere) — the reference's form for its Pallas kernel."""
+    lo, hi, frac = _dynamic_axis_coords(out_size, in_size, total)
+    rl, rh = torch.floor(lo / 2)[..., None], torch.floor(hi / 2)[..., None]
+    cols4 = torch.arange(total // 4, dtype=torch.float32, device=in_size.device)
+    zero = torch.zeros((), dtype=torch.float32, device=in_size.device)
+    a, c = (1.0 - frac)[..., None], frac[..., None]
+
+    def taps(col):
+        return torch.where(col == rl, a, zero) + torch.where(col == rh, c, zero)
+
+    return taps(2 * cols4), taps(2 * cols4 + 1)
+
+
 def resize_yuv_planes(packed: torch.Tensor, hws: torch.Tensor, out_h: int, out_w: int):
     """I420 canvases [B, 3S/2, S] + valid hws → RGB float32 [B, out_h, out_w, 3].
 
@@ -355,6 +385,46 @@ def resize_yuv_planes(packed: torch.Tensor, hws: torch.Tensor, out_h: int, out_w
     a_wc = _bilinear_matrix_chroma(out_w, hws[:, 1], s)
     rs = lambda a, p, b: a @ p @ b.transpose(-1, -2)
     return _combine_rgb(rs(a_h, y, a_w), rs(a_hc, u, a_wc), rs(a_hc, v, a_wc))
+
+
+def _s2d_pair(a: torch.Tensor, out: int) -> torch.Tensor:
+    """Sampling matrices [B, out, S] → [B, ⌈out/2⌉, 2, S]: rows regrouped
+    into (cell, phase), a zero row appended for an odd ``out`` (the stem's
+    kernel has zero taps there)."""
+    cells = (out + 1) // 2
+    a = torch.nn.functional.pad(a, (0, 0, 0, 2 * cells - out))
+    return a.unflatten(1, (cells, 2))
+
+
+def resize_yuv_planes_s2d(packed: torch.Tensor, hws: torch.Tensor, out_h: int, out_w: int,
+                          mode: str) -> torch.Tensor:
+    """The plane resize emitting the stem's cells: I420 [B, 3S/2, S] →
+    normalized float32 [B, ⌈out_h/2⌉, ⌈out_w/2⌉, 12], channels (p, q, rgb)
+    with rgb fastest — ``pack_s2d(NORMALIZERS[mode](resize_yuv_planes(...)))``
+    with the fold written by the matmuls (rows regrouped by phase). The
+    normalize runs before the channels merge, so caffe's BGR flip acts on
+    each rgb triple; the phase row or column an odd extent lacks holds
+    literal zeros (the pack_s2d convention), not a normalized zero."""
+    y, u, v = _split_planes(packed)
+    b, s = y.shape[0], y.shape[-1]
+    ah = _s2d_pair(_bilinear_matrix(out_h, hws[:, 0], s), out_h)  # [B, ch, 2, S]
+    aw = _s2d_pair(_bilinear_matrix(out_w, hws[:, 1], s), out_w)  # [B, cw, 2, S]
+    ahc, awc = _fold_chroma(ah), _fold_chroma(aw)
+    ch, cw = ah.shape[1], aw.shape[1]
+
+    def rs(a3, p, b3):  # [B, ch, 2, n] @ [B, n, m] @ [B, cw, 2, m]^T → [B, ch, cw, 2, 2]
+        t = a3.flatten(1, 2) @ p @ b3.flatten(1, 2).transpose(-1, -2)  # [B, 2ch, 2cw]
+        return t.unflatten(1, (ch, 2)).unflatten(3, (cw, 2)).permute(0, 1, 3, 2, 4)
+
+    rgb = NORMALIZERS[mode](_combine_rgb(rs(ah, y, aw), rs(ahc, u, awc), rs(ahc, v, awc)))
+    if out_h % 2 or out_w % 2:
+        keep = torch.ones((ch, cw, 2, 2, 1), dtype=rgb.dtype, device=rgb.device)
+        if out_h % 2:
+            keep[-1, :, 1] = 0.0
+        if out_w % 2:
+            keep[:, -1, :, 1] = 0.0
+        rgb = rgb * keep
+    return rgb.reshape(b, ch, cw, 12)
 
 
 _CAFFE_MEAN = (103.939, 116.779, 123.68)
@@ -385,9 +455,13 @@ NORMALIZERS = {
 
 
 def make_preprocess_fn(out_h: int, out_w: int, mode: str, wire: str = "rgb",
-                       resize: str = "matmul", out_dtype: torch.dtype = torch.float32):
+                       resize: str = "matmul", out_dtype: torch.dtype = torch.float32,
+                       s2d: bool = False):
     """Preprocess callable ``(canvases, hws) → [B, out_h, out_w, 3]`` in
-    ``out_dtype``.
+    ``out_dtype``; with ``s2d``, the stem's cells [B, ⌈out_h/2⌉,
+    ⌈out_w/2⌉, 12] (``ops/stem.py::pack_s2d``'s layout) for a model built
+    with ``input_format="s2d"``: the yuv420 matmul resize writes them
+    directly, the kernel stores them, the other paths fold their output.
 
     ``wire`` selects the canvas encoding: "rgb" takes uint8 [B, S, S, 3];
     "yuv420" takes packed I420 uint8 [B, 3S/2, S]. ``resize="matmul"`` is
@@ -406,15 +480,23 @@ def make_preprocess_fn(out_h: int, out_w: int, mode: str, wire: str = "rgb",
             raise ValueError("resize='kernel' requires the yuv420 wire")
         from .preprocess_i420 import preprocess_i420
 
-        return lambda packed, hws: preprocess_i420(packed, hws, out_h, out_w, mode, out_dtype)
+        return lambda packed, hws: preprocess_i420(packed, hws, out_h, out_w, mode, out_dtype,
+                                                   s2d)
     if resize not in RESIZERS:
         raise ValueError(f"unknown resize {resize!r}")
     norm = NORMALIZERS[mode]
     if wire == "yuv420" and resize == "matmul":
+        if s2d:
+            return lambda packed, hws: resize_yuv_planes_s2d(packed, hws, out_h, out_w,
+                                                             mode).to(out_dtype)
         return lambda packed, hws: norm(resize_yuv_planes(packed, hws, out_h, out_w)).to(
             out_dtype)
+    from .stem import pack_s2d
+
+    fold = pack_s2d if s2d else (lambda x: x)
     resize_one = RESIZERS[resize]
     if wire == "yuv420":  # gather: convert to RGB first, as the reference does
-        return lambda packed, hws: norm(resize_one(
-            yuv420_to_rgb(packed, packed.shape[-1]), hws, out_h, out_w)).to(out_dtype)
-    return lambda canvases, hws: norm(resize_one(canvases, hws, out_h, out_w)).to(out_dtype)
+        return lambda packed, hws: fold(norm(resize_one(
+            yuv420_to_rgb(packed, packed.shape[-1]), hws, out_h, out_w)).to(out_dtype))
+    return lambda canvases, hws: fold(norm(resize_one(canvases, hws, out_h, out_w)).to(
+        out_dtype))

@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..graphdef.proto import NodeDef, np_dtype
+from . import stem
 
 
 @dataclasses.dataclass
@@ -190,15 +191,6 @@ def _conv_pads(node: NodeDef, data_format: str, hw, kernel, strides, dilations):
     return (0, 0), (0, 0)
 
 
-def _conv_nchw(x, w, pads, strides, dilations, groups: int = 1):
-    """F.conv2d on an NCHW tensor with TF's pads (asymmetric: explicit F.pad)."""
-    (pt, pb), (pl, pr) = pads
-    if pt == pb and pl == pr:
-        return F.conv2d(x, w, None, strides, (pt, pl), dilations, groups)
-    x = F.pad(x, (pl, pr, pt, pb))
-    return F.conv2d(x, w, None, strides, 0, dilations, groups)
-
-
 def _depthwise_to_grouped(w):
     # TF depthwise kernel is [H, W, C, M] with output channel order c*M + m —
     # a grouped conv with C groups over a [C*M, 1, H, W] kernel.
@@ -214,21 +206,28 @@ LAYOUTS: dict[str, Callable] = {
 }
 
 
-def _conv(node, x, w, groups_of):
+def _conv(node, x, w, groups_of, s2d: bool = False):
+    """A conv node on NCHW views with TF's pads (asymmetric: explicit
+    F.pad). ``s2d``: a stride-2 few-channel conv goes through the
+    space-to-depth stem (``ops/stem.py``)."""
     df = _decode(node.attr("data_format"), "NHWC")
     strides = _hw(node.attr("strides"), df)
     dilations = _hw(node.attr("dilations", [1, 1, 1, 1]), df)
     nchw = df.startswith("NC")
     xc = x if nchw else _nhwc_to_nchw(x)
     pads = _conv_pads(node, df, xc.shape[2:], w.shape[2:], strides, dilations)
-    y = _conv_nchw(xc, w, pads, strides, dilations, groups_of(xc))
+    conv = stem.maybe_s2d_conv if s2d else stem.conv2d_padded
+    y = conv(xc, w, strides, pads, dilations, groups_of(xc))
     return y if nchw else _nchw_to_nhwc(y)
 
 
 @register("Conv2D", prepare={1: "oihw"})
 def _conv2d(node, inputs, xp):
     x, w = inputs  # w: OIHW
-    return _conv(node, x, w, lambda xc: xc.shape[1] // w.shape[1])
+    # Frozen-graph stems (a stride-2 conv over RGB) take the zoo's exact
+    # space-to-depth rewrite, on NHWC graphs as in the reference.
+    return _conv(node, x, w, lambda xc: xc.shape[1] // w.shape[1],
+                 s2d=_decode(node.attr("data_format"), "NHWC") == "NHWC")
 
 
 @register("DepthwiseConv2dNative", prepare={1: "grouped"})

@@ -310,7 +310,10 @@ def model_cost(model_cfg) -> dict | None:
     architecture has no walker: ``{"flops_per_image", "macs_per_image",
     "param_count", "param_bytes", "act_bytes_per_image", "dtype",
     "dtype_bytes"}``. Activations move at the compute width (float32 4 B,
-    bf16 and int8 2 B), parameters at the storage width (int8 1 B)."""
+    bf16 and int8 2 B), parameters at the storage width (int8 1 B). The
+    stem counts as the logical stride-2 conv whichever route computes it:
+    the space-to-depth rewrite's zero taps are not useful work, so MFU
+    compares across routes."""
     name = model_cfg.name
     walker = _WALKERS.get(name)
     if walker is None:

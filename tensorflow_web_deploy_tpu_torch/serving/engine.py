@@ -15,6 +15,16 @@ with the preprocess kernel, that stage is one launch: the kernel reads
 each row's trailer itself and stores the serving dtype. Batches are padded to a batch bucket; padding
 rows carry hw = 1×1 and are sliced off on the host.
 
+**The stem handshake** (the reference's ``_s2d_handshake``). On the yuv420
+wire the preprocess hands the model its stem's space-to-depth cells
+(``ops/stem.py``): the kernel stores them, the matmul resize writes them,
+the gather resize folds its output, and the model (a zoo model built with
+``input_format="s2d"``, or a frozen graph's ``S2DStem`` variant) starts
+with a stride-1 conv over them. A zoo model takes it where its spec says
+the cells are exact at the serving size (``ModelSpec.s2d_ok``); a frozen
+graph where its stem matches the pattern, is exact there and, unlike the
+reference, reads 3 channels. ``/stats → engine.s2d`` says which.
+
 On the ragged wire (rgb only) a batch is one pinned :class:`RaggedSlab`
 instead: each image's tight rows back to back, then the int32 meta table,
 shipped in one non-blocking copy. With the matmul resize (the default) the
@@ -129,7 +139,13 @@ import torch
 
 from .. import native
 from ..graphdef import load_pb
-from ..models.adapter import converted_graph, native_converted
+from ..models import get as zoo_get
+from ..models.adapter import (
+    ConvertedClassifier,
+    ConvertedDetector,
+    converted_graph,
+    native_converted,
+)
 from ..ops import _build, launches, quant
 from ..ops.detection import decode_boxes, multiclass_nms, nms_fixed
 from ..ops.fused_dw import fused_dw
@@ -144,6 +160,7 @@ from ..ops.image import (
 )
 from ..ops.preprocess_i420 import decode_trailer, preprocess_i420, preprocess_i420_wire
 from ..ops.preprocess_ragged import preprocess_ragged
+from ..ops.stem import pack_s2d
 from ..parallel.mesh import build_mesh, mesh_for
 from ..utils.config import ServerConfig
 from . import aotcache
@@ -605,6 +622,16 @@ class InferenceEngine:
         # yuv420 + kernel: the kernel takes the wire buffer itself
         # (preprocess_packed); the other paths decode the trailers first
         self._wire_kernel = cfg.wire_format == "yuv420" and cfg.resize == "kernel"
+        # The stem↔preprocess handshake (the reference's switch): on the
+        # yuv420 wire the preprocess hands the model the stem's space-to-depth
+        # cells, where the cell convention is exact for the stem at the
+        # serving size. A zoo model's spec says so here; a frozen graph's
+        # detected stem at its first build (_build_model), which also wants
+        # the 3 channels the preprocess makes.
+        h0, w0 = self.model_cfg.input_size
+        self.s2d: bool | None = (
+            cfg.wire_format == "yuv420" and zoo_get(self.model_cfg.name).s2d_ok(h0, w0)
+            if self.source == "native" else None)
         # ragged + matmul: one kernel from the arena to the serving dtype
         # (preprocess_ragged); ragged + gather: unpack, then the gather resize
         self._ragged_kernel = self.ragged and cfg.resize == "matmul"
@@ -685,7 +712,7 @@ class InferenceEngine:
         h, w = self.model_cfg.input_size
         self._preprocess = None if self._wire_kernel else make_preprocess_fn(
             h, w, self.model_cfg.preprocess, wire=cfg.wire_format, resize=cfg.resize,
-            out_dtype=self.dtype,
+            out_dtype=self.dtype, s2d=self.s2d,
         )
         self.batch_buckets = self._default_batch_buckets(cfg.max_batch, self.batch_multiple)
         self.max_batch = self.batch_buckets[-1]
@@ -719,9 +746,25 @@ class InferenceEngine:
 
     def _build_model(self, fused_dw: bool, int8: bool, dtype: torch.dtype = torch.float32):
         """The model on the CPU: a zoo model in float32 (the caller casts),
-        a frozen graph converted in ``dtype``."""
+        a frozen graph converted in ``dtype``; each takes cells where the
+        engine's handshake is on (:attr:`s2d`)."""
+        fmt = "s2d" if self.s2d else "nhwc"
         if self.source == "pb":
-            return converted_graph(self.model_cfg, self._graph, dtype=dtype, int8=int8)
+            if self.s2d is not None:
+                return converted_graph(self.model_cfg, self._graph, dtype=dtype, int8=int8,
+                                       input_format=fmt)
+            model = converted_graph(self.model_cfg, self._graph, dtype=dtype, int8=int8)
+            stem, (h, w) = model.graph.s2d_stem, self.model_cfg.input_size
+            # unlike the reference, the stem must take the 3 channels the
+            # preprocess makes: any other serves without the handshake
+            self.s2d = (self.cfg.wire_format == "yuv420" and stem is not None
+                        and stem.supports(h, w) and stem.cin == 3)
+            if self.s2d:
+                log.info("s2d input rewrite active: stem conv %s consumes the preprocess cell "
+                         "layout", stem.conv_name)
+                wrap = ConvertedDetector if self.task == "detect" else ConvertedClassifier
+                model = wrap(stem.build(h, w)).eval().requires_grad_(False)
+            return model
         return native_converted(
             self.model_cfg.name,
             num_classes=self.model_cfg.zoo_classes,
@@ -734,7 +777,13 @@ class InferenceEngine:
             # the serving preprocess resizes to input_size, so the
             # detector's anchor grid is derived from the same value
             input_size=self.model_cfg.input_size[0],
+            input_format=fmt,
         )
+
+    def model_input(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC images [B, h, w, 3] as this engine's model takes them: their
+        ``pack_s2d`` cells on a handshake engine, else as they are."""
+        return pack_s2d(x) if self.s2d else x
 
     def _size_outputs(self) -> None:
         """The task's class count, top-k and packed row width. Classify: k
@@ -747,7 +796,7 @@ class InferenceEngine:
             h, w = self.model_cfg.input_size
             x = torch.zeros((1, h, w, 3), dtype=self.dtype, device=self.device)
             with torch.inference_mode():
-                out = self.model(x)
+                out = self.model(self.model_input(x))
             if self.task == "detect":
                 num_classes, anchors = out[1].shape[-1] - 1, out[2].shape[0]
             else:
@@ -770,14 +819,17 @@ class InferenceEngine:
     def parity_check(self, batch: int = 4, seed: int = 0) -> dict:
         """Golden numerical-parity gate: this engine's model, as it serves
         (int8 dequantized on the fly, fused depthwise, compute dtype),
-        against the unfused float32 model on the same parameters, on a
-        seeded probe batch of NHWC images in [-1, 1]. Classify gates
-        margin-aware top-k agreement and the max probability delta; detect
-        gates the L∞ deltas of the sigmoid scores and of the raw box codes.
-        Runs at build for int8; callable on any engine."""
+        against the unfused float32 model on the same parameters (built with
+        the same input format), on a seeded probe batch in [-1, 1] of the
+        model's input shape: NHWC images, or cells on a handshake engine, as
+        the reference draws it. Classify gates margin-aware top-k agreement
+        and the max probability delta; detect gates the L∞ deltas of the
+        sigmoid scores and of the raw box codes. Runs at build for int8;
+        callable on any engine."""
         tol = self.PARITY_TOL.get(self.model_cfg.dtype, self.PARITY_TOL["bfloat16"])
         h, w = self.model_cfg.input_size
-        x = np.random.RandomState(seed).uniform(-1.0, 1.0, (batch, h, w, 3)).astype(np.float32)
+        shape = (batch, (h + 1) // 2, (w + 1) // 2, 12) if self.s2d else (batch, h, w, 3)
+        x = np.random.RandomState(seed).uniform(-1.0, 1.0, shape).astype(np.float32)
         x = torch.from_numpy(x).to(self.device)
         ref = self._build_model(fused_dw=False, int8=False).to(
             self.device, memory_format=torch.channels_last)
@@ -845,14 +897,18 @@ class InferenceEngine:
 
     def preprocess_packed(self, buf: torch.Tensor) -> torch.Tensor:
         """Preprocess stage of one batch: packed uint8 [B, bytes + 4] →
-        [B, out_h, out_w, 3] in the serving dtype. On the yuv420 wire with
-        the kernel, one launch that reads the trailers itself."""
+        [B, out_h, out_w, 3] in the serving dtype, or on a handshake engine
+        its cells [B, ⌈out_h/2⌉, ⌈out_w/2⌉, 12] (every resize: the kernel
+        stores them, the matmul resize writes them, the gather resize folds
+        its output). On the yuv420 wire with the kernel, one launch that
+        reads the trailers itself."""
         nbytes = buf.shape[1] - 4
         if self.cfg.wire_format == "yuv420":
             s = int(round((nbytes * 2 / 3) ** 0.5))
             if self._wire_kernel:
                 h, w = self.model_cfg.input_size
-                return preprocess_i420_wire(buf, s, h, w, self.model_cfg.preprocess, self.dtype)
+                return preprocess_i420_wire(buf, s, h, w, self.model_cfg.preprocess, self.dtype,
+                                            self.s2d)
             canvases = buf[:, :nbytes].unflatten(1, (s * 3 // 2, s))
         else:
             s = int(round((nbytes / 3) ** 0.5))
@@ -860,9 +916,9 @@ class InferenceEngine:
         return self._preprocess(canvases, decode_trailer(buf))
 
     def _head(self, model, x: torch.Tensor) -> torch.Tensor:
-        """The forward and the task's postprocess: [B, out_h, out_w, 3] →
-        float32 [B, row width]. Classify: softmax → top-k, k scores then k
-        class indices per image. Detect: the reference's branch — raw
+        """The forward and the task's postprocess: [B, out_h, out_w, 3] (a
+        handshake engine: cells) → float32 [B, row width]. Classify:
+        softmax → top-k, k scores then k class indices per image. Detect: the reference's branch — raw
         outputs to float32, boxes decoded against the anchors, sigmoid
         scores without the background class, static-shape NMS; D boxes,
         D scores, D classes and the count per image (class ids and counts
@@ -1668,6 +1724,7 @@ class InferenceEngine:
             "fused_dw": self.fused_dw,
             "parity": self.parity,
             "wire_format": self.cfg.wire_format,
+            "s2d": self.s2d,
             "ragged": self.ragged,
             "resize": self.cfg.resize,
             "decoder": self.decoder,

@@ -5,8 +5,8 @@ yuv420 wire: the JAX engine runs the Pallas preprocess kernel interpreted
 (``resize="pallas"``), the port its kernel's plain version
 (``resize="kernel"`` on a CPU device). rgb wire: both run the matmul
 resize. Top-k indices must match and scores agree within 1e-4. On the
-yuv420 wire the JAX engine feeds MobileNetV2's stem space-to-depth cells
-straight from the resize; that rewrite is exact, so the bar holds.
+yuv420 wire both engines feed the stem space-to-depth cells straight from
+the preprocess (the handshake).
 """
 
 import numpy as np

@@ -2,9 +2,9 @@
 seeded init leaf by leaf, weight carry-over, float32 probabilities, and
 the serving BN fold. Small size: width 0.25, 10 classes, input 96.
 
-The JAX forward runs its stem through the space-to-depth rewrite
-(ops/stem.py); the port's stem is a plain stride-2 conv, so the
-probability check also pins that the two stems agree.
+Both forwards run the stem through the space-to-depth rewrite
+(ops/stem.py in each package), so the probability check also pins that
+the two rewrites agree.
 """
 
 import numpy as np

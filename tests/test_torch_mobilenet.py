@@ -3,11 +3,11 @@ seeded init leaf by leaf, weight carry-over, float32 probabilities unfused
 and fused, and the serving BN fold over conv and depthwise cells. Small
 size: width 0.25, 10 classes, inputs 64 and 65.
 
-The JAX forward runs its stride-2 stem through the space-to-depth rewrite
-(ops/stem.py); the port's is a plain stride-2 conv after the reference's
-"SAME" pads, which are (0, 1) on the even input and (1, 1) on the odd one.
-The probability checks at both sizes pin those pads, in the stem and in
-the four stride-2 depthwise cells.
+Both forwards run the stride-2 stem through the space-to-depth rewrite
+(ops/stem.py in each package) with the reference's "SAME" pads, which are
+(0, 1) on the even input and (1, 1) on the odd one. The probability
+checks at both sizes pin those pads, in the stem and in the four stride-2
+depthwise cells.
 """
 
 import jax

@@ -153,8 +153,10 @@ def test_engine_preprocess_stage_stores_the_serving_dtype(rng, resize):
                           device="cpu")
     packed = _packed(rng)
     x = eng.preprocess_packed(torch.from_numpy(_wire(packed, HWS)))
+    # the yuv420 wire hands Inception-v3's VALID stem its space-to-depth cells
+    assert eng.s2d
     want = pp.preprocess_i420_plain(torch.from_numpy(packed), torch.from_numpy(HWS), OUT, OUT,
-                                    out_dtype=torch.bfloat16)
+                                    out_dtype=torch.bfloat16, s2d=True)
     assert x.dtype == torch.bfloat16 and torch.equal(x, want)
     eng.close()
 

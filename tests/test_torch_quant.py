@@ -97,8 +97,11 @@ def test_int8_module_keeps_int8_weights(seeded_params):
     int8 = [b for n, b in model.named_buffers() if n.endswith(".q")]
     assert len(int8) == 53 and all(b.dtype == torch.int8 for b in int8)
     floats = [p for p in model.parameters()] + [
-        b for n, b in model.named_buffers() if not n.endswith((".q", ".tap_bias"))]
+        b for n, b in model.named_buffers() if not n.endswith((".q", ".tap_bias", ".stem_kernel"))]
     assert all(t.dtype == torch.bfloat16 and t.dim() == 1 for t in floats)
+    # the space-to-depth stem keeps its q rearranged once, int8 too
+    stem = model.backbone.stem
+    assert stem.stem_kernel.dtype == torch.int8 and stem.stem_kernel.shape[1:] == (12, 2, 2)
     # the fused cells keep their bias float32, rounded as the cast rounds the
     # conv's, and no float taps: they dequantize into that layout per call
     dw = [m for m in model.modules() if isinstance(m, DepthwiseConvBN)]
