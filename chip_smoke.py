@@ -153,6 +153,23 @@ the export and scored within the tier's tolerance (``SERVED_TOL`` in
 float32, the engine's bf16 gate in bf16) of the float32 model built from
 the export, top-1 equal to it past that margin, the preprocess and fused
 depthwise kernels launched on every batch's replay and no other kernel.
+``witness`` runs ``chip_smoke.py --phase witness`` as a child with
+``TWD_DEBUG_LOCKS=1``, so that every lock of the port, module-level ones
+included, is the lock-order witness's: one in-process server (Inception-v3
+bf16 on yuv420 through the preprocess kernel; MobileNetV2 int8 with its
+fused depthwise cells and SSD-MobileNet on the ragged rgb wire; the cache,
+the ladder, ``--jobs-dir`` and the pipeline on) takes distinct JPEGs from 8
+clients (img/s with the witness on), a hot swap under traffic, a bulk job
+to DONE, pipeline requests, a tenant's burst that sheds, a ``POST
+/debug/trace`` and a graceful shutdown; the witness must count no
+violation, and it prints its edges, acquisitions by name, the declared
+names never taken and the dispatch guard's peak holders, beside both TPU
+kernels' launches (each > 0). ``profile`` runs the port's
+``tools/profile_serve.py`` on Inception-v3 bf16 batch 8 (yuv420) and
+ResNet-50 bf16 batch 32 (ragged), canvas 512: every kernel of the replay
+by name and kind, the summed device µs within 10% of the replay's CUDA-event
+ms, the preprocess kernel under its own name; then boots the server with
+``--profile`` and takes a capture on its listener's port while it serves.
 
 The preprocess kernel is checked through both of its entries (the
 ``[B, 2]`` table and the wire buffer whose trailers it reads itself) in
@@ -208,10 +225,13 @@ other, this, this, other (no ``ok`` line).
     python3 chip_smoke.py --phase jobs
     python3 chip_smoke.py --phase dag
     python3 chip_smoke.py --phase train
+    python3 chip_smoke.py --phase witness
+    python3 chip_smoke.py --phase profile
 
 build the kernels and run the ``ragged_preprocess``, ``s2d_stem``,
-``resnet50``, ``ssd``, ``converter``, ``jobs``, ``dag`` or ``train`` phase
-alone on the 24 JPEGs (no ``kernels`` or ``ok`` line).
+``resnet50``, ``ssd``, ``converter``, ``jobs``, ``dag``, ``train``,
+``witness`` or ``profile`` phase alone on the 24 JPEGs (no ``kernels`` or
+``ok`` line).
 
     python3 chip_smoke.py --phase replays
 
@@ -3456,12 +3476,12 @@ def phase_observability(jpegs: list[bytes], graphs: list[dict]) -> dict:
 
     from tensorflow_web_deploy_tpu_torch.server import start_server
     from tensorflow_web_deploy_tpu_torch.serving import http as thttp
+    from tensorflow_web_deploy_tpu_torch.tools.profile_serve import format_econ_table
     from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
     from tensorflow_web_deploy_tpu_torch.utils.metrics import (
         make_access_logger,
         parse_prometheus_text,
     )
-    from tools.loadgen import format_econ_table
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="observability-")
@@ -6927,6 +6947,295 @@ def phase_train(jpegs: list[bytes]) -> dict:
     return {"kernel_launches": launches, "seconds": phase_s}
 
 
+WITNESS_BUCKETS = (512,)
+WITNESS_MAX_BATCH = 8
+WITNESS_CLIENTS = 8
+WITNESS_TIMED_IMAGES = 256  # distinct JPEGs a model in the timed window (cache misses)
+WITNESS_CACHE_BYTES = 256 << 20  # the CLI's default
+WITNESS_JOB_IMAGES = 32
+WITNESS_PIPELINE_REQUESTS = 4
+WITNESS_QUOTA = "shed=4"  # the shed tenant's images a second (a burst of 1 s)
+WITNESS_BURST = 32
+WITNESS_CHILD_TIMEOUT_S = 600
+# Inception-v3 on the yuv420 wire through the preprocess kernel (its cell
+# store); MobileNetV2 int8 (fused depthwise cells) and the SSD detector on
+# the ragged rgb wire, the pipeline's wire
+WITNESS_WIRES = {"inception_v3": {"wire_format": "yuv420", "resize": "kernel", "ragged": False}}
+
+
+def witness_drive(jpegs: list[bytes]) -> dict:
+    """The served stack under the lock-order witness (run in a process that
+    started with ``TWD_DEBUG_LOCKS=1``, so that module-level locks are
+    witnessed too). One in-process server: Inception-v3 bf16 on yuv420
+    (``preprocess_i420``), MobileNetV2 int8 with its fused depthwise cells
+    and SSD-MobileNet bf16 (the anchor scene) on the ragged rgb wire, the
+    response cache and the ladder on, ``--jobs-dir`` and the pipeline
+    ``analyze=ssd_mobilenet>mobilenet_v2@int8``; canvas 512, batch buckets
+    1–8. With the kernels' counts set to 0 just before:
+
+    - ``WITNESS_TIMED_IMAGES`` distinct JPEGs (every one a cache miss) to
+      each classifier from ``WITNESS_CLIENTS`` keep-alive connections: img/s
+      with the witness on, a plain figure;
+    - a hot swap of Inception-v3 under closed-loop traffic to both
+      classifiers (every answer 200);
+    - a bulk job of ``WITNESS_JOB_IMAGES`` JPEGs on Inception-v3 to DONE;
+    - ``WITNESS_PIPELINE_REQUESTS`` pipeline requests;
+    - a burst of ``WITNESS_BURST`` requests from a tenant with a quota of
+      ``WITNESS_QUOTA``: 200s and 429s only, some of each;
+    - one ``POST /debug/trace``;
+    - a graceful shutdown.
+
+    Then the witness: its violations (must be none), the observed edges,
+    acquisitions by name, the declared names never acquired and the
+    dispatch guard's most concurrent holders; and both TPU kernels' launch
+    counts (each > 0)."""
+    from tensorflow_web_deploy_tpu_torch.models import get as zoo_get
+    from tensorflow_web_deploy_tpu_torch.models.adapter import init_variables
+    from tensorflow_web_deploy_tpu_torch.models.ssd_mobilenet import ASPECT_RATIOS
+    from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
+    from tensorflow_web_deploy_tpu_torch.serving.http import App, make_http_server, \
+        shutdown_gracefully
+    from tensorflow_web_deploy_tpu_torch.serving.registry import ModelRegistry
+    from tensorflow_web_deploy_tpu_torch.utils import locks
+    from tensorflow_web_deploy_tpu_torch.utils.config import ServerConfig, model_config
+
+    w = locks.witness_active()
+    if w is None:
+        raise AssertionError("the witness drive needs TWD_DEBUG_LOCKS=1 at process start")
+    tmp = tempfile.mkdtemp(prefix="twd-witness-")
+    mcs = (model_config("native:inception_v3"), model_config("native:mobilenet_v2,dtype=int8"),
+           model_config("native:ssd_mobilenet"))
+    cfg = ServerConfig(model=mcs[0], models=mcs, default_model="inception_v3",
+                       canvas_buckets=WITNESS_BUCKETS, max_batch=WITNESS_MAX_BATCH,
+                       wire_format="rgb", resize="matmul", ragged=True,
+                       pipelines=(DAG_PIPELINE,), pipeline_max_crops=DAG_MAX_CROPS,
+                       http_workers=2 * WITNESS_CLIENTS, host="127.0.0.1", port=0,
+                       jobs_dir=os.path.join(tmp, "jobs"), jobs_batch=WITNESS_MAX_BATCH,
+                       tenant_quota=WITNESS_QUOTA, cache_bytes=WITNESS_CACHE_BYTES)
+    _, flat = init_variables(zoo_get("ssd_mobilenet"), seed=SEED)
+    det_params = scene_params(flat, scene_biases(90, len(ASPECT_RATIOS)))
+    builds: dict = {}
+
+    def build(mc):
+        v = builds[mc.serve_name] = builds.get(mc.serve_name, 0) + 1
+        return InferenceEngine(replace(cfg, model=mc, **WITNESS_WIRES.get(mc.serve_name, {})),
+                               device="cuda", seed=SEED + v - 1,
+                               params_flat=det_params if mc.task == "detect" else None)
+
+    row = {"phase": "witness", "nvidia_smi": nvidia_smi(), "models": [m.serve_name for m in mcs],
+           "dtypes": [m.dtype for m in mcs], "wires": {m.serve_name: WITNESS_WIRES.get(
+               m.serve_name, {"wire_format": "rgb", "ragged": True})["wire_format"] for m in mcs},
+           "pipeline": DAG_PIPELINE, "canvas_buckets": list(WITNESS_BUCKETS),
+           "max_batch": WITNESS_MAX_BATCH, "cache_bytes": cfg.cache_bytes,
+           "pressure_rungs": cfg.pressure_rungs, "tenant_quota": WITNESS_QUOTA}
+    bad: dict = {}
+    t0 = time.perf_counter()
+    reg = ModelRegistry(cfg, default_model="inception_v3", engine_factory=build)
+    httpd = None
+    try:
+        for mc in mcs:
+            eng = build(mc)
+            reg.adopt(mc.serve_name, eng, reg.build_batcher(eng), mc)
+        app = App(reg, cfg)
+        httpd = make_http_server(app, cfg.host, 0, pool_size=cfg.http_workers)
+        threading.Thread(target=httpd.serve_forever, name="http", daemon=True).start()
+        port = httpd.server_address[1]
+        row["boot_s"] = time.perf_counter() - t0
+        timed = make_jpegs(WITNESS_TIMED_IMAGES, SEED + 5)
+        zero_launches()
+        row["load"] = {}
+        for name in ("inception_v3", "mobilenet_v2"):
+            t0 = time.perf_counter()
+            recs = fan_out(port, timed, WITNESS_CLIENTS, f"/predict?model={name}")
+            load_s = time.perf_counter() - t0
+            ms = sorted(r["ms"] for r in recs if r["status"] == 200)
+            row["load"][name] = {
+                "clients": WITNESS_CLIENTS, "images": len(recs), "seconds": load_s,
+                "answered_200": len(ms), "img_s": len(ms) / load_s,
+                "p50_ms": ms[len(ms) // 2] if ms else None,
+                "p99_ms": float(np.percentile(ms, 99)) if ms else None,
+                "x_cache": dict(Counter(r["headers"].get("x-cache") for r in recs))}
+            if len(ms) != len(recs):
+                bad[f"load_{name}"] = Counter(r["status"] for r in recs)
+        # a hot swap of Inception-v3 under closed-loop traffic
+        targets = [(name, d) for d in jpegs for name in ("inception_v3", "mobilenet_v2")]
+        loop = ClosedLoop(port, WITNESS_CLIENTS, targets).start()
+        t1 = time.perf_counter()
+        status, doc = KeepAlive(port).request("POST", "/models/swap",
+                                              {"name": "inception_v3", "wait": True})
+        swap_s = time.perf_counter() - t1
+        time.sleep(0.5)
+        records = loop.finish()
+        row["swap"] = {"status": status, "version": (doc or {}).get("version"), "seconds": swap_s,
+                       "requests": len(records),
+                       "answered_200": sum(r["status"] == 200 for r in records),
+                       "versions": sorted({r.get("version") for r in records
+                                           if r["model"] == "inception_v3" and r.get("version")})}
+        if status != 200 or row["swap"]["answered_200"] != len(records):
+            bad["swap"] = row["swap"]
+        # a bulk job to DONE
+        corpus = os.path.join(tmp, "corpus")
+        os.makedirs(corpus)
+        for i, data in enumerate(make_jpegs(WITNESS_JOB_IMAGES, SEED + 3)):
+            with open(os.path.join(corpus, f"{i:03d}.jpg"), "wb") as f:
+                f.write(data)
+        status, doc, _ = jobs_request(port, "POST", "/jobs", {"dir": corpus})
+        if status != 202:
+            raise AssertionError(f"POST /jobs: {status} {doc}")
+        job = wait_job(port, doc["id"], lambda d: d["state"] in JOBS_TERMINAL, 120)
+        row["job"] = {k: job.get(k) for k in ("state", "total", "completed", "versions")}
+        if job["state"] != "DONE" or job["completed"] != WITNESS_JOB_IMAGES:
+            bad["job"] = row["job"]
+        # pipeline requests
+        client = KeepAlive(port)
+        dag = [client.request("POST", DAG_PATH, d) for d in jpegs[:WITNESS_PIPELINE_REQUESTS]]
+        client.close()
+        row["pipeline"] = {"requests": len(dag), "ok": sum(s == 200 for s, _ in dag),
+                           "num_detections": [b.get("num_detections") for _, b in dag]}
+        if row["pipeline"]["ok"] != len(dag):
+            bad["pipeline"] = row["pipeline"]
+        # a burst that sheds: the quota'd tenant, all at once
+        burst = fan_out(port, (jpegs * 2)[:WITNESS_BURST], WITNESS_CLIENTS, "/predict",
+                        headers={"X-Tenant": "shed"})
+        statuses = Counter(r["status"] for r in burst)
+        row["shed_burst"] = {"requests": WITNESS_BURST, "statuses": dict(statuses),
+                             "reasons": dict(Counter((r["doc"] or {}).get("reason")
+                                                     for r in burst if r["status"] != 200))}
+        if set(statuses) != {200, 429}:
+            bad["shed_burst"] = row["shed_burst"]
+        # a profiler capture
+        status, doc, _ = jobs_request(port, "POST",
+                                      f"/debug/trace?ms=300&dir={os.path.join(tmp, 'trace')}")
+        row["trace"] = {"status": status, "activities": (doc or {}).get("activities")}
+        if status != 200:
+            bad["trace"] = row["trace"]
+        row["kernel_launches"] = read_launches()
+    finally:
+        t1 = time.perf_counter()
+        if httpd is not None:
+            shutdown_gracefully(httpd, reg, grace_s=10.0)
+        else:
+            reg.stop()
+        reg.close_engines()
+        row["shutdown_s"] = time.perf_counter() - t1
+    ranks = locks.load_lock_ranks()
+    row["witness"] = {
+        "violations": list(w.violations),
+        "edges": sorted(list(e) for e in w.edges),
+        "acquire_counts": dict(sorted(w.acquire_counts.items())),
+        "never_acquired": sorted(set(ranks) - set(w.acquire_counts)),
+        "dispatch_guard_peak_concurrency": w.peak_concurrency.get("engine.replica_dispatch_lock"),
+        "peak_concurrency": dict(sorted(w.peak_concurrency.items())),
+    }
+    if w.violations:
+        bad["violations"] = w.violations
+    launches = row["kernel_launches"]
+    if not (launches["preprocess_i420"] > 0 and launches["fused_dw"] > 0):
+        bad["kernel_launches"] = launches
+    row["ok"] = not bad
+    emit(row)
+    if bad:
+        raise AssertionError(f"witness drive failed: {bad}")
+    return row
+
+
+def phase_witness() -> dict:
+    """:func:`witness_drive` in a child process started with
+    ``TWD_DEBUG_LOCKS=1`` (``chip_smoke.py --phase witness`` again, which
+    finds the witness on): its line, read back and printed here."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--phase", "witness"],
+                          env={**os.environ, "TWD_DEBUG_LOCKS": "1"}, stdout=subprocess.PIPE,
+                          text=True, timeout=WITNESS_CHILD_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    row = next((r for r in rows if r.get("phase") == "witness"), None)
+    if proc.returncode != 0 or row is None or not row.get("ok"):
+        print(proc.stdout[-4000:], flush=True)
+        raise AssertionError(f"the witness child exited {proc.returncode}")
+    row["child_s"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+PROFILE_CASES = (("native:inception_v3", 8, "yuv420", "preprocess_i420"),
+                 ("native:resnet50", 32, "rgb", "preprocess_ragged"))
+PROFILE_CANVAS = 512
+PROFILE_K = 16  # replays timed, and replays profiled
+PROFILE_SUM_TOL = 0.10  # the table's summed device µs against the replay's
+
+
+def phase_profile(jpegs: list[bytes]) -> dict:
+    """The port's profiler entry points on the card.
+
+    - ``tools/profile_serve.py`` (its :func:`profile_serve`, what the tool's
+      ``main`` prints) on Inception-v3 bf16, batch 8, canvas 512, yuv420
+      and ResNet-50 bf16, batch 32, canvas 512, ragged rgb: each table's
+      summed device µs a batch within ``PROFILE_SUM_TOL`` of the same
+      graph's replay ms (CUDA events) in this call, and the preprocess
+      kernel under its own name; every kernel's row and the sums by kind
+      are printed.
+    - ``python -m tensorflow_web_deploy_tpu_torch.server --profile``
+      (Inception-v3 bf16, yuv420, canvas 512, batch buckets 1–8): a capture
+      on the listener's port while 16 JPEGs are served names the preprocess
+      kernel, and the server exits 0 on SIGTERM."""
+    from tensorflow_web_deploy_tpu_torch.serving.http import PROFILE_PORT
+    from tensorflow_web_deploy_tpu_torch.tools import profile_serve as tool
+
+    row = {"phase": "profile", "nvidia_smi": nvidia_smi(), "scan_batches": PROFILE_K,
+           "canvas": PROFILE_CANVAS, "cases": []}
+    bad: dict = {}
+    zero_launches()
+    for model, batch, wire, kernel in PROFILE_CASES:
+        doc = tool.profile_serve(model, batch, PROFILE_CANVAS, wire, None, PROFILE_K)
+        syms = KERNEL_SYMBOLS[kernel]
+        own = [r for r in doc["rows"] if any(s in r["name"] for s in syms)]
+        gap = (doc["replay_ms"] - doc["busy_ms"]) / doc["replay_ms"]
+        case = {"model": model, "dtype": doc["dtype"], "batch": batch, "wire": wire,
+                "ragged": doc["ragged"], "resize": doc["resize"], "wall_ms": doc["wall_ms"],
+                "replay_ms": doc["replay_ms"], "busy_ms": doc["busy_ms"], "busy_gap": gap,
+                "profiler_attempts": doc["profiler_attempts"],
+                "kernels_per_batch": sum(r["count"] for r in doc["rows"]),
+                "kernel": kernel, "kernel_rows": own, "by_kind": doc["by_kind"],
+                "rows": [{**r, "name": r["name"][:160]} for r in doc["rows"]]}
+        row["cases"].append(case)
+        if abs(gap) > PROFILE_SUM_TOL or not own:
+            bad[f"{model}:{batch}"] = {"busy_gap": gap, "kernel_rows": len(own)}
+    row["kernel_launches"] = read_launches()
+    with tempfile.TemporaryDirectory() as tmp, open(os.path.join(tmp, "server.log"), "w") as log:
+        proc, port, boot_s = job_server_proc(
+            ["--profile", "--model", "native:inception_v3", "--wire-format", "yuv420",
+             "--resize", "kernel", "--canvas-buckets", "512", "--max-batch", "8",
+             "--cache-bytes", "0"], log)
+        try:
+            got: dict = {}
+            capture = threading.Thread(target=lambda: got.update(r=jobs_request(
+                PROFILE_PORT, "POST", f"/debug/trace?ms=600&dir={tmp}/trace")), daemon=True)
+            capture.start()
+            time.sleep(0.1)
+            served = fan_out(port, jpegs[:16], 4, "/predict")
+            capture.join(120)
+            status, doc, _ = got["r"]
+            trace = kernels_in_trace(doc["trace_file"]) if status == 200 else {}
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(120)
+    row["cli"] = {"boot_s": boot_s, "listener_port": PROFILE_PORT, "status": status,
+                  "activities": (doc or {}).get("activities"),
+                  "served_200": sum(r["status"] == 200 for r in served),
+                  "device_kernels": trace.get("device_kernels"),
+                  "graph_launches": trace.get("graph_launches"),
+                  "found": trace.get("found"), "exit_code": rc}
+    if (status != 200 or not trace.get("found", {}).get("preprocess_i420") or rc != 0
+            or row["cli"]["served_200"] != 16):
+        bad["cli"] = row["cli"]
+    row["ok"] = not bad
+    emit(row)
+    if bad:
+        raise AssertionError(f"profile phase failed: {bad}")
+    return row
+
+
 def main(argv: list[str]) -> int:
     sweeps = ("--sweep-fused-dw", "--sweep-preprocess", "--sweep-overload", "--sweep-dag")
     replay_opts = dict(zip(argv[2::2], argv[3::2])) if argv[:2] == ["--phase", "replays"] else {}
@@ -6938,11 +7247,12 @@ def main(argv: list[str]) -> int:
             or argv in (["--phase", "ragged_preprocess"], ["--phase", "resnet50"],
                         ["--phase", "ssd"], ["--phase", "s2d_stem"], ["--phase", "replays"],
                         ["--phase", "converter"], ["--phase", "jobs"], ["--phase", "dag"],
-                        ["--phase", "train"])):
+                        ["--phase", "train"], ["--phase", "witness"], ["--phase", "profile"])):
         print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)} | --sweep-nms OTHER.cu | "
               "--phase ragged_preprocess | --phase resnet50 | --phase s2d_stem | "
               "--phase replays [--save FILE] [--against FILE] | "
-              "--phase ssd | --phase converter | --phase jobs | --phase dag | --phase train], "
+              "--phase ssd | --phase converter | --phase jobs | --phase dag | --phase train | "
+              "--phase witness | --phase profile], "
               f"not {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -7021,6 +7331,18 @@ def main(argv: list[str]) -> int:
     if argv == ["--phase", "train"]:
         phase_train(make_jpegs(24, SEED))
         return 0
+    if argv == ["--phase", "witness"]:
+        from tensorflow_web_deploy_tpu_torch.utils import locks
+
+        # the child (TWD_DEBUG_LOCKS=1) drives; run alone, it starts one
+        if locks.witness_active() is not None:
+            witness_drive(make_jpegs(24, SEED))
+        else:
+            phase_witness()
+        return 0
+    if argv == ["--phase", "profile"]:
+        phase_profile(make_jpegs(24, SEED))
+        return 0
     kern_err = phase_kernel(gen)
     s2d = phase_s2d_stem(gen)
     dw = phase_fused_dw_kernel(gen, dw_layer_shapes())
@@ -7055,6 +7377,8 @@ def main(argv: list[str]) -> int:
     jobs = phase_jobs(jpegs)
     dag = phase_dag(jpegs)
     train = phase_train(jpegs)
+    witness = phase_witness()
+    profile = phase_profile(jpegs)
     by_path = {p["path"]: p["kernel_launches"] for p in (inception, mobilenet, *ragged)}
     by_path["registry"] = registry["kernel_launches"]
     by_path["overload"] = overload["kernel_launches"]
@@ -7066,6 +7390,8 @@ def main(argv: list[str]) -> int:
     by_path["jobs"] = jobs["kernel_launches"]
     by_path["dag"] = dag["kernel_launches"]
     by_path["train"] = train["kernel_launches"]
+    by_path["witness"] = witness["kernel_launches"]
+    by_path["profile"] = profile["kernel_launches"]
     by_kernel = {name: {m: n.get(name, 0) for m, n in by_path.items()} for name in KERNELS}
     pp8 = next(r for r in ragged_pp["cases"] if (r["batch"], r["out"]) == (8, OUT))
     emit({"kernels": [{

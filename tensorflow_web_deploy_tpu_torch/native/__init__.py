@@ -36,12 +36,12 @@ import os
 import shutil
 import subprocess
 import tempfile
-import threading
 from pathlib import Path
 
 import numpy as np
 
 from ..ops.image import pick_bucket
+from ..utils.locks import named_lock
 
 log = logging.getLogger("tpu_serve_torch.native")
 
@@ -52,7 +52,7 @@ SYSTEM = "system -ljpeg"  # status()["library"] of the first route
 # compiler messages that mean libjpeg itself is missing, not a fault
 _NO_LIBJPEG = ("jpeglib.h: No such file", "cannot find -ljpeg", "unable to find library -ljpeg")
 
-_lock = threading.Lock()  # one build and load per process
+_lock = named_lock("native.build_lock")  # one build and load per process
 _lib: ctypes.CDLL | None = None
 _tried = False
 _reason: str | None = None  # why the decoder is unavailable
@@ -148,39 +148,47 @@ def _build(out: Path, bundled: Path | None = None) -> str | None:
         Path(tmp).unlink(missing_ok=True)
 
 
+def _first_route() -> tuple[ctypes.CDLL | None, tuple[str, str | None] | None, str | None]:
+    """Build (if needed) and load the library by the first route that
+    works: (the library, (its route, the libjpeg version linked), None), or
+    (None, None, why no route works)."""
+    reasons = []
+    for library, libjpeg in _routes(_compiler()):
+        so = library_path(libjpeg)
+        reason = None if so.exists() else _build(so, None if library == SYSTEM else libjpeg)
+        if reason is None:
+            try:
+                lib = ctypes.CDLL(str(so))
+            except OSError as e:  # built elsewhere; this machine lacks its libjpeg
+                reason = f"cannot load {so.name}: {e}"
+        if reason is None:
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = ctypes.c_int, argtypes
+            log.info("native decoder loaded (%s, %s)", so.name, library)
+            # the version of the file linked: libjpeg.so.62.3.0 → "62.3.0"
+            return lib, (library, libjpeg.name.split(".so.")[-1] if libjpeg else None), None
+        reasons.append(f"{library}: {reason}")
+    reason = "; ".join(reasons)
+    log.warning("native decoder unavailable (%s); decoding with PIL", reason)
+    return None, None, reason
+
+
 def _load() -> ctypes.CDLL | None:
-    """Build (if needed) and load the library, by the first route that
-    works; None where none does."""
+    """The library, built and loaded once per process; None where no route
+    works."""
     global _lib, _tried, _reason, _linked
     if _tried:
         return _lib
     with _lock:
-        if _tried:
-            return _lib
-        reasons = []
-        for library, libjpeg in _routes(_compiler()):
-            so = library_path(libjpeg)
-            reason = None if so.exists() else _build(
-                so, None if library == SYSTEM else libjpeg)
-            if reason is None:
-                try:
-                    lib = ctypes.CDLL(str(so))
-                except OSError as e:  # built elsewhere; this machine lacks its libjpeg
-                    reason = f"cannot load {so.name}: {e}"
-            if reason is None:
-                for name, argtypes in _SIGNATURES.items():
-                    fn = getattr(lib, name)
-                    fn.restype, fn.argtypes = ctypes.c_int, argtypes
-                _lib = lib
-                # the version of the file linked: libjpeg.so.62.3.0 → "62.3.0"
-                _linked = (library, libjpeg.name.split(".so.")[-1] if libjpeg else None)
-                log.info("native decoder loaded (%s, %s)", so.name, library)
-                break
-            reasons.append(f"{library}: {reason}")
-        else:
-            _reason = "; ".join(reasons)
-            log.warning("native decoder unavailable (%s); decoding with PIL", _reason)
-        _tried = True
+        if not _tried:
+            # twdlint: disable=no-blocking-under-lock(one-time lazy compile: the double-checked lock serializes concurrent builders so that only one cc runs and nobody loads a half-written library; steady-state callers return before the lock), lock-order(the build takes no lock: the analyzer resolves its os.close and Path.resolve by name to the serving classes' close and resolve)
+            lib, linked, reason = _first_route()
+            if lib is None:
+                _reason = reason
+            else:
+                _lib, _linked = lib, linked
+            _tried = True
     return _lib
 
 

@@ -29,6 +29,7 @@ import time
 from pathlib import Path
 
 from ..serving import aotcache
+from ..utils.locks import named_lock
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -46,7 +47,7 @@ NVCC_FLAGS = (
 # the default cache, the sentinel for "no argument" (None disables)
 DEFAULT = object()
 
-_lock = threading.Lock()  # guards _locks
+_lock = named_lock("ops.build_lock")  # guards _locks
 _locks: dict[str, threading.Lock] = {}  # one per source: its build and load
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -120,11 +121,12 @@ def load(name: str, cache=DEFAULT) -> ctypes.CDLL:
     else through ``cache`` (an ``AotCache``; the default directory unless
     given; None: no cache)."""
     with _lock:
-        lock = _locks.setdefault(name, threading.Lock())
+        lock = _locks.setdefault(name, named_lock("ops.kernel_build_lock"))
     with lock:
         lib = _loaded.get(name)
         if lib is None:
             if cache is DEFAULT:
                 cache = aotcache.AotCache(BUILD_DIR)
+            # twdlint: disable=no-blocking-under-lock(one build per source and process: the per-source lock serializes concurrent loaders of one kernel so that only one nvcc runs and nobody loads a half-built library; every later call finds the memo and builds nothing), lock-order(cache is an AotCache, whose load and store take only aotcache.lock; the analyzer resolves cache.load by name to ModelRegistry.load and to this module's load)
             lib = _loaded[name] = _load_or_build(name, cache)
         return lib

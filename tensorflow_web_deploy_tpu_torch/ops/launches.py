@@ -17,7 +17,9 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 
-_lock = threading.Lock()
+from ..utils.locks import named_lock
+
+_lock = named_lock("ops.launch_counter")
 _local = threading.local()
 
 

@@ -28,6 +28,7 @@
     curl http://localhost:8500/metrics       # also /debug/slow, /debug/history, /debug/events
     curl http://localhost:8500/debug/trace > trace.json   # chrome://tracing or Perfetto
     curl -X POST 'http://localhost:8500/debug/trace?ms=300&dir=/tmp/prof'   # torch.profiler
+    python -m tensorflow_web_deploy_tpu_torch.server --profile   # the same capture on :9999
     kill -TERM <pid>    # drains every model and exits 0
 
 Counterpart of the JAX package's root ``server.py``, with the flags this
@@ -60,7 +61,8 @@ import sys
 import threading
 
 from .serving.engine import InferenceEngine
-from .serving.http import App, make_http_server, shutdown_gracefully
+from .serving.http import PROFILE_PORT, App, make_http_server, shutdown_gracefully, \
+    start_profile_listener
 from .serving.registry import ModelRegistry
 from .utils.config import ServerConfig, model_config, normalize_dtype
 
@@ -270,6 +272,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    "job holds while interactive traffic shares the card")
     p.add_argument("--no-warmup", action="store_true",
                    help="capture no CUDA graphs: every batch runs eagerly")
+    p.add_argument("--profile", action="store_true",
+                   help=f"start a torch.profiler capture listener on port {PROFILE_PORT} "
+                        "(POST /debug/trace?ms=N&dir=D, one capture at a time)")
     p.add_argument("--log-level", default="INFO")
     return p.parse_args(argv)
 
@@ -332,6 +337,9 @@ def main(argv=None) -> int:
         cfg = config_from_args(args)
     except ValueError as e:  # a refused flag combination: its text, no traceback
         sys.exit(str(e))
+    profiler = start_profile_listener(cfg.host, PROFILE_PORT) if args.profile else None
+    if profiler is not None:
+        log.info("profiler listener on port %d: POST /debug/trace?ms=N&dir=D", PROFILE_PORT)
     srv = start_server(cfg, device=args.device, seed=args.seed)
     eng = srv.engine
     for mv in srv.registry.serving_entries():
@@ -355,6 +363,9 @@ def main(argv=None) -> int:
         log.info("draining")
     finally:
         srv.close()
+        if profiler is not None:
+            profiler.shutdown()
+            profiler.server_close()
     return 0
 
 

@@ -38,9 +38,11 @@ import json
 import logging
 import os
 import tempfile
-import threading
 import time
 from pathlib import Path
+
+from ..utils.locks import named_lock
+
 
 log = logging.getLogger("tpu_serve_torch.aotcache")
 
@@ -53,7 +55,7 @@ DEFAULT_DIR = Path(__file__).resolve().parent.parent / ".build"
 
 _LIB, _META = ".so", ".json"
 
-_lock = threading.Lock()
+_lock = named_lock("aotcache.lock")
 _counters = {
     "hits_total": 0,
     "misses_total": 0,

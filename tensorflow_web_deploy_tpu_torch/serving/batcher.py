@@ -106,6 +106,7 @@ from concurrent.futures import Future
 
 import numpy as np
 
+from ..utils.locks import named_condition
 from ..utils.metrics import RollingStats
 from ..utils.tracing import canvas_side
 from .chaos import ChaosError
@@ -225,7 +226,7 @@ class Batcher:
         self.lease_timeout_s = lease_timeout_s
         self.pipeline_depth = max(1, pipeline_depth)
         self.max_queue = max(0, int(max_queue))
-        self._cond = threading.Condition()
+        self._cond = named_condition("batcher.cond")
         self._open: dict[tuple, _Builder] = {}  # accepting builders by key
         self._closing: list[_Builder] = []  # sealed to new leases, not dispatched
         self._pending_slots = 0  # leased, not yet handed off

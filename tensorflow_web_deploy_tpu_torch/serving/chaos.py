@@ -30,8 +30,10 @@ from __future__ import annotations
 
 import logging
 import random
-import threading
 import time
+
+from ..utils.locks import named_lock
+
 
 log = logging.getLogger("tpu_serve_torch.chaos")
 
@@ -57,7 +59,7 @@ class ChaosInjector:
         self.spike_period_s = max(0.0, spike_period_s)
         self.spike_hold_s = max(0.0, spike_hold_ms) / 1e3
         self._rng = random.Random(seed)
-        self._lock = threading.Lock()
+        self._lock = named_lock("chaos.lock")
         self._t0 = time.monotonic()
         self._decode_failures = 0
         self._dispatch_failures = 0

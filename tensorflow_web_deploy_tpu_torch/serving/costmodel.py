@@ -32,8 +32,10 @@ several batches in flight, counts the wait behind the others).
 from __future__ import annotations
 
 import math
-import threading
 import time
+
+from ..utils.locks import named_lock
+
 
 # Dense TFLOP/s (bf16 on the tensor cores; float32 on the CUDA cores, TF32
 # off) and memory GB/s per card, keyed by the prefix of
@@ -302,7 +304,7 @@ _WALKERS = {
 # -------------------------------------------------------------- model cost
 
 _cost_cache: dict[tuple, dict | None] = {}
-_cost_lock = threading.Lock()
+_cost_lock = named_lock("econ.lock")
 
 
 def model_cost(model_cfg) -> dict | None:

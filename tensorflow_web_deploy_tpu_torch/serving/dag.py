@@ -48,7 +48,6 @@ from __future__ import annotations
 
 import json
 import logging
-import threading
 import time
 from collections import deque
 
@@ -57,6 +56,7 @@ import torch
 
 from ..ops import dag_glue
 from ..utils.config import normalize_dtype
+from ..utils.locks import named_lock
 from .jobs import clamp_topk, format_result_row
 from .registry import ModelNotServing, UnknownModel
 from .respcache import CacheRetired, canvas_digest, make_key, payload_etag, stage_input_digest
@@ -245,7 +245,7 @@ class PipelineCatalog:
         self.cache = cache
         self.hub = hub
         self.max_crops = max(1, int(max_crops))
-        self._lock = threading.Lock()
+        self._lock = named_lock("dag.lock")
         self._specs: dict[str, PipelineSpec] = {}
         # name → {"ok", "error", "stages": [resolved dicts]}: the last resolution
         self._status: dict[str, dict] = {}

@@ -163,6 +163,7 @@ from ..ops.preprocess_ragged import preprocess_ragged
 from ..ops.stem import pack_s2d
 from ..parallel.mesh import build_mesh, mesh_for
 from ..utils.config import ServerConfig
+from ..utils.locks import named_condition, named_lock
 from . import aotcache
 from .placement import parse_placement
 
@@ -170,7 +171,7 @@ log = logging.getLogger("tpu_serve_torch.engine")
 
 _HOLE_TRAILER = (0, 1, 0, 1)  # hw = (1, 1): the resize reads one pixel
 # one CUDA graph capture at a time in the process (torch's rule)
-_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_LOCK = named_lock("engine.capture_lock")
 # batches whose copy and compute events an engine keeps for device_timeline()
 TIMELINE_N = 4096
 
@@ -191,7 +192,7 @@ class _StreamPool:
     no two replicas ever share a stream."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = named_lock("engine.stream_pool")
         self._free: dict[int, list] = {}
         self._known: set[int] = set()
 
@@ -227,7 +228,7 @@ class _EnqueueGate:
     profiler."""
 
     def __init__(self):
-        self._cond = threading.Condition()
+        self._cond = named_condition("engine.enqueue_gate")
         self._shared = 0
         self._writer = False
         self._writers_waiting = 0
@@ -285,7 +286,7 @@ class _Leased:
     it); the pool waits for them before the slab is reused."""
 
     def _init_lease(self) -> None:
-        self._lease_lock = threading.Lock()
+        self._lease_lock = named_lock("slab.lease_lock")
         self._leases = 0
         self._finished = True
         self._idle_cb = None
@@ -554,7 +555,7 @@ class _Replica:
         self.index = index
         self.devices = devices
         self.shards = [_Shard(d) for d in devices]
-        self.lock = threading.Lock()
+        self.lock = named_lock("engine.replica_dispatch_lock")
         self.dispatches_total = 0
         self.dispatches_inflight = 0
         self.slab_bytes_inflight = 0
@@ -658,7 +659,7 @@ class InferenceEngine:
         self._seed, self._params_flat = seed, params_flat
         # Guards the staging pool, the counters and the replicas'
         # accounting only; never a wait on an event.
-        self._lock = threading.Lock()
+        self._lock = named_lock("engine.accounting_lock")
         self._replicas: list[_Replica] = []
         self._device_events: deque = deque(maxlen=TIMELINE_N)
         # (kind, canvas side) → idle slabs: at most staging_slabs each and
@@ -677,7 +678,7 @@ class InferenceEngine:
         self.h2d_bytes = 0
         self.d2h_bytes = 0
         self.decodes = {"native": 0, "pil": 0}
-        self._warmup_lock = threading.Lock()
+        self._warmup_lock = named_lock("engine.warmup_lock")
         self._warmed = False
         self.replays = 0
         self.eager_batches = 0
@@ -1593,8 +1594,13 @@ class InferenceEngine:
            fetch, on the calling thread, a graph replay each.
 
         Every launch thread of the batcher calls this before it takes a
-        batch: the first captures, the others find the executables made and
-        run phase 3 alone (per-thread first use, measured in its line)."""
+        batch: the first captures, the others wait for it and find the
+        executables made. Each runs phase 3 outside the lock (per-thread
+        first use, measured in its line), beside the others' batches."""
+        kind = "ragged" if self.ragged else "classic"
+        # a ragged engine's pipeline dispatches ride the classic wire; the
+        # pipeline specs (a file, maybe) are read before the lock
+        dag = self.dag_pairs() if self.ragged else []
         with self._warmup_lock:
             if not self._warmed:
                 # the economics peak: a table lookup on the card, a one-time
@@ -1612,13 +1618,11 @@ class InferenceEngine:
                 t0 = time.perf_counter()
                 pairs = sorted(((s, b) for s in self.cfg.canvas_buckets
                                 for b in self.batch_buckets), reverse=True)
-                kind = "ragged" if self.ragged else "classic"
-                # a ragged engine's pipeline dispatches ride the classic wire
-                dag = self.dag_pairs() if self.ragged else []
                 for sh in self._shards():
                     for k, s, b in [(kind, s, b) for s, b in pairs] + [("classic", s, b)
                                                                         for s, b in dag]:
                         p = b // self.batch_multiple
+                        # twdlint: disable=lock-order(the capture's eager run reaches the kernels' build cache, whose AotCache.load the analyzer resolves by name to ModelRegistry.load and ops/_build.load; it takes the capture lock, a kernel's build lock, aotcache.lock and the launch counter, all ranked above the warmup lock, and the witness drills check it at run time)
                         sh.exes[(k, s, p)] = self._capture(k, s, p, sh)
                 if self._pinned:
                     for dev in self.mesh:
@@ -1631,21 +1635,20 @@ class InferenceEngine:
                          "CUDA graphs" if self._pinned else "no capture", self.pool_bytes,
                          self._static_bytes())
                 self._warmed = True
-            t0 = time.perf_counter()
-            dag = self.dag_pairs() if self.ragged else []
-            for rep in self._replicas:
-                for s in self.cfg.canvas_buckets:
-                    for b in self.batch_buckets:
-                        self._run_blank(b, s, rep.index)
-                for s, b in dag:
-                    self.run_batch(np.zeros(self.canvas_shape(b, s), np.uint8),
-                                   np.full((b, 2), s, np.int32), rep.index)
-            dt = time.perf_counter() - t0
-            self.warmup_s["execution"].append(dt)
-            log.info("warmup: execution pass %.2fs (%d batches, thread %s)", dt,
-                     self.num_replicas * (len(self.cfg.canvas_buckets) * len(self.batch_buckets)
-                                          + len(dag)),
-                     threading.current_thread().name)
+        t0 = time.perf_counter()
+        for rep in self._replicas:
+            for s in self.cfg.canvas_buckets:
+                for b in self.batch_buckets:
+                    self._run_blank(b, s, rep.index)
+            for s, b in dag:
+                self.run_batch(np.zeros(self.canvas_shape(b, s), np.uint8),
+                               np.full((b, 2), s, np.int32), rep.index)
+        dt = time.perf_counter() - t0
+        self.warmup_s["execution"].append(dt)
+        log.info("warmup: execution pass %.2fs (%d batches, thread %s)", dt,
+                 self.num_replicas * (len(self.cfg.canvas_buckets) * len(self.batch_buckets)
+                                      + len(dag)),
+                 threading.current_thread().name)
 
     def dag_pairs(self) -> list[tuple[int, int]]:
         """The classic-wire (canvas side, batch bucket) pairs the server's

@@ -161,6 +161,7 @@ from socketserver import TCPServer
 
 from .. import native
 from ..ops.image import decode_image, fit_to_bucket
+from ..utils.locks import named_lock
 from ..utils.metrics import Observability, PromText, make_access_logger
 from ..utils.tracing import Span, accept_trace_id, chrome_trace, effective_window
 from . import aotcache, costmodel
@@ -319,7 +320,9 @@ def _etag_matches(inm: str | None, etag: str) -> bool:
 
 # POST /debug/trace: the longest capture, and one capture at a time per process
 MAX_TRACE_MS = 60_000
-_PROFILE_LOCK = threading.Lock()
+_PROFILE_LOCK = named_lock("http.profile_lock")
+# the --profile listener's port (the reference's jax.profiler.start_server)
+PROFILE_PORT = 9999
 
 _STATUS = {200: "200 OK", 202: "202 Accepted", 304: "304 Not Modified", 400: "400 Bad Request",
            404: "404 Not Found", 405: "405 Method Not Allowed", 408: "408 Request Timeout",
@@ -335,6 +338,93 @@ def _json(code: int, obj, headers: list | None = None) -> tuple:
 
 def _error(code: int, message: str, headers: list | None = None) -> tuple:
     return _json(code, {"error": message}, headers)
+
+
+def profile_capture(ms: int, out_dir: str) -> dict | None:
+    """``torch.profiler`` (CPU, and CUDA activities on the card) for ``ms``
+    ms, exported as a Chrome trace into ``out_dir``: the trace's path and
+    what was captured, or None when another capture of this process runs
+    (one at a time, under ``_PROFILE_LOCK``)."""
+    if not _PROFILE_LOCK.acquire(blocking=False):
+        return None
+    try:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(out_dir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        # no serving thread in a CUDA call while the profiler starts and
+        # stops (engine.quiesced); batches run in between
+        with quiesced():
+            prof.start()
+        try:
+            time.sleep(ms / 1e3)
+        finally:
+            with quiesced():
+                prof.stop()
+        path = os.path.join(out_dir, f"trace-{os.getpid()}-{time.monotonic_ns()}.json")
+        prof.export_chrome_trace(path)
+    finally:
+        _PROFILE_LOCK.release()
+    return {"trace_dir": out_dir, "trace_file": path, "captured_ms": ms,
+            "activities": [a.name for a in activities]}
+
+
+def profile_route(environ) -> tuple:
+    """POST /debug/trace?ms=N&dir=D: :func:`profile_capture` for N ms
+    (default 1,000, at most 60,000) into D (default ``tpu_serve_trace`` in
+    the temporary directory); 409 while another capture runs."""
+    qs = urllib.parse.parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True)
+    try:
+        raw = _qs_last(qs, "ms")
+        ms = max(0, min(int(raw) if raw is not None else 1000, MAX_TRACE_MS))
+    except ValueError:
+        return _error(400, "ms must be an integer")
+    out_dir = _qs_last(qs, "dir") or os.path.join(tempfile.gettempdir(), "tpu_serve_trace")
+    doc = profile_capture(ms, out_dir)
+    if doc is None:
+        return _error(409, "a profiler capture is already running")
+    return _json(200, doc)
+
+
+class _ProfileHandler(BaseHTTPRequestHandler):
+    """The --profile listener's one route, ``POST /debug/trace``."""
+
+    protocol_version = "HTTP/1.1"
+
+    def do_POST(self):
+        path, _, query = self.path.partition("?")
+        if path == "/debug/trace":
+            status, body, ctype, _ = profile_route({"QUERY_STRING": query})
+        else:
+            status, body, ctype, _ = _error(404, "the profiler listener serves "
+                                                 "POST /debug/trace only")
+        code = int(status.split()[0])
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, fmt, *args):
+        log.debug("profile listener %s " + fmt, self.address_string(), *args)
+
+
+def start_profile_listener(host: str = "0.0.0.0", port: int = PROFILE_PORT):
+    """``--profile``: a listener of its own beside the serving port that
+    takes the capture of ``POST /debug/trace`` (one a process, shared with
+    that route), on a thread of its own, so that a capture never waits
+    behind a saturated worker pool. Returns the running server; its
+    ``shutdown()`` and ``server_close()`` stop it."""
+    from http.server import ThreadingHTTPServer
+
+    srv = ThreadingHTTPServer((host, port), _ProfileHandler)
+    srv.daemon_threads = True
+    threading.Thread(target=srv.serve_forever, name="profile-listener", daemon=True).start()
+    return srv
 
 
 class App:
@@ -433,7 +523,7 @@ class App:
             elif path == "/debug/events":
                 res = self._events(environ)
             elif path == "/debug/trace" and method == "POST":
-                res = self._profile(environ)
+                res = profile_route(environ)
             elif path == "/debug/trace":
                 res = self._trace_export(environ)
             elif path == "/pipelines" and method == "GET":
@@ -955,46 +1045,6 @@ class App:
         doc["otherData"]["effective_window_s"] = last_s
         return _json(200, doc)
 
-    def _profile(self, environ):
-        """POST /debug/trace?ms=N&dir=D: ``torch.profiler`` (CPU, and CUDA
-        activities on the card) for N ms (default 1,000, at most 60,000),
-        exported as a Chrome trace into D (default ``tpu_serve_trace`` in
-        the temporary directory). One capture at a time: a second answers
-        409 while the first runs."""
-        qs = urllib.parse.parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True)
-        try:
-            raw = _qs_last(qs, "ms")
-            ms = max(0, min(int(raw) if raw is not None else 1000, MAX_TRACE_MS))
-        except ValueError:
-            return _error(400, "ms must be an integer")
-        out_dir = _qs_last(qs, "dir") or os.path.join(tempfile.gettempdir(), "tpu_serve_trace")
-        if not _PROFILE_LOCK.acquire(blocking=False):
-            return _error(409, "a profiler capture is already running")
-        try:
-            import torch
-            from torch.profiler import ProfilerActivity, profile
-
-            os.makedirs(out_dir, exist_ok=True)
-            activities = [ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                activities.append(ProfilerActivity.CUDA)
-            prof = profile(activities=activities)
-            # no serving thread in a CUDA call while the profiler starts
-            # and stops (engine.quiesced); batches run in between
-            with quiesced():
-                prof.start()
-            try:
-                time.sleep(ms / 1e3)
-            finally:
-                with quiesced():
-                    prof.stop()
-            path = os.path.join(out_dir, f"trace-{os.getpid()}-{time.monotonic_ns()}.json")
-            prof.export_chrome_trace(path)
-        finally:
-            _PROFILE_LOCK.release()
-        return _json(200, {"trace_dir": out_dir, "trace_file": path, "captured_ms": ms,
-                           "activities": [a.name for a in activities]})
-
     def _admin_models(self, environ, method: str, path: str):
         """POST /models/{load,swap,unload}: a JSON body in, the affected
         version's (name, version, state) out. Loads and swaps run on the
@@ -1165,6 +1215,7 @@ class App:
         last stage's cache identity, so ``If-None-Match`` works across the
         composition as it does for one model."""
         t0 = time.monotonic()
+        # twdlint: disable=pairing(span comes from environ and is finished by its owner — same contract as _predict)
         span = environ.get("tpu_serve.span") or Span()
         qs = urllib.parse.parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True)
         try:
@@ -1225,7 +1276,7 @@ class App:
 
     def _predict(self, environ):
         t0 = time.monotonic()
-        # the fresh span serves direct callers only; theirs go unaggregated
+        # twdlint: disable=pairing(on the server path the span comes from environ and is finished by its owner — __call__ or the pooled handler; the fresh-Span fallback exists only for direct _predict callers in tests, whose spans are deliberately unaggregated)
         span = environ.get("tpu_serve.span") or Span()
         qs = urllib.parse.parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True)
         # Tenant, SLO class and deadline come first: a malformed deadline
@@ -1620,7 +1671,7 @@ class HttpCounters:
     means clients pay a handshake per request."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = named_lock("http.counters_lock")
         self._connections = 0
         self._requests = 0
         self._active = 0
@@ -1987,12 +2038,12 @@ class PoolWSGIServer(TCPServer):
         self.request_read_timeout_s = request_read_timeout_s
         self.counters = HttpCounters()
         self.draining = False
-        self._conns_lock = threading.Lock()
+        self._conns_lock = named_lock("http.conns_lock")
         self._open_conns: set = set()
         self._pending: queue.Queue = queue.Queue(maxsize=self.pool_size * 4)
         # workers waiting for a connection: while one is, a queued connection
         # is about to be served and no idle keep-alive connection yields
-        self._idle_lock = threading.Lock()
+        self._idle_lock = named_lock("http.idle_lock")
         self._idle_workers = 0
         super().__init__(addr, KeepAliveWSGIHandler)
         self._workers = [
@@ -2025,18 +2076,19 @@ class PoolWSGIServer(TCPServer):
             return self._idle_workers == 0 and not self._pending.empty()
 
     def _worker(self):
+        # idle from here until a connection is taken: a wait that times out
+        # to poll the draining flag leaves the worker idle
+        with self._idle_lock:
+            self._idle_workers += 1
         while True:
-            with self._idle_lock:
-                self._idle_workers += 1
             try:
                 item = self._pending.get(timeout=0.25)
             except queue.Empty:
-                if self.draining:
-                    return
-                continue
-            finally:
-                with self._idle_lock:
-                    self._idle_workers -= 1
+                if not self.draining:
+                    continue
+                item = None
+            with self._idle_lock:
+                self._idle_workers -= 1
             if item is None:
                 return
             request, client_address = item
@@ -2046,6 +2098,8 @@ class PoolWSGIServer(TCPServer):
                 self.handle_error(request, client_address)
             finally:
                 self.shutdown_request(request)
+            with self._idle_lock:
+                self._idle_workers += 1
 
     def track_connection(self, conn, *, opened: bool):
         with self._conns_lock:

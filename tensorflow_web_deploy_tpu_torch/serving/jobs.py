@@ -65,6 +65,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils.locks import named_condition
 from ..utils.tracing import Span
 from .batcher import ShuttingDown
 from .registry import ModelNotServing, UnknownModel
@@ -290,7 +291,7 @@ class JobManager:
         self.decode_threads = max(1, int(server_cfg.jobs_decode_threads
                                          or min(4, os.cpu_count() or 4)))
         self._decode_pool: ThreadPoolExecutor | None = None
-        self._cond = threading.Condition()
+        self._cond = named_condition("jobs.cond")
         self._jobs: dict[str, Job] = {}
         self._order: list[str] = []  # submission order (queue and listing)
         self._seq = 0
@@ -599,6 +600,7 @@ class JobManager:
                 "images_cached_total": self._cached_total,
                 "image_errors_total": self._errors_total,
                 "chunks_total": self._chunks_total,
+                # twdlint: disable=lock-order(j is a Job, whose snapshot() takes no lock; the analyzer's name-based resolution cannot type comprehension vars and matches the other snapshot() impls)
                 "jobs": [j.snapshot() for j in recent],
             }
 

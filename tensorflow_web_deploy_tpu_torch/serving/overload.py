@@ -28,8 +28,10 @@ arithmetic runs under them. Deadlines use ``time.monotonic()``.
 from __future__ import annotations
 
 import logging
-import threading
 import time
+
+from ..utils.locks import named_lock
+
 
 log = logging.getLogger("tpu_serve_torch.overload")
 
@@ -119,7 +121,7 @@ class AdmissionController:
 
     def __init__(self, quotas: dict[str, float] | None = None, default_rate: float = 0.0,
                  burst_s: float = 1.0, max_tenants: int = 64):
-        self._lock = threading.Lock()
+        self._lock = named_lock("overload.admission_lock")
         self._quotas = dict(quotas or {})
         self._default_rate = float(default_rate)
         self._burst_s = max(0.05, float(burst_s))
@@ -257,7 +259,7 @@ class PressureController:
     under a leaf lock)."""
 
     def __init__(self, rungs: list[tuple[float, float]] | None = None, dwell_s: float = 0.5):
-        self._lock = threading.Lock()
+        self._lock = named_lock("overload.pressure_lock")
         self.rungs = rungs or self.parse_rungs(DEFAULT_RUNGS)
         self.dwell_s = max(0.0, float(dwell_s))
         self.actions = rung_actions(len(self.rungs))

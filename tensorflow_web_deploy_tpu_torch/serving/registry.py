@@ -74,6 +74,7 @@ from contextlib import contextmanager
 
 from ..utils.config import model_config
 from ..utils.labels import load_labels
+from ..utils.locks import named_condition
 from . import aotcache
 from .chaos import ChaosInjector
 from .overload import build_admission
@@ -202,7 +203,7 @@ class ModelRegistry:
         self.seed = seed
         self._engine_factory = engine_factory or self._build_engine
         self._spec_resolver = spec_resolver or model_config
-        self._cond = threading.Condition()
+        self._cond = named_condition("registry.cond")
         # shared by every batcher of the registry and the App
         self.admission = build_admission(server_cfg)
         self.chaos = ChaosInjector.from_spec(server_cfg.chaos)

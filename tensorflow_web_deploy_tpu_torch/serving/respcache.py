@@ -41,11 +41,12 @@ from __future__ import annotations
 
 import hashlib
 import json
-import threading
 from collections import OrderedDict
 from concurrent.futures import Future
 
 import numpy as np
+
+from ..utils.locks import named_lock
 
 
 class CacheRetired(RuntimeError):
@@ -151,7 +152,7 @@ class ResponseCache:
 
     def __init__(self, max_bytes: int):
         self.max_bytes = max(0, int(max_bytes))
-        self._lock = threading.Lock()
+        self._lock = named_lock("cache.lock")
         self._entries: OrderedDict[tuple, _Entry] = OrderedDict()
         self._inflight: dict[tuple, Flight] = {}
         # (model, version) pairs retired by the registry: a leader finishing

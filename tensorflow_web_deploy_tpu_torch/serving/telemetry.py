@@ -36,6 +36,7 @@ import time
 from array import array
 from collections import deque
 
+from ..utils.locks import named_lock
 from . import aotcache
 
 log = logging.getLogger("tpu_serve_torch.telemetry")
@@ -204,8 +205,8 @@ class TelemetryHub:
         self.slow_burn = slow_burn
         self.max_series = max(1, int(max_series))
         self.resolutions = tuple(resolutions)
-        self._lock = threading.Lock()
-        self._events_lock = threading.Lock()
+        self._lock = named_lock("telemetry.lock")
+        self._events_lock = named_lock("telemetry.events_lock")
         self._series: dict[str, SeriesRing] = {}
         self._sources: list = []
         self._events: deque = deque(maxlen=max(8, int(events_cap)))

@@ -24,15 +24,16 @@ import json
 import logging
 import math
 import re
-import threading
 import time
 from bisect import bisect_left
 from collections import Counter, deque
 
+from .locks import named_lock
+
 
 class RollingStats:
     def __init__(self, window: int = 2048):
-        self._lock = threading.Lock()
+        self._lock = named_lock("stats.lock")
         # (t_done, latency_s, queue_s, device_s) per resolved row
         self._records: deque = deque(maxlen=window)
         # per-dispatch (real rows, bucket rows): occupancy is a per-batch
@@ -225,7 +226,7 @@ class FlightRecorder:
         self.max_age_s = max_age_s
         self.recent_n = max(8, recent_n)
         self.max_bytes = max(64 << 10, int(max_bytes))
-        self._lock = threading.Lock()
+        self._lock = named_lock("flight.lock")
         self._slowest: list[tuple[float, float, dict]] = []  # (total_s, mono, span)
         self._errors: deque = deque(maxlen=self.n)  # (mono, span)
         self._recent: deque = deque()  # (t0, t_end, nbytes, span)
@@ -308,7 +309,7 @@ class Observability:
 
     def __init__(self, recorder_n: int = 32, recorder_recent_n: int = 512,
                  recorder_bytes: int = 4 << 20):
-        self._lock = threading.Lock()
+        self._lock = named_lock("obs.lock")
         self.e2e = Histogram()
         self.stage_hists: dict[str, Histogram] = {}
         self.status_counts: Counter = Counter()  # "2xx"/"4xx"/"5xx"
@@ -341,6 +342,7 @@ class Observability:
         self.flight.record(d, total, status >= 400, t0=span.t0, t_end=span.finished_at)
         if self._access_fn is not None:
             try:
+                # twdlint: disable=monotonic-clock(the access-log ts is the ONE wall-clock value in this module, present solely so external tools can join server spans against client-side logs — no interval is ever computed from it)
                 self._access_fn({"ts": round(time.time(), 3), **d})
             except Exception:
                 # a full disk on the access log drops lines, never answers
@@ -357,6 +359,7 @@ class Observability:
                 "uptime_s": time.monotonic() - self._started,
                 "requests_by_status": dict(self.status_counts),
                 "e2e": self.e2e.snapshot(),
+                # twdlint: disable=lock-order(h is a lock-free Histogram; the analyzer's name-based resolution cannot type comprehension vars and matches the other snapshot() impls)
                 "stages": {k: h.snapshot() for k, h in self.stage_hists.items()},
             }
 
@@ -395,7 +398,7 @@ def make_access_logger(target: str):
         return emit
 
     fh = open(target, "a", buffering=1)
-    lock = threading.Lock()
+    lock = named_lock("accesslog.lock")
 
     def emit(d: dict) -> None:
         line = json.dumps(d, separators=(",", ":")) + "\n"

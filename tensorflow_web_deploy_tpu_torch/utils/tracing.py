@@ -30,8 +30,10 @@ from __future__ import annotations
 
 import itertools
 import re
-import threading
 import time
+
+from .locks import named_lock
+
 
 # Inbound X-Trace-Id values must be safe to echo into headers, JSON logs
 # and /debug/slow; anything else gets a fresh server-side ID.
@@ -42,7 +44,7 @@ _TRACE_ID_RE = re.compile(r"^[A-Za-z0-9._\-]{1,64}$")
 # the prefix.
 _PREFIX = f"{time.monotonic_ns() & 0xFFFFFFFFFF:010x}"
 _counter = itertools.count(1)
-_counter_lock = threading.Lock()
+_counter_lock = named_lock("trace.id_lock")
 
 
 def new_trace_id() -> str:
@@ -72,7 +74,7 @@ class Span:
         self.meta: dict = {}
         self.status: int | None = None
         self.finished_at: float | None = None  # monotonic, set by finish()
-        self._lock = threading.Lock()
+        self._lock = named_lock("span.lock")
 
     def add(self, stage: str, dur_s: float) -> None:
         """Accumulate a serial stage (repeat stamps sum)."""

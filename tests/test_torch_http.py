@@ -194,6 +194,16 @@ def test_more_connections_than_workers_all_served(stub_server, clients):
     assert stub_server.counters.snapshot()["requests_total"] == want
 
 
+def _wait_idle_workers(srv, n: int, timeout_s: float = 5.0) -> None:
+    """Until ``n`` of the pool's workers wait for a connection. A client has
+    its answer before the worker that served it reads the client's close,
+    so the last burst's workers may still be inside their connections."""
+    deadline = time.monotonic() + timeout_s
+    while srv._idle_workers < n:
+        assert time.monotonic() < deadline, f"{srv._idle_workers} idle workers, want {n}"
+        time.sleep(0.001)
+
+
 def test_idle_connection_keeps_its_worker_while_others_are_free(stub_server):
     """New connections arriving while workers are free never close an idle
     keep-alive connection: it yields only when every worker is busy."""
@@ -203,6 +213,7 @@ def test_idle_connection_keeps_its_worker_while_others_are_free(stub_server):
     conn.getresponse().read()
     sock = conn.sock
     for _ in range(60):  # bursts of 3 one-shot connections; 3 workers are free
+        _wait_idle_workers(stub_server, 3)
         statuses, n = _one_shot_clients(port, 3)
         assert statuses == [200] * n
     conn.request("GET", "/after")
@@ -211,6 +222,45 @@ def test_idle_connection_keeps_its_worker_while_others_are_free(stub_server):
     assert conn.sock is sock
     assert stub_server.counters.snapshot()["connections_total"] == 181
     conn.close()
+
+
+def test_a_worker_stays_idle_across_its_waits_timeouts(monkeypatch):
+    """A worker polls the draining flag every 0.25 s of its wait for a
+    connection; it stays idle throughout, so that an idle keep-alive
+    connection never yields to a queued one while that worker is free."""
+    seen: list[int] = []
+    box: dict = {}
+
+    class RecordingLock:
+        """The idle count at every release of the pool's idle lock."""
+
+        def __init__(self):
+            self._inner = threading.Lock()
+
+        def __enter__(self):
+            self._inner.acquire()
+
+        def __exit__(self, *exc):
+            if "srv" in box:
+                seen.append(box["srv"]._idle_workers)
+            self._inner.release()
+
+    plain = thttp.named_lock
+    monkeypatch.setattr(thttp, "named_lock",
+                        lambda name: RecordingLock() if name == "http.idle_lock" else plain(name))
+    srv = make_http_server(_stub_app, "127.0.0.1", 0, pool_size=1)
+    box["srv"] = srv
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        _wait_idle_workers(srv, 1)
+        deadline = time.monotonic() + 0.8  # three timed-out waits
+        while time.monotonic() < deadline:
+            assert not srv.queued_without_worker()
+            time.sleep(0.01)
+        assert srv._idle_workers == 1
+        assert seen and min(seen) == 1, seen
+    finally:
+        shutdown_gracefully(srv, _DummyBatcher(), grace_s=3.0)
 
 
 def test_trickling_request_hits_total_read_deadline():
