@@ -150,9 +150,20 @@ the CPU, and serves the export with ``--ckpt`` (bf16, fused depthwise
 cells, yuv420 + the preprocess kernel) to the photographs, and in float32
 to them and to JPEGs of the tool's blobs: every top-k entry labelled from
 the export and scored within the tier's tolerance (``SERVED_TOL`` in
-float32, the engine's bf16 gate in bf16) of the float32 model built from
-the export, top-1 equal to it past that margin, the preprocess and fused
+float32; in bf16 the engine's bf16 gate, or twice the plain bf16 model's
+gap where that is larger) of the float32 model built from the export,
+top-1 equal to it past that margin, the preprocess and fused
 depthwise kernels launched on every batch's replay and no other kernel.
+``distributed`` trains across ranks through the port's bootstrap
+(``TPU_SERVE_COORDINATOR`` on the loopback): ``tools/train.py`` at world
+size 1 over NCCL on the card (MobileNetV2 as in ``train``, 10 steps),
+between two plain runs of the same seed whose largest loss gap sets its
+tolerance, its step timed in turns against the plain one with the NCCL
+all-reduce's device µs from the profiler; the tool on 4 gloo ranks of the
+CPU (data 2 × model 2, batch 8, 3 steps, a checkpoint); that checkpoint
+restored on the card at world size 1, bit for bit, resumed 3 steps, and
+its export served with ``--ckpt`` in float32 (1 ``preprocess_i420`` and
+17 ``fused_dw`` launches a batch, every batch a replay).
 ``witness`` runs ``chip_smoke.py --phase witness`` as a child with
 ``TWD_DEBUG_LOCKS=1``, so that every lock of the port, module-level ones
 included, is the lock-order witness's: one in-process server (Inception-v3
@@ -225,13 +236,14 @@ other, this, this, other (no ``ok`` line).
     python3 chip_smoke.py --phase jobs
     python3 chip_smoke.py --phase dag
     python3 chip_smoke.py --phase train
+    python3 chip_smoke.py --phase distributed
     python3 chip_smoke.py --phase witness
     python3 chip_smoke.py --phase profile
 
 build the kernels and run the ``ragged_preprocess``, ``s2d_stem``,
 ``resnet50``, ``ssd``, ``converter``, ``jobs``, ``dag``, ``train``,
-``witness`` or ``profile`` phase alone on the 24 JPEGs (no ``kernels`` or
-``ok`` line).
+``distributed``, ``witness`` or ``profile`` phase alone on the 24 JPEGs
+(no ``kernels`` or ``ok`` line).
 
     python3 chip_smoke.py --phase replays
 
@@ -245,6 +257,7 @@ compare in one call (no ``ok`` line).
 
 from __future__ import annotations
 
+import copy
 import http.client
 import io
 import json
@@ -6602,6 +6615,13 @@ TRAIN_LR = 1e-3  # the tool's default
 TRAIN_LOSS_DROP = 0.8  # the reference's test_loss_decreases_single_device
 TRAIN_TIMED_STEPS = 10
 TRAIN_BLOBS = 8  # JPEGs of the tool's synthetic blobs posted to the float32 --ckpt server
+# The bf16 --ckpt server's scores lie within the engine's bf16 gate of the
+# float32 model's, or at most this many times as far from them as the plain
+# model's in bf16 (the export cast, cuDNN's depthwise, no hand kernel) on
+# the same planes: how far bf16 moves a probability grows with the logits
+# (54-58 at most on the photographs), and each run trains another export
+# (training on the card is not deterministic)
+SERVED_BF16_DEVIATION_RATIO = 2.0
 # the other classifiers: (name, px), batch 32, a few steps each
 TRAIN_OTHERS = (("resnet50", 224), ("inception_v3", 299))
 TRAIN_OTHER_STEPS = 3
@@ -6634,20 +6654,22 @@ def run_tool(argv: list[str]) -> tuple[str, list[dict]]:
     return text, logged
 
 
-def train_steps(name: str, size: int, steps: int, seed: int = SEED) -> tuple[dict, tuple]:
+def train_steps(name: str, size: int, steps: int, seed: int = SEED,
+                mesh=None) -> tuple[dict, tuple]:
     """A fresh full-width zoo classifier trained ``steps`` steps on the card
     (float32, TF32 off, AdamW at the tool's rate) on the tool's synthetic
     batches, already on the device: each step's ms (CUDA events), its loss,
     and the peak ``memory_allocated`` over the steps; and (step function,
-    state, first batch) to run more."""
+    state, first batch) to run more. With ``mesh`` (one rank, all rows)
+    the step is the mesh's."""
     from tensorflow_web_deploy_tpu_torch.models import get as zoo_get
     from tensorflow_web_deploy_tpu_torch.models.adapter import init_variables
     from tensorflow_web_deploy_tpu_torch.tools.train import SyntheticData
     from tensorflow_web_deploy_tpu_torch.train import adamw, create_train_state, make_train_step
 
     module, _ = init_variables(zoo_get(name), num_classes=TRAIN_CLASSES, seed=seed)
-    state = create_train_state(module, None, adamw(TRAIN_LR), device="cuda")
-    step = make_train_step(module)
+    state = create_train_state(module, None, adamw(TRAIN_LR), device="cuda", mesh=mesh)
+    step = make_train_step(module, mesh=mesh)
     data = SyntheticData(TRAIN_CLASSES, size, TRAIN_BATCH, seed)
     batches = [tuple(torch.as_tensor(a, device="cuda") for a in data.batch_at(i))
                for i in range(steps)]
@@ -6710,11 +6732,14 @@ def serve_export(export: str, dtype: str, posted: list[bytes], labels: list[str]
     margin exceeds the tolerance; the scores away from the seeded init's;
     1 ``preprocess_i420`` and 17 ``fused_dw`` launches a batch, every batch
     a replay, and no other kernel (the four counts zeroed just before the
-    burst and read just after). The tolerance is ``SERVED_TOL`` in float32
-    and the engine's bf16 gate against float32 (``PARITY_TOL``, the
-    reference's) in bf16: a logit of the trained export is ~10, where one
-    bf16 step moves a mid-range probability by 0.02-0.04. The row's
-    ``failed`` names the checks that did not hold."""
+    burst and read just after). The tolerance is ``SERVED_TOL`` in float32.
+    In bf16 it is the engine's bf16 gate against float32 (``PARITY_TOL``,
+    the reference's), or ``SERVED_BF16_DEVIATION_RATIO`` × the largest gap
+    of the plain model in bf16 (the export cast, on the same planes) over
+    the same entries where that is larger: one bf16 step of a logit moves a
+    mid-range probability by p(1 − p) × |logit| × 2^-8, so the gate alone
+    fails an export whose logits train large. The row's ``failed`` names
+    the checks that did not hold."""
     from tensorflow_web_deploy_tpu_torch.ops.image import NORMALIZERS, resize_yuv_planes
     from tensorflow_web_deploy_tpu_torch.server import config_from_args, parse_args, start_server
     from tensorflow_web_deploy_tpu_torch.serving.engine import InferenceEngine
@@ -6737,19 +6762,24 @@ def serve_export(export: str, dtype: str, posted: list[bytes], labels: list[str]
         launches = counts()
         after = eng.stats()
         out_px = eng.model_cfg.input_size[0]
-        probs, probs_seed = [], []
+        # the float32 export, the seeded init and, in bf16, the export cast
+        models = {"f32": (trained, torch.float32), "seeded": (seeded, torch.float32)}
+        if dtype != "f32":
+            models["bf16"] = (copy.deepcopy(trained).to(torch.bfloat16), torch.bfloat16)
+        logits = {name: [] for name in models}
         with torch.inference_mode():
-            for model, out in ((trained, probs), (seeded, probs_seed)):
-                for data in posted:
-                    canvas, hw, _ = eng.prepare_bytes(data)
-                    packed = torch.from_numpy(canvas[None]).cuda()
-                    hws = torch.tensor([hw], dtype=torch.int32, device="cuda")
-                    xr = NORMALIZERS["inception"](resize_yuv_planes(packed, hws, out_px, out_px))
-                    out.append(torch.softmax(model(xr.permute(0, 3, 1, 2)), -1)
-                               .cpu().numpy()[0])
+            for data in posted:
+                canvas, hw, _ = eng.prepare_bytes(data)
+                packed = torch.from_numpy(canvas[None]).cuda()
+                hws = torch.tensor([hw], dtype=torch.int32, device="cuda")
+                xr = NORMALIZERS["inception"](resize_yuv_planes(packed, hws, out_px, out_px))
+                for name, (model, dt) in models.items():
+                    logits[name].append(model(xr.permute(0, 3, 1, 2).to(dt)).float()[0])
     finally:
         srv.close()
-    pf, ps = np.stack(probs), np.stack(probs_seed)
+    logits = {name: torch.stack(rows) for name, rows in logits.items()}
+    probs = {name: torch.softmax(z, -1).cpu().numpy() for name, z in logits.items()}
+    pf, ps = probs["f32"], probs["seeded"]
     batches = after["batches"] - before["batches"]
     replays = after["graphs"]["replays"] - before["graphs"]["replays"]
     # every entry of every answer's top-k: (image, index, score, label)
@@ -6760,6 +6790,14 @@ def serve_export(export: str, dtype: str, posted: list[bytes], labels: list[str]
     clear = top2[:, 1] - top2[:, 0] > tol
     top1_equal = [idx == int(pf[i].argmax()) for i, idx in enumerate(top1)]
     score_gap = max(abs(sc - pf[i, idx]) for i, idx, sc, _ in entries)
+    plain = None
+    score_tol = tol
+    if dtype != "f32":
+        p16 = probs["bf16"]
+        plain = {"max_score_gap_to_float32": float(max(abs(p16[i, idx] - pf[i, idx])
+                                                       for i, idx, _, _ in entries)),
+                 "logit_rel": logit_rel(logits["bf16"], logits["f32"])}
+        score_tol = max(tol, SERVED_BF16_DEVIATION_RATIO * plain["max_score_gap_to_float32"])
     seed_gap = max(abs(results[i][1]["predictions"][0]["score"] - ps[i, idx])
                    for i, idx in enumerate(top1))
     want = launches_want(preprocess_i420=batches, fused_dw=DW_CELLS * batches)
@@ -6767,7 +6805,7 @@ def serve_export(export: str, dtype: str, posted: list[bytes], labels: list[str]
         "status": all(status == 200 for status, _, _ in results),
         "labels": all(lab == labels[idx] for _, idx, _, lab in entries),
         "top1": bool(clear.any()) and all(t for t, c in zip(top1_equal, clear) if c),
-        "scores": score_gap <= tol,
+        "scores": score_gap <= score_tol,
         "not_seeded": seed_gap > SERVED_TOL,
         "launches": batches > 0 and launches == want and replays == batches,
     }
@@ -6781,7 +6819,9 @@ def serve_export(export: str, dtype: str, posted: list[bytes], labels: list[str]
             "entries_checked": len(entries), "clear_margin_images": int(clear.sum()),
             "top1_equal_clear": int(sum(t for t, c in zip(top1_equal, clear) if c)),
             "top1_equal_all": int(sum(top1_equal)),
-            "max_score_gap_to_float32": float(score_gap), "tolerance": tol,
+            "max_score_gap_to_float32": float(score_gap), "tolerance": score_tol,
+            "gate": tol, "bf16_plain": plain, "bf16_ratio": SERVED_BF16_DEVIATION_RATIO,
+            "max_abs_logit_f32": float(logits["f32"].abs().max()),
             "max_score_gap_to_seeded": float(seed_gap),
             "img_per_s": len(posted) / timeline["wall_ms"] * 1e3,
             "p50_ms": timeline["client_latency_ms"]["p50"],
@@ -6944,6 +6984,293 @@ def phase_train(jpegs: list[bytes]) -> dict:
         shutil.rmtree(run, ignore_errors=True)
     phase_s = time.perf_counter() - t_phase
     emit({"phase": "train", "nvidia_smi": smi, "seconds": phase_s})
+    return {"kernel_launches": launches, "seconds": phase_s}
+
+
+DIST_STEPS = 10  # (a): the tool at world size 1 over NCCL, and twice without a mesh
+DIST_TOL_FACTOR = 4  # (a): the tolerance is this × the two plain runs' largest loss gap …
+DIST_LOG_ROUNDING = 1e-4  # … plus the log's rounding (the tool prints 4 decimals)
+DIST_CPU_RANKS = 4  # (b): data 2 × model 2 on gloo, the CPU by the caller's choice
+DIST_CPU_MODEL_AXIS = 2
+DIST_CPU_BATCH = 8
+DIST_CPU_STEPS = 3
+DIST_RESUME_STEPS = 6  # (c): 3 more steps on the card, resumed from (b)'s checkpoint
+DIST_CHILD_TIMEOUT_S = 300
+
+
+class rank_env:
+    """The port's bootstrap environment for this process as rank ``rank``
+    of ``world`` (``TPU_SERVE_COORDINATOR`` on a free port of the
+    loopback), put back as it was on exit."""
+
+    def __init__(self, world: int = 1, rank: int = 0):
+        self.vars = {"TPU_SERVE_COORDINATOR": f"127.0.0.1:{free_port()}",
+                     "TPU_SERVE_PROCESS_ID": str(rank), "TPU_SERVE_NUM_PROCESSES": str(world),
+                     "NCCL_SOCKET_IFNAME": "lo"}  # the ranks share one host
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.vars}
+        os.environ.update(self.vars)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def nccl_profile(fn, steps: int = 3) -> dict:
+    """``steps`` calls of ``fn()`` (train steps on a mesh) under
+    ``torch.profiler``: the NCCL kernels' device µs a step by name, and
+    the ``nccl:*`` collectives the host issued a step and their host µs (a
+    rank of one may launch no kernel for its all-reduce)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = {e.key[:90]: e.self_device_time_total / steps for e in events
+              if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()
+              and e.self_device_time_total > 0}
+    host = {e.key: {"calls": e.count / steps, "host_us": e.cpu_time_total / steps}
+            for e in events if e.device_type == DeviceType.CPU and e.key.startswith("nccl:")}
+    return {"device_us_per_step": sum(device.values()), "kernels_us_per_step": device,
+            "collectives_per_step": host, "steps_profiled": steps}
+
+
+def run_ranks(argv: list[str], n: int, env: dict, timeout: float) -> list[tuple[int, str, str]]:
+    """``python -m <argv>`` as ``n`` processes joined through
+    ``TPU_SERVE_COORDINATOR`` on a free port (``env`` added to each): (exit
+    code, stdout, stderr) of each. Every child still running at the end,
+    or past ``timeout``, is killed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    procs = []
+    try:
+        for i in range(n):
+            child = dict(os.environ, **env, TPU_SERVE_COORDINATOR=f"127.0.0.1:{port}",
+                         TPU_SERVE_PROCESS_ID=str(i), TPU_SERVE_NUM_PROCESSES=str(n),
+                         PYTHONPATH=here)
+            procs.append(subprocess.Popen([sys.executable, "-m", *argv], env=child, cwd=here,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True))
+        deadline = time.monotonic() + timeout
+        results = []
+        for p in procs:
+            out, err = p.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+            results.append((p.returncode, out, err))
+        return results
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+
+
+def phase_distributed(jpegs: list[bytes]) -> dict:
+    """Multi-device training through the port's bootstrap, on the card and
+    on the CPU.
+
+    (a) ``tools/train.py`` through the env contract at world size 1 on the
+    card (NCCL, ``--model-axis 1``; MobileNetV2 at full width, 224 px,
+    batch 32, float32 with TF32 off, 10 steps), between two runs without
+    it on the same seed: its step lines in the plain runs' format, its
+    losses within ``DIST_TOL_FACTOR`` × the plain runs' largest gap plus the
+    log's rounding (the card does not train deterministically). Beside it
+    the mesh's step against the plain one in turns (plain, meshed, meshed,
+    plain; ms by CUDA events, img/s, peak ``memory_allocated``) and the
+    NCCL all-reduce's device µs a step from the profiler, with its bucket's
+    bytes. (b) The tool on 4 gloo ranks of
+    the CPU, data 2 × model 2, global batch 8, 3 steps, with a checkpoint.
+    (c) That checkpoint restored onto the card at world size 1 (2 × 2 →
+    1 × 1): every parameter, batch stat and AdamW moment bit for bit the
+    file's; the tool resumed there for 3 more steps with its export, served
+    with ``--ckpt`` in float32 (``serve_export``: every answer 200 and
+    within ``SERVED_TOL`` of the float32 model built from the export, 1
+    ``preprocess_i420`` and 17 ``fused_dw`` launches a batch, every batch a
+    replay, no other kernel)."""
+    import re
+    import shutil
+
+    from tensorflow_web_deploy_tpu_torch.models import get as zoo_get
+    from tensorflow_web_deploy_tpu_torch.models.adapter import from_jax_params, \
+        init_variables, read_serving_export
+    from tensorflow_web_deploy_tpu_torch.parallel import distributed, train_mesh
+    from tensorflow_web_deploy_tpu_torch.train import adamw, create_train_state, make_train_step
+    from tensorflow_web_deploy_tpu_torch.train.checkpoint import STATE_FILE, Checkpointer
+
+    wrappers = kernel_wrappers()
+
+    def counts() -> dict:
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def zero() -> None:
+        for w in wrappers.values():
+            w.launches = 0
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    run = tempfile.mkdtemp(prefix="dist_")
+    try:
+        # (a) the tool at world size 1 over NCCL, between two plain runs
+        tool = ["--model", "mobilenet_v2", "--width", "1.0", "--classes", str(TRAIN_CLASSES),
+                "--input-size", str(TRAIN_SIZE), "--batch", str(TRAIN_BATCH),
+                "--lr", str(TRAIN_LR), "--steps", str(DIST_STEPS), "--log-every", "1",
+                "--device", "cuda"]
+        plain_a = run_tool(tool)
+        with rank_env():
+            meshed = run_tool(tool)
+        plain_b = run_tool(tool)
+        la, lb, ld = ([r["loss"] for r in logged] for _, logged in (plain_a, plain_b, meshed))
+        gap_plain = max(abs(a - b) for a, b in zip(la, lb))
+        tol = DIST_TOL_FACTOR * gap_plain + DIST_LOG_ROUNDING
+        gap = max(max(abs(d - a), abs(d - b)) for d, a, b in zip(ld, la, lb))
+        step_lines = [[ln for ln in text.splitlines() if re.fullmatch(TRAIN_LINE, ln)]
+                      for text, _ in (plain_a, meshed)]
+        same_lines = (len(step_lines[0]) == len(step_lines[1]) == DIST_STEPS
+                      and [r["step"] for r in plain_a[1]] == [r["step"] for r in meshed[1]])
+        header = meshed[0].splitlines()[0]
+        with rank_env():
+            distributed.maybe_initialize("cuda")
+            try:
+                mesh = train_mesh(1, "cuda")
+                backend = torch.distributed.get_backend()
+                rows = {"plain": [], "meshed": []}
+                for kind in ("plain", "meshed", "meshed", "plain"):  # in turns, one card
+                    row, (step, state, (x0, y0)) = train_steps(
+                        "mobilenet_v2", TRAIN_SIZE, DIST_STEPS,
+                        mesh=mesh if kind == "meshed" else None)
+                    rows[kind].append(row)
+                    if kind == "meshed" and len(rows[kind]) == 1:
+                        nccl = nccl_profile(lambda: step(state, x0, y0))
+                        bucket_bytes = step.bucket_bytes
+                    del step, state
+                    torch.cuda.empty_cache()
+            finally:
+                distributed.shutdown()
+        ms_d, ms_p = ([statistics.median(r["step_ms"][2:]) for r in rows[k]]
+                      for k in ("meshed", "plain"))
+        row_a = {"phase": "distributed_nccl", "nvidia_smi": smi, "model": "mobilenet_v2",
+                 "size": TRAIN_SIZE, "batch": TRAIN_BATCH, "dtype": "float32",
+                 "steps": DIST_STEPS, "backend": backend, "world": 1, "header": header,
+                 "losses_meshed": ld, "losses_plain": [la, lb],
+                 "acc_meshed": [r["acc"] for r in meshed[1]],
+                 "acc_plain": [[r["acc"] for r in plain_a[1]], [r["acc"] for r in plain_b[1]]],
+                 "plain_gap": gap_plain, "tolerance": tol, "meshed_gap": gap,
+                 "same_lines": same_lines,
+                 # median step ms (CUDA events) of each run, in the order plain,
+                 # meshed, meshed, plain
+                 "step_ms_meshed": ms_d, "step_ms_plain": ms_p,
+                 "img_per_s_meshed": [TRAIN_BATCH / ms * 1e3 for ms in ms_d],
+                 "img_per_s_plain": [TRAIN_BATCH / ms * 1e3 for ms in ms_p],
+                 "peak_allocated_meshed": [r["peak_allocated_bytes"] for r in rows["meshed"]],
+                 "peak_allocated_plain": [r["peak_allocated_bytes"] for r in rows["plain"]],
+                 "bucket_bytes": bucket_bytes, "nccl": nccl,
+                 "tool_img_per_s_meshed": [r["img_per_s"] for r in meshed[1]]}
+        emit(row_a)
+        if not (same_lines and gap <= tol and backend == "nccl"
+                and header.startswith("mesh {'data': 1, 'model': 1} over 1 ranks (nccl, cuda)")):
+            raise AssertionError(f"the tool at world size 1 over NCCL: {row_a}")
+        torch.cuda.empty_cache()
+
+        # (b) 4 gloo ranks on the CPU, data 2 × model 2, with a checkpoint
+        ck = os.path.join(run, "ck")
+        argv = ["tensorflow_web_deploy_tpu_torch.tools.train", "--model", "mobilenet_v2",
+                "--width", "1.0", "--classes", str(TRAIN_CLASSES), "--input-size",
+                str(TRAIN_SIZE), "--batch", str(DIST_CPU_BATCH), "--lr", str(TRAIN_LR),
+                "--log-every", "1", "--ckpt-dir", ck]
+        threads = str(max((os.cpu_count() or DIST_CPU_RANKS) // DIST_CPU_RANKS, 1))
+        t0 = time.perf_counter()
+        ranks = run_ranks(argv + ["--steps", str(DIST_CPU_STEPS), "--save-every",
+                                  str(DIST_CPU_STEPS), "--model-axis", str(DIST_CPU_MODEL_AXIS),
+                                  "--device", "cpu", "--no-export"], DIST_CPU_RANKS,
+                          {"OMP_NUM_THREADS": threads, "CUDA_VISIBLE_DEVICES": ""},
+                          DIST_CHILD_TIMEOUT_S)
+        cpu_s = time.perf_counter() - t0
+        logged = [{"step": int(a), "loss": float(c), "acc": float(d), "img_per_s": float(e)}
+                  for a, _, c, d, e in re.findall(TRAIN_LINE, ranks[0][1])]
+        kept = Checkpointer(ck, create=False).steps()
+        row_b = {"phase": "distributed_cpu", "device": "cpu", "backend": "gloo",
+                 "ranks": DIST_CPU_RANKS, "mesh": {"data": DIST_CPU_RANKS // DIST_CPU_MODEL_AXIS,
+                                                   "model": DIST_CPU_MODEL_AXIS},
+                 "threads_per_rank": int(threads), "model": "mobilenet_v2", "width": 1.0,
+                 "size": TRAIN_SIZE, "batch": DIST_CPU_BATCH, "steps": DIST_CPU_STEPS,
+                 "exit_codes": [rc for rc, _, _ in ranks], "seconds": cpu_s,
+                 "log": ranks[0][1].splitlines(), "logged": logged, "checkpoints": kept,
+                 "other_ranks_printed": [bool(out.strip()) for _, out, _ in ranks[1:]]}
+        emit(row_b)
+        if any(rc for rc, _, _ in ranks) or kept != [DIST_CPU_STEPS] \
+                or len(logged) != DIST_CPU_STEPS \
+                or not all(math.isfinite(r["loss"]) for r in logged):
+            raise AssertionError(f"4 gloo ranks: {row_b}; stderr of rank 0: "
+                                 f"{ranks[0][2][-2000:]}")
+
+        # (c) that checkpoint onto the card at world size 1, then resumed and served
+        saved = torch.load(os.path.join(ck, str(DIST_CPU_STEPS), STATE_FILE), weights_only=True)
+        spec = zoo_get("mobilenet_v2")
+        with rank_env():
+            distributed.maybe_initialize("cuda")
+            try:
+                mesh = train_mesh(1, "cuda")
+                module, _ = init_variables(spec, num_classes=TRAIN_CLASSES, seed=SEED + 1)
+                state = create_train_state(module, None, adamw(TRAIN_LR), mesh=mesh)
+                make_train_step(module, mesh=mesh)(  # the moments exist once it has stepped
+                    state, np.zeros((2, TRAIN_SIZE, TRAIN_SIZE, 3), np.float32), [0, 1])
+                state = Checkpointer(ck, create=False).restore(state, mesh)
+                opt = state["opt_state"]
+                live = [p for group in opt.param_groups for p in group["params"]]
+                names = list(state["params"])
+                unequal = [k for k, v in saved["params"].items()
+                           if not torch.equal(state["params"][k].detach().cpu(), v)]
+                unequal += [k for k, v in saved["batch_stats"].items()
+                            if not torch.equal(state["batch_stats"][k].cpu(), v)]
+                unequal += [f"{names[i]}:{k}" for i, entry in saved["opt_state"]["state"].items()
+                            for k in ("exp_avg", "exp_avg_sq")
+                            if not torch.equal(opt.state[live[i]][k].cpu(), entry[k])]
+                leaves = (len(saved["params"]) + len(saved["batch_stats"])
+                          + 2 * len(saved["opt_state"]["state"]))
+                restored_step = int(state["step"])
+                del state, opt, live, module
+            finally:
+                distributed.shutdown()
+        torch.cuda.empty_cache()
+        with rank_env():
+            text, resumed = run_tool(tool[:tool.index("--steps")] + [
+                "--steps", str(DIST_RESUME_STEPS), "--log-every", "1", "--device", "cuda",
+                "--batch", str(DIST_CPU_BATCH), "--ckpt-dir", ck, "--save-every",
+                str(DIST_CPU_STEPS)])
+        export = os.path.join(ck, "export")
+        labels = open(os.path.join(export, "labels.txt")).read().split()
+        row_c = {"phase": "distributed_resume", "nvidia_smi": smi, "from": "2x2 gloo (cpu)",
+                 "to": "1x1 nccl (cuda)", "leaves_checked": leaves, "unequal": unequal,
+                 "restored_step": restored_step, "log": text.splitlines(),
+                 "checkpoints": Checkpointer(ck, create=False).steps()}
+        emit(row_c)
+        if unequal or restored_step != DIST_CPU_STEPS or \
+                f"resumed from step {DIST_CPU_STEPS}" not in text or \
+                [r["step"] for r in resumed] != list(range(DIST_CPU_STEPS + 1,
+                                                           DIST_RESUME_STEPS + 1)):
+            raise AssertionError(f"2 × 2 → 1 × 1 on the card: {row_c}")
+        trained = spec.build(num_classes=TRAIN_CLASSES).cuda()
+        trained.load_state_dict(from_jax_params(read_serving_export(export)))
+        seeded = init_variables(spec, num_classes=TRAIN_CLASSES, seed=SEED)[0].cuda()
+        row = serve_export(export, "f32", jpegs, labels, trained, seeded, counts, zero)
+        row["phase"] = "distributed_serve"
+        emit(row)
+        if row["failed"]:
+            raise AssertionError(f"--ckpt server of the resumed export: {row['failed']}: {row}")
+        launches = row["kernel_launches"]
+    finally:
+        shutil.rmtree(run, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "distributed", "nvidia_smi": smi, "seconds": phase_s})
     return {"kernel_launches": launches, "seconds": phase_s}
 
 
@@ -7247,12 +7574,13 @@ def main(argv: list[str]) -> int:
             or argv in (["--phase", "ragged_preprocess"], ["--phase", "resnet50"],
                         ["--phase", "ssd"], ["--phase", "s2d_stem"], ["--phase", "replays"],
                         ["--phase", "converter"], ["--phase", "jobs"], ["--phase", "dag"],
-                        ["--phase", "train"], ["--phase", "witness"], ["--phase", "profile"])):
+                        ["--phase", "train"], ["--phase", "distributed"], ["--phase", "witness"],
+                        ["--phase", "profile"])):
         print(f"usage: python3 chip_smoke.py [{' | '.join(sweeps)} | --sweep-nms OTHER.cu | "
               "--phase ragged_preprocess | --phase resnet50 | --phase s2d_stem | "
               "--phase replays [--save FILE] [--against FILE] | "
               "--phase ssd | --phase converter | --phase jobs | --phase dag | --phase train | "
-              "--phase witness | --phase profile], "
+              "--phase distributed | --phase witness | --phase profile], "
               f"not {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -7331,6 +7659,9 @@ def main(argv: list[str]) -> int:
     if argv == ["--phase", "train"]:
         phase_train(make_jpegs(24, SEED))
         return 0
+    if argv == ["--phase", "distributed"]:
+        phase_distributed(make_jpegs(24, SEED))
+        return 0
     if argv == ["--phase", "witness"]:
         from tensorflow_web_deploy_tpu_torch.utils import locks
 
@@ -7377,6 +7708,7 @@ def main(argv: list[str]) -> int:
     jobs = phase_jobs(jpegs)
     dag = phase_dag(jpegs)
     train = phase_train(jpegs)
+    distributed = phase_distributed(jpegs)
     witness = phase_witness()
     profile = phase_profile(jpegs)
     by_path = {p["path"]: p["kernel_launches"] for p in (inception, mobilenet, *ragged)}
@@ -7390,6 +7722,7 @@ def main(argv: list[str]) -> int:
     by_path["jobs"] = jobs["kernel_launches"]
     by_path["dag"] = dag["kernel_launches"]
     by_path["train"] = train["kernel_launches"]
+    by_path["distributed"] = distributed["kernel_launches"]
     by_path["witness"] = witness["kernel_launches"]
     by_path["profile"] = profile["kernel_launches"]
     by_kernel = {name: {m: n.get(name, 0) for m, n in by_path.items()} for name in KERNELS}

@@ -75,9 +75,12 @@ def from_jax_params(params_flat: dict[str, np.ndarray]) -> dict[str, torch.Tenso
     return {_torch_key(k): _from_flax_layout(v) for k, v in params_flat.items()}
 
 
-def to_jax_params(module: nn.Module) -> dict[str, np.ndarray]:
-    """An unfolded module's state dict → the JAX package's flat layout."""
-    return {_flax_key(k): _to_flax_layout(v) for k, v in module.state_dict().items()}
+def to_jax_params(module: nn.Module | dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """An unfolded module's state dict (or such a state dict itself: a
+    sharded model's, gathered by ``train/trainer.py::full_state_dict``) →
+    the JAX package's flat layout."""
+    state = module.state_dict() if isinstance(module, nn.Module) else module
+    return {_flax_key(k): _to_flax_layout(v) for k, v in state.items()}
 
 
 def init_variables(spec, num_classes: int | None = None, width: float = 1.0,

@@ -65,9 +65,14 @@ class BatchNorm(nn.Module):
     ``promote(x.dtype, float32)``; the batch is normalized with them, and
     the running statistics move to ``momentum·ra + (1 − momentum)·batch``
     with the same biased variance, outside autograd. (``F.batch_norm``
-    would update ``var`` with the unbiased variance.)"""
+    would update ``var`` with the unbiased variance.) With ``sync`` set
+    the moments are the global batch's, so every rank normalizes alike and
+    moves its running statistics alike."""
 
     momentum = 0.99
+    # A data-parallel train step (train/trainer.py) sets this: the rank's
+    # (mean, E[x²]) → the global batch's, with autograd.
+    sync = None
 
     def __init__(self, features: int, eps: float = 1e-3):
         super().__init__()
@@ -88,8 +93,10 @@ class BatchNorm(nn.Module):
             s, t = self.affine()
             return x * s[:, None, None] + t[:, None, None]
         xs = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xs.mean(dim=(0, 2, 3))
-        var = torch.clamp((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        mean, ex2 = xs.mean(dim=(0, 2, 3)), (xs * xs).mean(dim=(0, 2, 3))
+        if self.sync is not None:
+            mean, ex2 = self.sync(mean, ex2)
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mean)

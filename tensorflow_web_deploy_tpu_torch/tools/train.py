@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Fine-tune a zoo model on one device and export it for serving.
+"""Fine-tune a zoo model on one device or over ranks and export it for serving.
 
 The port's counterpart of the repo's ``tools/train.py``, flag for flag and
 line for line in what it logs: ``train/trainer.py`` (the train step, BN on
@@ -15,11 +15,22 @@ without it, a deterministic synthetic set. Labels map to sorted
 subdirectory names. Batches are the reference tool's, array for array: a
 pure function of (seed, step), so a resumed run continues the stream.
 
+Started as several processes (one a device) with ``TPU_SERVE_COORDINATOR``,
+``TPU_SERVE_PROCESS_ID`` and ``TPU_SERVE_NUM_PROCESSES``, or under
+torchrun, the ranks join one process group (``parallel/distributed.py``:
+NCCL on the cards, gloo with ``--device cpu``) and train on a
+``('data', 'model')`` mesh of ``--model-axis`` ranks a data replica.
+``--batch`` is the global batch, a multiple of the data axis; each rank
+steps on its data replica's rows of it. Rank 0 alone logs and writes the
+checkpoints (gathered whole, so any mesh resumes them) and the export.
+
 Usage:
     python -m tensorflow_web_deploy_tpu_torch.tools.train --model mobilenet_v2 \\
         --width 0.5 --classes 10 --data photos/ --steps 500 --batch 64 --ckpt-dir runs/m1
     python -m tensorflow_web_deploy_tpu_torch.server --model native:mobilenet_v2 \\
         --ckpt runs/m1/export --zoo-width 0.5 --zoo-classes 10
+    torchrun --nproc-per-node 4 -m tensorflow_web_deploy_tpu_torch.tools.train \\
+        --model mobilenet_v2 --batch 64 --model-axis 2 --ckpt-dir runs/m2
 """
 
 from __future__ import annotations
@@ -45,7 +56,7 @@ def parse_args(argv=None):
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--model-axis", type=int, default=1,
-                   help="the reference's tensor-parallel mesh axis; only 1 (one device)")
+                   help="ranks a data replica spans (the mesh's 'model' axis)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ckpt-dir", default=None,
                    help="checkpoint dir (enables save + resume)")
@@ -121,10 +132,27 @@ class SyntheticData:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    import torch.distributed as dist
+
+    from ..parallel import distributed
+
+    owned = not dist.is_initialized()
+    try:
+        return _train(args)
+    finally:
+        if owned:
+            distributed.shutdown()
+
+
+def _train(args) -> int:
+    import torch.distributed as dist
+
     from .. import models
     from ..models.adapter import init_variables, to_jax_params, write_serving_export
+    from ..parallel import batch_multiple, distributed, train_mesh
     from ..train import adamw, create_train_state, make_train_step
     from ..train.checkpoint import Checkpointer
+    from ..train.trainer import full_state_dict
 
     spec_task = models.get(args.model).task
     if spec_task != "classify":
@@ -133,9 +161,22 @@ def main(argv=None) -> int:
         # would silently "train" on its box tensor.
         sys.exit(f"--model {args.model} is a {spec_task} model; "
                  "the trainer supports classify zoo models")
-    if args.model_axis != 1:
-        sys.exit(f"--model-axis {args.model_axis}: multi-device training is not ported; "
-                 "the port trains on one device (--model-axis 1)")
+
+    mesh = None
+    if distributed.maybe_initialize(args.device):
+        mesh = train_mesh(args.model_axis, args.device)
+        if args.batch % batch_multiple(mesh):
+            sys.exit(f"--batch {args.batch} is not a multiple of the data axis ({mesh.data}: "
+                     f"{mesh.data * mesh.model} ranks, --model-axis {mesh.model})")
+    elif args.model_axis != 1:
+        sys.exit(f"--model-axis {args.model_axis}: a model axis spans ranks; start the tool "
+                 "as one process a device, under torchrun or with TPU_SERVE_COORDINATOR, "
+                 "TPU_SERVE_PROCESS_ID and TPU_SERVE_NUM_PROCESSES")
+    lead = mesh is None or mesh.rank == 0
+
+    def log(line: str) -> None:
+        if lead:
+            print(line, flush=True)
 
     if args.data:
         data = FolderData(args.data, args.input_size, args.batch, args.seed)
@@ -145,52 +186,54 @@ def main(argv=None) -> int:
     else:
         num_classes = args.classes or 10
         data = SyntheticData(num_classes, args.input_size, args.batch, args.seed)
+    rows = mesh.rows(args.batch) if mesh is not None else slice(None)
 
     spec = models.get(args.model)
     model, _ = init_variables(spec, num_classes=num_classes, width=args.width, seed=args.seed)
-    state = create_train_state(model, None, adamw(args.lr), device=args.device)
-    step_fn = make_train_step(model)
-    print(f"device {next(model.parameters()).device}; {args.model} width={args.width} "
-          f"classes={num_classes} batch={args.batch}", flush=True)
+    state = create_train_state(model, None, adamw(args.lr), device=args.device, mesh=mesh)
+    step_fn = make_train_step(model, mesh=mesh)
+    where = (f"device {next(model.parameters()).device}" if mesh is None else
+             f"mesh {mesh.shape} over {mesh.data * mesh.model} ranks ({dist.get_backend()}, "
+             f"{mesh.device.type})")
+    log(f"{where}; {args.model} width={args.width} classes={num_classes} batch={args.batch}")
 
     ck = Checkpointer(str(Path(args.ckpt_dir).resolve())) if args.ckpt_dir else None
     if ck is not None:
-        restored = ck.restore(state)
+        restored = ck.restore(state, mesh)
         if restored is not None:
             state = restored
-            print(f"resumed from step {int(state['step'])}", flush=True)
+            log(f"resumed from step {int(state['step'])}")
 
     start = int(state["step"])
     t0 = time.perf_counter()
     last_logged = start
     for step in range(start, args.steps):
         x, y = data.batch_at(step)
-        state, metrics = step_fn(state, x, y)
+        state, metrics = step_fn(state, x[rows], y[rows])
         if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
             loss, acc = float(metrics["loss"]), float(metrics["accuracy"])  # waits for the step
             dt = time.perf_counter() - t0
             n_steps = step + 1 - last_logged  # interval may be short (resume/tail)
-            print(
-                f"step {step + 1}/{args.steps} loss={loss:.4f} acc={acc:.3f} "
-                f"({n_steps * args.batch / dt:.1f} img/s)",
-                flush=True,
-            )
+            log(f"step {step + 1}/{args.steps} loss={loss:.4f} acc={acc:.3f} "
+                f"({n_steps * args.batch / dt:.1f} img/s)")
             t0 = time.perf_counter()
             last_logged = step + 1
         if ck is not None and (step + 1) % args.save_every == 0:
-            ck.save(step + 1, state)
+            ck.save(step + 1, state, mesh)
 
     if ck is not None:
-        ck.save(args.steps, state)
+        ck.save(args.steps, state, mesh)
         ck.wait()
         if args.export:
             export_dir = str(Path(args.ckpt_dir).resolve() / "export")
-            # Class names ride with the export so the server's /predict
-            # labels mean what the training data meant.
-            write_serving_export(export_dir, to_jax_params(model), data.classes)
-            print(f"serving export: {export_dir} "
-                  f"(serve with --model native:{args.model} --ckpt {export_dir})",
-                  flush=True)
+            # a collective on a mesh: every rank gathers, rank 0 writes
+            params = to_jax_params(model if mesh is None else full_state_dict(model, mesh))
+            if lead:
+                # Class names ride with the export so the server's /predict
+                # labels mean what the training data meant.
+                write_serving_export(export_dir, params, data.classes)
+            log(f"serving export: {export_dir} "
+                f"(serve with --model native:{args.model} --ckpt {export_dir})")
         ck.close()
     return 0
 

@@ -9,6 +9,14 @@ a crash never leaves a step that :meth:`Checkpointer.latest_step` picks
 up. It is read back with ``torch.load(weights_only=True)``, which builds
 tensors and plain containers only.
 
+A checkpoint does not depend on the mesh that wrote it. On a
+``('data', 'model')`` mesh (``parallel/mesh.py::RankMesh``) ``save``
+gathers every weight sharded over ``'model'``, and its optimizer moments,
+whole; global rank 0 alone writes them, and the ranks meet at a barrier
+once the step is in place. ``restore`` with a mesh maps the file
+(``torch.load(mmap=True)``) and copies each rank's own slice. So a state
+saved at 2 × 2 restores at 1 × 1, 4 × 1 or 1 × 2, and back.
+
 The serving export (params and batch stats alone, in the JAX package's
 flat layout) is ``models/adapter.py``'s: ``write_serving_export`` and
 ``restore_serving_export``.
@@ -24,6 +32,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from .trainer import gather_leaf, shard_dim
 
 STATE_FILE = "state.pt"
 
@@ -43,6 +54,27 @@ def _to_host(tree):
     if hasattr(tree, "state_dict"):
         return _to_host(tree.state_dict())
     return tree
+
+
+def _moment_dims(opt) -> list[int | None]:
+    """The sharded dimension of each of the optimizer's parameters, in its
+    ``state_dict()``'s index order."""
+    return [shard_dim(p) for group in opt.param_groups for p in group["params"]]
+
+
+def _gathered(state, mesh):
+    """``state`` with each leaf sharded over ``'model'`` gathered whole:
+    the sharded params and their optimizer moments, the optimizer as its
+    ``state_dict()``."""
+    params = {k: gather_leaf(v, shard_dim(v), mesh) if shard_dim(v) is not None else v
+              for k, v in state["params"].items()}
+    sd = state["opt_state"].state_dict()
+    dims = _moment_dims(state["opt_state"])
+    moments = {i: {k: gather_leaf(v, dims[i], mesh)
+                   if dims[i] is not None and torch.is_tensor(v) and v.dim() > 0 else v
+                   for k, v in entry.items()}
+               for i, entry in sd["state"].items()}
+    return {**state, "params": params, "opt_state": {**sd, "state": moments}}
 
 
 def _fill(like, saved, path: str = "state"):
@@ -86,10 +118,11 @@ class Checkpointer:
         if not self.directory.is_dir():
             if not create:
                 raise FileNotFoundError(f"no checkpoint directory at {directory}")
-            self.directory.mkdir(parents=True)
+            self.directory.mkdir(parents=True, exist_ok=True)  # ranks may race here
         self.max_to_keep = max_to_keep
         self._writer: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._barrier = False  # a mesh save's ranks meet once its step is in place
 
     def steps(self) -> list[int]:
         """The complete steps on disk, oldest first."""
@@ -100,10 +133,19 @@ class Checkpointer:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state) -> None:
+    def save(self, step: int, state, mesh=None) -> None:
+        """Snapshot ``state`` as step ``step`` and write it on a thread.
+        With ``mesh`` every rank calls it: the sharded leaves are gathered
+        whole over ``'model'``, rank 0 writes, and :meth:`wait` ends at a
+        barrier of all ranks."""
         self.wait()
         if step in self.steps():
             return
+        if mesh is not None:
+            state = _gathered(state, mesh)
+            self._barrier = True
+            if mesh.rank != 0:
+                return
         tree = _to_host(state)
         self._writer = threading.Thread(target=self._write, args=(step, tree),
                                         name=f"checkpoint-{step}")
@@ -127,23 +169,61 @@ class Checkpointer:
         if self._writer is not None:
             self._writer.join()
             self._writer = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             error, self._error = self._error, None
             raise error
 
-    def restore(self, state_like):
+    def restore(self, state_like, mesh=None):
         """The newest checkpoint in the structure of ``state_like`` (a
         freshly built state works), or None when there is none. Tensor
         leaves of ``state_like`` are overwritten in place and its optimizer
-        loads its state, so the returned state drives the same model."""
+        loads its state, so the returned state drives the same model. With
+        ``mesh`` (``state_like`` made on it) each rank maps the file and
+        copies its own slice of every sharded leaf."""
         self.wait()
         step = self.latest_step()
         if step is None:
             return None
         saved = torch.load(self.directory / str(step) / STATE_FILE, map_location="cpu",
-                           weights_only=True)
+                           weights_only=True, mmap=mesh is not None)
+        if mesh is not None:
+            saved = _own_slices(saved, state_like, mesh)
         return _fill(state_like, saved)
 
     def close(self) -> None:
         self.wait()
 
+
+
+def _own_slices(saved: dict, state_like: dict, mesh) -> dict:
+    """``saved`` (whole leaves, mapped from the file) with this rank's
+    slice of each leaf that ``state_like`` holds sharded over ``'model'``;
+    the optimizer's tensors are copies, so none stays backed by the file."""
+
+    def own(t: torch.Tensor, dim: int | None, local: torch.Tensor) -> torch.Tensor:
+        if dim is None:
+            return t.clone()
+        n = local.shape[dim]
+        if t.shape[dim] != n * mesh.model:
+            raise ValueError(f"checkpoint leaf of shape {tuple(t.shape)} does not split into "
+                             f"{mesh.model} slices of {n}")
+        return t.narrow(dim, mesh.model_index * n, n).clone()
+
+    out = dict(saved)
+    out["params"] = {k: own(v, shard_dim(state_like["params"][k]), state_like["params"][k])
+                     if k in state_like["params"] and shard_dim(state_like["params"][k]) is not None
+                     else v for k, v in saved["params"].items()}
+    opt = state_like["opt_state"]
+    dims = _moment_dims(opt)
+    live = [p for group in opt.param_groups for p in group["params"]]
+    moments = {}
+    for i, entry in saved["opt_state"]["state"].items():
+        dim = dims[i] if i < len(dims) else None
+        moments[i] = {k: own(v, dim if v.dim() > 0 else None, live[i])
+                      if torch.is_tensor(v) else v
+                      for k, v in entry.items()}
+    out["opt_state"] = {**saved["opt_state"], "state": moments}
+    return out

@@ -115,7 +115,7 @@ def test_resume_continues_from_checkpoint(tmp_path, capsys):
 def test_tool_refusals():
     with pytest.raises(SystemExit, match="is a detect model"):
         port_tool.main(["--model", "ssd_mobilenet", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="multi-device training is not ported"):
+    with pytest.raises(SystemExit, match="a model axis spans ranks"):
         port_tool.main(TOOL + ["--model-axis", "2"])
 
 
