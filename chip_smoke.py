@@ -3384,13 +3384,11 @@ def run_loadgen(port: int, img_dir: str, names: list[str]) -> dict:
             "tables": proc.stderr.splitlines()[-80:]}
 
 
-def device_marker() -> torch.cuda.Event:
-    """A timed event recorded once the device is idle: the common base of
-    every engine's ``device_timeline(base)``."""
+def device_marker() -> float:
+    """The host's monotonic clock read once the device is idle: the common
+    base of every engine's ``device_timeline(base)`` (on that clock)."""
     torch.cuda.synchronize()
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    return ev
+    return time.monotonic()
 
 
 def merged_ms(intervals) -> float:
@@ -3405,7 +3403,7 @@ def merged_ms(intervals) -> float:
     return total + (0.0 if hi is None else hi - lo)
 
 
-def busy_union(engines: dict, base: torch.cuda.Event, batches: dict, window_s: float) -> dict:
+def busy_union(engines: dict, base: float, batches: dict, window_s: float) -> dict:
     """The compute intervals of each engine's last ``batches[name]``
     batches (those of a window that began at ``base``; every engine on its
     own stream, one clock): the share of the window that their union, their

@@ -33,7 +33,14 @@ leasing blocks at ``max_batch × max(2, pipeline_depth)`` outstanding slots;
 with ``max_queue > 0`` a backlog at that many images raises
 :class:`BacklogFull` (HTTP: 503 + Retry-After). Every batch's open, seal,
 launch start and end, and fetch are stamped into a ring
-(:meth:`batch_timeline`).
+(:meth:`batch_timeline`), with ``t_sealable``: when the batch could first
+have sealed had the depth cap (or, for a bulk batch, the gate) not held
+it — its rows settled (none still decoding) and its builder full, closed
+or past its window. The engine gets that stamp and ``t_seal`` with the
+dispatch; once a batch's answers are out and its depth slot is free, the
+completion thread has the engine split the device's gap before the batch
+at them (``engine.join_gaps``, ``utils/tracing.py::split_gap``) and adds
+the joined device intervals to the record (``device``).
 
 Slot bookkeeping lives under one condition variable; decoding and copying
 into a row happen outside it, since each slot has exactly one lessee. A
@@ -108,7 +115,7 @@ import numpy as np
 
 from ..utils.locks import named_condition
 from ..utils.metrics import RollingStats
-from ..utils.tracing import canvas_side
+from ..utils.tracing import canvas_side, profiler_range
 from .chaos import ChaosError
 from .overload import DEFAULT_TENANT, DeadlineExceeded, QuotaExceeded
 
@@ -184,7 +191,8 @@ class _Builder:
     its sealing deadline."""
 
     __slots__ = ("key", "slab", "capacity", "leases", "opened_at", "deadline", "accepting",
-                 "dispatched", "n_pending", "n_ready", "replica", "bulk", "tenant")
+                 "dispatched", "n_pending", "n_ready", "replica", "bulk", "tenant",
+                 "settled_at", "sealable_at")
 
     def __init__(self, key, slab, capacity: int, deadline: float, bulk: bool = False):
         self.key = key
@@ -202,6 +210,10 @@ class _Builder:
         self.n_ready = 0
         # the dispatch replica, set when the batch takes its depth slot
         self.replica = 0
+        # monotonic: its leases last all settled (none decoding); it could
+        # first seal had the depth cap not held it
+        self.settled_at: float | None = None
+        self.sealable_at: float | None = None
 
 
 class Batcher:
@@ -279,6 +291,8 @@ class Batcher:
         self._deadline_sheds = self._deadline_seal_sheds = self._quota_sheds = 0
         # resolved rows: the drain rate and device time admission reads
         self.rolling = RollingStats()
+        # the engine's reading of the device's gap before each fetched batch
+        self._join_gaps = getattr(engine, "join_gaps", None)
         self._batch_seq = 0
         self._timeline: deque = deque(maxlen=512)
         # (canvas side, batch bucket) → [batches, real rows, bucket rows,
@@ -424,7 +438,7 @@ class Batcher:
         is charged at the gate's dispatch."""
         key = tuple(int(d) for d in row_shape)
         t0 = time.monotonic()
-        with self._cond:
+        with profiler_range("lease_wait"), self._cond:
             self._admit_locked(t0, deadline, tenant, bulk)
             b = self._open.get((key, bulk))
             if b is None:
@@ -444,7 +458,7 @@ class Batcher:
         if need_bytes > s * s * 3:
             raise ValueError(f"ragged lease of {need_bytes} B exceeds one {s}px canvas row")
         t0 = time.monotonic()
-        with self._cond:
+        with profiler_range("lease_wait"), self._cond:
             self._admit_locked(t0, deadline, tenant, bulk)
             b = self._open.get((key, bulk))
             if b is None:
@@ -495,6 +509,17 @@ class Batcher:
             if self._open.get((b.key, b.bulk)) is b:
                 del self._open[(b.key, b.bulk)]
             self._closing.append(b)
+            if not b.n_pending:
+                self._settled_locked(b, time.monotonic())
+
+    @staticmethod
+    def _settled_locked(b: _Builder, now: float) -> None:
+        """``b`` has no lease decoding any more (or just closed without
+        one): the first such moment at which it is closed or past its
+        window is when it could seal, whatever the depth cap says."""
+        b.settled_at = now
+        if b.sealable_at is None and (not b.accepting or now >= b.deadline):
+            b.sealable_at = now
 
     def _dec_pending_locked(self, b: _Builder, n: int = 1) -> None:
         if b.bulk:
@@ -516,12 +541,13 @@ class Batcher:
         t0 = time.monotonic()
         # the slot is this lessee's alone until the state flips below
         try:
-            if canvas is not None:
-                if b.slab.is_ragged:
-                    lease.row[:] = np.ascontiguousarray(canvas, dtype=np.uint8).reshape(-1)
-                else:
-                    b.slab.canvases[lease.index] = canvas
-            b.slab.write_hw(lease.index, hw)
+            with profiler_range("staging_write"):
+                if canvas is not None:
+                    if b.slab.is_ragged:
+                        lease.row[:] = np.ascontiguousarray(canvas, dtype=np.uint8).reshape(-1)
+                    else:
+                        b.slab.canvases[lease.index] = canvas
+                b.slab.write_hw(lease.index, hw)
         except BaseException:  # a canvas that does not fit its slot
             self._release_lease(lease)
             raise
@@ -534,6 +560,8 @@ class Batcher:
                 lease.committed_at = time.monotonic()
                 b.n_pending -= 1
                 b.n_ready += 1
+                if not b.n_pending:
+                    self._settled_locked(b, lease.committed_at)
                 # decoded into the slot: one copy; decoded elsewhere: two
                 self._host_copies += 1 if canvas is None else 2
                 self._cond.notify_all()
@@ -551,6 +579,8 @@ class Batcher:
             self._drop_slab_locked(lease)
             if lease.state == _PENDING:
                 b.n_pending -= 1
+                if not b.n_pending:
+                    self._settled_locked(b, time.monotonic())
             elif lease.state == _READY and not b.dispatched:
                 b.n_ready -= 1  # a sibling upload failed: no device work for it
             else:
@@ -580,6 +610,8 @@ class Batcher:
             if lease.state == _PENDING and now - lease.leased_at > timeout:
                 lease.state = _HOLE
                 b.n_pending -= 1
+                if not b.n_pending:
+                    self._settled_locked(b, now)
                 self._dec_pending_locked(b)
                 self._lease_timeouts += 1
                 self._holes += 1
@@ -687,6 +719,9 @@ class Batcher:
         grace = min(self.lease_timeout_s, 2.0) if draining else self.lease_timeout_s
         for b in list(self._open.values()):
             self._expire_locked(b, now, grace)
+            if b.sealable_at is None and not b.n_pending and now >= b.deadline:
+                # settled before its window closed: sealable at the close
+                b.sealable_at = max(b.deadline, b.settled_at or b.opened_at)
             # a past-deadline bulk builder closes against the gate's peek:
             # while interactive load holds the device it keeps growing
             if draining or len(b.leases) >= b.capacity or (
@@ -780,17 +815,18 @@ class Batcher:
         """Seal one builder and queue it for the launch pool; the sealer does
         no device work, and the slot cap frees here."""
         ready = [lease for lease in b.leases if lease.state == _READY]
-        with self._cond:
+        with profiler_range("seal"), self._cond:
             self._dec_pending_locked(b, len(ready))
             self._sealed += 1
             if b.bulk:
                 self._bulk_sealed += 1
                 self._bulk_images += len(ready)
             self._batch_seq += 1
+            t_seal = time.monotonic()
             rec = {"seq": self._batch_seq, "key": b.key, "replica": b.replica, "bulk": b.bulk,
                    "rows": len(ready), "bucket": None, "t_open": b.opened_at,
-                   "t_seal": time.monotonic(), "t_launch": None, "t_launched": None,
-                   "t_done": None}
+                   "t_sealable": min(t_seal, b.sealable_at or t_seal), "t_seal": t_seal,
+                   "t_launch": None, "t_launched": None, "t_done": None}
             self._timeline.append(rec)
             self._cond.notify_all()  # lease() waiters and the next seal decision
         self._launch_q.put((b, ready, rec))
@@ -824,7 +860,8 @@ class Batcher:
             item = self._launch_q.get()
             if item is None:
                 return
-            self._launch(*item)
+            with profiler_range("launch"):
+                self._launch(*item)
 
     def _launch(self, b: _Builder, ready: list[SlotLease], rec: dict) -> None:
         """Ship one sealed builder (launch-pool thread): mark its holes, then
@@ -849,8 +886,10 @@ class Batcher:
             # a routed engine gets the sealer's replica
             kw = {"replica": b.replica} if self._route else {}
             if getattr(self.engine, "supports_span_tracing", False):
-                # the engine stamps device_transfer and device_dispatch
-                handle = dispatch(b.slab, n, spans=spans, **kw)
+                # the engine stamps device_transfer and device_dispatch, and
+                # splits the device's gap before the batch at its stamps
+                handle = dispatch(b.slab, n, spans=spans,
+                                  stamps=(rec["t_sealable"], rec["t_seal"]), **kw)
             else:
                 handle = dispatch(b.slab, n, **kw)
                 t_disp = time.monotonic()
@@ -905,7 +944,8 @@ class Batcher:
                 if delay > 0:
                     time.sleep(delay)
             try:
-                outs = self.engine.fetch_outputs(handle)
+                with profiler_range("fetch"):
+                    outs = self.engine.fetch_outputs(handle)
             except Exception as e:
                 log.exception("fetch of a batch of %d failed", len(ready))
                 self._fail(ready, e)
@@ -932,6 +972,15 @@ class Batcher:
                 self.batches += 1
                 self.images += len(ready)
             self._batch_done((rec["key"], rec["bulk"]), rec["replica"])
+            if self._join_gaps is not None:
+                # off the request path: the answers are out, the slot free
+                try:
+                    joined = self._join_gaps(handle)
+                except Exception:  # a reading lost, never the thread
+                    log.exception("reading the device's gap before a batch failed")
+                else:
+                    if joined is not None:
+                        rec["device"] = joined
 
     def _fail(self, leases: list[SlotLease], e: Exception) -> None:
         now = time.monotonic()
@@ -957,9 +1006,12 @@ class Batcher:
 
     def batch_timeline(self) -> list[dict]:
         """The recent batches' lifecycle on the monotonic clock: builder
-        ``t_open`` → ``t_seal`` (assembly) → ``t_launch`` → ``t_launched``
-        (H2D + serve enqueue) → ``t_done`` (outputs on the host); None for
-        a stage not reached yet; and the ``replica`` each went to."""
+        ``t_open`` → ``t_sealable`` (could seal but for the depth cap) →
+        ``t_seal`` (assembly) → ``t_launch`` → ``t_launched`` (H2D + serve
+        enqueue) → ``t_done`` (outputs on the host); None for a stage not
+        reached yet; the ``replica`` each went to; and, once fetched from
+        the card, ``device``: its H2D and compute intervals and the gap
+        before it on the same clock, split by cause (the engine's)."""
         with self._cond:
             return [dict(r) for r in self._timeline]
 

@@ -116,20 +116,44 @@ reference counts the host's dispatch → fetch wall, which with several
 batches in flight includes the wait behind the others. On the CPU they are
 the serve call's host wall. Intervals of concurrent streams overlap, so
 the device's idle share comes from the union of every engine's intervals
-(:meth:`InferenceEngine.device_timeline` with a common base event).
+(:meth:`InferenceEngine.device_timeline`, on the host's clock).
 Request spans passed to the dispatch get ``device_transfer`` (the H2D
 enqueue), ``device_dispatch`` (the replay and the D2H enqueue) and the
 ``replica`` note.
+
+**The device's gaps** (:meth:`InferenceEngine.gap_stats`, ``/stats →
+engine → device_idle``). Each device's CUDA event clock is anchored to the
+host's ``time.monotonic()`` (:class:`_DeviceClock`): a timing event
+recorded on a stream of its own, otherwise idle, synchronized on alone,
+the host's clock read right after; once after warmup and again at most
+once a second from the completion thread, after a fetch. A batch's events
+are then times on the host's clock. The H2D pair and the copy between
+them are enqueued by one C call (``csrc/timed_copy.cu``) under the shard's
+copy lock, so the pair brackets the copy alone: from Python the launch
+thread would wait for the interpreter lock between them. Besides the H2D
+pair and the replay's pair, a batch records on its compute stream the end of its last operation
+(the outputs' copy back). Under the replica's enqueue lock, so in stream
+order, it takes the previous batch's last event on each device: from it
+to the batch's replay start (right after the static input's copy, a few
+µs) the compute stream sat idle before the batch. After the
+fetch, with every event complete, the gap is split at the batch's own
+stamps by what held it (``utils/tracing.py::split_gap``: ``assembly``,
+``depth``, ``launch``, ``h2d``, ``enqueue``), and each replica counts its
+idle seconds by cause, the batches timed and the H2D's device seconds of
+each (hidden behind the previous replay or not). On the CPU the counters
+stay 0.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import gc
 import logging
 import threading
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable
@@ -164,6 +188,7 @@ from ..ops.stem import pack_s2d
 from ..parallel.mesh import build_mesh, mesh_for
 from ..utils.config import ServerConfig
 from ..utils.locks import named_condition, named_lock
+from ..utils.tracing import GAP_CAUSES, profiler_range, split_gap
 from . import aotcache
 from .placement import parse_placement
 
@@ -264,6 +289,137 @@ class _EnqueueGate:
 
 
 _GATE = _EnqueueGate()
+
+
+class _DeviceClock:
+    """Each device's CUDA event clock on the host's ``time.monotonic()``:
+    an anchor is a timing event recorded on a stream of its own (taken
+    from the pool, so no replica's), waited for alone (never the whole
+    device), and the host's clock read right after, in ns. The wait polls
+    the event holding the interpreter lock, at most :data:`SPIN_NS`: a
+    blocking synchronize gives the lock up, and taking it back behind a
+    busy thread can cost milliseconds before the clock is read. An event
+    ``ev`` that completed is then at ``t + anchor.elapsed_time(ev) · 1e6``
+    ns. An anchor is retaken when asked for after :data:`PERIOD_NS`, so
+    the ms between it and a batch's events stay few (``elapsed_time`` is a
+    float32). The event completed between the host's reading before its
+    record and the one after its synchronize: a retake whose two readings
+    lie more than :data:`WINDOW_NS` apart (the thread descheduled, or
+    waiting for the interpreter lock) is dropped, the current anchor kept
+    (``dropped``) and the retake tried again after :data:`RETRY_NS`. Each new anchor is checked against the one before
+    it and against the first: the host's reading minus the one the older
+    anchor predicts (``err_us``, the anchor's error over a period;
+    ``drift_us`` over ``drift_span_s``). One thread retakes anchors at a
+    time; another that finds one due meanwhile keeps the current one."""
+
+    PERIOD_NS = 1_000_000_000
+    WINDOW_NS = 200_000
+    SPIN_NS = 2_000_000
+    RETRY_NS = 50_000_000  # after a dropped retake, before the next try
+
+    def __init__(self):
+        self._lock = named_lock("engine.clock_lock")
+        self._anchors: dict[int, tuple] = {}  # device index → (event, t ns)
+        self._first: dict[int, tuple] = {}
+        self._streams: dict[int, torch.cuda.Stream] = {}
+        self._checks: dict[int, dict] = {}
+        self._due: dict[int, int] = {}  # device index → when to retake, ns
+
+    def anchor(self, device: torch.device, force: bool = False) -> tuple:
+        """The device's anchor ``(event, t_ns)``, retaken when ``force`` or
+        older than :data:`PERIOD_NS`. Call it outside the enqueue gate: a
+        retake enters it."""
+        index = _cuda_index(device)
+        cur = self._anchors.get(index)
+        if cur is not None and not force and time.monotonic_ns() < self._due.get(index, 0):
+            return cur
+        if not self._lock.acquire(blocking=cur is None or force):
+            return cur  # another thread is retaking it
+        try:
+            stream = self._streams.get(index)
+            if stream is None:
+                stream = self._streams[index] = _STREAMS.acquire(device)
+            ev = torch.cuda.Event(enable_timing=True)
+            with _GATE.shared():
+                t_before = time.monotonic_ns()
+                ev.record(stream)
+                while not (done := ev.query()) and time.monotonic_ns() - t_before < self.SPIN_NS:
+                    pass
+                if not done:  # the window check below drops this one
+                    ev.synchronize()
+                t = time.monotonic_ns()
+            prev, new = self._anchors.get(index), (ev, t)
+            c = self._checks.setdefault(index, {"anchors": 0, "dropped": 0, "sync_us_max": 0.0,
+                                                "err_us_last": None, "err_us_max": 0.0,
+                                                "drift_us": None, "drift_span_s": 0.0})
+            if prev is not None and t - t_before > self.WINDOW_NS:
+                c["dropped"] += 1
+                self._due[index] = t + self.RETRY_NS
+                return prev
+            first = self._first.setdefault(index, new)
+            c["anchors"] += 1
+            c["sync_us_max"] = max(c["sync_us_max"], (t - t_before) / 1e3)
+            if prev is not None:
+                err = (t - prev[1] - prev[0].elapsed_time(ev) * 1e6) / 1e3
+                c["err_us_last"] = round(err, 3)
+                c["err_us_max"] = max(c["err_us_max"], abs(err))
+            if first is not new:
+                c["drift_us"] = round((t - first[1] - first[0].elapsed_time(ev) * 1e6) / 1e3, 3)
+                c["drift_span_s"] = round((t - first[1]) / 1e9, 3)
+            self._anchors[index] = new
+            self._due[index] = t + self.PERIOD_NS
+            return new
+        finally:
+            self._lock.release()
+
+    def on_host(self, device: torch.device, anchor: tuple | None = None) -> Callable:
+        """A function mapping a completed timing event of ``device`` to its
+        time in ns on the host's monotonic clock, by ``anchor`` (a test's
+        ``(event, t_ns)``) or the device's own, retaken when due."""
+        a_ev, a_t = anchor or self.anchor(device)
+        return lambda ev: a_t + round(a_ev.elapsed_time(ev) * 1e6)
+
+    def summary(self) -> dict:
+        """Per device index: anchors taken and dropped, the longest
+        record-to-read of those taken (µs), the anchor's error over a period
+        (last, largest |·|, µs) and its drift from the first anchor."""
+        with self._lock:
+            return {str(i): {**c, "sync_us_max": round(c["sync_us_max"], 3),
+                             "err_us_max": round(c["err_us_max"], 3)}
+                    for i, c in sorted(self._checks.items())}
+
+
+_CLOCK = _DeviceClock()
+
+
+def _timed_copy(cache):
+    """``csrc/timed_copy.cu``'s C entry: a batch's H2D between its two
+    timing events, the three enqueued by one call (built and loaded once a
+    process, through the kernel build cache)."""
+    fn = _build.load("timed_copy", cache).twd_timed_copy
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _ns(t: float | None) -> int | None:
+    return None if t is None else round(t * 1e9)
+
+
+# the process's engines, for gap_totals() (a profiler capture's window)
+_LIVE: "weakref.WeakSet[InferenceEngine]" = weakref.WeakSet()
+
+
+def gap_totals() -> dict:
+    """Every engine's ``/stats → engine → device_idle`` counters summed:
+    idle seconds by cause, the batches timed, the H2D's device seconds and
+    the replicas. A profiler capture reads it at its start and its stop."""
+    blocks = [eng.gap_stats() for eng in list(_LIVE)]
+    return {"idle_s": {c: round(sum(b["idle_s"][c] for b in blocks), 6) for c in GAP_CAUSES},
+            "batches_timed": sum(b["batches_timed"] for b in blocks),
+            "h2d_s": round(sum(b["h2d_s"] for b in blocks), 6),
+            "replicas": sum(len(b["replicas"]) for b in blocks)}
 
 
 def quiesced():
@@ -449,7 +605,8 @@ class BatchHandle:
     n: int
     # CUDA: per device of the replica, the timing events of the copy (copy
     # stream) and of the serve function (compute stream): H2D start, H2D
-    # end, compute start, end
+    # end, compute start, end, and the end of the batch's last operation
+    # on its compute stream (the outputs' copy)
     events: tuple = ()
     # ran through its (canvas, batch) bucket's executable: on the card a
     # graph replay, not an eager run that pays one-time costs
@@ -469,6 +626,15 @@ class BatchHandle:
     # on_device: per device of the replica, the batch's wire buffer on it
     # (its canvases for a pipeline's glue)
     wire: tuple = ()
+    # per device of the replica, the previous batch's last event on the
+    # compute stream (None: the first), fixed in enqueue order
+    prev_end: tuple = ()
+    # the batcher's (t_sealable, t_seal), monotonic seconds, or None
+    stamps: tuple | None = None
+    # CUDA: the host buffers its copies read, held as long as the handle
+    # (a fetch waits for the copies), so that no pinned block is handed out
+    # again mid-copy
+    staged: tuple = ()
 
 
 class _DeviceBatch:
@@ -530,6 +696,12 @@ class _Shard:
         self.graph_pool = torch.cuda.graph_pool_handle() if cuda else None
         self.compute = _STREAMS.acquire(device) if cuda else None
         self.copy = _STREAMS.acquire(device) if cuda else None
+        # the last batch's last event on the compute stream (the replica's
+        # enqueue lock)
+        self.last_end = None
+        # a batch's H2D events and its copy enter the copy stream together:
+        # the replica's launch threads share it
+        self.copy_lock = named_lock("engine.copy_lock")
 
     def own_pool(self):
         """Routes this thread's device allocations to the shard's own pool
@@ -564,6 +736,13 @@ class _Replica:
         # (canvas side, batch bucket) → [batches, rows, rows dispatched,
         # device s, tight rows]
         self.econ: dict[tuple[int, int], list] = {}
+        # the device's gaps, summed over the group's devices: idle ns by
+        # cause (GAP_CAUSES), batches whose events were read, their H2D's
+        # device ns, and the CPU seconds spent reading them
+        self.idle_ns = [0] * len(GAP_CAUSES)
+        self.batches_timed = 0
+        self.h2d_ns = 0
+        self.join_s = 0.0
 
 
 class InferenceEngine:
@@ -653,6 +832,7 @@ class InferenceEngine:
         if self._pinned:
             for name in self.kernels:
                 _build.load(name, self.aot_cache)
+            self._copy = _timed_copy(self.aot_cache)
         self.decoder = native.status()
         self.warmup_s = {"one_time": time.perf_counter() - t0, "executables": None,
                          "execution": []}
@@ -717,6 +897,7 @@ class InferenceEngine:
         )
         self.batch_buckets = self._default_batch_buckets(cfg.max_batch, self.batch_multiple)
         self.max_batch = self.batch_buckets[-1]
+        _LIVE.add(self)
 
     def _shards(self) -> list[_Shard]:
         return [sh for rep in self._replicas for sh in rep.shards]
@@ -1110,13 +1291,41 @@ class InferenceEngine:
                      "dispatches_total": rep.dispatches_total,
                      "dispatches_inflight": rep.dispatches_inflight,
                      "slab_bytes_inflight": rep.slab_bytes_inflight,
-                     "busy_s": round(rep.busy_s, 3)}
+                     "busy_s": round(rep.busy_s, 3), **self._gap_counters(rep)}
                     for rep in self._replicas]
         out["dispatches_total"] = sum(r["dispatches_total"] for r in reps)
         out["dispatches_inflight"] = sum(r["dispatches_inflight"] for r in reps)
         out["placement"] = self.placement.summary()
         out["replicas"] = reps
         return out
+
+    @staticmethod
+    def _gap_counters(rep: _Replica) -> dict:
+        """A replica's gap counters (under the engine's lock): idle seconds
+        by cause and H2D seconds, each its group's mean over its devices."""
+        d = len(rep.devices)
+        return {"idle_s": {c: round(ns / d / 1e9, 6) for c, ns in zip(GAP_CAUSES, rep.idle_ns)},
+                "batches_timed": rep.batches_timed, "h2d_s": round(rep.h2d_ns / d / 1e9, 6)}
+
+    def gap_stats(self) -> dict:
+        """The ``/stats → engine → device_idle`` block: per replica and
+        summed over them, the seconds its compute streams sat idle between
+        batches by the cause that held the next batch (``causes``), the
+        batches timed and the H2D's device seconds of those batches; the
+        CPU µs a batch spent reading them (the completion thread's); and
+        the event clock's anchors (:meth:`_DeviceClock.summary`). Zeros on
+        the CPU."""
+        with self._lock:
+            reps = [{"replica": rep.index, **self._gap_counters(rep)} for rep in self._replicas]
+            join_s = sum(rep.join_s for rep in self._replicas)
+        timed = sum(r["batches_timed"] for r in reps)
+        return {"causes": list(GAP_CAUSES),
+                "idle_s": {c: round(sum(r["idle_s"][c] for r in reps), 6) for c in GAP_CAUSES},
+                "batches_timed": timed,
+                "h2d_s": round(sum(r["h2d_s"] for r in reps), 6),
+                "join_us_per_batch": round(join_s * 1e6 / timed, 3) if timed else None,
+                "clock": _CLOCK.summary() if self._pinned else {},
+                "replicas": reps}
 
     # -------------------------------------------------------------- routing
 
@@ -1191,7 +1400,7 @@ class InferenceEngine:
         key = (slab.key[0], slab.s, per)
         replay = all(key in sh.exes for sh in rep.shards)
         cuda = self._pinned
-        with torch.inference_mode(), _GATE.shared():
+        with profiler_range("ship"), torch.inference_mode(), _GATE.shared():
             parts = [buf if meta_off is not None else buf[j * per:(j + 1) * per]
                      for j in range(d)]
             devs, events = [], []
@@ -1199,24 +1408,32 @@ class InferenceEngine:
                 if not cuda:
                     devs.append(part.to(sh.device))
                     continue
-                ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(4))
+                ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(5))
                 if part.is_cuda:  # made on the device: ordered after its producer
                     dev = part.to(sh.device)
                     producer = torch.cuda.current_stream(sh.device)
                     ev[0].record(producer)
                     ev[1].record(producer)
                     devs.append(dev)
-                else:
-                    with torch.cuda.stream(sh.copy):
-                        ev[0].record()
-                        devs.append(part.to(sh.device, non_blocking=True))
+                else:  # events and copy in one C call (csrc/timed_copy.cu)
+                    part = part.contiguous()
+                    with sh.copy_lock, torch.cuda.stream(sh.copy):
+                        dev = torch.empty(part.shape, dtype=part.dtype, device=sh.device)
+                        ev[0].record()  # creates the events; the call records them again
                         ev[1].record()
+                        err = self._copy(dev.data_ptr(), part.data_ptr(),
+                                         part.numel() * part.element_size(), ev[0].cuda_event,
+                                         ev[1].cuda_event, sh.copy.cuda_stream,
+                                         _cuda_index(sh.device))
+                    if err:
+                        raise RuntimeError(f"twd_timed_copy failed: CUDA error {err}")
+                    devs.append(dev)
                 events.append(ev)
             slab.copied = tuple(ev[1] for ev in events)
             t_put = time.monotonic()
             host_out = None if keep_on_device else torch.empty(
                 (bucket, self.row_width), dtype=torch.float32, pin_memory=cuda)
-            outs, done = [], []
+            outs, done, prev_end = [], [], []
             # One enqueue at a time on the replica: its launch threads share
             # its streams, static inputs and graph pools, and an eager
             # enqueue is host-bound Python. The other thread's copy is
@@ -1230,6 +1447,10 @@ class InferenceEngine:
                         if cuda:
                             sh.compute.wait_event(events[j][1])
                             dev.record_stream(sh.compute)
+                            # enqueue order is stream order: the gap before
+                            # this batch starts at the previous one's last
+                            # event
+                            prev_end.append(sh.last_end)
                         if replay:
                             self._stage_static(sh, key, dev, meta_off, j * per)
                         if cuda:
@@ -1248,6 +1469,8 @@ class InferenceEngine:
                                 outs.append(out.clone())
                             else:
                                 host_out[j * per:(j + 1) * per].copy_(out, non_blocking=True)
+                            events[j][4].record()
+                            sh.last_end = events[j][4]
                             done.append(torch.cuda.Event())
                             done[-1].record()
                         else:
@@ -1260,7 +1483,8 @@ class InferenceEngine:
         handle = BatchHandle(host_out, tuple(done), n, tuple(events), replay, (slab.s, bucket),
                              rows_dispatched, rows_tight, host_compute_s, t_put, rep.index,
                              slab.total_bytes, keep_on_device,
-                             tuple(devs) if keep_on_device else ())
+                             tuple(devs) if keep_on_device else (), tuple(prev_end),
+                             staged=tuple(parts) if cuda else ())
         with self._lock:
             self.batches += 1
             self.images += n
@@ -1274,15 +1498,17 @@ class InferenceEngine:
         return handle
 
     def _dispatch(self, slab, n: int, bucket: int, spans, replica: int | None, t0: float,
-                  *ship_args, **ship_kw) -> BatchHandle:
+                  stamps, *ship_args, **ship_kw) -> BatchHandle:
         """Route, ship and account one batch; its slab goes back to the
-        pool once its copy is enqueued and its lessees are done."""
+        pool once its copy is enqueued and its lessees are done. ``stamps``:
+        the batcher's (t_sealable, t_seal), the gap's split points."""
         rep = self._take_replica(replica, slab)
         try:
             handle = self._ship(rep, *ship_args, **ship_kw)
         except BaseException:
             self._drop_inflight(rep, slab.total_bytes)
             raise
+        handle.stamps = stamps
         slab.finish()
         t_disp = time.monotonic()
         for span in spans:
@@ -1292,23 +1518,26 @@ class InferenceEngine:
         return handle
 
     def dispatch_staged(self, slab: StagingSlab, n: int, spans=(),
-                        replica: int | None = None, keep_on_device: bool = False) -> BatchHandle:
+                        replica: int | None = None, keep_on_device: bool = False,
+                        stamps: tuple | None = None) -> BatchHandle:
         """Ship the first ``n`` rows of a filled slab (holes included) at the
         batch bucket that covers them to ``replica`` (None: routed here by
         :meth:`route_replica`), and enqueue the serve function; returns
         without waiting for the device. ``spans`` get ``device_transfer``,
         ``device_dispatch`` and the ``replica`` note. ``keep_on_device``:
-        the outputs stay on the device (:meth:`device_outputs`)."""
+        the outputs stay on the device (:meth:`device_outputs`).
+        ``stamps``: the batcher's (t_sealable, t_seal) on the monotonic
+        clock, where the fetch splits the device's gap before the batch."""
         t0 = time.monotonic()
         bucket = self.pick_batch_bucket(n)
         if n > bucket:
             raise ValueError(f"batch of {n} exceeds the top batch bucket {bucket}")
         slab.trailer[n:bucket] = _HOLE_TRAILER
-        return self._dispatch(slab, n, bucket, spans, replica, t0, slab.buf[:bucket], slab, n,
-                              bucket, bucket, float(n), keep_on_device=keep_on_device)
+        return self._dispatch(slab, n, bucket, spans, replica, t0, stamps, slab.buf[:bucket],
+                              slab, n, bucket, bucket, float(n), keep_on_device=keep_on_device)
 
     def dispatch_ragged(self, slab: RaggedSlab, n: int, spans=(),
-                        replica: int | None = None) -> BatchHandle:
+                        replica: int | None = None, stamps: tuple | None = None) -> BatchHandle:
         """Ship a filled ragged slab's first ``n`` slots (holes included;
         slots past ``n`` are dropped) and enqueue preprocess → serve, as
         :meth:`dispatch_staged`. The arena's used prefix and the meta table
@@ -1322,9 +1551,9 @@ class InferenceEngine:
         slab.truncate(n)
         nbytes, meta_off = slab.stage(bucket)
         check_ragged_rows(slab.meta[:n], slab.s, meta_off)
-        return self._dispatch(slab, n, bucket, spans, replica, t0, slab.buf[:nbytes], slab, n,
-                              bucket, slab.rows_shipped(bucket), slab.used / slab.row_bytes,
-                              meta_off)
+        return self._dispatch(slab, n, bucket, spans, replica, t0, stamps, slab.buf[:nbytes],
+                              slab, n, bucket, slab.rows_shipped(bucket),
+                              slab.used / slab.row_bytes, meta_off)
 
     def dispatch_batch(self, canvases: np.ndarray, hws: np.ndarray,
                        replica: int | None = None, keep_on_device: bool = False) -> BatchHandle:
@@ -1369,7 +1598,7 @@ class InferenceEngine:
             buf[:n, :nbytes] = canvases.reshape(n, nbytes)
             buf[:, nbytes:] = torch.from_numpy(trailers).to(canvases.device)
         slab = _DeviceBatch(s, buf.nbytes)
-        return self._dispatch(slab, n, bucket, spans, replica, t0, buf, slab, n, bucket,
+        return self._dispatch(slab, n, bucket, spans, replica, t0, None, buf, slab, n, bucket,
                               bucket, float(n))
 
     @staticmethod
@@ -1447,25 +1676,28 @@ class InferenceEngine:
         with self._lock:
             return self.d2h_bytes
 
-    def device_timeline(self, base: torch.cuda.Event | None = None) -> list[dict]:
+    def device_timeline(self, base: float | None = None) -> list[dict]:
         """The recent batches' copy and compute intervals on the device, per
         device of their replica, in dispatch order (CUDA events; waits for
         them): the slab's ``key`` (kind, canvas side), the ``replica`` and
         ``device``, ``h2d`` on the copy stream and ``compute`` on the compute
         stream (from the copy's end, or the stream reaching the batch, to
-        the end of its serve function's enqueued work). In ms from ``base``
-        (an event recorded earlier on the same device; so the intervals of
-        several engines share one clock), else from the first listed copy's
-        start."""
+        the end of its serve function's enqueued work). In ms on the host's
+        monotonic clock (each device's clock anchor, the one the gaps are
+        joined on) from ``base`` (a ``time.monotonic()`` reading; so the
+        intervals of several engines share one clock), else from the first
+        listed copy's start."""
         with self._lock:
             rows = list(self._device_events)
         if not rows:
             return []
         for *_, ev in rows:
             ev[3].synchronize()
-        at = (base or rows[0][3][0]).elapsed_time
-        return [{"key": key, "replica": r, "device": dev, "h2d": (at(a), at(b)),
-                 "compute": (at(c), at(d))} for key, r, dev, (a, b, c, d) in rows]
+        clocks = {dev: _CLOCK.on_host(torch.device(dev)) for dev in {r[2] for r in rows}}
+        ns = [(key, r, dev, [clocks[dev](e) for e in ev[:4]]) for key, r, dev, ev in rows]
+        t0 = ns[0][3][0] if base is None else round(base * 1e9)
+        return [{"key": key, "replica": r, "device": dev, "h2d": ((a - t0) / 1e6, (b - t0) / 1e6),
+                 "compute": ((c - t0) / 1e6, (d - t0) / 1e6)} for key, r, dev, (a, b, c, d) in ns]
 
     def fetch_outputs(self, handle: BatchHandle) -> tuple[np.ndarray, ...]:
         """Wait for a dispatched batch; returns the task's arrays for the
@@ -1495,6 +1727,48 @@ class InferenceEngine:
                     packed[:, 6 * d].astype(np.int32))
         k = self.topk
         return packed[:, :k].copy(), packed[:, k:].astype(np.int32)
+
+    def join_gaps(self, handle: BatchHandle, anchor=None) -> dict | None:
+        """A fetched batch's device events on the host's clock, into its
+        replica's gap counters (the batcher's completion thread calls it
+        once the batch's answers are out and its depth slot is free; every
+        event has completed: each precedes a ``done`` event on its stream,
+        or the previous batch's on the same compute stream, so
+        ``elapsed_time`` does not block). Per device, added up over the
+        replica's devices: the H2D's device ns and, after a previous batch on that compute stream, the gap from
+        its last operation's end to this batch's replay's start (the
+        compute start event, right after the static input's copy: an event
+        recorded before that copy can pass before the host has issued it),
+        split at the batch's stamps (``split_gap``). Returns the first device's
+        intervals and split (the batch timeline's ``device``), None for a
+        batch without events (the CPU). ``anchor``: one ``(event, t_ns)``
+        for every device (a test's), else each device's clock anchor,
+        retaken when due."""
+        if not handle.events:
+            return None
+        cpu = time.thread_time()
+        rep = self._replicas[handle.replica]
+        sealable, seal = handle.stamps or (None, None)
+        sealable, seal = _ns(sealable), _ns(seal)
+        idle, h2d = [0] * len(GAP_CAUSES), 0
+        for j, (sh, ev) in enumerate(zip(rep.shards, handle.events)):
+            at = _CLOCK.on_host(sh.device, anchor)
+            h0, h1, c0, c1 = at(ev[0]), at(ev[1]), at(ev[2]), at(ev[4])
+            h2d += h1 - h0
+            prev = handle.prev_end[j]
+            g0 = c0 if prev is None else min(at(prev), c0)
+            parts = split_gap(g0, c0, sealable, seal, h0, h1)
+            idle = [x + y for x, y in zip(idle, parts)]
+            if j == 0:
+                joined = {"h2d": (h0 / 1e9, h1 / 1e9), "compute": (c0 / 1e9, c1 / 1e9),
+                          "gap": (g0 / 1e9, c0 / 1e9),
+                          "idle": {c: p / 1e9 for c, p in zip(GAP_CAUSES, parts)}}
+        with self._lock:
+            rep.idle_ns = [x + y for x, y in zip(rep.idle_ns, idle)]
+            rep.batches_timed += 1
+            rep.h2d_ns += h2d
+            rep.join_s += time.thread_time() - cpu
+        return joined
 
     def _account(self, handle: BatchHandle, device_s: float | None) -> None:
         """Fold one fetched batch into its replica: out of flight, and (when
@@ -1644,6 +1918,9 @@ class InferenceEngine:
                 self.run_batch(np.zeros(self.canvas_shape(b, s), np.uint8),
                                np.full((b, 2), s, np.int32), rep.index)
         dt = time.perf_counter() - t0
+        if self._pinned:  # the event clock's anchor, past the warmup's batches
+            for dev in self.mesh:
+                _CLOCK.anchor(dev, force=True)
         self.warmup_s["execution"].append(dt)
         log.info("warmup: execution pass %.2fs (%d batches, thread %s)", dt,
                  self.num_replicas * (len(self.cfg.canvas_buckets) * len(self.batch_buckets)
@@ -1739,6 +2016,7 @@ class InferenceEngine:
             "batches": batches,
             "images": images,
             "busy_s": round(busy_s, 6),
+            "device_idle": self.gap_stats(),
             "kernel_launches": {"preprocess_i420": preprocess_i420.launches,
                                 "fused_dw": fused_dw.launches,
                                 "unpack_ragged": unpack_ragged.launches,

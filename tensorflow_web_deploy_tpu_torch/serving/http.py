@@ -85,32 +85,48 @@ Routes:
                         and its ``batcher`` and ``engine``
                         counters (kernel launches, decodes, the decoder,
                         ``graphs`` with the process's device memory,
-                        ``aot_cache``, ``warmup_s``), ``staging`` (the slab
+                        ``aot_cache``, ``warmup_s``, ``device_idle``: per
+                        replica and summed, the seconds its compute streams
+                        sat idle between batches by what held the next one
+                        — ``assembly``, ``depth``, ``launch``, ``h2d``,
+                        ``enqueue`` — the batches timed, the H2D's device
+                        seconds, and the event clock's anchor checks),
+                        ``staging`` (the slab
                         pool and, per replica, dispatches, in flight, slab
-                        bytes in flight, busy seconds), ``config``
+                        bytes in flight, busy seconds, and the
+                        ``device_idle`` counters), ``config``
                         (``devices``, ``placement``), ``models`` (each
                         version's batcher and engine counters under its
                         name), ``http`` (keep-alive counters), ``cache``,
                         ``overload`` (``admission``, ``pressure``,
                         ``chaos``), ``tracing`` (per-stage count, total,
-                        p50/p99), ``economics`` (per serving version: MFU,
+                        p50/p99; ``image_decode`` also its threads' CPU
+                        ms, ``cpu_ms``), ``economics`` (per serving version: MFU,
                         roofline per (canvas, batch) cell, padding),
                         ``telemetry``
     GET  /metrics       Prometheus text exposition (``tpu_serve_`` families:
                         requests and stage histograms, batcher, admission,
                         ladder, chaos, cache, build cache, registry, per
                         model and per replica, economics with ``model_mfu``
-                        and the card's ``device_peak_*``, telemetry)
+                        and the card's ``device_peak_*``, telemetry;
+                        ``device_idle_seconds_total{replica,cause}`` and
+                        ``h2d_seconds_total{replica}`` for the default
+                        model's compute streams)
     GET  /debug/slow    the flight recorder: span breakdowns of the slowest
                         and the erroring requests, with its limits
     GET  /debug/history ``?series=a,b&last_s=N&res=1s|10s|60s``: telemetry
                         rings (without ``series``: their names)
     GET  /debug/events  ``?last_s=N&kind=a,b``: hot swaps, ladder moves,
                         chaos injections, parity gates, SLO alerts
-    GET  /debug/trace   ``?last_s=N``: batch timelines + recent request spans
-                        + events as Chrome-trace JSON
+    GET  /debug/trace   ``?last_s=N``: batch timelines (with, per replica,
+                        the device's ``h2d`` and ``compute`` tracks and each
+                        gap's slices by cause) + recent request spans +
+                        events as Chrome-trace JSON
     POST /debug/trace   ``?ms=N&dir=D``: a ``torch.profiler`` capture of N ms
-                        (at most 60,000) written to D as a Chrome trace; 409
+                        (at most 60,000) written to D as a Chrome trace, the
+                        host stages in it as ``twd.<stage>`` ranges; the
+                        answer holds every engine's ``device_idle``
+                        counters at the capture's start and stop; 409
                         while another capture runs
     GET  /pipelines     every pipeline's spec, ref and live stage resolution
     POST /pipelines/{name}  one image (raw body, or multipart with exactly one
@@ -163,11 +179,12 @@ from .. import native
 from ..ops.image import decode_image, fit_to_bucket
 from ..utils.locks import named_lock
 from ..utils.metrics import Observability, PromText, make_access_logger
-from ..utils.tracing import Span, accept_trace_id, chrome_trace, effective_window
+from ..utils import tracing
+from ..utils.tracing import Span, accept_trace_id, chrome_trace, effective_window, profiler_range
 from . import aotcache, costmodel
 from .batcher import BacklogFull, LeaseExpired, ShuttingDown
 from .dag import PipelineCatalog, PipelineUnavailable, parse_pipeline_args
-from .engine import quiesced
+from .engine import gap_totals, quiesced
 from .jobs import JobManager, UnknownJob, clamp_topk, format_result_row
 from .overload import (
     DEFAULT_TENANT,
@@ -341,10 +358,19 @@ def _error(code: int, message: str, headers: list | None = None) -> tuple:
 
 
 def profile_capture(ms: int, out_dir: str) -> dict | None:
-    """``torch.profiler`` (CPU, and CUDA activities on the card) for ``ms``
-    ms, exported as a Chrome trace into ``out_dir``: the trace's path and
-    what was captured, or None when another capture of this process runs
-    (one at a time, under ``_PROFILE_LOCK``)."""
+    """``torch.profiler`` (CPU on every thread, and CUDA activities on the
+    card) for ``ms`` ms, exported as a Chrome trace into ``out_dir``: the
+    trace's path, what was captured and when on the monotonic clock
+    (``t_start``, ``t_stop``: the stage ranges' window), every engine's
+    gap counters read at ``t_start`` and at ``t_stop`` (``device_idle``:
+    ``start``, ``stop``; ``engine.gap_totals``, so the window's idle by
+    cause leaves the trace's export out), or None when
+    another capture of this process runs (one at a time, under
+    ``_PROFILE_LOCK``). Between the profiler's start and its stop, and only
+    then, the host stages enter ``twd.<stage>`` ranges
+    (``utils/tracing.py::profiler_range``); the profiler stops once those
+    still open have ended (at most 1 s later; ``ranges_open_at_stop``
+    counts any left)."""
     if not _PROFILE_LOCK.acquire(blocking=False):
         return None
     try:
@@ -355,14 +381,26 @@ def profile_capture(ms: int, out_dir: str) -> dict | None:
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
-        prof = profile(activities=activities)
+        # the stage ranges are entered on the serving threads, not this one
+        prof = profile(activities=activities, experimental_config=(
+            torch._C._profiler._ExperimentalConfig(profile_all_threads=True)))
         # no serving thread in a CUDA call while the profiler starts and
         # stops (engine.quiesced); batches run in between
         with quiesced():
             prof.start()
         try:
+            tracing.PROFILING = True
+            t_start = time.monotonic()
+            gaps_start = gap_totals()
             time.sleep(ms / 1e3)
         finally:
+            tracing.PROFILING = False
+            t_stop = time.monotonic()
+            gaps_stop = gap_totals()
+            # serving goes on while the ranges still open end: none then
+            # ends past the trace's other events (the window trace readers
+            # take from its first event to its last)
+            open_at_stop = tracing.drain_ranges(1.0)
             with quiesced():
                 prof.stop()
         path = os.path.join(out_dir, f"trace-{os.getpid()}-{time.monotonic_ns()}.json")
@@ -370,7 +408,10 @@ def profile_capture(ms: int, out_dir: str) -> dict | None:
     finally:
         _PROFILE_LOCK.release()
     return {"trace_dir": out_dir, "trace_file": path, "captured_ms": ms,
-            "activities": [a.name for a in activities]}
+            "activities": [a.name for a in activities],
+            "t_start": round(t_start, 6), "t_stop": round(t_stop, 6),
+            "device_idle": {"start": gaps_start, "stop": gaps_stop},
+            "ranges_open_at_stop": open_at_stop}
 
 
 def profile_route(environ) -> tuple:
@@ -735,6 +776,20 @@ class App:
             p.scalar("http_active_connections", h["active_connections"],
                      help_="Currently open connections.")
         engine = mv0.engine if mv0 is not None else None
+        if hasattr(engine, "gap_stats"):
+            # the default model's compute streams: idle between batches by
+            # the host stage that held the next one, and the H2D's device time
+            for rep in engine.gap_stats()["replicas"]:
+                for cause, idle_s in rep["idle_s"].items():
+                    p.scalar("device_idle_seconds_total", idle_s, mtype="counter",
+                             labels={"replica": rep["replica"], "cause": cause},
+                             help_="Seconds a replica's compute stream sat idle between "
+                             "batches, by what held the next batch (assembly, depth, launch, "
+                             "h2d, enqueue); CUDA events on the host's clock, 0 on the CPU.")
+                p.scalar("h2d_seconds_total", rep["h2d_s"], mtype="counter",
+                         labels={"replica": rep["replica"]},
+                         help_="Device seconds of every batch's host-to-device copy on a "
+                         "replica (CUDA events; 0 on the CPU).")
         if hasattr(engine, "staging_stats"):
             st = engine.staging_stats()
             p.scalar("staging_slab_allocs_total", st["slab_allocs_total"], mtype="counter",
@@ -1562,27 +1617,34 @@ class App:
             raise ValueError("cannot decode image (chaos: injected decode failure)")
         engine, batcher = mv.engine, mv.batcher
         wire = engine.cfg.wire_format
-        t_d = time.monotonic()
+        # the decode's wall and its thread's CPU time, the lease's wait apart
+        t_d, c_d = time.monotonic(), time.thread_time()
         if engine.ragged:
-            plan = native.plan_decode_packed(data, buckets)
-            decode_s = time.monotonic() - t_d
+            with profiler_range("image_decode"):
+                plan = native.plan_decode_packed(data, buckets)
+            decode_s, cpu_s = time.monotonic() - t_d, time.thread_time() - c_d
             if plan is not None:
                 s, need, _, orig = plan
                 lease = batcher.lease_ragged(need, s, slo_deadline, tenant, span)
-                t_d = time.monotonic()
-                hw = native.decode_packed_into(data, lease.row, s)
+                t_d, c_d = time.monotonic(), time.thread_time()
+                with profiler_range("image_decode"):
+                    hw = native.decode_packed_into(data, lease.row, s)
         else:
-            plan = native.plan_decode(data, buckets, wire)
-            decode_s = time.monotonic() - t_d
+            with profiler_range("image_decode"):
+                plan = native.plan_decode(data, buckets, wire)
+            decode_s, cpu_s = time.monotonic() - t_d, time.thread_time() - c_d
             if plan is not None:
                 s, shape, orig = plan
                 lease = batcher.lease(shape, slo_deadline, tenant, span)
-                t_d = time.monotonic()
-                hw = native.decode_into_row(data, lease.row, s, wire, trailer=True)
+                t_d, c_d = time.monotonic(), time.thread_time()
+                with profiler_range("image_decode"):
+                    hw = native.decode_into_row(data, lease.row, s, wire, trailer=True)
         if plan is not None:
             decode_s += time.monotonic() - t_d
+            cpu_s += time.thread_time() - c_d
             if hw is not None:
                 span.add("image_decode", decode_s)
+                span.add_cpu("image_decode", cpu_s)
                 engine.count_decode("native")
                 t_c = time.monotonic()
                 # the reference's digest bytes: the tight h·w·3 decoded
@@ -1594,19 +1656,22 @@ class App:
                              time.monotonic() - t_c, orig, lease, hw)
                 return
             lease.release()  # the header parsed, the stream did not: PIL tries
-        t_d = time.monotonic()
+        t_d, c_d = time.monotonic(), time.thread_time()
         try:  # PIL: UnidentifiedImageError is an OSError
-            if engine.ragged:
-                image = decode_image(data)
-                canvas, hw, s = fit_to_bucket(image, buckets)
-                orig = tuple(image.shape[:2])
-            else:
-                canvas, hw, orig = native.decode_pil(data, buckets, wire)
+            with profiler_range("image_decode"):
+                if engine.ragged:
+                    image = decode_image(data)
+                    canvas, hw, s = fit_to_bucket(image, buckets)
+                    orig = tuple(image.shape[:2])
+                else:
+                    canvas, hw, orig = native.decode_pil(data, buckets, wire)
         except (OSError, ValueError) as e:
             span.add("image_decode", decode_s + time.monotonic() - t_d)
+            span.add_cpu("image_decode", cpu_s + time.thread_time() - c_d)
             raise ValueError(f"cannot decode image: {e}") from e
         t_c = time.monotonic()
         span.add("image_decode", decode_s + t_c - t_d)
+        span.add_cpu("image_decode", cpu_s + time.thread_time() - c_d)
         engine.count_decode("pil")
         if cache is None:
             digest = None

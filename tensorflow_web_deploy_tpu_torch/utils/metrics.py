@@ -312,6 +312,7 @@ class Observability:
         self._lock = named_lock("obs.lock")
         self.e2e = Histogram()
         self.stage_hists: dict[str, Histogram] = {}
+        self.stage_cpu: dict[str, float] = {}  # stage → its threads' CPU seconds
         self.status_counts: Counter = Counter()  # "2xx"/"4xx"/"5xx"
         self.flight = FlightRecorder(recorder_n, recent_n=recorder_recent_n,
                                      max_bytes=recorder_bytes)
@@ -331,6 +332,7 @@ class Observability:
         d = span.to_dict()
         d["class"] = d.get("meta", {}).get("class", "interactive")
         stages = span.stages_copy()  # batcher threads may still stamp it
+        cpu = span.cpu_copy()
         with self._lock:
             self.e2e.observe(total)
             for stage, dur in stages.items():
@@ -338,6 +340,8 @@ class Observability:
                 if h is None:
                     h = self.stage_hists[stage] = Histogram()
                 h.observe(dur)
+            for stage, cpu_s in cpu.items():
+                self.stage_cpu[stage] = self.stage_cpu.get(stage, 0.0) + cpu_s
             self.status_counts[f"{status // 100}xx"] += 1
         self.flight.record(d, total, status >= 400, t0=span.t0, t_end=span.finished_at)
         if self._access_fn is not None:
@@ -365,7 +369,9 @@ class Observability:
 
     def stage_summary(self) -> dict:
         """The ``/stats → tracing`` block: cumulative count and total_ms per
-        stage (``tools/loadgen.py`` diffs two of them) plus p50/p99."""
+        stage (``tools/loadgen.py`` diffs two of them) plus p50/p99, and
+        ``cpu_ms``, the cumulative CPU ms of the threads that did a stage
+        that records it (``image_decode``)."""
 
         def summarize(h: Histogram) -> dict:
             return {
@@ -380,7 +386,9 @@ class Observability:
             return {
                 "requests_by_status": dict(self.status_counts),
                 "e2e": summarize(self.e2e),
-                "stages": {k: summarize(h) for k, h in self.stage_hists.items()},
+                "stages": {k: {**summarize(h), **({"cpu_ms": round(self.stage_cpu[k] * 1e3, 3)}
+                                                  if k in self.stage_cpu else {})}
+                           for k, h in self.stage_hists.items()},
             }
 
 

@@ -15,7 +15,26 @@ The HTTP front end creates a :class:`Span` when a request's bytes start
 arriving; it travels through the WSGI environ (``environ["tpu_serve.span"]``)
 and the batcher's slot leases, and each layer stamps the stages it owns.
 The finished span is folded into :class:`~.metrics.Observability` and its
-ID answers in ``X-Trace-Id``.
+ID answers in ``X-Trace-Id``. A stage may also carry the CPU seconds of the
+thread that did it (:meth:`Span.add_cpu`; ``image_decode`` does): beside
+its wall time, a slower core (CPU ≈ wall) tells itself apart from a
+waiting thread (CPU < wall).
+
+**The profiler's view.** While a ``POST /debug/trace`` capture runs, and
+only then (:data:`PROFILING`, set and cleared by ``http.profile_capture``),
+the host stages are entered as ``torch.profiler.record_function`` ranges
+named ``twd.<stage>`` on the threads that do them (:func:`profiler_range`):
+``lease_wait``, ``image_decode`` and ``staging_write`` on the HTTP worker,
+``seal`` on the sealer, ``launch`` and ``ship`` on the launch thread,
+``fetch`` on the completion thread. The profiler places them on the clock
+of the device's operations. With no capture running a stage costs one
+boolean test.
+
+**The device's gaps.** :func:`split_gap` divides an idle gap on a
+replica's compute stream (from the previous batch's last operation to the
+next batch's first) by the host stage that held the next batch
+(:data:`GAP_CAUSES`); the engine maps the batch's stamps onto the gap
+with its clock anchor (``serving/engine.py``).
 
 Stage durations are ``time.monotonic()`` deltas. A span is handed between
 threads (HTTP worker → sealer → launch → completion → HTTP worker), and on
@@ -28,9 +47,13 @@ request's wall time.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import re
 import time
+
+# a RecordFunction without the dispatcher: ~1 µs a range, against ~11
+from torch._C._profiler import _RecordFunctionFast as _record_range
 
 from .locks import named_lock
 
@@ -45,6 +68,54 @@ _TRACE_ID_RE = re.compile(r"^[A-Za-z0-9._\-]{1,64}$")
 _PREFIX = f"{time.monotonic_ns() & 0xFFFFFFFFFF:010x}"
 _counter = itertools.count(1)
 _counter_lock = named_lock("trace.id_lock")
+
+
+# True while a profiler capture runs: stages are then entered as
+# record_function ranges (profile_capture sets and clears it)
+PROFILING = False
+_NO_RANGE = contextlib.nullcontext()
+# the ranges entered and not left yet (set.add and discard are one call
+# each under the interpreter lock)
+_OPEN: set = set()
+
+
+class _StageRange:
+    __slots__ = ("_rf",)
+
+    def __init__(self, name: str):
+        self._rf = _record_range(name)
+
+    def __enter__(self):
+        _OPEN.add(self)
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            return self._rf.__exit__(*exc)
+        finally:
+            _OPEN.discard(self)
+
+
+def profiler_range(stage: str):
+    """A profiler range named ``twd.<stage>`` (``record_function``'s fast
+    path) while a capture runs (:data:`PROFILING`);
+    otherwise a shared no-op context. Entered only while the profiler is
+    on: the fast path refuses a range entered before it started."""
+    if not PROFILING:
+        return _NO_RANGE
+    return _StageRange("twd." + stage)
+
+
+def drain_ranges(timeout_s: float) -> int:
+    """With :data:`PROFILING` cleared, wait until every range entered while
+    it was set has been left, for at most ``timeout_s``; the number still
+    open. A capture stops its profiler after this, so that no range ends
+    past the trace's other events, which go on meanwhile."""
+    deadline = time.monotonic() + timeout_s
+    while _OPEN and time.monotonic() < deadline:
+        time.sleep(0.001)
+    return len(_OPEN)
 
 
 def new_trace_id() -> str:
@@ -65,12 +136,13 @@ class Span:
     Stamps that land after :meth:`finish` copied the stages are not
     reported; the request answered without them."""
 
-    __slots__ = ("trace_id", "t0", "stages", "meta", "status", "finished_at", "_lock")
+    __slots__ = ("trace_id", "t0", "stages", "cpu", "meta", "status", "finished_at", "_lock")
 
     def __init__(self, trace_id: str | None = None, t0: float | None = None):
         self.trace_id = trace_id or new_trace_id()
         self.t0 = time.monotonic() if t0 is None else t0
         self.stages: dict[str, float] = {}  # name → seconds, insertion order
+        self.cpu: dict[str, float] = {}  # name → the stage's thread CPU seconds
         self.meta: dict = {}
         self.status: int | None = None
         self.finished_at: float | None = None  # monotonic, set by finish()
@@ -80,6 +152,12 @@ class Span:
         """Accumulate a serial stage (repeat stamps sum)."""
         with self._lock:
             self.stages[stage] = self.stages.get(stage, 0.0) + max(0.0, dur_s)
+
+    def add_cpu(self, stage: str, cpu_s: float) -> None:
+        """Accumulate the CPU seconds (``time.thread_time()`` deltas) of
+        the thread that did a serial stage."""
+        with self._lock:
+            self.cpu[stage] = self.cpu.get(stage, 0.0) + max(0.0, cpu_s)
 
     def add_max(self, stage: str, dur_s: float) -> None:
         """Merge a concurrent stage (repeat stamps keep the slowest leg)."""
@@ -97,6 +175,10 @@ class Span:
     def stages_copy(self) -> dict[str, float]:
         with self._lock:
             return dict(self.stages)
+
+    def cpu_copy(self) -> dict[str, float]:
+        with self._lock:
+            return dict(self.cpu)
 
     def finish(self, status: int) -> float:
         """Seal the span; returns total seconds. Idempotent."""
@@ -125,6 +207,40 @@ class Span:
             "stages_ms": {k: round(v * 1e3, 3) for k, v in stages.items()},
             **({"meta": meta} if meta else {}),
         }
+
+
+# ------------------------------------------------------------ device gaps
+
+# What held the device in a gap on a replica's compute stream, in the order
+# the parts tile it: the next batch's rows were being leased, decoded or
+# committed, or its window was open (assembly); it could seal but the
+# sealer held it at the pipeline-depth cap (depth); it sat in the launch
+# queue and the launch thread issued its copy (launch); the copy ran
+# (h2d); after the copy, the host issued the replay: the replica's lock and
+# the static input's copy, up to the replay's start (enqueue).
+GAP_CAUSES = ("assembly", "depth", "launch", "h2d", "enqueue")
+
+
+def split_gap(g0: int, g1: int, sealable: int | None, seal: int | None,
+              h2d_start: int | None, h2d_end: int | None) -> tuple[int, ...]:
+    """Split one gap ``[g0, g1]`` (integer ns on the host's monotonic clock)
+    into the five parts of :data:`GAP_CAUSES` at the next batch's stamps:
+    when it could first seal had the depth cap not held it, when it
+    sealed, and its H2D's start and end on the device (ns, mapped onto
+    the host's clock). A missing stamp (None) takes the place of the next
+    one present (of ``g1`` if none is); each is clamped to the gap and
+    moved up to the one before it when earlier. The parts are ≥ 0 and sum
+    to ``g1 - g0`` exactly (a gap with ``g1 < g0`` is empty)."""
+    g1 = max(g0, g1)
+    filled, nxt = [], g1
+    for t in reversed((sealable, seal, h2d_start, h2d_end)):
+        nxt = nxt if t is None else t
+        filled.append(nxt)
+    bounds = [g0]
+    for t in reversed(filled):
+        bounds.append(max(bounds[-1], min(max(t, g0), g1)))
+    bounds.append(g1)
+    return tuple(b - a for a, b in zip(bounds, bounds[1:]))
 
 
 # ----------------------------------------------------- chrome trace export
@@ -166,7 +282,12 @@ def chrome_trace(models: list[dict], requests: list[tuple], last_s: float | None
     ``models`` is ``[{"name": str, "timeline": batcher.batch_timeline()}]``:
     each model is one trace process with an ``assemble canvas=S`` track per
     canvas bucket (open → seal) and ``transfer`` / ``execute`` tracks
-    (launch → launched → done). ``requests`` is ``[(t0, t_end,
+    (launch → launched → done). A batch whose record holds the engine's
+    joined device intervals (``device``, on the same clock) adds a
+    replica's ``h2d`` track (the copy on the device), its ``compute``
+    track (the compute stream's start to the outputs' copy back) and its
+    ``device idle`` track: the gap before the batch, a slice per cause of
+    :data:`GAP_CAUSES` that held it. ``requests`` is ``[(t0, t_end,
     span_dict)]`` (``FlightRecorder.trace_records``), drawn as async events
     on a "requests" process; ``instants`` (telemetry events) are global
     instant events."""
@@ -205,6 +326,17 @@ def chrome_trace(models: list[dict], requests: list[tuple], last_s: float | None
                  t_launched),
                 (f"replica {r} execute", f"{tag}execute b{rec.get('seq')}", t_launched, t_done),
             ]
+            dev = rec.get("device")
+            if dev:
+                legs += [(f"replica {r} h2d", f"{tag}h2d b{rec.get('seq')}", *dev["h2d"]),
+                         (f"replica {r} compute", f"{tag}compute b{rec.get('seq')}",
+                          *dev["compute"])]
+                a = dev["gap"][0]
+                for cause in GAP_CAUSES:
+                    d = dev["idle"][cause]
+                    if d > 0:
+                        legs.append((f"replica {r} device idle", f"idle {cause}", a, a + d))
+                        a += d
             for tid, name, a, b in legs:
                 if a is None:
                     continue

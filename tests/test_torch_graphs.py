@@ -7,8 +7,9 @@ two buckets reading prefix views of one static input; the memo's keys,
 ``eager_batches`` for a shape warmup never captured, and warmup's three
 timed phases with one capture per engine across launch threads. The
 ``cuda`` tests hold graph replays against eager runs on the card for
-Inception-v3 bf16 and MobileNetV2 int8 on every wire and resize, and the
-unpack kernel against its plain version."""
+Inception-v3 bf16 and MobileNetV2 int8 on every wire and resize, the
+unpack kernel against its plain version, and the device's gaps between
+batches joined in enqueue order."""
 
 import logging
 import threading
@@ -354,3 +355,47 @@ def test_unpack_kernel_matches_plain_on_card():
             moved = m.clone()
             got2, _ = timage.unpack_ragged(pad[4:], moved, s)
             assert torch.equal(got2.cpu(), want_c)
+
+
+@pytest.mark.cuda
+def test_gap_join_on_card_follows_enqueue_order():
+    """Runs on a machine with a CUDA card and nvcc: three batches
+    dispatched before any fetch, fetched last first; each takes its
+    enqueue predecessor's last event, every gap's parts sum to it, the
+    H2D of each is counted, and ``device_timeline`` draws the same
+    intervals on the same clock."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    eng = _engine("ragged", device="cuda", buckets=(64,))
+    try:
+        eng.warmup()
+        before = eng.gap_stats()
+        rs = np.random.RandomState(0)
+        handles = []
+        for _ in range(3):
+            slab = eng.acquire_ragged(64)
+            for h, w in ((30, 40), (64, 20), (50, 50)):
+                slot, span = slab.alloc(h * w * 3)
+                span[:] = (rs.rand(h * w * 3) * 255).astype(np.uint8)
+                slab.write_hw(slot, (h, w))
+            handles.append(eng.dispatch_ragged(slab, slab.slots, stamps=(None, None)))
+        assert handles[1].prev_end[0] is handles[0].events[0][4]
+        assert handles[2].prev_end[0] is handles[1].events[0][4]
+        joined = []
+        for h in reversed(handles):
+            eng.fetch_outputs(h)
+            joined.append(eng.join_gaps(h))
+        after = eng.gap_stats()
+        assert after["batches_timed"] - before["batches_timed"] == 3
+        assert after["h2d_s"] > before["h2d_s"]
+        for j in joined:
+            g0, g1 = j["gap"]
+            assert g1 >= g0 and sum(j["idle"].values()) == pytest.approx(g1 - g0, abs=1e-9)
+            assert j["compute"][0] == pytest.approx(g1) and j["h2d"][1] <= j["compute"][1]
+        assert after["clock"]["0"]["anchors"] >= 1
+        # the event ring's intervals, on the same host clock (ms from 0)
+        for row, j in zip(eng.device_timeline(base=0.0)[-3:], reversed(joined)):
+            assert row["h2d"][0] / 1e3 == pytest.approx(j["h2d"][0], abs=5e-5)
+            assert row["compute"][0] / 1e3 == pytest.approx(j["compute"][0], abs=5e-5)
+    finally:
+        eng.close()

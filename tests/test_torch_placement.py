@@ -173,9 +173,14 @@ def test_identity_across_replicas_and_parity_with_jax(engines):
         np.testing.assert_allclose(outs[0][0], j_scores, atol=SCORE_TOL)
 
 
+# the port's replica block also carries the device's gap counters
+GAP_KEYS = {"idle_s", "batches_timed", "h2d_s"}
+
+
 def test_staging_stats_replica_block_is_the_references(engines):
     """After the same pinned dispatches, the same staging block: per replica
-    its index, devices and dispatches (in flight: none), and the pool."""
+    its index, devices and dispatches (in flight: none), and the pool; the
+    port's gap counters besides, 0 on the CPU."""
     teng, jeng = engines
     before = {e: e.staging_stats() for e in engines}
     canvases, hws = _batch(1)
@@ -187,12 +192,15 @@ def test_staging_stats_replica_block_is_the_references(engines):
     assert got["placement"] == want["placement"]
 
     def block(st, b):
-        return [{k: v for k, v in rep.items() if k != "busy_s"} | {
+        return [{k: v for k, v in rep.items() if k not in GAP_KEYS | {"busy_s"}} | {
                     "delta": rep["dispatches_total"] - b["replicas"][i]["dispatches_total"]}
                 for i, rep in enumerate(st["replicas"])]
 
     assert block(got, before[teng]) == block(want, before[jeng])
-    assert [rep.keys() for rep in got["replicas"]] == [rep.keys() for rep in want["replicas"]]
+    assert [rep.keys() - GAP_KEYS for rep in got["replicas"]] == \
+        [rep.keys() for rep in want["replicas"]]
+    assert all(rep["batches_timed"] == 0 and rep["h2d_s"] == 0
+               and not any(rep["idle_s"].values()) for rep in got["replicas"])
     assert [d["delta"] for d in block(got, before[teng])] == [1, 2, 0, 1]
     assert got["dispatches_inflight"] == 0 and all(r["busy_s"] > 0 for r in got["replicas"][:2])
     assert (got["slabs_pooled"], got["slabs_pooled_bytes"]) == (want["slabs_pooled"],
